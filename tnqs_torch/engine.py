@@ -1,0 +1,861 @@
+"""Batched simple-update evolution engine in PyTorch.
+
+Port of `tnqs/engine.py::LatticeEngine` in its production configuration:
+``factor_method="gram"`` with the Cholesky environment gauge, shifted
+CholeskyQR2 on the tall sides, and ``trunc_method="svd"`` whose theta
+truncations route to the Jacobi kernels through `pjsvd`
+(`tnqs/engine.py:1231-1255`).  BP refreshes use the einsum sweep, as the
+JAX step does (`use_kernel=False`, `tnqs/engine.py:1433`, `:1445`).
+
+Layout as in the JAX engine: site tensors are stacked per vertex degree,
+``T[k]`` of shape ``[n_k, d, chi, ..., chi]`` (k bond axes, zero-padded to
+the bond cap), and BP messages are one tensor ``M[2E, chi, chi]`` keyed by
+directed edge id.  The host plan (`LatticePlan`, `compile_circuit`,
+`build_program`) is numpy and matches the JAX package table for table, so
+the packed state carries over in both directions (`from_arrays`,
+`to_arrays`).  PyTorch runs eagerly: a layer is a Python loop over the
+program, and writes into the state are in place where the JAX code rebuilt
+immutable arrays.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .gates import gate_matrix, op_matrix
+from .graphs import NamedGraph, center
+from .ops.factorizations import cholesky_qr, eps_of
+from .ops.osj import pjsvd
+
+
+# ----------------------------------------------------------------------
+# static plan: everything derived from the graph alone
+# (`tnqs/engine.py:55-210`)
+# ----------------------------------------------------------------------
+
+@dataclass
+class LatticePlan:
+    """Static structure of a graph for the engine."""
+
+    graph: NamedGraph
+    vertices: list
+    degrees: dict  # vertex -> degree
+    neighbor_order: dict  # vertex -> list of neighbors (bond axis order)
+    buckets: dict  # degree k -> list of vertices
+    bucket_pos: dict  # vertex -> (k, position in bucket)
+    edge_ids: dict  # directed edge tuple -> int
+    num_edges: int
+    bp_groups: list  # [(stage, k, t, src_pos [B], out_eids [B], in_eids [B, k-1], in_slots [k-1])]
+    bp_schedule: str = "wavefront"
+
+    @staticmethod
+    def build(graph: NamedGraph, bp_schedule: str = "wavefront") -> "LatticePlan":
+        """`bp_schedule` stages the BP sweep (`tnqs/engine.py:71`):
+
+        - "wavefront": directed edges staged by BFS depth from a central
+          root — leaf-to-root, same-depth edges by bipartite color, then
+          root-to-leaf; one sweep is exact on trees;
+        - "color": two Gauss-Seidel stages by bipartite source color.
+        """
+        vertices = graph.vertices()
+        neighbor_order = {v: graph.neighbors(v) for v in vertices}
+        degrees = {v: len(neighbor_order[v]) for v in vertices}
+        buckets: dict = {}
+        for v in vertices:
+            buckets.setdefault(degrees[v], []).append(v)
+        edge_ids: dict = {}
+        for v in vertices:
+            for u in neighbor_order[v]:
+                edge_ids[(v, u)] = len(edge_ids)
+        # bipartite source color: a synchronous update ping-pongs on
+        # bipartite graphs, two color stages restore sweep convergence
+        color = {vertices[0]: 0}
+        stack = [vertices[0]]
+        bipartite = True
+        while stack:
+            u = stack.pop()
+            for w in neighbor_order[u]:
+                if w not in color:
+                    color[w] = 1 - color[u]
+                    stack.append(w)
+                elif color[w] == color[u]:
+                    bipartite = False
+        for v in vertices:  # disconnected safety
+            color.setdefault(v, 0)
+        if not bipartite:
+            color = {v: 0 for v in vertices}
+
+        if bp_schedule == "wavefront":
+            try:
+                root = center(graph)[0]
+            except ValueError:  # disconnected
+                root = vertices[0]
+            depth = {root: 0}
+            frontier = [root]
+            while frontier:
+                nxt = []
+                for u in frontier:
+                    for w in neighbor_order[u]:
+                        if w not in depth:
+                            depth[w] = depth[u] + 1
+                            nxt.append(w)
+                frontier = nxt
+            for v in vertices:
+                depth.setdefault(v, 0)
+            dmax = max(depth.values())
+
+            def stage_of(u, v):
+                du, dv = depth[u], depth[v]
+                if du > dv:  # toward the root: deepest sources first
+                    return dmax - du
+                if du == dv:  # loop ties, between the two phases
+                    return dmax + color[u]
+                return dmax + 2 + du  # away from the root
+
+            def bucket_key(v):
+                return (depth[v], color[v])
+        elif bp_schedule == "color":
+
+            def stage_of(u, v):
+                return color[u]
+
+            def bucket_key(v):
+                return (color[v],)
+        else:
+            raise ValueError(f"unknown bp_schedule {bp_schedule!r}")
+
+        # every (stage, degree, slot) BP group reads a contiguous bucket
+        # range and writes a contiguous message range
+        buckets = {k: sorted(vs, key=bucket_key) for k, vs in buckets.items()}
+        bucket_pos = {v: (k, i) for k, vs in buckets.items() for i, v in enumerate(vs)}
+
+        stage = {e: stage_of(*e) for e in edge_ids}
+        ordered_edges = sorted(
+            edge_ids.keys(),
+            key=lambda e: (
+                stage[e],
+                degrees[e[0]],
+                neighbor_order[e[0]].index(e[1]),
+                bucket_pos[e[0]][1],
+            ),
+        )
+        edge_ids = {e: i for i, e in enumerate(ordered_edges)}
+
+        groups: dict = {}
+        for (u, v), eid in edge_ids.items():
+            k = degrees[u]
+            t = neighbor_order[u].index(v)
+            groups.setdefault((stage[(u, v)], k, t), []).append((u, v, eid))
+        bp_groups = []
+        for (cu, k, t), items in sorted(groups.items()):
+            src_pos = np.array([bucket_pos[u][1] for (u, v, eid) in items], dtype=np.int32)
+            out_eids = np.array([eid for (u, v, eid) in items], dtype=np.int32)
+            other_slots = [j for j in range(k) if j != t]
+            in_eids = np.array(
+                [[edge_ids[(neighbor_order[u][j], u)] for j in other_slots] for (u, v, eid) in items],
+                dtype=np.int32,
+            ).reshape(len(items), k - 1)
+            bp_groups.append((cu, k, t, src_pos, out_eids, in_eids, other_slots))
+        return LatticePlan(
+            graph=graph,
+            vertices=vertices,
+            degrees=degrees,
+            neighbor_order=neighbor_order,
+            buckets=buckets,
+            bucket_pos=bucket_pos,
+            edge_ids=edge_ids,
+            num_edges=len(edge_ids),
+            bp_groups=bp_groups,
+            bp_schedule=bp_schedule,
+        )
+
+
+# ----------------------------------------------------------------------
+# compiled circuit representation (`tnqs/engine.py:217-376`)
+# ----------------------------------------------------------------------
+
+@dataclass
+class OneSiteGroup:
+    per_bucket: dict  # k -> (positions [B], gates [B, d, d], gate indices [B])
+
+
+@dataclass
+class TwoSiteGroup:
+    classes: list  # of _TwoSiteClass, one per (ku, kv)
+
+
+@dataclass
+class _TwoSiteClass:
+    ku: int
+    kv: int
+    u_pos: np.ndarray  # [B]
+    v_pos: np.ndarray  # [B]
+    slot_u: np.ndarray  # [B] bond axis of u facing v
+    slot_v: np.ndarray  # [B]
+    env_u_eids: np.ndarray  # [B, ku-1] incoming message ids at u (excl. v->u)
+    env_v_eids: np.ndarray  # [B, kv-1]
+    eid_uv: np.ndarray  # [B]
+    eid_vu: np.ndarray  # [B]
+    gates: np.ndarray  # [B, d, d, d, d] (out_u, out_v, in_u, in_v)
+    gate_index: np.ndarray  # [B] position of each gate in the circuit
+
+
+def compile_circuit(plan: LatticePlan, circuit: Sequence, d: int = 2) -> list:
+    """Partition a circuit (list of ``(name, verts[, param])``) into batched
+    one-site groups and vertex-disjoint two-site groups, as
+    `tnqs.engine.compile_circuit` (`tnqs/engine.py:245`): consecutive
+    one-site gates merge, consecutive two-site gates merge while they stay
+    vertex-disjoint."""
+    groups: list = []
+    current = None  # ("one", list) or ("two", list, used vertex set)
+    for gate_counter, gate in enumerate(circuit):
+        name, verts = gate[0], list(gate[1])
+        param = gate[2] if len(gate) > 2 else None
+        mat = np.asarray(name) if isinstance(name, np.ndarray) else gate_matrix(name, param)
+        if len(verts) == 1:
+            if current is None or current[0] != "one":
+                if current is not None:
+                    groups.append(current)
+                current = ("one", [])
+            current[1].append((verts[0], mat, gate_counter))
+        elif len(verts) == 2:
+            if current is None or current[0] != "two" or verts[0] in current[2] or verts[1] in current[2]:
+                if current is not None:
+                    groups.append(current)
+                current = ("two", [], set())
+            current[1].append((verts[0], verts[1], mat, gate_counter))
+            current[2].update(verts)
+        else:
+            raise ValueError("engine supports 1- and 2-site gates")
+    if current is not None:
+        groups.append(current)
+
+    compiled = []
+    for g in groups:
+        if g[0] == "one":
+            # compose successive gates on one vertex
+            merged: dict = {}
+            for (v, mat, gi) in g[1]:
+                merged[v] = (mat @ merged[v][0], merged[v][1]) if v in merged else (mat, gi)
+            per_bucket: dict = {}
+            for v, (mat, gi) in merged.items():
+                k, pos = plan.bucket_pos[v]
+                per_bucket.setdefault(k, []).append((pos, mat, gi))
+            compiled.append(
+                OneSiteGroup(
+                    {
+                        k: (
+                            np.array([p for p, _, _ in items], dtype=np.int32),
+                            np.stack([m for _, m, _ in items]).astype(np.complex128),
+                            np.array([gi for _, _, gi in items], dtype=np.int32),
+                        )
+                        for k, items in per_bucket.items()
+                    }
+                )
+            )
+            continue
+        classes: dict = {}
+        for (u, v, mat, gi) in g[1]:
+            ku, up = plan.bucket_pos[u]
+            kv, vp = plan.bucket_pos[v]
+            su = plan.neighbor_order[u].index(v)
+            sv = plan.neighbor_order[v].index(u)
+            env_u = [plan.edge_ids[(plan.neighbor_order[u][j], u)] for j in range(ku) if j != su]
+            env_v = [plan.edge_ids[(plan.neighbor_order[v][j], v)] for j in range(kv) if j != sv]
+            classes.setdefault((ku, kv), []).append(
+                (up, vp, su, sv, env_u, env_v, plan.edge_ids[(u, v)], plan.edge_ids[(v, u)], mat, gi)
+            )
+        cls_list = []
+        for (ku, kv), items in sorted(classes.items()):
+            col = lambda i: np.array([it[i] for it in items], dtype=np.int32)  # noqa: E731
+            cls_list.append(
+                _TwoSiteClass(
+                    ku=ku,
+                    kv=kv,
+                    u_pos=col(0),
+                    v_pos=col(1),
+                    slot_u=col(2),
+                    slot_v=col(3),
+                    env_u_eids=col(4).reshape(len(items), ku - 1),
+                    env_v_eids=col(5).reshape(len(items), kv - 1),
+                    eid_uv=col(6),
+                    eid_vu=col(7),
+                    gates=np.stack([it[8].reshape(d, d, d, d) for it in items]).astype(np.complex128),
+                    gate_index=col(9),
+                )
+            )
+        compiled.append(TwoSiteGroup(cls_list))
+    return compiled
+
+
+def build_program(plan: LatticePlan, compiled: list) -> list:
+    """Interleave compiled gate groups with BP refreshes: a refresh precedes
+    a two-site group iff one of its vertices was touched since the last
+    refresh (`tnqs/engine.py:349`)."""
+    program: list = []
+    affected: set = set()
+    for gidx, g in enumerate(compiled):
+        if isinstance(g, OneSiteGroup):
+            program.append(("one", g, gidx))
+            for k, (pos, _, _) in g.per_bucket.items():
+                affected.update(plan.buckets[k][int(p)] for p in pos)
+        else:
+            verts = set()
+            for cls in g.classes:
+                for up, vp in zip(cls.u_pos, cls.v_pos):
+                    verts.add(plan.buckets[cls.ku][int(up)])
+                    verts.add(plan.buckets[cls.kv][int(vp)])
+            if affected & verts:
+                program.append(("bp",))
+                affected = set()
+            program.append(("two", g, gidx))
+            affected |= verts
+    return program
+
+
+# ----------------------------------------------------------------------
+# device helpers (`tnqs/engine.py:383-495`)
+# ----------------------------------------------------------------------
+
+def _absorb_message(A: torch.Tensor, M: torch.Tensor, axis: int) -> torch.Tensor:
+    """Contract bond `axis` of the batched tensor A [B, ..., chi@axis, ...]
+    with the batched message M [B, chi, chi] as (ket, out)."""
+    A = torch.einsum("B...i,Bij->B...j", A.movedim(axis, -1), M)
+    return A.movedim(-1, axis)
+
+
+def _truncate_mask(s: torch.Tensor, chi: int, cutoff: float):
+    """Static-shape truncation of singular values s [B, K] (descending) with
+    the relative-cutoff semantics of `tnqs/engine.py:415`.  Returns
+    (s_padded [B, chi] masked, mask [B, chi], discarded weight [B])."""
+    B, K = s.shape
+    p = s * s
+    total = torch.sum(p, dim=1, keepdim=True)
+    tail = torch.flip(torch.cumsum(torch.flip(p, [1]), dim=1), [1])  # tail[k] = sum_{j>=k} p_j
+    total = torch.where(total > 0, total, 1.0)
+    # keep the smallest count whose dropped tail is within cutoff * total
+    nstar = (K - torch.sum(tail <= cutoff * total, dim=1)).clamp(1, chi)
+    s_pad = s[:, :chi] if K >= chi else F.pad(s, (0, chi - K))
+    mask = torch.arange(chi, device=s.device)[None, :] < nstar[:, None]
+    tail_full = torch.cat([tail, tail.new_zeros((B, 1))], dim=1)
+    err = torch.gather(tail_full, 1, nstar[:, None])[:, 0] / total[:, 0]
+    return s_pad * mask, mask, err
+
+
+def _cholesky_gauge_roots(E: torch.Tensor, eps: float):
+    """Batched gauge roots (W, Winv) of environments E [N, chi, chi] from
+    the Cholesky factor of the regularized hermitized environment
+    (`tnqs/engine.py:455`).  W = L with L L^H = E + delta I; the un-gauge
+    contracts conj(Winv), so Winv = conj(L^{-1})^T.
+
+    Null directions (L[j,j]^2 ~ delta) are ZEROED in Winv.  Their rows
+    would be ~1/sqrt(delta) ~ 1e4 in float32, which amplifies the truncated
+    SVD's residual in the dead bond directions into garbage that reached NaN
+    within 3 layers on the chi=64 Eagle run.  The Cholesky is unchecked
+    (`cholesky_ex`), so a failure propagates as non-finite values rather
+    than raising."""
+    H = 0.5 * (E + E.mH)
+    chi = H.shape[-1]
+    diag_scale = torch.diagonal(H, dim1=-2, dim2=-1).real.sum(-1) / chi
+    delta = torch.clamp(torch.abs(diag_scale) * (32.0 * eps), min=1e-30)
+    eye = torch.eye(chi, dtype=H.dtype, device=H.device)
+    L = torch.linalg.cholesky_ex(H + delta[..., None, None] * eye).L
+    Linv = torch.linalg.solve_triangular(L, eye.expand(H.shape), upper=False)
+    diagL2 = torch.abs(torch.diagonal(L, dim1=-2, dim2=-1)) ** 2
+    keep = (diagL2 > (64.0 * delta)[..., None]).to(Linv.dtype)
+    Winv = (Linv * keep[..., :, None]).mH.resolve_conj()
+    return L, Winv
+
+
+def default_engine_tolerance(dtype: torch.dtype) -> float:
+    """BP convergence tolerance by working precision (`tnqs/engine.py:1997`)."""
+    return 1e-5 if eps_of(dtype) == eps_of(torch.float32) else 1e-8
+
+
+def _unit_rows(A: torch.Tensor) -> torch.Tensor:
+    """Each batch entry of A scaled to unit Frobenius norm (zero stays zero)."""
+    n = torch.linalg.vector_norm(A.reshape(A.shape[0], -1), dim=1)
+    return A / torch.where(n > 0, n, 1.0).reshape((-1,) + (1,) * (A.dim() - 1))
+
+
+def _bp_diff(Ma: torch.Tensor, Mb: torch.Tensor) -> torch.Tensor:
+    """Mean message infidelity 1 - |<Ma|Mb>|^2 / (|Ma| |Mb|)^2."""
+    na = torch.linalg.vector_norm(Ma.reshape(Ma.shape[0], -1), dim=1)
+    nb = torch.linalg.vector_norm(Mb.reshape(Mb.shape[0], -1), dim=1)
+    dot = torch.sum(Ma.conj() * Mb, dim=(1, 2))
+    denom = torch.where(na * nb > 0, na * nb, 1.0)
+    return torch.mean(1.0 - torch.abs(dot / denom) ** 2)
+
+
+def _index(a, device) -> torch.Tensor:
+    """Host plan indices as an int64 device tensor."""
+    return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+
+
+class _Rows:
+    """Device index data for gathering or scattering one side of a
+    two-site class: per bond-slot value j, the class rows with that slot
+    (None for all rows) and their bucket positions."""
+
+    def __init__(self, pos: np.ndarray, slot: np.ndarray, device):
+        self.parts = []
+        for j in np.unique(slot):
+            rows = np.nonzero(slot == j)[0]
+            self.parts.append(
+                (
+                    int(j),
+                    None if len(rows) == len(slot) else _index(rows, device),
+                    _index(pos[rows], device),
+                )
+            )
+
+
+class _ClassData:
+    """A two-site class's plan data and gates on the device."""
+
+    def __init__(self, cls: _TwoSiteClass, dtype, device):
+        self.cls = cls
+        self.u = _Rows(cls.u_pos, cls.slot_u, device)
+        self.v = _Rows(cls.v_pos, cls.slot_v, device)
+        self.env_u = _index(cls.env_u_eids, device)
+        self.env_v = _index(cls.env_v_eids, device)
+        self.eid_uv = _index(cls.eid_uv, device)
+        self.eid_vu = _index(cls.eid_vu, device)
+        self.gate_index = _index(cls.gate_index, device)
+        self.gates = torch.as_tensor(cls.gates, device=device).to(dtype)
+
+
+# ----------------------------------------------------------------------
+# the engine
+# ----------------------------------------------------------------------
+
+class LatticeEngine:
+    """Batched simple-update evolution on a fixed graph at a fixed bond cap
+    (`tnqs/engine.py:562`), starting from the product state "↑".
+
+    The switches name the JAX engine's options; only the production values
+    are ported, and any other value raises NotImplementedError.  On CUDA
+    the BP schedule defaults to "color", which the production parity runs
+    used; elsewhere to "wavefront", as in the JAX engine on the CPU."""
+
+    def __init__(
+        self,
+        graph: NamedGraph,
+        chi: int,
+        dtype: torch.dtype = torch.complex64,
+        device="cpu",
+        bp_schedule: str = "auto",
+        factor_method: str = "gram",
+        env_gauge: str = "cholesky",
+        reduce_method: str = "cholqr2",
+        trunc_method: str = "svd",
+        bp_kernel: str = "einsum",
+    ):
+        ported = {
+            "dtype": (dtype, torch.complex64),
+            "factor_method": (factor_method, "gram"),
+            "env_gauge": (env_gauge, "cholesky"),
+            "reduce_method": (reduce_method, "cholqr2"),
+            "trunc_method": (trunc_method, "svd"),
+            "bp_kernel": (bp_kernel, "einsum"),
+        }
+        for name, (value, supported) in ported.items():
+            if value != supported:
+                raise NotImplementedError(f"{name}={value!r} is not ported; only {supported!r}")
+        self.device = torch.device(device)
+        if bp_schedule == "auto":
+            bp_schedule = "color" if self.device.type == "cuda" else "wavefront"
+        self.plan = LatticePlan.build(graph, bp_schedule=bp_schedule)
+        self.chi = int(chi)
+        self.d = 2
+        self.dtype = dtype
+        self.real_dtype = dtype.to_real()
+        self._bp_groups = []
+        for (stage, k, t, src_pos, out_eids, in_eids, other_slots) in self.plan.bp_groups:
+            lo, hi = int(src_pos[0]), int(src_pos[-1]) + 1
+            src = slice(lo, hi) if hi - lo == len(src_pos) else _index(src_pos, self.device)
+            elo, ehi = int(out_eids[0]), int(out_eids[-1]) + 1
+            out = slice(elo, ehi) if ehi - elo == len(out_eids) else _index(out_eids, self.device)
+            ins = [(2 + j, _index(in_eids[:, col], self.device)) for col, j in enumerate(other_slots)]
+            a_sub = ["B", "s"] + [chr(ord("a") + j) for j in range(k)]
+            b_sub = list(a_sub)
+            a_sub[2 + t], b_sub[2 + t] = "i", "j"
+            expr = f"{''.join(a_sub)},{''.join(b_sub)}->Bij"
+            self._bp_groups.append((stage, k, src, out, ins, expr))
+        self.T = self._product_state()
+        self.M = self._initial_messages()
+
+    # -- state ----------------------------------------------------------
+    def _product_state(self) -> dict:
+        """Every site in "↑" = (1, 0) on bond index 0 of every bond: the
+        packed `tensornetworkstate(lambda v: "↑", ...)` of the JAX engine
+        (`tnqs/engine.py:704`)."""
+        T = {}
+        for k, verts in self.plan.buckets.items():
+            arr = torch.zeros((len(verts), self.d) + (self.chi,) * k, dtype=self.dtype, device=self.device)
+            arr[(slice(None), 0) + (0,) * k] = 1.0
+            T[k] = arr
+        return T
+
+    def _initial_messages(self) -> torch.Tensor:
+        """Identity / chi on every directed edge (`tnqs/engine.py:725`)."""
+        eye = torch.eye(self.chi, dtype=self.dtype, device=self.device) / self.chi
+        return eye.expand(self.plan.num_edges, self.chi, self.chi).clone()
+
+    @classmethod
+    def from_arrays(
+        cls, graph: NamedGraph, T: dict, M: np.ndarray, chi: int, dtype=torch.complex64, device="cpu", **options
+    ) -> "LatticeEngine":
+        """Engine carrying a packed state: `T` {degree: [n_k, d, chi^k]} and
+        `M` [2E, chi, chi] as numpy arrays, laid out by the plan of `graph`
+        under the same `bp_schedule` (e.g. a JAX engine's ``eng.T`` and
+        ``eng.M``).  The arrays are copied."""
+        eng = cls(graph, chi, dtype=dtype, device=device, **options)
+        new_T = {}
+        for k, ref in eng.T.items():
+            arr = np.asarray(T[k])
+            if arr.shape != tuple(ref.shape):
+                raise ValueError(f"T[{k}] has shape {arr.shape}, the plan needs {tuple(ref.shape)}")
+            new_T[k] = torch.tensor(arr, dtype=dtype, device=eng.device)
+        M = np.asarray(M)
+        if M.shape != tuple(eng.M.shape):
+            raise ValueError(f"M has shape {M.shape}, the plan needs {tuple(eng.M.shape)}")
+        eng.T = new_T
+        eng.M = torch.tensor(M, dtype=dtype, device=eng.device)
+        return eng
+
+    def to_arrays(self) -> tuple[dict, np.ndarray]:
+        """The packed state as host numpy arrays (T by degree, M)."""
+        return {k: v.cpu().numpy() for k, v in self.T.items()}, self.M.cpu().numpy()
+
+    # -- BP sweep (`tnqs/engine.py:784-884`) -------------------------------
+    def _bp_new_messages(self, T: dict, M: torch.Tensor) -> torch.Tensor:
+        """One BP iteration: batched within each (stage, degree, slot) group,
+        Gauss-Seidel between stages (a stage reads the messages of the
+        previous one)."""
+        stage = None
+        out = M
+        for (g_stage, k, src, dst, ins, expr) in self._bp_groups:
+            if g_stage != stage:
+                M = out  # stage barrier
+                out = M.clone()
+                stage = g_stage
+            A = Asrc = T[k][src]
+            for axis, eids in ins:
+                A = _absorb_message(A, M[eids], axis)
+            # contract with conj(T) over the site axis and every other bond
+            m_new = torch.einsum(expr, A, Asrc.conj())
+            # sum-normalize (`tnqs/engine.py:834-836`)
+            norm = torch.sum(m_new, dim=(1, 2), keepdim=True)
+            out[dst] = m_new / torch.where(torch.abs(norm) > 0, norm, 1.0)
+        return out
+
+    def _bp_fixed_point(self, T: dict, M: torch.Tensor, maxiter: int, tolerance: float) -> torch.Tensor:
+        """BP to `tolerance` or `maxiter` iterations, with the loop of
+        `tnqs/engine.py:853-884`: the first update counts as iteration 1,
+        then iterate while ``it < maxiter and eps > tolerance``."""
+        M_cur = self._bp_new_messages(T, M)
+        eps = _bp_diff(M, M_cur)
+        it = 1
+        while it < maxiter and float(eps) > tolerance:
+            M_new = self._bp_new_messages(T, M_cur)
+            eps = _bp_diff(M_cur, M_new)
+            M_cur = M_new
+            it += 1
+        return M_cur
+
+    # -- gauge and layout (`tnqs/engine.py:887-973`) ---------------------
+    def _gather_permuted(self, T: dict, k: int, rows: _Rows) -> torch.Tensor:
+        """Bucket-k tensors of one class side with the gate bond moved last:
+        [B, d, chi x (k-1), chi_active], one gather per slot value."""
+        if len(rows.parts) == 1:
+            j, _, pos = rows.parts[0]
+            return T[k][pos].movedim(2 + j, -1)
+        B = sum(len(pos) for _, _, pos in rows.parts)
+        out = torch.empty((B, self.d) + (self.chi,) * k, dtype=self.dtype, device=self.device)
+        for j, sel, pos in rows.parts:
+            out[sel] = T[k][pos].movedim(2 + j, -1)
+        return out
+
+    def _scatter_permuted(self, T: dict, k: int, rows: _Rows, A_new: torch.Tensor) -> None:
+        """Inverse of `_gather_permuted`: move the last axis back to its slot
+        and write the rows into the bucket in place."""
+        for j, sel, pos in rows.parts:
+            src = A_new if sel is None else A_new[sel]
+            T[k].index_copy_(0, pos, src.movedim(-1, 2 + j))
+
+    def _gauged_matrix(self, A: torch.Tensor, W: torch.Tensor, k: int) -> torch.Tensor:
+        """Absorb the environment gauge roots and matricize:
+        [B, d, chi x (k-1), chi_active] -> [B, chi^(k-1), d*chi]."""
+        B = A.shape[0]
+        for j in range(k - 1):
+            A = _absorb_message(A, W[:, j], axis=2 + j)
+        # [B, d, e1..e_{k-1}, a] -> [B, e..., d, a]
+        A = A.permute((0,) + tuple(range(2, k + 1)) + (1, k + 1))
+        return A.reshape(B, self.chi ** (k - 1), self.d * self.chi)
+
+    def _restore(self, Aflat: torch.Tensor, Winv: torch.Tensor, k: int) -> torch.Tensor:
+        """Un-gauge a recombined flat side [B, chi^(k-1), d*chi] and restore
+        the [B, d, chi x (k-1), chi_active] layout."""
+        B = Aflat.shape[0]
+        A = Aflat.reshape((B,) + (self.chi,) * (k - 1) + (self.d, self.chi))
+        A = A.permute((0, k) + tuple(range(1, k)) + (k + 1,))  # [B, d, e..., a]
+        for j in range(k - 1):
+            # contract the bra side with conj(Winv)
+            A = torch.einsum("B...j,Bij->B...i", A.movedim(2 + j, -1), Winv[:, j].conj())
+            A = A.movedim(-1, 2 + j)
+        return A
+
+    # -- gate groups (`tnqs/engine.py:1009-1367`) --------------------------
+    def _apply_two_site_group(self, T, M, errors, classes: list, cutoff: float, normalize: bool) -> None:
+        """Apply one edge-color gate group in place on (T, M, errors): one
+        batched Cholesky gauge over every environment of the group, then per
+        class the gauged sides (CholeskyQR2 on tall ones, R = X on wide
+        ones), theta as one matmul, and one truncated SVD per theta shape.
+
+        Gathering every class's environments from the pre-group M and
+        writing T and M in place are safe: a group's gates are
+        vertex-disjoint, so a class writes only its own gate bonds and its
+        own rows of T, which no other class of the group reads, and every
+        gather (a copy) happens before the first write."""
+        chi, d = self.chi, self.d
+        eps = eps_of(self.dtype)
+
+        # phase 1: gather both sides, bank every environment
+        env_bank, gathered = [], []
+        pos = 0
+        for cd in classes:
+            cls = cd.cls
+            Au = self._gather_permuted(T, cls.ku, cd.u)
+            Av = self._gather_permuted(T, cls.kv, cd.v)
+            sl = []
+            for k, eids in ((cls.ku, cd.env_u), (cls.kv, cd.env_v)):
+                if k > 1:
+                    e = M[eids].reshape(-1, chi, chi)
+                    env_bank.append(e)
+                    sl.append((pos, e.shape[0]))
+                    pos += e.shape[0]
+                else:
+                    sl.append(None)
+            gathered.append((Au, Av, sl))
+        if env_bank:
+            W_all, Winv_all = _cholesky_gauge_roots(torch.cat(env_bank), eps)
+
+        # phase 2: gauge + matricize; tall sides reduce by CholeskyQR2, wide
+        # sides (chi^(k-1) <= d*chi) need no reduction (R = X); theta
+        mids = []
+        for cd, (Au, Av, sl) in zip(classes, gathered):
+            cls = cd.cls
+            Bn = len(cls.u_pos)
+            sides = []
+            for A, slot, k in ((Au, sl[0], cls.ku), (Av, sl[1], cls.kv)):
+                if slot is None:
+                    W = Winv = A.new_zeros((Bn, 0, chi, chi))
+                else:
+                    start, count = slot
+                    W = W_all[start : start + count].reshape(Bn, k - 1, chi, chi)
+                    Winv = Winv_all[start : start + count].reshape(Bn, k - 1, chi, chi)
+                X = self._gauged_matrix(A, W, k)
+                if X.shape[1] <= d * chi:
+                    sides.append((X, None, Winv))
+                else:
+                    Q, R = cholesky_qr(X)
+                    sides.append((R, Q, Winv))
+            (Ru, Qu, Winv_u), (Rv, Qv, Winv_v) = sides
+            ru, rv = Ru.shape[1], Rv.shape[1]
+            # theta[(x p), (y q)] = gate[p,q,d,e] Ru[x,(d a)] Rv[y,(e a)]: fold
+            # the gate into Rv, then one matmul contracting (d, a)
+            Rv5 = torch.einsum("Bpqde,Byea->Bdapyq", cd.gates, Rv.reshape(Bn, rv, d, chi))
+            theta = (Ru.reshape(Bn, ru, d * chi) @ Rv5.reshape(Bn, d * chi, d * rv * d)).reshape(
+                Bn, ru * d, rv * d
+            )
+            mids.append((theta, Qu, Qv, Winv_u, Winv_v, ru, rv))
+
+        # phase 3b: one SVD per theta shape.  The Jacobi route covers an even
+        # smaller dimension >= 64 (`tnqs/engine.py:1231-1255`); wide thetas go
+        # through the adjoint; rectangular ones polish 6 sweeps, square 4
+        svd_bank: dict = {}
+        for ci, mid in enumerate(mids):
+            svd_bank.setdefault(tuple(mid[0].shape[1:]), []).append(ci)
+        svd_results = {}
+        for (m_, n_), cis in svd_bank.items():
+            Ts = torch.cat([mids[ci][0] for ci in cis])
+            if min(m_, n_) % 2 == 0 and min(m_, n_) >= 64:
+                polish = 6 if m_ != n_ else 4
+                if m_ >= n_:
+                    U, s, Vh = pjsvd(Ts, polish_sweeps=polish)
+                else:
+                    Ut, s, Vht = pjsvd(Ts.mH, polish_sweeps=polish)
+                    U, Vh = Vht.mH, Ut.mH
+            else:
+                U, s, Vh = torch.linalg.svd(Ts, full_matrices=False)
+            ofs = 0
+            for ci in cis:
+                b = mids[ci][0].shape[0]
+                svd_results[ci] = (U[ofs : ofs + b], s[ofs : ofs + b], Vh[ofs : ofs + b])
+                ofs += b
+
+        # phase 4: truncate, recombine, un-gauge, write back
+        for ci, cd in enumerate(classes):
+            theta, Qu, Qv, Winv_u, Winv_v, ru, rv = mids[ci]
+            self._finish_two_site(
+                T, M, errors, cd, *svd_results[ci], Qu, Qv, Winv_u, Winv_v, ru, rv, cutoff, normalize
+            )
+
+    def _finish_two_site(self, T, M, errors, cd, U, s, Vh, Qu, Qv, Winv_u, Winv_v, ru, rv, cutoff, normalize):
+        """Truncation, recombination (Q @ R_new on tall sides), gauge
+        removal, scatter and singular-value message writeback
+        (`tnqs/engine.py:1310`), in place."""
+        chi, d = self.chi, self.d
+        cls = cd.cls
+        Bn = len(cls.u_pos)
+        s_m, _, err = _truncate_mask(s.to(self.real_dtype), chi, cutoff)
+        K = s.shape[1]
+        if K >= chi:
+            U, Vh = U[:, :, :chi], Vh[:, :chi, :]
+        else:
+            U, Vh = F.pad(U, (0, chi - K)), F.pad(Vh, (0, 0, 0, chi - K))
+        if normalize:
+            s_norm = torch.linalg.vector_norm(s_m, dim=1, keepdim=True)
+            s_m = s_m / torch.where(s_norm > 0, s_norm, 1.0)
+        rs = torch.sqrt(s_m).to(self.dtype)
+        Ru_new = (U * rs[:, None, :]).reshape(Bn, ru, d * chi)
+        Rv_new = (rs[:, :, None] * Vh).mT.reshape(Bn, rv, d * chi)
+        if Qu is not None:
+            Ru_new = Qu @ Ru_new
+        if Qv is not None:
+            Rv_new = Qv @ Rv_new
+        Au_new = self._restore(Ru_new, Winv_u, cls.ku)
+        Av_new = self._restore(Rv_new, Winv_v, cls.kv)
+        if normalize:
+            Au_new, Av_new = _unit_rows(Au_new), _unit_rows(Av_new)
+        self._scatter_permuted(T, cls.ku, cd.u, Au_new)
+        self._scatter_permuted(T, cls.kv, cd.v, Av_new)
+        m_diag = torch.diag_embed(s_m.to(self.dtype))
+        M[cd.eid_uv] = m_diag
+        M[cd.eid_vu] = m_diag
+        errors[cd.gate_index] = err
+
+    def _apply_one_site_group(self, T: dict, gates: dict) -> None:
+        """Apply a one-site group; `gates` maps a degree to (positions
+        [B] device tensor or None for a whole bucket in bucket order,
+        gates [B, d, d])."""
+        for k, (pos, G) in gates.items():
+            if pos is None:  # e.g. a transverse-field kick on every qubit
+                T[k] = torch.einsum("Bps,Bs...->Bp...", G, T[k])
+            else:
+                T[k].index_copy_(0, pos, torch.einsum("Bps,Bs...->Bp...", G, T[k][pos]))
+
+    # -- layer step (`tnqs/engine.py:1370-1483`) ---------------------------
+    def make_step(
+        self,
+        circuit: Sequence,
+        cutoff: float = 0.0,
+        normalize: bool = True,
+        bp_maxiter: int = 30,
+        bp_tolerance: float | None = None,
+        bp_inner_maxiter: int = 2,
+        layers_per_call: int = 1,
+    ):
+        """Build ``step(T, M) -> (T, M, errors)`` applying `layers_per_call`
+        repetitions of the circuit layer; `errors` is [n_gates] for one
+        layer and [layers_per_call, n_gates] otherwise.
+
+        BP refreshes precede every two-site group whose vertices were
+        touched since the last one (`build_program`), capped at
+        `bp_inner_maxiter` iterations: they only feed the gauge, which
+        cancels exactly, and the truncation weighting.  The layer ends with
+        a BP run to `bp_tolerance` or `bp_maxiter`.  The step writes into
+        the T and M it is given."""
+        if bp_tolerance is None:
+            bp_tolerance = default_engine_tolerance(self.dtype)
+        compiled = compile_circuit(self.plan, circuit, d=self.d)
+        program = build_program(self.plan, compiled)
+        group_data = {}
+        for gidx, grp in enumerate(compiled):
+            if isinstance(grp, OneSiteGroup):
+                data = {}
+                for k, (pos, g, _) in grp.per_bucket.items():
+                    G = torch.as_tensor(g, device=self.device).to(self.dtype)
+                    if len(pos) == len(self.plan.buckets[k]):
+                        perm = np.zeros(len(pos), dtype=np.int64)
+                        perm[pos] = np.arange(len(pos))
+                        data[k] = (None, G[_index(perm, self.device)])
+                    else:
+                        data[k] = (_index(pos, self.device), G)
+                group_data[gidx] = data
+            else:
+                group_data[gidx] = [_ClassData(c, self.dtype, self.device) for c in grp.classes]
+        n_gates = len(circuit)
+        inner = min(bp_maxiter, bp_inner_maxiter)
+
+        def layer(T, M):
+            errors = torch.zeros((n_gates,), dtype=self.real_dtype, device=self.device)
+            for entry in program:
+                if entry[0] == "bp":
+                    M = self._bp_fixed_point(T, M, inner, bp_tolerance)
+                elif entry[0] == "one":
+                    self._apply_one_site_group(T, group_data[entry[2]])
+                else:
+                    self._apply_two_site_group(T, M, errors, group_data[entry[2]], cutoff, normalize)
+            M = self._bp_fixed_point(T, M, bp_maxiter, bp_tolerance)
+            return T, M, errors
+
+        L = int(layers_per_call)
+
+        def step(T, M):
+            T = dict(T)
+            if L == 1:
+                return layer(T, M)
+            all_errors = []
+            for _ in range(L):
+                T, M, errors = layer(T, M)
+                all_errors.append(errors)
+            return T, M, torch.stack(all_errors)
+
+        return step
+
+    def evolve(self, circuit: Sequence, num_layers: int = 1, **kwargs) -> np.ndarray:
+        """Apply `num_layers` repetitions of `circuit`; returns the per-layer
+        truncation errors [num_layers, n_gates]."""
+        step = self.make_step(circuit, **kwargs)
+        all_errors = []
+        for _ in range(num_layers):
+            self.T, self.M, errors = step(self.T, self.M)
+            all_errors.append(errors)
+        return torch.stack(all_errors).cpu().numpy()
+
+    # -- measurement (`tnqs/engine.py:1566-1598`) -------------------------
+    def _expect_1site_all(self, T: dict, M: torch.Tensor, op: torch.Tensor) -> dict:
+        """<op_v> for every vertex via BP, batched per degree bucket."""
+        plan = self.plan
+        outs = {}
+        for k, verts in plan.buckets.items():
+            in_eids = np.array(
+                [[plan.edge_ids[(u, v)] for u in plan.neighbor_order[v]] for v in verts], dtype=np.int64
+            ).reshape(len(verts), k)
+            A = T[k]
+            for j in range(k):
+                A = _absorb_message(A, M[_index(in_eids[:, j], self.device)], axis=2 + j)
+            Tc = T[k].conj()
+            axes = "".join(chr(ord("a") + j) for j in range(k))
+            denom = torch.einsum(f"Bs{axes},Bs{axes}->B", A, Tc)
+            numer = torch.einsum(f"Bs{axes},ps,Bp{axes}->B", A, op, Tc)
+            outs[k] = numer / denom
+        return outs
+
+    def expect_1site(self, opname: str) -> dict:
+        """BP expectation of a one-site operator on every vertex."""
+        op = torch.as_tensor(op_matrix(opname), device=self.device).to(self.dtype)
+        outs = self._expect_1site_all(self.T, self.M, op)
+        result = {}
+        for k, verts in self.plan.buckets.items():
+            vals = outs[k].cpu().numpy()
+            for i, v in enumerate(verts):
+                result[v] = complex(vals[i])
+        return result

@@ -1,0 +1,144 @@
+"""Batched Hermitian eigensolver by two-sided parallel Jacobi.
+
+Port of `tnqs/ops/jacobi.py::jacobi_eigh` (`tnqs/ops/jacobi.py:208`).  The
+rotation rounds run in the CUDA kernel `tnqs_torch/csrc/jacobi_eigh.cu` on a
+CUDA tensor, and in `_jacobi_eigh_plain`, the same schedule written in
+PyTorch, on a CPU tensor.  The Newton–Schulz repair of V, the Rayleigh
+eigenvalues and the ascending sort (`tnqs/ops/jacobi.py:300-318`) are
+PyTorch in both cases.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+
+EPS32 = float(torch.finfo(torch.float32).eps)
+
+
+def _rot_params(a, b, gr, gi, eps: float):
+    """Complex Jacobi rotation annihilating g in [[a, g], [conj(g), b]],
+    identity when |g| <= eps (`tnqs/ops/jacobi.py:58`).  Inputs [B, m]
+    float32; returns (c, s) with J = [[c, -conj(s)], [s, c]]."""
+    absg = torch.sqrt(gr * gr + gi * gi)
+    safe = absg > eps
+    ga = torch.where(safe, absg, 1.0)
+    phr = torch.where(safe, gr / ga, 1.0)
+    phi = torch.where(safe, gi / ga, 0.0)
+    tau = (b - a) / (2.0 * ga)
+    sgn = torch.where(tau >= 0.0, 1.0, -1.0)
+    t = -sgn / (torch.abs(tau) + torch.sqrt(1.0 + tau * tau))
+    c = 1.0 / torch.sqrt(1.0 + t * t)
+    sm = t * c
+    c = torch.where(safe, c, 1.0)
+    s = torch.complex(torch.where(safe, sm * phr, 0.0), torch.where(safe, -sm * phi, 0.0))
+    return c, s
+
+
+def round_robin(n: int, device) -> torch.Tensor:
+    """Old position of each position's entry in the next round: the
+    tournament of `pcol`/`prow` (`tnqs/ops/jacobi.py:98-106`) with position 0
+    fixed, left' = [l0, r0, l1 .. l(m-2)], right' = [r1 .. r(m-1), l(m-1)]."""
+    m = n // 2
+    order = [0, m] + list(range(1, m - 1)) + list(range(m + 1, n)) + [m - 1]
+    return torch.tensor(order, device=device)
+
+
+def _jacobi_eigh_plain(H: torch.Tensor, sweeps: int):
+    """The kernel's rounds in PyTorch: pair i is (position i, position
+    m+i) of the top and bottom halves, as in the JAX kernel body
+    (`_make_kernel`, `tnqs/ops/jacobi.py:81`), and the data moves between
+    rounds.  H [B, n, n] hermitian complex64.  Returns (w [B, n] unsorted,
+    V [B, n, n])."""
+    _jacobi_eigh_plain.calls += 1
+    B, n, _ = H.shape
+    m = n // 2
+    perm = round_robin(n, H.device)
+    W = torch.eye(n, dtype=H.dtype, device=H.device).expand(B, n, n)
+    for _ in range(sweeps * (n - 1)):
+        d = H.diagonal(dim1=1, dim2=2).real
+        g = H[:, :m, m:].diagonal(dim1=1, dim2=2)
+        c, s = _rot_params(d[:, :m], d[:, m:], g.real, g.imag, EPS32)
+        # rows: top' = c*top + conj(s)*bot ; bot' = -s*top + c*bot
+        cc, sc = c[:, :, None], s[:, :, None]
+        top, bot = H[:, :m], H[:, m:]
+        H = torch.cat([cc * top + sc.conj() * bot, -sc * top + cc * bot], 1)
+        # columns of H and V: left' = c*left + s*right ; right' = -conj(s)*left + c*right
+        cr, sr = c[:, None, :], s[:, None, :]
+        X = torch.cat([H, W], 1)
+        lft, rgt = X[:, :, :m], X[:, :, m:]
+        X = torch.cat([cr * lft + sr * rgt, -sr.conj() * lft + cr * rgt], 2)[:, :, perm]
+        H, W = X[:, :n][:, perm], X[:, n:]
+    return H.diagonal(dim1=1, dim2=2).real, W
+
+
+_jacobi_eigh_plain.calls = 0
+
+
+def _jacobi_eigh_cuda(H: torch.Tensor, sweeps: int):
+    """Launch `tnqs_jacobi_eigh` on H [B, n, n] hermitian complex64 (CUDA,
+    contiguous).  Returns (w [B, n] unsorted, V [B, n, n])."""
+    if not (H.is_cuda and H.dtype == torch.complex64 and H.dim() == 3 and H.is_contiguous()):
+        raise ValueError("jacobi_eigh kernel takes a contiguous complex64 CUDA tensor [B, n, n]")
+    B, n, n2 = H.shape
+    if n != n2 or n % 2 or not 4 <= n <= 128:
+        raise ValueError(f"jacobi_eigh kernel supports even 4 <= n <= 128, got {tuple(H.shape)}")
+    lib = _build.kernels()
+    vt = torch.empty_like(H)
+    w = torch.empty((B, n), dtype=torch.float32, device=H.device)
+    with torch.cuda.device(H.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tnqs_jacobi_eigh(
+            H.data_ptr(), vt.data_ptr(), w.data_ptr(), B, n, sweeps * (n - 1), EPS32, stream
+        )
+    _build.check(err, "tnqs_jacobi_eigh")
+    jacobi_eigh.launches += 1
+    return w, vt.mT
+
+
+def jacobi_eigh(H: torch.Tensor, sweeps: int = 12, refine: bool = True):
+    """Eigendecomposition of batched hermitian H [..., n, n] (n even,
+    complex64).  Returns (w ascending [..., n] float32, V [..., n, n]) with
+    H ~= V diag(w) V^H — the `torch.linalg.eigh` contract.
+
+    The rotation rounds run in the CUDA kernel for a CUDA tensor and in the
+    plain PyTorch version for a CPU tensor.  `refine` re-orthonormalizes the
+    accumulated rotation product by two Newton–Schulz steps and recomputes
+    the eigenvalues as Rayleigh quotients (`tnqs/ops/jacobi.py:300-312`:
+    without it the ~4e-5 orthogonality drift of n=128 rotation products
+    dominates the eigenpair residual)."""
+    batch_shape = H.shape[:-2]
+    n = H.shape[-1]
+    if n % 2 != 0:
+        raise ValueError("jacobi_eigh requires even n")
+    if H.dtype != torch.complex64:
+        raise TypeError(f"jacobi_eigh takes complex64, got {H.dtype}")
+    B = math.prod(batch_shape)
+    Hb = H.reshape(B, n, n)
+    Hb = (0.5 * (Hb + Hb.mH)).contiguous()
+    if B == 0:
+        w, V = Hb.real.new_empty((0, n)), torch.empty_like(Hb)
+    elif Hb.device.type == "cpu":
+        w, V = _jacobi_eigh_plain(Hb, sweeps)
+    else:  # the kernel, which raises on a tensor off a CUDA device
+        w, V = _jacobi_eigh_cuda(Hb, sweeps)
+    w, V = eigh_from_rounds(Hb, w, V, refine)
+    return w.reshape(batch_shape + (n,)), V.reshape(batch_shape + (n, n))
+
+
+jacobi_eigh.launches = 0
+
+
+def eigh_from_rounds(Hb: torch.Tensor, w: torch.Tensor, V: torch.Tensor, refine: bool = True):
+    """Refine (optionally) and sort the rotation rounds' result for the
+    hermitian Hb [B, n, n]: (w [B, n] ascending, V [B, n, n])."""
+    B, n, _ = Hb.shape
+    if refine:
+        for _ in range(2):
+            V = 0.5 * (3.0 * V - V @ (V.mH @ V))
+        w = torch.sum(V.conj() * (Hb @ V), dim=1).real
+    order = torch.argsort(w, dim=1, stable=True)
+    return torch.gather(w, 1, order), torch.gather(V, 2, order[:, None, :].expand(B, n, n))

@@ -1,0 +1,169 @@
+"""Batched one-sided Jacobi SVD and the preconditioned `pjsvd`.
+
+Port of `tnqs/ops/osj.py::osj_svd` (`:225`) and `pjsvd` (`:349`).  The
+rotation rounds of `osj_svd` run in the CUDA kernel
+`tnqs_torch/csrc/osj_svd.cu` on a CUDA tensor, and in `_osj_svd_plain`, the
+same schedule written in PyTorch, on a CPU tensor.  The Frobenius prescale,
+the column norms, the descending sort and U = A/s (`tnqs/ops/osj.py:
+245-345`) are PyTorch in both cases.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+from .jacobi import EPS32, jacobi_eigh, round_robin
+
+
+def _rot_params_rel(a, b, gr, gi, eps: float):
+    """Complex Jacobi rotation for the 2x2 Gram [[a, g], [conj(g), b]] with
+    the relative Hestenes skip |g|^2 <= eps^2 a b (`tnqs/ops/osj.py:117`).
+    Inputs [B, m] float32; returns (c, s) for J = [[c, -conj(s)], [s, c]]."""
+    g2 = gr * gr + gi * gi
+    safe = g2 > (eps * eps) * (a * b)
+    absg = torch.sqrt(torch.where(safe, g2, 1.0))
+    phr = torch.where(safe, gr / absg, 1.0)
+    phi = torch.where(safe, gi / absg, 0.0)
+    tau = (b - a) / (2.0 * torch.where(safe, absg, 1.0))
+    sgn = torch.where(tau >= 0.0, 1.0, -1.0)
+    t = -sgn / (torch.abs(tau) + torch.sqrt(1.0 + tau * tau))
+    c = 1.0 / torch.sqrt(1.0 + t * t)
+    sm = t * c
+    c = torch.where(safe, c, 1.0)
+    s = torch.complex(torch.where(safe, sm * phr, 0.0), torch.where(safe, -sm * phi, 0.0))
+    return c, s
+
+
+def _osj_svd_plain(A: torch.Tensor, V: torch.Tensor, sweeps: int):
+    """The kernel's rounds in PyTorch: pair i is (column i, column m+i),
+    as in the JAX kernel body (`_make_osj_kernel`, `tnqs/ops/osj.py:141`),
+    and the columns move between rounds.  A [B, R, n], V [B, n, n]
+    complex64.  Returns the rotated (A, V)."""
+    _osj_svd_plain.calls += 1
+    R, n = A.shape[-2], A.shape[-1]
+    m = n // 2
+    perm = round_robin(n, A.device)
+    X = torch.cat([A, V], 1)  # columns of A and V rotate together
+    for _ in range(sweeps * (n - 1)):
+        sq = torch.sum(A.real * A.real + A.imag * A.imag, dim=1)
+        g = torch.sum(A[:, :, :m].conj() * A[:, :, m:], dim=1)
+        c, s = _rot_params_rel(sq[:, :m], sq[:, m:], g.real, g.imag, EPS32)
+        c, s = c[:, None, :], s[:, None, :]
+        # [l', r'] = [l, r] @ [[c, -conj(s)], [s, c]]
+        lft, rgt = X[:, :, :m], X[:, :, m:]
+        X = torch.cat([c * lft + s * rgt, -s.conj() * lft + c * rgt], 2)[:, :, perm]
+        A = X[:, :R]
+    return A, X[:, R:]
+
+
+_osj_svd_plain.calls = 0
+
+
+def _osj_svd_cuda(A: torch.Tensor, V: torch.Tensor, sweeps: int):
+    """Launch `tnqs_osj_svd` on A [B, R, n] and V [B, n, n] complex64 CUDA
+    tensors.  Returns the rotated (A, V) as views of column-contiguous
+    buffers."""
+    if not (A.is_cuda and V.device == A.device and A.dtype == V.dtype == torch.complex64):
+        raise ValueError("osj_svd kernel takes complex64 CUDA tensors on one device")
+    B, R, n = A.shape
+    if V.shape != (B, n, n) or n % 2 or n < 4 or R < n:
+        raise ValueError(f"osj_svd kernel: bad shapes A {tuple(A.shape)}, V {tuple(V.shape)}")
+    lib = _build.kernels()
+    at = torch.empty((B, n, R), dtype=A.dtype, device=A.device)
+    at.copy_(A.mT)
+    vt = torch.empty((B, n, n), dtype=V.dtype, device=V.device)
+    vt.copy_(V.mT)
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tnqs_osj_svd(at.data_ptr(), vt.data_ptr(), B, R, n, sweeps * (n - 1), EPS32, stream)
+    _build.check(err, "tnqs_osj_svd")
+    osj_svd.launches += 1
+    return at.mT, vt.mT
+
+
+def osj_svd(A: torch.Tensor, V0: torch.Tensor | None = None, sweeps: int = 10):
+    """Thin SVD of batched A [..., R, n] (R >= n, n even, complex64) by
+    one-sided Jacobi.  Returns (U [..., R, n], s [..., n] descending,
+    Vh [..., n, n]) — the `torch.linalg.svd(full_matrices=False)` contract.
+
+    `V0` warm-starts the rotation accumulator: pass an orthonormal
+    approximate right-singular basis and A @ V0 as `A`, and the sweeps only
+    polish (see `pjsvd`).  Null singular directions return zero U columns,
+    which the engine's truncation multiplies by a masked sqrt(s) = 0."""
+    batch_shape = A.shape[:-2]
+    R, n = A.shape[-2], A.shape[-1]
+    if R < n or n % 2 != 0:
+        raise ValueError("osj_svd requires tall/square batched matrices with even column count")
+    if A.dtype != torch.complex64:
+        raise TypeError(f"osj_svd takes complex64, got {A.dtype}")
+    B = math.prod(batch_shape)
+    Ab, scale = prescale(A.reshape(B, R, n))
+    if V0 is None:
+        Vb = torch.eye(n, dtype=A.dtype, device=A.device).expand(B, n, n)
+    else:
+        Vb = V0.reshape(B, n, n)
+    if B == 0:
+        Ur, Vr = Ab, Vb
+    elif Ab.device.type == "cpu":
+        Ur, Vr = _osj_svd_plain(Ab, Vb, sweeps)
+    else:  # the kernel, which raises on a tensor off a CUDA device
+        Ur, Vr = _osj_svd_cuda(Ab, Vb, sweeps)
+    U, s, Vh = svd_from_rounds(Ur, Vr, scale)
+    return (
+        U.reshape(batch_shape + (R, n)),
+        s.reshape(batch_shape + (n,)),
+        Vh.reshape(batch_shape + (n, n)),
+    )
+
+
+osj_svd.launches = 0
+
+
+def prescale(Ab: torch.Tensor):
+    """Ab [B, R, n] scaled to unit Frobenius norm per matrix, and the scale
+    [B, 1, 1]: the rotation threshold and the norm extraction then work
+    mid-range in float32."""
+    scale = torch.sqrt(torch.sum(Ab.real * Ab.real + Ab.imag * Ab.imag, dim=(1, 2), keepdim=True))
+    scale = torch.where(scale > 0, scale, 1.0)
+    return Ab / scale, scale
+
+
+def svd_from_rounds(Ur: torch.Tensor, Vr: torch.Tensor, scale: torch.Tensor):
+    """(U, s descending, Vh) from the rotated iterate Ur [B, R, n] and
+    accumulator Vr [B, n, n]: s = column norms (times the prescale), U =
+    columns / s, with zero columns below 4 eps s_max."""
+    B, R, n = Ur.shape
+    s = torch.sqrt(torch.sum(Ur.real * Ur.real + Ur.imag * Ur.imag, dim=1))
+    order = torch.argsort(-s, dim=1, stable=True)
+    s = torch.gather(s, 1, order)
+    Ur = torch.gather(Ur, 2, order[:, None, :].expand(B, R, n))
+    Vr = torch.gather(Vr, 2, order[:, None, :].expand(B, n, n))
+    inv = torch.where(s > (EPS32 * 4.0) * s[:, :1], 1.0 / torch.where(s > 0, s, 1.0), 0.0)
+    return Ur * inv[:, None, :], s * scale.reshape(B, 1), Vr.mH.resolve_conj()
+
+
+def pjsvd(A: torch.Tensor, precond_sweeps: int = 8, polish_sweeps: int = 4):
+    """Preconditioned one-sided Jacobi SVD of batched A [..., R, n] (R >= n,
+    n even, complex64), `tnqs/ops/osj.py:349`:
+
+      1. G = A^H A;
+      2. V0 = eigenbasis of G by `jacobi_eigh` (few sweeps, Newton–Schulz
+         orthonormalized);
+      3. B0 = A @ V0, from the original A;
+      4. one-sided Jacobi polish of (B0, V0) by `osj_svd`.
+
+    The Gram squaring only picks the preconditioner basis; every output is
+    computed from unsquared columns of A @ (unitary), so errors stay graded
+    like LAPACK's gesdd."""
+    G = A.mH @ A
+    _, V0 = jacobi_eigh(G, sweeps=precond_sweeps)
+    # literal NaNs from the preconditioner (two-sided Jacobi on rank-deficient
+    # spectra) cannot be rotated away: those matrices restart cold
+    finite = torch.isfinite(V0)
+    ok = finite.all(dim=-1, keepdim=True).all(dim=-2, keepdim=True)
+    eye = torch.eye(A.shape[-1], dtype=V0.dtype, device=V0.device)
+    V0 = torch.where(ok, V0.masked_fill(~finite, 0), eye)
+    return osj_svd(A @ V0, V0, sweeps=polish_sweeps)
