@@ -8,18 +8,31 @@ Run from the repository root.  Phases, each of which fails the run:
 1. environment: Python, torch and CUDA versions, the card's name and power
    limit; exits nonzero when `torch.cuda.is_available()` is False;
 2. build: nvcc compiles `tnqs_torch/csrc/*.cu` for sm_90a into
-   `build/tnqs_torch/`;
+   `build/tnqs_torch/` (one process per source, in parallel) and ptxas's
+   register and spill lines are printed;
 3. kernels: each Jacobi kernel against its plain PyTorch version on the same
    card inputs, at the engine's chi=64 shapes (Gram [26, 128, 128] for
    `jacobi_eigh`; thetas [18, 128, 128] and [26, 256, 128] for `osj_svd`
-   inside `pjsvd`), over five singular-value families;
-4. main path: `LatticeEngine.make_step` on the Eagle-127 kicked-Ising layer
+   inside `pjsvd`), over five singular-value families, with the library
+   call of the same function (`torch.linalg.eigh`, `torch.linalg.svd`)
+   timed beside them as a yardstick the port never calls;
+4. BP kernel: `bp_sweep_group` against its plain version on every degree
+   >= 2 group of the Eagle chi=64 color plan, on random site tensors and
+   positive messages, plus small groups of degree 2-6 that reach its other
+   tilings; one BP sweep timed on the kernel and on the einsum route;
+5. main path: `LatticeEngine.make_step` on the Eagle-127 kicked-Ising layer
    (J = pi/4, theta_h = 0.4) at chi=64, complex64, cutoff 1e-12,
    bp_maxiter=25, N layers (default 10) from "↑".  After each layer <Z> at
    (7,8) and (11,5) must lie within max(3 x the running multi-seed flex-f32
    floor, 2e-5) of the flex-f64 trajectory in
-   `tests/golden/golden_f32_controls.json`, and both kernels must have been
-   launched by the step.
+   `tests/golden/golden_f32_controls.json`, and both Jacobi kernels must
+   have been launched by the step;
+6. BP path, on the state the main path leaves: `normalize` (Z_BP -> 1, <Z>
+   still within the last layer's bound), then a cold `bp_update` from the
+   initial messages on the kernel route and on an einsum-route engine
+   carried over by `from_arrays`; the two must agree on the messages, <Z>,
+   <ZZ>, bond entropies and Z_BP, and the BP kernel must have been launched
+   on this path with no plain run.
 
 The line before the last is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}.
@@ -70,6 +83,24 @@ def spectrum_batch(rng, B, R, n):
     return np.stack(out).astype(np.complex64)
 
 
+# the card's ceilings for `bound_ms` (H100 SXM at 700 W, NVIDIA's data
+# sheet): FP32 outside the tensor cores, since the precision pins rule out
+# TF32, and HBM3
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def bound(flops, nbytes):
+    """(least milliseconds for `flops` FP32 operations and `nbytes` moved,
+    which of the two sets it)."""
+    ops_ms, bytes_ms = 1e3 * flops / PEAK_FP32, 1e3 * nbytes / PEAK_BYTES
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def rand_c(rng, shape):
+    return (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(np.complex64)
+
+
 def cuda_ms(fn, reps):
     """Mean milliseconds per call of `fn` on the current stream."""
     fn()
@@ -111,9 +142,18 @@ def kernel_phase(dev):
     require(rel < 1e-4, "jacobi_eigh: kernel and plain eigenvalues differ by more than 1e-4")
     ms = cuda_ms(lambda: jacobi.jacobi_eigh(G, sweeps=8), 10)
     plain_ms = cuda_ms(lambda: jacobi.eigh_from_rounds(Hb, *jacobi._jacobi_eigh_plain(Hb, 8)), 2)
-    print(f"jacobi_eigh [26,128,128] sweeps=8: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    library_ms = cuda_ms(lambda: torch.linalg.eigh(Hb), 10)
+    # every round rotates n/2 pairs of rows and columns of H and columns of
+    # V: ~12n complex MACs (8 FLOP each) a pair, at the full schedule (pairs
+    # the kernel finds converged skip their update, so this is the most the
+    # run needs)
+    B, n = Hb.shape[:2]
+    bound_ms, bound_by = bound(B * 8 * (n - 1) * (n // 2) * 12 * n * 8, B * n * n * 8 * 2 + B * n * 4)
+    print(f"jacobi_eigh [26,128,128] sweeps=8: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"torch.linalg.eigh {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
     results.append(dict(name="jacobi_eigh", route="cuda", source="tnqs_torch/csrc/jacobi_eigh.cu",
-                        replaces="tnqs/ops/jacobi.py:279", max_abs_err=err, ms=ms, plain_ms=plain_ms))
+                        replaces="tnqs/ops/jacobi.py:279", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
 
     # K1: osj_svd as pjsvd's polish on [18, 128, 128] (4 sweeps) and
     # [26, 256, 128] (6 sweeps); the plain version gets the same (B0, V0)
@@ -141,16 +181,102 @@ def kernel_phase(dev):
         print(f"osj_svd [{B},{R},128] kernel vs plain: max |ds| {err:.3e}, relative to largest {rel:.3e}")
         require(rel < 1e-4, "osj_svd: kernel and plain singular values differ by more than 1e-4")
         errs.append(err)
+        # a round's pair: its 2x2 Gram (~3R complex MACs), the column update
+        # (4R) and V's (4n), at the full schedule
+        n = 128
         times[(B, R)] = (
             cuda_ms(lambda: osj.osj_svd(B0, V0, sweeps=polish), 10),
             cuda_ms(lambda: osj.svd_from_rounds(*osj._osj_svd_plain(Ab, V0, polish), scale), 2),
+            cuda_ms(lambda: torch.linalg.svd(A, full_matrices=False), 10),
+            *bound(B * polish * (n - 1) * (n // 2) * (7 * R + 4 * n) * 8, B * (R * n + n * n) * 8 * 2),
         )
         print(f"osj_svd [{B},{R},128] sweeps={polish}: kernel {times[(B, R)][0]:.3f} ms, "
-              f"plain {times[(B, R)][1]:.3f} ms")
-    ms, plain_ms = times[(26, 256)]
+              f"plain {times[(B, R)][1]:.3f} ms, torch.linalg.svd {times[(B, R)][2]:.3f} ms, "
+              f"bound {times[(B, R)][3]:.3f} ms ({times[(B, R)][4]})")
+    ms, plain_ms, library_ms, bound_ms, bound_by = times[(26, 256)]
     results.append(dict(name="osj_svd", route="cuda", source="tnqs_torch/csrc/osj_svd.cu",
-                        replaces="tnqs/ops/osj.py:306", max_abs_err=max(errs), ms=ms, plain_ms=plain_ms))
+                        replaces="tnqs/ops/osj.py:306", max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
     return results
+
+
+def normalized(m):
+    """Sum-normalized messages, as the engine stores them."""
+    return m / m.sum(dim=(1, 2), keepdim=True)
+
+
+def bp_kernel_phase(dev, chi=64):
+    import tnqs_torch
+    from tnqs_torch.engine import LatticeEngine
+    from tnqs_torch.ops import bp_sweep
+
+    rng = np.random.default_rng(2)
+    eng = LatticeEngine(tnqs_torch.eagle_lattice(), chi=chi, device=dev)  # color plan, kernel route
+    T = {k: torch.as_tensor(rand_c(rng, tuple(v.shape)), device=dev) for k, v in eng.T.items()}
+    # positive hermitian messages of unit trace, as BP keeps them
+    G = torch.as_tensor(rand_c(rng, tuple(eng.M.shape)), device=dev)
+    M = G @ G.mH
+    M = M / torch.diagonal(M, dim1=1, dim2=2).sum(-1)[:, None, None]
+    print(f"BP kernel inputs: T[3] {tuple(T[3].shape)}, T[2] {tuple(T[2].shape)}, M {tuple(M.shape)}")
+
+    # Tolerance: the kernel and the einsum chain sum up to d * chi^(k-1) =
+    # 8192 float32 products per entry (after two 64-term absorbs) in other
+    # orders; rounding of ~sqrt(8192) ulps of the largest entry is ~1e-5, so
+    # 1e-4 of the largest normalized entry leaves a factor 10
+    tol = 1e-4
+    errs, largest = [], None
+    for (stage, k, t, src, _, _, in_all, _) in eng._bp_groups:
+        if k < 2:
+            continue
+        require(isinstance(src, slice), f"group (stage {stage}, k={k}, t={t}) is not contiguous")
+        Min = M[in_all]
+        m_k = normalized(bp_sweep.bp_sweep_group(T[k], Min, src.start, t))
+        m_p = normalized(bp_sweep._bp_sweep_group_plain(T[k], Min, src.start, t))
+        torch.cuda.synchronize()
+        require(torch.isfinite(m_k).all(), f"bp_sweep_group k={k} t={t}: non-finite output")
+        err = (m_k - m_p).abs().max().item()
+        rel = err / m_p.abs().max().item()
+        errs.append(err)
+        print(f"bp_sweep_group stage {stage} k={k} t={t} B={Min.shape[0]}: max |dm| {err:.3e}, "
+              f"relative to largest {rel:.3e}")
+        require(rel < tol, f"bp_sweep_group k={k} t={t}: kernel and plain differ by more than {tol}")
+        if largest is None or Min.shape[0] * chi**k > largest[0]:
+            largest = (Min.shape[0] * chi**k, k, t, src.start, Min)
+
+    # the kernel's other tilings: fewer rows per block than chi divides,
+    # degree 4-5 buffers in shared memory, degree 6 in global scratch, a
+    # 512-wide bond, and the empty group
+    for kk, w, n_k, lo, B in ((3, 12, 5, 1, 3), (4, 8, 4, 1, 2), (5, 8, 3, 0, 2), (6, 8, 2, 1, 1), (2, 512, 4, 2, 2)):
+        Tk = torch.as_tensor(rand_c(rng, (n_k, 2) + (w,) * kk), device=dev)
+        Min = torch.as_tensor(rand_c(rng, (B, kk - 1, w, w)), device=dev)
+        rel = 0.0
+        for t in range(kk):
+            m_k = bp_sweep.bp_sweep_group(Tk, Min, lo, t)
+            m_p = bp_sweep._bp_sweep_group_plain(Tk, Min, lo, t)
+            rel = max(rel, ((m_k - m_p).abs().max() / m_p.abs().max()).item())
+        print(f"bp_sweep_group k={kk} chi={w} B={B}, every slot: max relative difference {rel:.3e}")
+        require(rel < tol, f"bp_sweep_group k={kk} chi={w}: kernel and plain differ by {rel:.3e}")
+    require(bp_sweep.bp_sweep_group(T[3], M[:0].reshape(0, 2, chi, chi), 0, 0).shape == (0, chi, chi),
+            "bp_sweep_group: empty group")
+
+    _, k, t, lo, Min = largest
+    B = Min.shape[0]
+    ms = cuda_ms(lambda: bp_sweep.bp_sweep_group(T[k], Min, lo, t), 10)
+    plain_ms = cuda_ms(lambda: bp_sweep._bp_sweep_group_plain(T[k], Min, lo, t), 2)
+    # k absorbs-and-contract passes of chi^(k+1) complex MACs per site value
+    # and message; each site tensor and message read once, each message written
+    flops = B * 2 * k * chi ** (k + 1) * 8
+    bound_ms, bound_by = bound(flops, (B * 2 * chi**k + B * k * chi * chi) * 8)
+    print(f"bp_sweep_group k={k} t={t} B={B}: kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s), "
+          f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+    sweep = {}
+    for use_kernel in (False, True, True, False):
+        sweep.setdefault(use_kernel, []).append(cuda_ms(lambda: eng._bp_new_messages(T, M, use_kernel), 5))
+    print(f"one BP sweep of the Eagle chi={chi} color plan: kernel route {sweep[True]} ms, "
+          f"einsum route {sweep[False]} ms")
+    return dict(name="bp_sweep_group", route="cuda", source="tnqs_torch/csrc/bp_sweep.cu",
+                replaces="tnqs/ops/bp_sweep.py:282", max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def main_path(dev, layers):
@@ -208,7 +334,95 @@ def main_path(dev, layers):
     if layers > 1:
         print(f"layers/s over layers 2-{layers}: {(layers - 1) / sum(times[1:]):.4f}")
     print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    return launches
+    return launches, eng, (center, bench_v, controls, bound[-1], layers)
+
+
+def bp_path(dev, eng, probe):
+    """normalize and cold BP convergence on the evolved state, on the kernel
+    route, against a cold convergence on the einsum route."""
+    from tnqs_torch.engine import LatticeEngine
+    from tnqs_torch.ops import bp_sweep
+
+    center, bench_v, controls, zbound, layers = probe
+    require(eng.bp_kernel == "kernel", f"the engine's BP route is {eng.bp_kernel!r} on the card")
+    plain_calls = bp_sweep._bp_sweep_group_plain.calls
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bp_sweep.bp_sweep_group.launches = 0
+
+    for call in ("first call, with set-up", "again"):
+        t0 = time.perf_counter()
+        eng.normalize()
+        torch.cuda.synchronize()
+        print(f"normalize ({call}): {time.perf_counter() - t0:.3f} s, {eng.bp_iterations} BP iterations, "
+              f"eps {eng.bp_eps:.3e}")
+    f = eng.freenergy()
+    # after the rescale every one of the 127 vertex and 144 edge scalars is 1
+    # up to the float32 rounding of its contraction (~1e-6), so |log Z_BP|
+    # <= 271 * 1e-6 < 1e-3
+    print(f"freenergy after normalize: {f}")
+    require(abs(f) < 1e-3, f"normalize left log Z_BP = {f}")
+    z = eng.expect_1site("Z")
+    for v, ref in ((center, controls["z_center_f64"][layers - 1]), (bench_v, controls["z_bench_f64"][layers - 1])):
+        dev_v = abs(z[v].real - ref)
+        print(f"<Z>{v} after normalize {z[v].real:+.7f}, |dev| {dev_v:.3e} (bound {zbound:.3e})")
+        require(dev_v <= zbound, f"normalize moved <Z>{v} out of the layer-{layers} bound")
+
+    T_host = {k: v.cpu().numpy() for k, v in eng.T.items()}
+    M0 = eng._initial_messages()
+    results = {}
+    for route in ("kernel", "einsum"):
+        if route == "kernel":
+            e = eng
+            e.M = M0.clone()
+        else:
+            e = LatticeEngine.from_arrays(eng.plan.graph, T_host, M0.cpu().numpy(), chi=eng.chi, device=dev,
+                                          bp_kernel="einsum")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e.bp_update(maxiter=30)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(f"cold bp_update on the {route} route: {e.bp_iterations} iterations, eps {e.bp_eps:.3e}, "
+              f"{wall:.3f} s ({1e3 * wall / e.bp_iterations:.2f} ms an iteration)")
+        z = e.expect_1site("Z")
+        zz = e.expect_2site("Z", "Z")
+        results[route] = dict(
+            M=e.M, z={v: z[v] for v in (center, bench_v)},
+            zz={edge: val for edge, val in zz.items() if center in edge or bench_v in edge},
+            S=e.bond_entropies(1), Z=e.partitionfunction(),
+        )
+        r = results[route]
+        require(torch.isfinite(r["M"]).all(), f"{route} route: non-finite messages")
+        require(all(np.isfinite(x) for d in (r["z"], r["zz"], r["S"]) for x in d.values()) and np.isfinite(r["Z"]),
+                f"{route} route: non-finite measurement")
+    launches = bp_sweep.bp_sweep_group.launches
+    require(launches > 0, "normalize and bp_update did not launch the BP kernel")
+    require(bp_sweep._bp_sweep_group_plain.calls == plain_calls, "the BP path ran the plain BP version on the card")
+    print(f"BP kernel launches on the BP path: {launches}")
+
+    # Tolerances: the two routes round in other orders (~1e-6 relative per
+    # sweep) and the BP map contracts those differences, so the fixed points
+    # agree to ~1e-5 of the largest message entry when both run the same
+    # iterations; one iteration more leaves a difference below the 1e-5
+    # infidelity tolerance, ~3e-3 relative.  Local expectations are ratios
+    # of contractions of those messages; an entropy sums 64 eigenvalues;
+    # log Z_BP sums 271 logs.
+    a, b = results["kernel"], results["einsum"]
+    same = e.bp_iterations == eng.bp_iterations
+    dm = ((a["M"] - b["M"]).abs().max() / b["M"].abs().max()).item()
+    dz = max(abs(a["z"][v] - b["z"][v]) for v in a["z"])
+    dzz = max(abs(a["zz"][edge] - b["zz"][edge]) for edge in a["zz"])
+    ds = max(abs(a["S"][edge] - b["S"][edge]) for edge in a["S"])
+    dZ = abs(a["Z"] - b["Z"]) / abs(b["Z"])
+    print(f"kernel vs einsum route: messages {dm:.3e} (relative), <Z> {dz:.3e}, <ZZ> {dzz:.3e} on "
+          f"{len(a['zz'])} edges, entropies {ds:.3e}, Z_BP {dZ:.3e} (relative; Z_BP {a['Z']})")
+    require(dm < (1e-4 if same else 1e-2), f"kernel and einsum routes: messages differ by {dm:.3e}")
+    require(dz < 1e-5 and dzz < 1e-5, f"kernel and einsum routes: <Z> {dz:.3e}, <ZZ> {dzz:.3e}")
+    require(ds < 1e-4, f"kernel and einsum routes: bond entropies differ by {ds:.3e}")
+    require(dZ < 1e-3, f"kernel and einsum routes: Z_BP differs by {dZ:.3e}")
+    print(f"max_memory_allocated on the BP path {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return {"bp_sweep_group": launches}
 
 
 def main():
@@ -236,12 +450,18 @@ def main():
         _build.kernels()
         print(f"kernel build {time.perf_counter() - t0:.2f} s -> {_build.library_path().relative_to(ROOT)}",
               flush=True)
+        for line in _build.build_log().splitlines():
+            if line.startswith("==") or any(w in line for w in ("Function properties", "registers", "spill")):
+                print(f"  {line.strip()}")
         kernels = kernel_phase(dev)
-        launches = main_path(dev, args.layers)
+        kernels.append(bp_kernel_phase(dev))
+        launches, eng, probe = main_path(dev, args.layers)
+        launches.update(bp_path(dev, eng, probe))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms")
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     kernels = [{key: dict(k, launches=launches[k["name"]])[key] for key in keys} for k in kernels]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -57,7 +57,7 @@ def _random_state(plan, chi, seed):
 def test_product_state_and_messages_match_tnqs():
     g, p = _hh22()
     je = _jax_engine(g, 4, "color")
-    pe = LatticeEngine(p, chi=4, bp_schedule="color")
+    pe = LatticeEngine(p, chi=4, device="cpu", bp_schedule="color")
     T, M = pe.to_arrays()
     assert T.keys() == je.T.keys()
     for k in T:
@@ -73,7 +73,7 @@ def test_bp_fixed_point_matches_jax(schedule):
     T = _random_state(je.plan, chi, seed=11)
     M0 = np.asarray(je.M)
     M_jax = je._bp_fixed_point({k: jnp.asarray(v) for k, v in T.items()}, jnp.asarray(M0), 30, 1e-5, False)
-    pe = LatticeEngine.from_arrays(p, T, M0, chi=chi, bp_schedule=schedule)
+    pe = LatticeEngine.from_arrays(p, T, M0, chi=chi, device="cpu", bp_schedule=schedule)
     M_port = pe._bp_fixed_point(pe.T, pe.M, 30, 1e-5)
     # same iteration count and update order; float32 rounding in another
     # order moves normalized messages by a few ulps per sweep
@@ -94,7 +94,7 @@ def test_two_site_group_matches_jax():
     apply = jax.jit(lambda T, M, e: je._apply_two_site_group(T, M, e, group.classes, gates, 1e-12, True))
     T_j, M_j, e_j = apply(T_jax, jnp.asarray(M), errors)
 
-    pe = LatticeEngine.from_arrays(p, T, M, chi=chi, bp_schedule="color")
+    pe = LatticeEngine.from_arrays(p, T, M, chi=chi, device="cpu", bp_schedule="color")
     pgroup = next(c for c in compile_circuit(pe.plan, tt.heavy_hex_kicked_ising_layer(p, **LAYER))
                   if hasattr(c, "classes"))
     e_p = torch.zeros((len(circuit),), dtype=torch.float32)
@@ -129,7 +129,7 @@ def test_slice_matches_jax_production_engine():
         jax_osj.pjsvd = orig
     z_jax = je.expect_1site("Z")
 
-    pe = LatticeEngine.from_arrays(p, T0, M0, chi=chi, bp_schedule="color")
+    pe = LatticeEngine.from_arrays(p, T0, M0, chi=chi, device="cpu", bp_schedule="color")
     calls = (jacobi._jacobi_eigh_plain.calls, osj._osj_svd_plain.calls)
     e_port = pe.evolve(tt.heavy_hex_kicked_ising_layer(p, **LAYER), num_layers=2, cutoff=1e-12, bp_maxiter=25)
     z_port = pe.expect_1site("Z")
@@ -163,20 +163,20 @@ def test_slice_matches_jax_production_engine():
 def test_unported_switches_raise(switch):
     _, p = _hh22()
     with pytest.raises(NotImplementedError):
-        LatticeEngine(p, chi=4, **switch)
+        LatticeEngine(p, chi=4, device="cpu", **switch)
 
 
 def test_from_arrays_checks_the_plan_shapes():
     _, p = _hh22()
-    T, M = LatticeEngine(p, chi=4).to_arrays()
+    T, M = LatticeEngine(p, chi=4, device="cpu").to_arrays()
     k = max(T)
     with pytest.raises(ValueError):
-        LatticeEngine.from_arrays(p, {**T, k: T[k][1:]}, M, chi=4)
+        LatticeEngine.from_arrays(p, {**T, k: T[k][1:]}, M, chi=4, device="cpu")
     with pytest.raises(ValueError):
-        LatticeEngine.from_arrays(p, T, M[:, :2], chi=4)
+        LatticeEngine.from_arrays(p, T, M[:, :2], chi=4, device="cpu")
     # the arrays are copied: evolving the engine in place leaves them untouched
     T_before, M_before = {k: v.copy() for k, v in T.items()}, M.copy()
-    eng = LatticeEngine.from_arrays(p, T, M, chi=4)
+    eng = LatticeEngine.from_arrays(p, T, M, chi=4, device="cpu")
     eng.evolve(tt.heavy_hex_kicked_ising_layer(p, **LAYER), cutoff=1e-12, bp_maxiter=5)
     for k in T:
         np.testing.assert_array_equal(T[k], T_before[k])
@@ -202,7 +202,7 @@ def test_truncate_mask_matches_jax(chi, cutoff):
 def test_layers_per_call_repeats_the_layer():
     _, p = _hh22()
     circuit = tt.heavy_hex_kicked_ising_layer(p, **LAYER)
-    one, two = LatticeEngine(p, chi=4), LatticeEngine(p, chi=4)
+    one, two = LatticeEngine(p, chi=4, device="cpu"), LatticeEngine(p, chi=4, device="cpu")
     e_one = one.evolve(circuit, num_layers=2, cutoff=1e-12, bp_maxiter=5)
     step = two.make_step(circuit, cutoff=1e-12, bp_maxiter=5, layers_per_call=2)
     two.T, two.M, e_two = step(two.T, two.M)

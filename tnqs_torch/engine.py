@@ -4,8 +4,13 @@ Port of `tnqs/engine.py::LatticeEngine` in its production configuration:
 ``factor_method="gram"`` with the Cholesky environment gauge, shifted
 CholeskyQR2 on the tall sides, and ``trunc_method="svd"`` whose theta
 truncations route to the Jacobi kernels through `pjsvd`
-(`tnqs/engine.py:1231-1255`).  BP refreshes use the einsum sweep, as the
-JAX step does (`use_kernel=False`, `tnqs/engine.py:1433`, `:1445`).
+(`tnqs/engine.py:1231-1255`).  BP refreshes inside the step use the einsum
+sweep, as the JAX step does (`use_kernel=False`, `tnqs/engine.py:1433`,
+`:1445`); standalone convergence (`bp_update`, `normalize`) routes every
+contiguous degree >= 2 group through the fused BP kernel
+(`ops.bp_sweep_group`) under ``bp_kernel="kernel"``.  The BP measurements
+of `tnqs/engine.py:1566-1961` follow: `expect_1site`, `expect_2site`,
+`freenergy`, `partitionfunction`, `rescale` and `bond_entropies`.
 
 Layout as in the JAX engine: site tensors are stacked per vertex degree,
 ``T[k]`` of shape ``[n_k, d, chi, ..., chi]`` (k bond axes, zero-padded to
@@ -29,6 +34,7 @@ import torch.nn.functional as F
 
 from .gates import gate_matrix, op_matrix
 from .graphs import NamedGraph, center
+from .ops.bp_sweep import bp_sweep_group, supports_group
 from .ops.factorizations import cholesky_qr, eps_of
 from .ops.osj import pjsvd
 
@@ -439,22 +445,30 @@ class LatticeEngine:
     (`tnqs/engine.py:562`), starting from the product state "↑".
 
     The switches name the JAX engine's options; only the production values
-    are ported, and any other value raises NotImplementedError.  On CUDA
-    the BP schedule defaults to "color", which the production parity runs
-    used; elsewhere to "wavefront", as in the JAX engine on the CPU."""
+    are ported, and any other value raises NotImplementedError.  The engine
+    runs on the CUDA device unless `device` names another (``"cpu"`` for
+    the tests); with no CUDA device the default raises.  On CUDA the BP
+    schedule defaults to "color", which the production parity runs used;
+    elsewhere to "wavefront", as in the JAX engine on the CPU.
+
+    `bp_kernel` picks the standalone BP sweep (`tnqs/engine.py:597-601`):
+    "kernel" routes every contiguous degree >= 2 group through
+    `ops.bp_sweep_group` (the CUDA kernel on the card, its plain version on
+    the CPU, as JAX's "interpret"), "einsum" keeps the einsum chain, and
+    "auto" means "kernel" on a CUDA device and "einsum" elsewhere."""
 
     def __init__(
         self,
         graph: NamedGraph,
         chi: int,
         dtype: torch.dtype = torch.complex64,
-        device="cpu",
+        device=None,
         bp_schedule: str = "auto",
         factor_method: str = "gram",
         env_gauge: str = "cholesky",
         reduce_method: str = "cholqr2",
         trunc_method: str = "svd",
-        bp_kernel: str = "einsum",
+        bp_kernel: str = "auto",
     ):
         ported = {
             "dtype": (dtype, torch.complex64),
@@ -462,12 +476,23 @@ class LatticeEngine:
             "env_gauge": (env_gauge, "cholesky"),
             "reduce_method": (reduce_method, "cholqr2"),
             "trunc_method": (trunc_method, "svd"),
-            "bp_kernel": (bp_kernel, "einsum"),
         }
         for name, (value, supported) in ported.items():
             if value != supported:
                 raise NotImplementedError(f"{name}={value!r} is not ported; only {supported!r}")
+        if bp_kernel == "pallas":
+            raise NotImplementedError("bp_kernel='pallas' is the TPU kernel; the port's is 'kernel'")
+        if bp_kernel not in ("auto", "kernel", "einsum"):
+            raise ValueError(f"unknown bp_kernel {bp_kernel!r}")
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("LatticeEngine runs on the CUDA device and none is available; "
+                                   "pass device='cpu' to run on the CPU")
+            device = "cuda"
         self.device = torch.device(device)
+        if bp_kernel == "auto":
+            bp_kernel = "kernel" if self.device.type == "cuda" else "einsum"
+        self.bp_kernel = bp_kernel
         if bp_schedule == "auto":
             bp_schedule = "color" if self.device.type == "cuda" else "wavefront"
         self.plan = LatticePlan.build(graph, bp_schedule=bp_schedule)
@@ -486,9 +511,11 @@ class LatticeEngine:
             b_sub = list(a_sub)
             a_sub[2 + t], b_sub[2 + t] = "i", "j"
             expr = f"{''.join(a_sub)},{''.join(b_sub)}->Bij"
-            self._bp_groups.append((stage, k, src, out, ins, expr))
+            self._bp_groups.append((stage, k, t, src, out, ins, _index(in_eids, self.device), expr))
         self.T = self._product_state()
         self.M = self._initial_messages()
+        self.bp_iterations, self.bp_eps = 0, float("nan")
+        self._edge_cls_cache = None
 
     # -- state ----------------------------------------------------------
     def _product_state(self) -> dict:
@@ -509,12 +536,13 @@ class LatticeEngine:
 
     @classmethod
     def from_arrays(
-        cls, graph: NamedGraph, T: dict, M: np.ndarray, chi: int, dtype=torch.complex64, device="cpu", **options
+        cls, graph: NamedGraph, T: dict, M: np.ndarray, chi: int, dtype=torch.complex64, device=None, **options
     ) -> "LatticeEngine":
         """Engine carrying a packed state: `T` {degree: [n_k, d, chi^k]} and
         `M` [2E, chi, chi] as numpy arrays, laid out by the plan of `graph`
         under the same `bp_schedule` (e.g. a JAX engine's ``eng.T`` and
-        ``eng.M``).  The arrays are copied."""
+        ``eng.M``), on the CUDA device unless `device` names another.  The
+        arrays are copied."""
         eng = cls(graph, chi, dtype=dtype, device=device, **options)
         new_T = {}
         for k, ref in eng.T.items():
@@ -534,40 +562,62 @@ class LatticeEngine:
         return {k: v.cpu().numpy() for k, v in self.T.items()}, self.M.cpu().numpy()
 
     # -- BP sweep (`tnqs/engine.py:784-884`) -------------------------------
-    def _bp_new_messages(self, T: dict, M: torch.Tensor) -> torch.Tensor:
+    def _bp_new_messages(self, T: dict, M: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
         """One BP iteration: batched within each (stage, degree, slot) group,
         Gauss-Seidel between stages (a stage reads the messages of the
-        previous one)."""
+        previous one).  With `use_kernel` and ``bp_kernel="kernel"``, every
+        group the fused kernel takes (degree >= 2, contiguous source rows,
+        `supports_group`) goes through `bp_sweep_group`; the rest stay on the
+        einsum chain, as at `tnqs/engine.py:798-831`."""
+        kernel = use_kernel and self.bp_kernel == "kernel"
         stage = None
         out = M
-        for (g_stage, k, src, dst, ins, expr) in self._bp_groups:
+        for (g_stage, k, t, src, dst, ins, in_all, expr) in self._bp_groups:
             if g_stage != stage:
                 M = out  # stage barrier
                 out = M.clone()
                 stage = g_stage
-            A = Asrc = T[k][src]
-            for axis, eids in ins:
-                A = _absorb_message(A, M[eids], axis)
-            # contract with conj(T) over the site axis and every other bond
-            m_new = torch.einsum(expr, A, Asrc.conj())
+            if kernel and k >= 2 and isinstance(src, slice) and supports_group(k, self.chi, self.dtype):
+                m_new = bp_sweep_group(T[k], M[in_all], src.start, t)
+            else:
+                A = Asrc = T[k][src]
+                for axis, eids in ins:
+                    A = _absorb_message(A, M[eids], axis)
+                # contract with conj(T) over the site axis and every other bond
+                m_new = torch.einsum(expr, A, Asrc.conj())
             # sum-normalize (`tnqs/engine.py:834-836`)
             norm = torch.sum(m_new, dim=(1, 2), keepdim=True)
             out[dst] = m_new / torch.where(torch.abs(norm) > 0, norm, 1.0)
         return out
 
-    def _bp_fixed_point(self, T: dict, M: torch.Tensor, maxiter: int, tolerance: float) -> torch.Tensor:
+    def _bp_fixed_point(
+        self, T: dict, M: torch.Tensor, maxiter: int, tolerance: float, use_kernel: bool = True
+    ) -> torch.Tensor:
         """BP to `tolerance` or `maxiter` iterations, with the loop of
         `tnqs/engine.py:853-884`: the first update counts as iteration 1,
-        then iterate while ``it < maxiter and eps > tolerance``."""
-        M_cur = self._bp_new_messages(T, M)
+        then iterate while ``it < maxiter and eps > tolerance``.  The count
+        and the last eps stay in `bp_iterations` and `bp_eps`."""
+        if use_kernel and self.bp_kernel == "kernel":
+            T = {k: v.contiguous() for k, v in T.items()}  # the kernel reads T in place
+        M_cur = self._bp_new_messages(T, M, use_kernel)
         eps = _bp_diff(M, M_cur)
         it = 1
         while it < maxiter and float(eps) > tolerance:
-            M_new = self._bp_new_messages(T, M_cur)
+            M_new = self._bp_new_messages(T, M_cur, use_kernel)
             eps = _bp_diff(M_cur, M_new)
             M_cur = M_new
             it += 1
+        self.bp_iterations, self.bp_eps = it, float(eps)
         return M_cur
+
+    def bp_update(self, maxiter: int = 30, tolerance: float | None = None) -> "LatticeEngine":
+        """Run BP on the engine's state to `tolerance` (default by dtype) or
+        `maxiter` iterations, through the fused kernel where `bp_kernel`
+        says so (`tnqs/engine.py:845`)."""
+        if tolerance is None:
+            tolerance = default_engine_tolerance(self.dtype)
+        self.M = self._bp_fixed_point(self.T, self.M, maxiter, tolerance)
+        return self
 
     # -- gauge and layout (`tnqs/engine.py:887-973`) ---------------------
     def _gather_permuted(self, T: dict, k: int, rows: _Rows) -> torch.Tensor:
@@ -798,12 +848,12 @@ class LatticeEngine:
             errors = torch.zeros((n_gates,), dtype=self.real_dtype, device=self.device)
             for entry in program:
                 if entry[0] == "bp":
-                    M = self._bp_fixed_point(T, M, inner, bp_tolerance)
+                    M = self._bp_fixed_point(T, M, inner, bp_tolerance, use_kernel=False)
                 elif entry[0] == "one":
                     self._apply_one_site_group(T, group_data[entry[2]])
                 else:
                     self._apply_two_site_group(T, M, errors, group_data[entry[2]], cutoff, normalize)
-            M = self._bp_fixed_point(T, M, bp_maxiter, bp_tolerance)
+            M = self._bp_fixed_point(T, M, bp_maxiter, bp_tolerance, use_kernel=False)
             return T, M, errors
 
         L = int(layers_per_call)
@@ -830,18 +880,31 @@ class LatticeEngine:
             all_errors.append(errors)
         return torch.stack(all_errors).cpu().numpy()
 
-    # -- measurement (`tnqs/engine.py:1566-1598`) -------------------------
+    # -- measurement (`tnqs/engine.py:1566-1961`) -------------------------
+    def _closed(self, T: dict, M: torch.Tensor, k: int) -> torch.Tensor:
+        """Bucket-k tensors with the incoming message of every bond absorbed."""
+        plan = self.plan
+        in_eids = np.array(
+            [[plan.edge_ids[(u, v)] for u in plan.neighbor_order[v]] for v in plan.buckets[k]], dtype=np.int64
+        ).reshape(-1, k)
+        A = T[k]
+        for j in range(k):
+            A = _absorb_message(A, M[_index(in_eids[:, j], self.device)], axis=2 + j)
+        return A
+
+    def _edge_index(self, edges) -> tuple[torch.Tensor, torch.Tensor]:
+        """Message ids (u -> v, v -> u) of each undirected edge (u, v)."""
+        ids = self.plan.edge_ids
+        return _index([ids[(u, v)] for (u, v) in edges], self.device), _index([ids[(v, u)] for (u, v) in edges], self.device)
+
+    def _op(self, opname: str) -> torch.Tensor:
+        return torch.as_tensor(op_matrix(opname), device=self.device).to(self.dtype)
+
     def _expect_1site_all(self, T: dict, M: torch.Tensor, op: torch.Tensor) -> dict:
         """<op_v> for every vertex via BP, batched per degree bucket."""
-        plan = self.plan
         outs = {}
-        for k, verts in plan.buckets.items():
-            in_eids = np.array(
-                [[plan.edge_ids[(u, v)] for u in plan.neighbor_order[v]] for v in verts], dtype=np.int64
-            ).reshape(len(verts), k)
-            A = T[k]
-            for j in range(k):
-                A = _absorb_message(A, M[_index(in_eids[:, j], self.device)], axis=2 + j)
+        for k in self.plan.buckets:
+            A = self._closed(T, M, k)
             Tc = T[k].conj()
             axes = "".join(chr(ord("a") + j) for j in range(k))
             denom = torch.einsum(f"Bs{axes},Bs{axes}->B", A, Tc)
@@ -851,11 +914,193 @@ class LatticeEngine:
 
     def expect_1site(self, opname: str) -> dict:
         """BP expectation of a one-site operator on every vertex."""
-        op = torch.as_tensor(op_matrix(opname), device=self.device).to(self.dtype)
-        outs = self._expect_1site_all(self.T, self.M, op)
+        outs = self._expect_1site_all(self.T, self.M, self._op(opname))
         result = {}
         for k, verts in self.plan.buckets.items():
             vals = outs[k].cpu().numpy()
             for i, v in enumerate(verts):
                 result[v] = complex(vals[i])
         return result
+
+    def _edge_classes(self) -> list:
+        """Undirected edges batched by (deg u, deg v), one entry per edge in
+        its stored orientation (`tnqs/engine.py:1600`): (ku, kv, edges, u
+        rows, v rows, u env message ids [B, ku-1], v env message ids), the
+        rows and ids as device data."""
+        if self._edge_cls_cache is not None:
+            return self._edge_cls_cache
+        plan = self.plan
+        classes: dict = {}
+        for (u, v) in plan.graph.edges():
+            ku, up = plan.bucket_pos[u]
+            kv, vp = plan.bucket_pos[v]
+            su = plan.neighbor_order[u].index(v)
+            sv = plan.neighbor_order[v].index(u)
+            env_u = [plan.edge_ids[(plan.neighbor_order[u][j], u)] for j in range(ku) if j != su]
+            env_v = [plan.edge_ids[(plan.neighbor_order[v][j], v)] for j in range(kv) if j != sv]
+            classes.setdefault((ku, kv), []).append(((u, v), up, vp, su, sv, env_u, env_v))
+        out = []
+        for (ku, kv), items in sorted(classes.items()):
+            col = lambda i: np.array([it[i] for it in items], dtype=np.int64)  # noqa: E731
+            out.append(
+                (
+                    ku,
+                    kv,
+                    [it[0] for it in items],
+                    _Rows(col(1), col(3), self.device),
+                    _Rows(col(2), col(4), self.device),
+                    _index(col(5).reshape(len(items), ku - 1), self.device),
+                    _index(col(6).reshape(len(items), kv - 1), self.device),
+                )
+            )
+        self._edge_cls_cache = out
+        return out
+
+    def _expect_2site_all(self, T: dict, M: torch.Tensor, op_u: torch.Tensor, op_v: torch.Tensor) -> list:
+        """<op_u op_v> on every edge via the two-site BP region, batched per
+        (deg u, deg v) class (`tnqs/engine.py:1634`)."""
+        outs = []
+        for (ku, kv, _, rows_u, rows_v, env_u, env_v) in self._edge_classes():
+            Au0 = self._gather_permuted(T, ku, rows_u)  # [B, d, env..., bond]
+            Av0 = self._gather_permuted(T, kv, rows_v)
+            Au, Av = Au0, Av0
+            for col in range(ku - 1):
+                Au = _absorb_message(Au, M[env_u[:, col]], axis=2 + col)
+            for col in range(kv - 1):
+                Av = _absorb_message(Av, M[env_v[:, col]], axis=2 + col)
+            eu = "".join(chr(ord("a") + j) for j in range(ku - 1))
+            ev = "".join(chr(ord("f") + j) for j in range(kv - 1))
+            # half transfer matrices on the shared bond: [B, d_out, d_in, x, y]
+            hu = torch.einsum(f"Bs{eu}x,Bt{eu}y->Bstxy", Au, Au0.conj())
+            hv = torch.einsum(f"Bs{ev}x,Bt{ev}y->Bstxy", Av, Av0.conj())
+            denom = torch.einsum("Bssxy,Bppxy->B", hu, hv)
+            # hu[s,t,..] pairs ket index s with bra index t: <O> inserts O[t,s]
+            numer = torch.einsum("Bstxy,ts,Bpqxy,qp->B", hu, op_u, hv, op_v)
+            outs.append(numer / denom)
+        return outs
+
+    def expect_2site(self, opname_u: str, opname_v: str) -> dict:
+        """BP expectation of a two-site operator on every edge of the
+        lattice: {edge: value}.  The region is the two site tensors plus
+        their incoming messages."""
+        outs = self._expect_2site_all(self.T, self.M, self._op(opname_u), self._op(opname_v))
+        result = {}
+        for (_, _, edges, *_), vals in zip(self._edge_classes(), outs):
+            for e, x in zip(edges, vals.cpu().numpy()):
+                result[e] = complex(x)
+        return result
+
+    def _bp_scalars(self, T: dict, M: torch.Tensor) -> tuple[dict, torch.Tensor]:
+        """(vertex scalars per bucket, edge scalars) of the BP fixed point
+        (`tnqs/engine.py:1679`): a vertex closed with all its incoming
+        messages; <m_e, m_e~> per undirected edge."""
+        vs = {}
+        for k in self.plan.buckets:
+            axes = "".join(chr(ord("a") + j) for j in range(k))
+            vs[k] = torch.einsum(f"Bs{axes},Bs{axes}->B", self._closed(T, M, k), T[k].conj())
+        idx1, idx2 = self._edge_index(self.plan.graph.edges())
+        return vs, torch.einsum("eij,eij->e", M[idx1], M[idx2])
+
+    def freenergy(self):
+        """BP free energy log Z = sum log(vertex scalars) - sum log(edge
+        scalars) (`tnqs/engine.py:1703`), complex when a term is complex or
+        negative, -inf when an edge scalar is zero.  For a state Z is the BP
+        estimate of <psi|psi>."""
+        vs, es = self._bp_scalars(self.T, self.M)
+        numer = np.concatenate([v.cpu().numpy().ravel() for v in vs.values()])
+        denom = es.cpu().numpy().ravel()
+        if np.any(denom == 0):
+            return -np.inf
+        f = _log_sum(numer) - _log_sum(denom)
+        if isinstance(f, complex) and f.imag == 0:
+            f = f.real
+        return f
+
+    def partitionfunction(self):
+        """exp(freenergy) (`tnqs/engine.py:1727`)."""
+        return _z_from_freenergy(self.freenergy())
+
+    def _rescaled(self, T: dict, M: torch.Tensor) -> tuple[dict, torch.Tensor]:
+        """Every message pair to unit overlap, then every vertex tensor by
+        1/sqrt(its vertex scalar): afterwards all local BP scalars, and so
+        Z_BP, are 1 (`tnqs/engine.py:1861`).  A real dtype cannot take a
+        complex root: there the pair overlap is sign-flipped onto +1 and a
+        vertex keeps the sign of its scalar."""
+        idx1, idx2 = self._edge_index(self.plan.graph.edges())
+        m1, m2 = _unit_rows(M[idx1]), _unit_rows(M[idx2])
+        n = torch.einsum("eij,eij->e", m1, m2)[:, None, None]
+        if M.is_complex():
+            root = torch.sqrt(torch.where(n.abs() > 0, n, 1.0))
+            m1n, m2n = m1 / root, m2 / root
+        else:
+            sign = torch.where(n < 0, -1.0, 1.0).to(M.dtype)
+            root = torch.sqrt(torch.where(n.abs() > 0, n.abs(), 1.0))
+            m1n, m2n = m1 * sign / root, m2 / root
+        Mn = M.clone()
+        Mn[idx1] = m1n
+        Mn[idx2] = m2n
+        vs, _ = self._bp_scalars(T, Mn)
+        Tn = {}
+        for k, q in vs.items():
+            r = torch.sqrt(torch.where(q.abs() > 0, q if q.is_complex() else q.abs(), 1.0))
+            Tn[k] = T[k] / r.reshape((-1,) + (1,) * (T[k].dim() - 1))
+        return Tn, Mn
+
+    def rescale(self) -> "LatticeEngine":
+        """In place: all local BP scalars to 1 (`tnqs/engine.py:1905`)."""
+        self.T, self.M = self._rescaled(self.T, self.M)
+        return self
+
+    def normalize(self, bp_maxiter: int = 30) -> "LatticeEngine":
+        """BP-normalize the state: converge the messages, then rescale so
+        Z_BP = <psi|psi>_BP = 1 (`tnqs/engine.py:1910`)."""
+        self.bp_update(maxiter=bp_maxiter)
+        return self.rescale()
+
+    def _bond_spectra(self, M: torch.Tensor, idx1: torch.Tensor, idx2: torch.Tensor) -> torch.Tensor:
+        """Eigenvalues of rho_e = sqrt(m_rev) m_fwd sqrt(m_rev) per bond,
+        similar to m_fwd m_rev: the bond spectrum read off the BP fixed
+        point (`tnqs/engine.py:1919`)."""
+        m1 = M[idx1]
+        m2 = M[idx2]
+        m1 = 0.5 * (m1 + m1.mH)
+        m2 = 0.5 * (m2 + m2.mH)
+        w2, V2 = torch.linalg.eigh(m2)
+        root = torch.sqrt(torch.clamp(w2, min=0.0))
+        W2 = torch.einsum("eij,ej,ekj->eik", V2, root.to(V2.dtype), V2.conj())
+        rho = torch.einsum("eij,ejk,ekl->eil", W2, m1, W2)
+        rho = 0.5 * (rho + rho.mH)
+        return torch.linalg.eigvalsh(rho)
+
+    def bond_entropies(self, alpha: float = 1.0, edges=None) -> dict:
+        """Renyi-alpha entanglement entropy of every bond (or of `edges`)
+        from the converged messages (`tnqs/engine.py:1936`); alpha = 1 is
+        von Neumann.  Returns {edge: entropy}."""
+        if edges is None:
+            edges = list(self.plan.graph.edges())
+        lam = self._bond_spectra(self.M, *self._edge_index(edges)).cpu().numpy()
+        out = {}
+        for e, lams in zip(edges, lam):
+            lams = lams / np.sum(lams)  # trace-normalize
+            lams = lams[np.abs(lams) > 10 * np.finfo(lams.dtype).eps]
+            if alpha == 1:
+                out[tuple(e)] = float(-np.sum(lams * np.log(lams)))
+            else:
+                out[tuple(e)] = float(np.log(np.sum(lams**alpha)) / (1 - alpha))
+        return out
+
+
+def _log_sum(terms: np.ndarray):
+    """sum(log(terms)), complex when a term is complex or negative."""
+    if np.any(np.iscomplex(terms)) or np.any(np.real(terms) < 0):
+        return complex(np.sum(np.log(terms.astype(complex))))
+    return float(np.sum(np.log(np.real(terms))))
+
+
+def _z_from_freenergy(f):
+    """exp(log Z), an exactly real complex value demoted to float
+    (`tnqs/engine.py:1964`)."""
+    z = np.exp(f)
+    if isinstance(z, complex) and z.imag == 0:
+        z = z.real
+    return z

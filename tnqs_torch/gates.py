@@ -2,7 +2,8 @@
 
 Port of the entries of `tnqs/gates.py` that the Ising layers use: ``Rx``,
 ``Rz`` and ``Rzz`` (`tnqs/gates.py:99`, `:101`, `:137`), resolved by
-`gate_matrix` (`:276`), plus the ``Z`` operator of `tnqs/sitetypes.py:55`.
+`gate_matrix` (`:276`), plus the qubit operator table of
+`tnqs/sitetypes.py:51-66`.
 Parameter conventions are qiskit's, ``Rzz(θ) = exp(-i θ ZZ / 2)``.  The
 matrices are host numpy in complex128, built by the same arithmetic as the
 JAX package so both compile bit-identical gate tables.
@@ -12,10 +13,26 @@ from __future__ import annotations
 
 import numpy as np
 
+_SQ2 = 1.0 / np.sqrt(2.0)
 _X = np.array([[0.0, 1.0], [1.0, 0.0]])
 _Z = np.array([[1.0, 0.0], [0.0, -1.0]])
 
-OPERATORS = {"Z": _Z}
+OPERATORS = {
+    "I": np.eye(2),
+    "X": _X,
+    "Y": np.array([[0.0, -1j], [1j, 0.0]]),
+    "Z": _Z,
+    "H": np.array([[_SQ2, _SQ2], [_SQ2, -_SQ2]]),
+    "S": np.array([[1.0, 0.0], [0.0, 1j]]),
+    "T": np.array([[1.0, 0.0], [0.0, np.exp(1j * np.pi / 4)]]),
+    "Sx": 0.5 * _X,
+    "Sy": 0.5 * np.array([[0.0, -1j], [1j, 0.0]]),
+    "Sz": 0.5 * _Z,
+    "S+": np.array([[0.0, 1.0], [0.0, 0.0]]),
+    "S-": np.array([[0.0, 0.0], [1.0, 0.0]]),
+    "ProjUp": np.array([[1.0, 0.0], [0.0, 0.0]]),
+    "ProjDn": np.array([[0.0, 0.0], [0.0, 1.0]]),
+}
 
 
 def _expm_gen(h: np.ndarray, scale) -> np.ndarray:

@@ -2,10 +2,12 @@
 
 The sources have a plain C interface, so nvcc compiles them in seconds into
 one shared library that `ctypes` loads; nothing includes PyTorch's headers.
-The library goes to ``build/tnqs_torch/`` at the repository root, named by a
-hash of the sources and flags, and is built at first use.  No
-``--use_fast_math``: the Jacobi rotation formulas need IEEE division and
-square roots.
+Each source compiles in its own nvcc process, all started together, and one
+more links them.  The library goes to ``build/tnqs_torch/`` at the
+repository root, named by a hash of the sources and flags, and is built at
+first use; ptxas's register and spill report is kept beside it
+(`build_log`).  No ``--use_fast_math``: the Jacobi rotation formulas need
+IEEE division and square roots.
 """
 
 from __future__ import annotations
@@ -20,10 +22,8 @@ import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "tnqs_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,6 +33,10 @@ _SIGNATURES = {
     "tnqs_jacobi_eigh": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
     # (at_inout, vt_inout, batch, rows, n, rounds, eps, stream)
     "tnqs_osj_svd": [_P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
+    # (t, min, out, scratch, lo, batch, k, chi, d, slot, stream)
+    "tnqs_bp_sweep": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # (batch, k, chi, elems_out)
+    "tnqs_bp_sweep_scratch": [_I, _I, _I, ctypes.POINTER(ctypes.c_longlong)],
 }
 
 
@@ -62,19 +66,43 @@ def kernels() -> ctypes.CDLL:
     library of the same sources is already in the build directory."""
     path = library_path()
     if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        work = BUILD_DIR / f"objects.{os.getpid()}"
+        work.mkdir(parents=True, exist_ok=True)
+        sources = sorted(CSRC.glob("*.cu"))
+        objects = [work / f"{src.stem}.o" for src in sources]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objects)
+        ]
+        log = []
+        for src, proc in zip(sources, procs):
+            out = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{out}")
+            log.append(f"== {src.name}\n{out}")
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        res = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objects)],
+                             capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        path.with_suffix(".log").write_text("".join(log))
         os.replace(tmp, path)
+        shutil.rmtree(work)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def build_log() -> str:
+    """nvcc's output (ptxas registers, shared memory and spills) for the
+    library of the current sources, once it is built."""
+    log = library_path().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def check(err: int, name: str) -> None:
