@@ -7,9 +7,9 @@ Run from the repository root.  Phases, each of which fails the run:
 
 1. environment: Python, torch and CUDA versions, the card's name and power
    limit; exits nonzero when `torch.cuda.is_available()` is False;
-2. build: nvcc compiles `tnqs_torch/csrc/*.cu` for sm_90a into
-   `build/tnqs_torch/` (one process per source, in parallel) and ptxas's
-   register and spill lines are printed;
+2. build: nvcc compiles each `tnqs_torch/csrc/*.cu` for sm_90a into a
+   library of its own in `build/tnqs_torch/` (one process per source, in
+   parallel) and ptxas's register and spill lines are printed;
 3. kernels: each Jacobi kernel against its plain PyTorch version on the same
    card inputs, at the engine's chi=64 shapes (Gram [26, 128, 128] for
    `jacobi_eigh`; thetas [18, 128, 128] and [26, 256, 128] for `osj_svd`
@@ -18,8 +18,10 @@ Run from the repository root.  Phases, each of which fails the run:
    timed beside them as a yardstick the port never calls;
 4. BP kernel: `bp_sweep_group` against its plain version on every degree
    >= 2 group of the Eagle chi=64 color plan, on random site tensors and
-   positive messages, plus small groups of degree 2-6 that reach its other
-   tilings; one BP sweep timed on the kernel and on the einsum route;
+   positive messages, plus groups of gathered rows at degree 2-6 that
+   reach its other tilings; the largest group timed beside one
+   multi-operand `torch.einsum` of the same messages (the yardstick); one
+   BP sweep timed on the kernel and on the einsum route;
 5. main path: `LatticeEngine.make_step` on the Eagle-127 kicked-Ising layer
    (J = pi/4, theta_h = 0.4) at chi=64, complex64, cutoff 1e-12,
    bp_maxiter=25, N layers (default 10) from "↑".  After each layer <Z> at
@@ -143,14 +145,18 @@ def kernel_phase(dev):
     ms = cuda_ms(lambda: jacobi.jacobi_eigh(G, sweeps=8), 10)
     plain_ms = cuda_ms(lambda: jacobi.eigh_from_rounds(Hb, *jacobi._jacobi_eigh_plain(Hb, 8)), 2)
     library_ms = cuda_ms(lambda: torch.linalg.eigh(Hb), 10)
-    # every round rotates n/2 pairs of rows and columns of H and columns of
-    # V: ~12n complex MACs (8 FLOP each) a pair, at the full schedule (pairs
-    # the kernel finds converged skip their update, so this is the most the
-    # run needs)
+    # A rotation taken updates 2n elements of H's rows, 2n of its columns
+    # and 2n of V's (`jacobi_eigh.cu`, phases 2-3), each c x + s y with real
+    # c: 4 FMAs and 2 multiplies, 6 issue slots of the FP32 pipe (a slot is
+    # 2 FLOP at the peak rate).  A pair found converged skips its update,
+    # so the rotations count as this run's data takes them, as the plain
+    # version on the same input counts them.
     B, n = Hb.shape[:2]
-    bound_ms, bound_by = bound(B * 8 * (n - 1) * (n // 2) * 12 * n * 8, B * n * n * 8 * 2 + B * n * 4)
+    taken = jacobi._jacobi_eigh_plain.rotations.item()
+    bound_ms, bound_by = bound(taken * 6 * n * 6 * 2, B * n * n * 8 * 2 + B * n * 4)
     print(f"jacobi_eigh [26,128,128] sweeps=8: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"torch.linalg.eigh {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+          f"torch.linalg.eigh {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
+          f"{taken} of {B * 8 * (n - 1) * (n // 2)} rotations taken)")
     results.append(dict(name="jacobi_eigh", route="cuda", source="tnqs_torch/csrc/jacobi_eigh.cu",
                         replaces="tnqs/ops/jacobi.py:279", max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
@@ -181,18 +187,22 @@ def kernel_phase(dev):
         print(f"osj_svd [{B},{R},128] kernel vs plain: max |ds| {err:.3e}, relative to largest {rel:.3e}")
         require(rel < 1e-4, "osj_svd: kernel and plain singular values differ by more than 1e-4")
         errs.append(err)
-        # a round's pair: its 2x2 Gram (~3R complex MACs), the column update
-        # (4R) and V's (4n), at the full schedule
+        k_ms = cuda_ms(lambda: osj.osj_svd(B0, V0, sweeps=polish), 10)
+        p_ms = cuda_ms(lambda: osj.svd_from_rounds(*osj._osj_svd_plain(Ab, V0, polish), scale), 2)
+        l_ms = cuda_ms(lambda: torch.linalg.svd(A, full_matrices=False), 10)
+        # Every pair of every round forms its 2x2 Gram: 4 x 2 FMAs per row
+        # (`osj_svd.cu:99-105`).  A rotation taken updates R + n rows of the
+        # pair's two columns of A and V, 12 issue slots each (`colmix`: 4
+        # FMAs and 2 multiplies per output).  Rotations counted as this
+        # run's data takes them, by the plain version on the same input; a
+        # slot is 2 FLOP at the peak rate.
         n = 128
-        times[(B, R)] = (
-            cuda_ms(lambda: osj.osj_svd(B0, V0, sweeps=polish), 10),
-            cuda_ms(lambda: osj.svd_from_rounds(*osj._osj_svd_plain(Ab, V0, polish), scale), 2),
-            cuda_ms(lambda: torch.linalg.svd(A, full_matrices=False), 10),
-            *bound(B * polish * (n - 1) * (n // 2) * (7 * R + 4 * n) * 8, B * (R * n + n * n) * 8 * 2),
-        )
-        print(f"osj_svd [{B},{R},128] sweeps={polish}: kernel {times[(B, R)][0]:.3f} ms, "
-              f"plain {times[(B, R)][1]:.3f} ms, torch.linalg.svd {times[(B, R)][2]:.3f} ms, "
-              f"bound {times[(B, R)][3]:.3f} ms ({times[(B, R)][4]})")
+        pairs, taken = B * polish * (n - 1) * (n // 2), osj._osj_svd_plain.rotations.item()
+        times[(B, R)] = (k_ms, p_ms, l_ms,
+                         *bound((pairs * 8 * R + taken * 12 * (R + n)) * 2, B * (R * n + n * n) * 8 * 2))
+        print(f"osj_svd [{B},{R},128] sweeps={polish}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+              f"torch.linalg.svd {l_ms:.3f} ms, bound {times[(B, R)][3]:.3f} ms ({times[(B, R)][4]}; "
+              f"{taken} of {pairs} rotations taken)")
     ms, plain_ms, library_ms, bound_ms, bound_by = times[(26, 256)]
     results.append(dict(name="osj_svd", route="cuda", source="tnqs_torch/csrc/osj_svd.cu",
                         replaces="tnqs/ops/osj.py:306", max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
@@ -225,13 +235,12 @@ def bp_kernel_phase(dev, chi=64):
     # 1e-4 of the largest normalized entry leaves a factor 10
     tol = 1e-4
     errs, largest = [], None
-    for (stage, k, t, src, _, _, in_all, _) in eng._bp_groups:
+    for (stage, k, t, _, _, _, rows, in_all) in eng._bp_groups:
         if k < 2:
             continue
-        require(isinstance(src, slice), f"group (stage {stage}, k={k}, t={t}) is not contiguous")
         Min = M[in_all]
-        m_k = normalized(bp_sweep.bp_sweep_group(T[k], Min, src.start, t))
-        m_p = normalized(bp_sweep._bp_sweep_group_plain(T[k], Min, src.start, t))
+        m_k = normalized(bp_sweep.bp_sweep_group(T[k], Min, rows, t))
+        m_p = normalized(bp_sweep._bp_sweep_group_plain(T[k], Min, rows, t))
         torch.cuda.synchronize()
         require(torch.isfinite(m_k).all(), f"bp_sweep_group k={k} t={t}: non-finite output")
         err = (m_k - m_p).abs().max().item()
@@ -241,34 +250,55 @@ def bp_kernel_phase(dev, chi=64):
               f"relative to largest {rel:.3e}")
         require(rel < tol, f"bp_sweep_group k={k} t={t}: kernel and plain differ by more than {tol}")
         if largest is None or Min.shape[0] * chi**k > largest[0]:
-            largest = (Min.shape[0] * chi**k, k, t, src.start, Min)
+            largest = (Min.shape[0] * chi**k, k, t, rows, Min)
 
-    # the kernel's other tilings: fewer rows per block than chi divides,
-    # degree 4-5 buffers in shared memory, degree 6 in global scratch, a
-    # 512-wide bond, and the empty group
-    for kk, w, n_k, lo, B in ((3, 12, 5, 1, 3), (4, 8, 4, 1, 2), (5, 8, 3, 0, 2), (6, 8, 2, 1, 1), (2, 512, 4, 2, 2)):
+    # the kernel's other tilings, on rows gathered out of order (the
+    # wavefront schedule's groups): degree 3 at chi=64, degree 4-5 buffers
+    # in shared memory, degree 6 in global scratch, a 512-wide bond with the
+    # message in global memory; and the empty group
+    for kk, w, n_k, B in ((3, 64, 5, 3), (4, 8, 4, 3), (5, 8, 3, 2), (6, 8, 2, 2), (2, 512, 4, 3)):
         Tk = torch.as_tensor(rand_c(rng, (n_k, 2) + (w,) * kk), device=dev)
         Min = torch.as_tensor(rand_c(rng, (B, kk - 1, w, w)), device=dev)
+        rows = torch.as_tensor(rng.permutation(n_k)[:B], device=dev)
         rel = 0.0
         for t in range(kk):
-            m_k = bp_sweep.bp_sweep_group(Tk, Min, lo, t)
-            m_p = bp_sweep._bp_sweep_group_plain(Tk, Min, lo, t)
+            m_k = bp_sweep.bp_sweep_group(Tk, Min, rows, t)
+            m_p = bp_sweep._bp_sweep_group_plain(Tk, Min, rows, t)
             rel = max(rel, ((m_k - m_p).abs().max() / m_p.abs().max()).item())
-        print(f"bp_sweep_group k={kk} chi={w} B={B}, every slot: max relative difference {rel:.3e}")
+        print(f"bp_sweep_group k={kk} chi={w} rows {rows.tolist()}, every slot: max relative difference {rel:.3e}")
         require(rel < tol, f"bp_sweep_group k={kk} chi={w}: kernel and plain differ by {rel:.3e}")
-    require(bp_sweep.bp_sweep_group(T[3], M[:0].reshape(0, 2, chi, chi), 0, 0).shape == (0, chi, chi),
+    no_rows = torch.zeros(0, dtype=torch.int64, device=dev)
+    require(bp_sweep.bp_sweep_group(T[3], M[:0].reshape(0, 2, chi, chi), no_rows, 0).shape == (0, chi, chi),
             "bp_sweep_group: empty group")
 
-    _, k, t, lo, Min = largest
+    _, k, t, rows, Min = largest
     B = Min.shape[0]
-    ms = cuda_ms(lambda: bp_sweep.bp_sweep_group(T[k], Min, lo, t), 10)
-    plain_ms = cuda_ms(lambda: bp_sweep._bp_sweep_group_plain(T[k], Min, lo, t), 2)
-    # k absorbs-and-contract passes of chi^(k+1) complex MACs per site value
-    # and message; each site tensor and message read once, each message written
+    ms = cuda_ms(lambda: bp_sweep.bp_sweep_group(T[k], Min, rows, t), 10)
+    plain_ms = cuda_ms(lambda: bp_sweep._bp_sweep_group_plain(T[k], Min, rows, t), 2)
+    # the yardstick: one torch.einsum of the gathered site tensors, the k-1
+    # messages and the conjugate, "Bsibc,Bbp,Bcq,Bsjpq->Bij" at k=3, t=0
+    A = T[k][rows]
+    ket = ["s"] + [chr(ord("a") + j) for j in range(k)]
+    bra = list(ket)
+    ket[1 + t], bra[1 + t] = "i", "j"
+    msgs = []
+    for col, j in enumerate(j for j in range(k) if j != t):
+        bra[1 + j] = chr(ord("p") + col)
+        msgs.append(f"B{ket[1 + j]}{bra[1 + j]}")
+    expr = f"B{''.join(ket)},{','.join(msgs)},B{''.join(bra)}->Bij"
+    m_lib = normalized(torch.einsum(expr, A, *Min.unbind(1), A.conj()))
+    lib_rel = ((m_lib - normalized(bp_sweep._bp_sweep_group_plain(T[k], Min, rows, t))).abs().max()
+               / m_lib.abs().max()).item()
+    require(lib_rel < tol, f"the library einsum {expr} differs from the plain version by {lib_rel:.3e}")
+    library_ms = cuda_ms(lambda: torch.einsum(expr, A, *Min.unbind(1), A.conj()), 10)
+    # k absorbs-and-contract passes of chi^(k+1) complex MACs (4 FMAs, 8
+    # FLOP) per site value and message; each site tensor and message read
+    # once, each message written
     flops = B * 2 * k * chi ** (k + 1) * 8
     bound_ms, bound_by = bound(flops, (B * 2 * chi**k + B * k * chi * chi) * 8)
     print(f"bp_sweep_group k={k} t={t} B={B}: kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s), "
-          f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+          f"plain {plain_ms:.3f} ms, torch.einsum {expr} {library_ms:.3f} ms (vs plain {lib_rel:.1e}), "
+          f"bound {bound_ms:.3f} ms ({bound_by})")
     sweep = {}
     for use_kernel in (False, True, True, False):
         sweep.setdefault(use_kernel, []).append(cuda_ms(lambda: eng._bp_new_messages(T, M, use_kernel), 5))
@@ -276,7 +306,7 @@ def bp_kernel_phase(dev, chi=64):
           f"einsum route {sweep[False]} ms")
     return dict(name="bp_sweep_group", route="cuda", source="tnqs_torch/csrc/bp_sweep.cu",
                 replaces="tnqs/ops/bp_sweep.py:282", max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
 def main_path(dev, layers):
@@ -448,8 +478,8 @@ def main():
     try:
         t0 = time.perf_counter()
         _build.kernels()
-        print(f"kernel build {time.perf_counter() - t0:.2f} s -> {_build.library_path().relative_to(ROOT)}",
-              flush=True)
+        libs = ", ".join(str(p.relative_to(ROOT)) for p in _build.library_paths().values())
+        print(f"kernel build {time.perf_counter() - t0:.2f} s -> {libs}", flush=True)
         for line in _build.build_log().splitlines():
             if line.startswith("==") or any(w in line for w in ("Function properties", "registers", "spill")):
                 print(f"  {line.strip()}")

@@ -45,6 +45,10 @@ def _graph(name):
     return tnqs.heavy_hexagonal_lattice(2, 2) if name == "hh22" else tnqs.named_grid((3, 3))
 
 
+def _rows(pos):
+    return torch.as_tensor(np.asarray(pos, dtype=np.int64))
+
+
 @pytest.mark.parametrize("name, chi, gi", GROUPS, ids=[f"{n}-chi{c}-group{i}" for n, c, i in GROUPS])
 def test_bp_sweep_plain_matches_jax_interpret(name, chi, gi):
     plan = JaxPlan.build(_graph(name), bp_schedule="color")
@@ -60,11 +64,27 @@ def test_bp_sweep_plain_matches_jax_interpret(name, chi, gi):
     m_jax = np.asarray(mr) + 1j * np.asarray(mi)
 
     calls = bp_sweep._bp_sweep_group_plain.calls
-    m = bp_sweep.bp_sweep_group(torch.as_tensor(Tk), torch.as_tensor(Min), lo, t).numpy()
+    m = bp_sweep.bp_sweep_group(torch.as_tensor(Tk), torch.as_tensor(Min), _rows(src_pos), t).numpy()
     assert bp_sweep._bp_sweep_group_plain.calls == calls + 1
     assert m.shape == (len(src_pos), chi, chi)
     # float32 sums over d * chi^(k-1) <= 1024 products in another order:
     # ~sqrt(1024) ulps of the largest entry, bounded at 1e-5
+    assert np.max(np.abs(m - m_jax)) < 1e-5 * np.max(np.abs(m_jax))
+
+
+@pytest.mark.parametrize("k, t", [(2, 1), (3, 0), (3, 2)])
+def test_bp_sweep_plain_takes_gathered_rows(k, t):
+    """Rows out of order, as the wavefront schedule gathers them, against
+    the JAX kernel on the same rows laid out contiguously."""
+    rng = np.random.default_rng(7 + k + t)
+    Tk = _rand_c(rng, (5, 2) + (8,) * k)
+    Min = _rand_c(rng, (3, k - 1, 8, 8))
+    pos = np.array([4, 0, 2])
+    planes = jax_bp.plane_layouts(jnp.asarray(Tk[pos].real), jnp.asarray(Tk[pos].imag), k, t)
+    mr, mi = jax_bp.bp_sweep_group(*planes, jnp.asarray(Min.real), jnp.asarray(Min.imag), lo=0, k=k, interpret=True)
+    m_jax = np.asarray(mr) + 1j * np.asarray(mi)
+    m = bp_sweep.bp_sweep_group(torch.as_tensor(Tk), torch.as_tensor(Min), _rows(pos), t).numpy()
+    # float32 sums over <= 2 * 8^2 products in another order
     assert np.max(np.abs(m - m_jax)) < 1e-5 * np.max(np.abs(m_jax))
 
 
@@ -100,10 +120,11 @@ def test_bp_update_matches_jax(converged, kern, jax_kern):
                                    bp_kernel=kern)
     calls = bp_sweep._bp_sweep_group_plain.calls
     pe.bp_update(maxiter=10)
-    # the wavefront schedule mixes contiguous groups (the kernel route) and
-    # gathered ones (einsum in both packages)
+    # every degree >= 2 group takes the kernel route, the wavefront
+    # schedule's gathered ones too (JAX keeps those on einsum)
     ran = bp_sweep._bp_sweep_group_plain.calls - calls
-    assert (ran > 0) == (kern == "kernel")
+    per_sweep = sum(1 for g in pe.plan.bp_groups if g[1] >= 2)
+    assert ran == (per_sweep * pe.bp_iterations if kern == "kernel" else 0)
     assert 1 <= pe.bp_iterations <= 10 and np.isfinite(pe.bp_eps)
     # the bound of tests/test_ops.py:123: same update order, float32 rounding
     assert np.max(np.abs(pe.M.numpy() - np.asarray(je.M))) < 5e-6
@@ -209,8 +230,9 @@ def test_bp_kernel_switch():
     assert LatticeEngine(p, chi=4, device="cpu", bp_kernel="kernel").bp_kernel == "kernel"
     with pytest.raises(ValueError):
         LatticeEngine(p, chi=4, device="cpu", bp_kernel="xla")
-    # the layer step keeps its einsum refreshes under any bp_kernel
-    eng = LatticeEngine(p, chi=4, device="cpu", bp_kernel="kernel")
+    # the layer step keeps its einsum refreshes under any bp_kernel; chi=8
+    # is the smallest bond the kernel takes
+    eng = LatticeEngine(p, chi=8, device="cpu", bp_kernel="kernel")
     calls = bp_sweep._bp_sweep_group_plain.calls
     eng.evolve(tt.heavy_hex_kicked_ising_layer(p, np.pi / 4, 0.4), cutoff=1e-12, bp_maxiter=5)
     assert bp_sweep._bp_sweep_group_plain.calls == calls
@@ -220,7 +242,7 @@ def test_bp_kernel_switch():
 
 @pytest.mark.parametrize(
     "k, chi, admitted",
-    [(2, 64, True), (3, 64, True), (4, 16, True), (6, 8, True), (2, 512, True), (2, 12, True),
+    [(2, 64, True), (3, 64, True), (4, 16, True), (6, 8, True), (2, 512, True), (2, 12, False),
      (1, 64, False), (4, 128, False), (2, 1024, False)],
 )
 def test_supports_group(k, chi, admitted):
@@ -229,30 +251,33 @@ def test_supports_group(k, chi, admitted):
 
 
 def test_supports_group_admits_every_tpu_group():
-    for k in range(2, 9):
-        for chi in range(8, 520, 8):
-            if jax_bp.supports_group(k, chi, 2, np.complex64):
-                assert bp_sweep.supports_group(k, chi, torch.complex64), (k, chi)
+    # the kernel's gate is the TPU kernel's, no wider
+    for k in range(1, 9):
+        for chi in range(1, 520):
+            assert bp_sweep.supports_group(k, chi, torch.complex64) == jax_bp.supports_group(
+                k, chi, 2, np.complex64), (k, chi)
 
 
 def test_bp_sweep_wrapper_routes_by_device():
     rng = np.random.default_rng(3)
     Tk = torch.as_tensor(_rand_c(rng, (4, 2, 8, 8, 8)))
     Min = torch.as_tensor(_rand_c(rng, (2, 2, 8, 8)))
+    rows = _rows([1, 2])
     launches, calls = bp_sweep.bp_sweep_group.launches, bp_sweep._bp_sweep_group_plain.calls
     # an empty group launches nothing and runs nothing
-    assert bp_sweep.bp_sweep_group(Tk, Min[:0], 1, 0).shape == (0, 8, 8)
-    bp_sweep.bp_sweep_group(Tk, Min, 1, 2)
+    assert bp_sweep.bp_sweep_group(Tk, Min[:0], rows[:0], 0).shape == (0, 8, 8)
+    bp_sweep.bp_sweep_group(Tk, Min, rows, 2)
     assert bp_sweep.bp_sweep_group.launches == launches == 0
     assert bp_sweep._bp_sweep_group_plain.calls == calls + 1
-    with pytest.raises(ValueError):
-        bp_sweep.bp_sweep_group(Tk, Min, 3, 0)  # rows past the bucket
+    for bad in (_rows([3, 4]), _rows([-1, 0]), rows.int(), rows[:1]):
+        with pytest.raises(ValueError):  # past the bucket, negative, int32, too few
+            bp_sweep.bp_sweep_group(Tk, Min, bad, 0)
     # the launcher takes CUDA tensors only and never falls back; any device
     # but the CPU goes to it
     with pytest.raises(ValueError):
-        bp_sweep._bp_sweep_group_cuda(Tk, Min, 1, 0)
+        bp_sweep._bp_sweep_group_cuda(Tk, Min, rows, 0)
     meta_T = torch.empty(Tk.shape, dtype=Tk.dtype, device="meta")
     meta_M = torch.empty(Min.shape, dtype=Min.dtype, device="meta")
     with pytest.raises(ValueError):
-        bp_sweep.bp_sweep_group(meta_T, meta_M, 1, 0)
+        bp_sweep.bp_sweep_group(meta_T, meta_M, rows.to("meta"), 0)
     assert bp_sweep._bp_sweep_group_plain.calls == calls + 1

@@ -2,15 +2,17 @@
 //
 // Replaces the Pallas kernel of `tnqs/ops/bp_sweep.py::bp_sweep_group`
 // (tnqs/ops/bp_sweep.py:230; kernel body `_make_kernel`, :129).  For each
-// source row b of the group (bucket rows lo..lo+B-1 of T[k]) it computes the
+// source b of the group (bucket row rows[b] of T[k]) it computes the
 // un-normalized outgoing message
 //
 //   m[b, i, j] = sum_s sum_{x, y} K[s, i, x] (M_0 x ... x M_{k-2})[x, y] conj(K[s, j, y])
 //
-// where K[s, i, x] is the site tensor T[k][lo+b, s] with the outgoing slot t
+// where K[s, i, x] is the site tensor T[k][rows[b], s] with the outgoing slot t
 // indexed by i and the other k-1 bond slots (ascending) by the multi-index x,
 // and message col is absorbed into the other slot col as `...x, xy -> ...y`
-// (`_absorb_message`).  The caller sum-normalizes.
+// (`_absorb_message`).  The caller sum-normalizes.  The rows come as an
+// index array, so gathered groups (the wavefront schedule's) take the kernel
+// too; the TPU kernel takes a contiguous range `lo` only.
 //
 // The kernel reads complex64 T[k] in place, in its natural [n_k, d, chi^k]
 // layout: removing the slot-t digit from a flat site offset f gives the
@@ -19,9 +21,11 @@
 // imaginary plane copies and a blocked-real embedding instead (Mosaic has no
 // complex type and only 2D dots); none of that is carried over.
 //
-// Layout: one CTA of 512 threads per (message b, chunk of ROWS outgoing
-// rows i).  The incoming messages are staged in shared memory once per CTA
-// when they fit (both of them at degree 3, chi=64), else one per absorb.
+// Layout: one CTA of 512 threads per (message b, chunk of ROWS = 8 or 4
+// outgoing rows i; the bond dimension is a multiple of 8, as the wrapper's
+// `supports_group` requires).  The incoming messages are staged in shared
+// memory once per CTA when they fit (both of them at degree 3, chi=64),
+// else read from global memory (degree 2 at chi=512).
 // Per site value s and row i of the chunk, the k-1 absorbs run as mode
 // products between two buffers of X = chi^(k-1) elements (Z_i, then a
 // shared temp), each a small complex GEMM over the contracted slot in
@@ -41,7 +45,9 @@
 // could not revisit an output).  The buffers live in dynamic shared memory
 // when they fit, else in a global scratch the wrapper allocates (large
 // chi^(k-1), e.g. k=6 at chi=8); the code reaches both through generic
-// pointers.
+// pointers.  The limits on k and chi are stated once, in the wrapper's
+// `supports_group` (tnqs_torch/ops/bp_sweep.py); this file checks only that
+// the arguments are well formed.
 //
 // What bounds it on Hopper: FLOPs.  At Eagle chi=64 a degree-3 message is
 // 3 * d * chi^4 complex MACs (~805 MFLOP) against 4 MB of site tensor, so
@@ -205,9 +211,10 @@ template <int ROWS>
 __global__ void __launch_bounds__(THREADS) bp_sweep_kernel(const float2* __restrict__ T,
                                                            const float2* __restrict__ Min,
                                                            float2* __restrict__ out,
-                                                           float2* __restrict__ scratch, int lo, int k,
-                                                           int chi, int d, int t, int use_smem,
-                                                           int m_res) {
+                                                           float2* __restrict__ scratch,
+                                                           const long long* __restrict__ rows, int n_k,
+                                                           int k, int chi, int d, int t, int use_smem,
+                                                           int m_smem) {
   extern __shared__ float2 smem[];
   const int tid = threadIdx.x;
   const int b = blockIdx.y;
@@ -219,30 +226,31 @@ __global__ void __launch_bounds__(THREADS) bp_sweep_kernel(const float2* __restr
   int st = 1;  // stride of slot t in a site block: chi^(k-1-t)
   for (int c = t + 1; c < k; ++c) st *= chi;
   const size_t site = (size_t)X * chi;
+  const long long row = rows[b];
+  if (row < 0 || row >= n_k) __trap();  // a row outside the bucket
 
-  // shared: the messages [m_res][chi, chi] (every one when they fit,
-  // staged once; else the current one, staged per absorb; else none), the
-  // sum over s [ROWS][chi], then the buffers Z [ROWS][X] and temp (X, or
-  // [ROWS][X] at degree 2), when they fit
-  const int all_m = m_res == k - 1;
+  // shared: the messages [k-1][chi, chi] when they fit, the sum over s
+  // [ROWS][chi], then the buffers Z [ROWS][X] and temp (X, or [ROWS][X] at
+  // degree 2), when they fit
   float2* Ms = smem;
-  float2* macc = smem + (size_t)m_res * chi * chi;
+  float2* macc = smem + (m_smem ? (size_t)(k - 1) * chi * chi : 0);
   float2* bufs = use_smem ? macc + (size_t)ROWS * chi
                           : scratch + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * buffer_rows(ROWS, k) * X;
   float2* temp = bufs + (size_t)ROWS * X;
   for (int q = tid; q < ROWS * chi; q += blockDim.x) macc[q] = make_float2(0.0f, 0.0f);
   const float2* Mb = Min + (size_t)b * (k - 1) * chi * chi;
-  if (all_m)
+  if (m_smem)
     for (int q = tid; q < (k - 1) * chi * chi; q += blockDim.x) Ms[q] = Mb[q];
+  const float2* Mr = m_smem ? Ms : Mb;  // message c at Mr + c * chi * chi
 
   for (int s = 0; s < d; ++s) {
-    const float2* K = T + ((size_t)(lo + b) * d + s) * site;
+    const float2* K = T + ((size_t)row * d + s) * site;
 
     // phase A: Z_i = K_i absorbed with every incoming message
     if (k == 2) {  // one absorb, every row of the chunk in one product
       gather_rows(K, temp, nrows, i0, X, chi, st);
       __syncthreads();
-      mode_product(temp, bufs, m_res ? Ms : Mb, nrows * X, chi, 1);
+      mode_product(temp, bufs, Mr, nrows * X, chi, 1);
       __syncthreads();
     } else {
       // with an even number of absorbs each row ends where it starts, in Z_i
@@ -255,11 +263,8 @@ __global__ void __launch_bounds__(THREADS) bp_sweep_kernel(const float2* __restr
         if (!even) gather_rows(K + (size_t)o * st, temp, 1, i0, X, chi, st);
         int L = X / chi;  // extent of the slots after mode c
         for (int c = 0; c < k - 1; ++c) {
-          const float2* Mc = all_m ? Ms + (size_t)c * chi * chi : Mb + (size_t)c * chi * chi;
-          if (m_res && !all_m)
-            for (int q = tid; q < chi * chi; q += blockDim.x) Ms[q] = Mc[q];
           __syncthreads();
-          mode_product(src, dst, m_res && !all_m ? Ms : Mc, X, chi, L);
+          mode_product(src, dst, Mr + (size_t)c * chi * chi, X, chi, L);
           __syncthreads();
           float2* tmp = src;
           src = dst;
@@ -283,30 +288,31 @@ __global__ void __launch_bounds__(THREADS) bp_sweep_kernel(const float2* __restr
   }
 }
 
-// the shared memory a launch needs, in float2, with m_res messages resident
-size_t smem_elems(int rows, int k, int X, int chi, int use_smem, int m_res) {
-  return (size_t)m_res * chi * chi + (size_t)rows * chi + (use_smem ? (size_t)buffer_rows(rows, k) * X : 0);
+// the shared memory a launch needs, in float2
+size_t smem_elems(int rows, int k, int X, int chi, int use_smem, int m_smem) {
+  return (m_smem ? (size_t)(k - 1) * chi * chi : 0) + (size_t)rows * chi +
+         (use_smem ? (size_t)buffer_rows(rows, k) * X : 0);
 }
 
 struct Plan {
-  int rows;      // outgoing rows per CTA (1, 2, 4 or 8)
+  int rows;      // outgoing rows per CTA (8 or 4)
   int use_smem;  // the absorb buffers in shared memory, else in the scratch
-  int m_res;     // messages resident in shared memory: k-1, 1 or 0
+  int m_smem;    // the messages in shared memory, else read from global
   int X;         // chi^(k-1)
 };
 
-// The most rows per CTA whose buffers fit in shared memory, beside one
-// message if possible; four rows in the global scratch when not even one
-// row fits.  Then as many messages resident as still fit.
+// Eight rows per CTA, else four, with the buffers in shared memory beside
+// the messages if possible, else without them; four rows in the global
+// scratch when not even four fit, with the messages in shared memory if
+// they fit there.
 Plan plan(int k, int chi) {
   const size_t limit = 227 * 1024 / sizeof(float2);
-  Plan p = {chi >= 4 ? 4 : chi >= 2 ? 2 : 1, 0, 0, 1};
+  Plan p = {4, 0, 0, 1};
   for (int c = 0; c < k - 1; ++c) p.X *= chi;
   for (int m = 1; m >= 0 && !p.use_smem; --m)
-    for (int rows = 8; rows >= 1 && !p.use_smem; rows /= 2)
-      if (rows <= chi && smem_elems(rows, k, p.X, chi, 1, m) <= limit) p = {rows, 1, 0, p.X};
-  p.m_res = k - 1;
-  while (p.m_res > 0 && smem_elems(p.rows, k, p.X, chi, p.use_smem, p.m_res) > limit) p.m_res = p.m_res > 1 ? 1 : 0;
+    for (int rows = 8; rows >= 4 && !p.use_smem; rows /= 2)
+      if (smem_elems(rows, k, p.X, chi, 1, m) <= limit) p = {rows, 1, m, p.X};
+  if (!p.use_smem) p.m_smem = smem_elems(p.rows, k, p.X, chi, 0, 1) <= limit;
   return p;
 }
 
@@ -315,44 +321,42 @@ size_t scratch_elems(int batch, int k, int chi, const Plan& p) {
 }
 
 template <int ROWS>
-int launch(const void* T, const void* Min, void* out, void* scratch, int lo, int batch, int k, int chi,
-           int d, int t, const Plan& p, cudaStream_t stream) {
-  const size_t smem = smem_elems(ROWS, k, p.X, chi, p.use_smem, p.m_res) * sizeof(float2);
+int launch(const void* T, const void* Min, void* out, void* scratch, const long long* rows, int n_k,
+           int batch, int k, int chi, int d, int t, const Plan& p, cudaStream_t stream) {
+  const size_t smem = smem_elems(ROWS, k, p.X, chi, p.use_smem, p.m_smem) * sizeof(float2);
   cudaError_t err = cudaFuncSetAttribute(bp_sweep_kernel<ROWS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((chi + ROWS - 1) / ROWS, batch);
   bp_sweep_kernel<ROWS><<<grid, THREADS, smem, stream>>>((const float2*)T, (const float2*)Min, (float2*)out,
-                                                         (float2*)scratch, lo, k, chi, d, t, p.use_smem,
-                                                         p.m_res);
+                                                         (float2*)scratch, rows, n_k, k, chi, d, t,
+                                                         p.use_smem, p.m_smem);
   return (int)cudaGetLastError();
 }
 
-bool supported(int batch, int k, int chi) { return batch > 0 && k >= 2 && chi >= 1 && chi <= 512; }
+bool well_formed(int batch, int k, int chi) { return batch > 0 && k >= 2 && chi >= 1; }
 
 }  // namespace
 
 // Complex64 elements of global scratch that tnqs_bp_sweep needs for a
 // group of `batch` messages (0 when its buffers fit in shared memory).
 extern "C" int tnqs_bp_sweep_scratch(int batch, int k, int chi, long long* elems) {
-  if (!supported(batch, k, chi)) return (int)cudaErrorInvalidValue;
+  if (!well_formed(batch, k, chi)) return (int)cudaErrorInvalidValue;
   *elems = (long long)scratch_elems(batch, k, chi, plan(k, chi));
   return (int)cudaSuccess;
 }
 
-// T: the bucket [n_k, d, chi^k] complex64, contiguous; Min [batch, k-1, chi,
-// chi]; out [batch, chi, chi]; scratch as tnqs_bp_sweep_scratch says (may be
-// null when that is 0).
-extern "C" int tnqs_bp_sweep(const void* T, const void* Min, void* out, void* scratch, int lo, int batch,
-                             int k, int chi, int d, int t, void* stream) {
-  if (!supported(batch, k, chi) || d < 1 || t < 0 || t >= k || lo < 0) return (int)cudaErrorInvalidValue;
+// T: the bucket [n_k, d, chi^k] complex64, contiguous; rows [batch] int64,
+// each in [0, n_k) (the kernel traps otherwise); Min [batch, k-1, chi, chi];
+// out [batch, chi, chi]; scratch as tnqs_bp_sweep_scratch says (may be null
+// when that is 0).
+extern "C" int tnqs_bp_sweep(const void* T, const void* rows, const void* Min, void* out, void* scratch,
+                             int n_k, int batch, int k, int chi, int d, int t, void* stream) {
+  if (!well_formed(batch, k, chi) || n_k < 1 || d < 1 || t < 0 || t >= k) return (int)cudaErrorInvalidValue;
   const Plan p = plan(k, chi);
   if (!p.use_smem && scratch == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (p.rows) {
-    case 1: return launch<1>(T, Min, out, scratch, lo, batch, k, chi, d, t, p, s);
-    case 2: return launch<2>(T, Min, out, scratch, lo, batch, k, chi, d, t, p, s);
-    case 4: return launch<4>(T, Min, out, scratch, lo, batch, k, chi, d, t, p, s);
-    default: return launch<8>(T, Min, out, scratch, lo, batch, k, chi, d, t, p, s);
-  }
+  const long long* r = (const long long*)rows;
+  return p.rows == 8 ? launch<8>(T, Min, out, scratch, r, n_k, batch, k, chi, d, t, p, s)
+                     : launch<4>(T, Min, out, scratch, r, n_k, batch, k, chi, d, t, p, s);
 }

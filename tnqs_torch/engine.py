@@ -7,7 +7,7 @@ truncations route to the Jacobi kernels through `pjsvd`
 (`tnqs/engine.py:1231-1255`).  BP refreshes inside the step use the einsum
 sweep, as the JAX step does (`use_kernel=False`, `tnqs/engine.py:1433`,
 `:1445`); standalone convergence (`bp_update`, `normalize`) routes every
-contiguous degree >= 2 group through the fused BP kernel
+degree >= 2 group through the fused BP kernel
 (`ops.bp_sweep_group`) under ``bp_kernel="kernel"``.  The BP measurements
 of `tnqs/engine.py:1566-1961` follow: `expect_1site`, `expect_2site`,
 `freenergy`, `partitionfunction`, `rescale` and `bond_entropies`.
@@ -34,7 +34,7 @@ import torch.nn.functional as F
 
 from .gates import gate_matrix, op_matrix
 from .graphs import NamedGraph, center
-from .ops.bp_sweep import bp_sweep_group, supports_group
+from .ops.bp_sweep import absorb_message, bp_sweep_group, group_messages, supports_group
 from .ops.factorizations import cholesky_qr, eps_of
 from .ops.osj import pjsvd
 
@@ -328,13 +328,6 @@ def build_program(plan: LatticePlan, compiled: list) -> list:
 # device helpers (`tnqs/engine.py:383-495`)
 # ----------------------------------------------------------------------
 
-def _absorb_message(A: torch.Tensor, M: torch.Tensor, axis: int) -> torch.Tensor:
-    """Contract bond `axis` of the batched tensor A [B, ..., chi@axis, ...]
-    with the batched message M [B, chi, chi] as (ket, out)."""
-    A = torch.einsum("B...i,Bij->B...j", A.movedim(axis, -1), M)
-    return A.movedim(-1, axis)
-
-
 def _truncate_mask(s: torch.Tensor, chi: int, cutoff: float):
     """Static-shape truncation of singular values s [B, K] (descending) with
     the relative-cutoff semantics of `tnqs/engine.py:415`.  Returns
@@ -452,10 +445,11 @@ class LatticeEngine:
     elsewhere to "wavefront", as in the JAX engine on the CPU.
 
     `bp_kernel` picks the standalone BP sweep (`tnqs/engine.py:597-601`):
-    "kernel" routes every contiguous degree >= 2 group through
-    `ops.bp_sweep_group` (the CUDA kernel on the card, its plain version on
-    the CPU, as JAX's "interpret"), "einsum" keeps the einsum chain, and
-    "auto" means "kernel" on a CUDA device and "einsum" elsewhere."""
+    "kernel" routes every degree >= 2 group that `ops.supports_group`
+    admits (all of them at chi = 64) through `ops.bp_sweep_group` (the CUDA
+    kernel on the card, its plain version on the CPU, as JAX's
+    "interpret"), "einsum" keeps the einsum chain, and "auto" means
+    "kernel" on a CUDA device and "einsum" elsewhere."""
 
     def __init__(
         self,
@@ -506,12 +500,9 @@ class LatticeEngine:
             src = slice(lo, hi) if hi - lo == len(src_pos) else _index(src_pos, self.device)
             elo, ehi = int(out_eids[0]), int(out_eids[-1]) + 1
             out = slice(elo, ehi) if ehi - elo == len(out_eids) else _index(out_eids, self.device)
-            ins = [(2 + j, _index(in_eids[:, col], self.device)) for col, j in enumerate(other_slots)]
-            a_sub = ["B", "s"] + [chr(ord("a") + j) for j in range(k)]
-            b_sub = list(a_sub)
-            a_sub[2 + t], b_sub[2 + t] = "i", "j"
-            expr = f"{''.join(a_sub)},{''.join(b_sub)}->Bij"
-            self._bp_groups.append((stage, k, t, src, out, ins, _index(in_eids, self.device), expr))
+            ins = [_index(in_eids[:, col], self.device) for col in range(len(other_slots))]
+            rows = _index(src_pos, self.device)
+            self._bp_groups.append((stage, k, t, src, out, ins, rows, _index(in_eids, self.device)))
         self.T = self._product_state()
         self.M = self._initial_messages()
         self.bp_iterations, self.bp_eps = 0, float("nan")
@@ -566,25 +557,21 @@ class LatticeEngine:
         """One BP iteration: batched within each (stage, degree, slot) group,
         Gauss-Seidel between stages (a stage reads the messages of the
         previous one).  With `use_kernel` and ``bp_kernel="kernel"``, every
-        group the fused kernel takes (degree >= 2, contiguous source rows,
-        `supports_group`) goes through `bp_sweep_group`; the rest stay on the
-        einsum chain, as at `tnqs/engine.py:798-831`."""
+        group the fused kernel takes (degree >= 2, `supports_group`) goes
+        through `bp_sweep_group`, gathered source rows included; the rest
+        stay on the einsum chain, as at `tnqs/engine.py:798-831`."""
         kernel = use_kernel and self.bp_kernel == "kernel"
         stage = None
         out = M
-        for (g_stage, k, t, src, dst, ins, in_all, expr) in self._bp_groups:
+        for (g_stage, k, t, src, dst, ins, rows, in_all) in self._bp_groups:
             if g_stage != stage:
                 M = out  # stage barrier
                 out = M.clone()
                 stage = g_stage
-            if kernel and k >= 2 and isinstance(src, slice) and supports_group(k, self.chi, self.dtype):
-                m_new = bp_sweep_group(T[k], M[in_all], src.start, t)
+            if kernel and supports_group(k, self.chi, self.dtype):
+                m_new = bp_sweep_group(T[k], M[in_all], rows, t)
             else:
-                A = Asrc = T[k][src]
-                for axis, eids in ins:
-                    A = _absorb_message(A, M[eids], axis)
-                # contract with conj(T) over the site axis and every other bond
-                m_new = torch.einsum(expr, A, Asrc.conj())
+                m_new = group_messages(T[k][src], [M[eids] for eids in ins], t)
             # sum-normalize (`tnqs/engine.py:834-836`)
             norm = torch.sum(m_new, dim=(1, 2), keepdim=True)
             out[dst] = m_new / torch.where(torch.abs(norm) > 0, norm, 1.0)
@@ -644,7 +631,7 @@ class LatticeEngine:
         [B, d, chi x (k-1), chi_active] -> [B, chi^(k-1), d*chi]."""
         B = A.shape[0]
         for j in range(k - 1):
-            A = _absorb_message(A, W[:, j], axis=2 + j)
+            A = absorb_message(A, W[:, j], axis=2 + j)
         # [B, d, e1..e_{k-1}, a] -> [B, e..., d, a]
         A = A.permute((0,) + tuple(range(2, k + 1)) + (1, k + 1))
         return A.reshape(B, self.chi ** (k - 1), self.d * self.chi)
@@ -889,7 +876,7 @@ class LatticeEngine:
         ).reshape(-1, k)
         A = T[k]
         for j in range(k):
-            A = _absorb_message(A, M[_index(in_eids[:, j], self.device)], axis=2 + j)
+            A = absorb_message(A, M[_index(in_eids[:, j], self.device)], axis=2 + j)
         return A
 
     def _edge_index(self, edges) -> tuple[torch.Tensor, torch.Tensor]:
@@ -965,9 +952,9 @@ class LatticeEngine:
             Av0 = self._gather_permuted(T, kv, rows_v)
             Au, Av = Au0, Av0
             for col in range(ku - 1):
-                Au = _absorb_message(Au, M[env_u[:, col]], axis=2 + col)
+                Au = absorb_message(Au, M[env_u[:, col]], axis=2 + col)
             for col in range(kv - 1):
-                Av = _absorb_message(Av, M[env_v[:, col]], axis=2 + col)
+                Av = absorb_message(Av, M[env_v[:, col]], axis=2 + col)
             eu = "".join(chr(ord("a") + j) for j in range(ku - 1))
             ev = "".join(chr(ord("f") + j) for j in range(kv - 1))
             # half transfer matrices on the shared bond: [B, d_out, d_in, x, y]

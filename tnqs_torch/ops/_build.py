@@ -1,13 +1,13 @@
 """Build the CUDA kernels of `tnqs_torch/csrc` with nvcc and load them.
 
-The sources have a plain C interface, so nvcc compiles them in seconds into
-one shared library that `ctypes` loads; nothing includes PyTorch's headers.
-Each source compiles in its own nvcc process, all started together, and one
-more links them.  The library goes to ``build/tnqs_torch/`` at the
-repository root, named by a hash of the sources and flags, and is built at
-first use; ptxas's register and spill report is kept beside it
-(`build_log`).  No ``--use_fast_math``: the Jacobi rotation formulas need
-IEEE division and square roots.
+The sources have a plain C interface, so nvcc compiles each in seconds into
+a shared library of its own that `ctypes` loads; nothing includes PyTorch's
+headers.  The sources compile in parallel, one nvcc process each.  The
+libraries go to ``build/tnqs_torch/`` at the repository root, named by a
+hash of the source and the flags, and are built at first use; ptxas's
+register and spill report is kept beside each (`build_log`).  No
+``--use_fast_math``: the Jacobi rotation formulas need IEEE division and
+square roots.
 """
 
 from __future__ import annotations
@@ -19,11 +19,14 @@ import os
 import pathlib
 import shutil
 import subprocess
+import types
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "tnqs_torch"
-ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = (*ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,8 +36,8 @@ _SIGNATURES = {
     "tnqs_jacobi_eigh": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
     # (at_inout, vt_inout, batch, rows, n, rounds, eps, stream)
     "tnqs_osj_svd": [_P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
-    # (t, min, out, scratch, lo, batch, k, chi, d, slot, stream)
-    "tnqs_bp_sweep": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # (t, rows, min, out, scratch, n_k, batch, k, chi, d, slot, stream)
+    "tnqs_bp_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # (batch, k, chi, elems_out)
     "tnqs_bp_sweep_scratch": [_I, _I, _I, ctypes.POINTER(ctypes.c_longlong)],
 }
@@ -51,58 +54,51 @@ def _nvcc() -> str:
     return nvcc
 
 
-def library_path() -> pathlib.Path:
-    """Where the library built from the current sources lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
-    return BUILD_DIR / f"libtnqs_kernels_{h.hexdigest()[:16]}.so"
+def library_paths() -> dict[pathlib.Path, pathlib.Path]:
+    """Each source and where the library built from it lives."""
+    paths = {}
+    for src in sorted(CSRC.glob("*.cu")):
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        h.update(src.read_bytes())
+        paths[src] = BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+    return paths
 
 
 @functools.cache
-def kernels() -> ctypes.CDLL:
-    """The kernel library, compiled on first call in this process unless a
-    library of the same sources is already in the build directory."""
-    path = library_path()
-    if not path.exists():
+def kernels() -> types.SimpleNamespace:
+    """The kernels' C entry points by name, each library compiled on first
+    call in this process unless it is already in the build directory."""
+    paths = library_paths()
+    todo = {src: path for src, path in paths.items() if not path.exists()}
+    if todo:
         nvcc = _nvcc()
-        work = BUILD_DIR / f"objects.{os.getpid()}"
-        work.mkdir(parents=True, exist_ok=True)
-        sources = sorted(CSRC.glob("*.cu"))
-        objects = [work / f"{src.stem}.o" for src in sources]
-        procs = [
-            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for src, obj in zip(sources, objects)
-        ]
-        log = []
-        for src, proc in zip(sources, procs):
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for src, path in todo.items():
+            tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+            procs[src] = (tmp, subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for src, (tmp, proc) in procs.items():
             out = proc.communicate()[0]
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{out}")
-            log.append(f"== {src.name}\n{out}")
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        res = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objects)],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-        path.with_suffix(".log").write_text("".join(log))
-        os.replace(tmp, path)
-        shutil.rmtree(work)
-    lib = ctypes.CDLL(str(path))
+            todo[src].with_suffix(".log").write_text(out)
+            os.replace(tmp, todo[src])
+    libs = [ctypes.CDLL(str(path)) for path in paths.values()]
+    fns = {}
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+        fn = getattr(next(lib for lib in libs if hasattr(lib, name)), name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return lib
+        fns[name] = fn
+    return types.SimpleNamespace(**fns)
 
 
 def build_log() -> str:
     """nvcc's output (ptxas registers, shared memory and spills) for the
-    library of the current sources, once it is built."""
-    log = library_path().with_suffix(".log")
-    return log.read_text() if log.exists() else ""
+    libraries of the current sources that are built."""
+    logs = [(src, path.with_suffix(".log")) for src, path in library_paths().items()]
+    return "".join(f"== {src.name}\n{log.read_text()}" for src, log in logs if log.exists())
 
 
 def check(err: int, name: str) -> None:

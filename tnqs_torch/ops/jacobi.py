@@ -22,7 +22,8 @@ EPS32 = float(torch.finfo(torch.float32).eps)
 def _rot_params(a, b, gr, gi, eps: float):
     """Complex Jacobi rotation annihilating g in [[a, g], [conj(g), b]],
     identity when |g| <= eps (`tnqs/ops/jacobi.py:58`).  Inputs [B, m]
-    float32; returns (c, s) with J = [[c, -conj(s)], [s, c]]."""
+    float32; returns (c, s) with J = [[c, -conj(s)], [s, c]], and whether
+    each rotation is taken."""
     absg = torch.sqrt(gr * gr + gi * gi)
     safe = absg > eps
     ga = torch.where(safe, absg, 1.0)
@@ -35,7 +36,7 @@ def _rot_params(a, b, gr, gi, eps: float):
     sm = t * c
     c = torch.where(safe, c, 1.0)
     s = torch.complex(torch.where(safe, sm * phr, 0.0), torch.where(safe, -sm * phi, 0.0))
-    return c, s
+    return c, s, safe
 
 
 def round_robin(n: int, device) -> torch.Tensor:
@@ -52,16 +53,19 @@ def _jacobi_eigh_plain(H: torch.Tensor, sweeps: int):
     m+i) of the top and bottom halves, as in the JAX kernel body
     (`_make_kernel`, `tnqs/ops/jacobi.py:81`), and the data moves between
     rounds.  H [B, n, n] hermitian complex64.  Returns (w [B, n] unsorted,
-    V [B, n, n])."""
+    V [B, n, n]); the count of rotations taken (not skipped), a device
+    scalar, stays in `_jacobi_eigh_plain.rotations`."""
     _jacobi_eigh_plain.calls += 1
     B, n, _ = H.shape
     m = n // 2
     perm = round_robin(n, H.device)
     W = torch.eye(n, dtype=H.dtype, device=H.device).expand(B, n, n)
+    taken = torch.zeros((), dtype=torch.int64, device=H.device)
     for _ in range(sweeps * (n - 1)):
         d = H.diagonal(dim1=1, dim2=2).real
         g = H[:, :m, m:].diagonal(dim1=1, dim2=2)
-        c, s = _rot_params(d[:, :m], d[:, m:], g.real, g.imag, EPS32)
+        c, s, live = _rot_params(d[:, :m], d[:, m:], g.real, g.imag, EPS32)
+        taken += live.sum()
         # rows: top' = c*top + conj(s)*bot ; bot' = -s*top + c*bot
         cc, sc = c[:, :, None], s[:, :, None]
         top, bot = H[:, :m], H[:, m:]
@@ -72,10 +76,12 @@ def _jacobi_eigh_plain(H: torch.Tensor, sweeps: int):
         lft, rgt = X[:, :, :m], X[:, :, m:]
         X = torch.cat([cr * lft + sr * rgt, -sr.conj() * lft + cr * rgt], 2)[:, :, perm]
         H, W = X[:, :n][:, perm], X[:, n:]
+    _jacobi_eigh_plain.rotations = taken
     return H.diagonal(dim1=1, dim2=2).real, W
 
 
 _jacobi_eigh_plain.calls = 0
+_jacobi_eigh_plain.rotations = None
 
 
 def _jacobi_eigh_cuda(H: torch.Tensor, sweeps: int):

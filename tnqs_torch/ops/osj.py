@@ -21,7 +21,8 @@ from .jacobi import EPS32, jacobi_eigh, round_robin
 def _rot_params_rel(a, b, gr, gi, eps: float):
     """Complex Jacobi rotation for the 2x2 Gram [[a, g], [conj(g), b]] with
     the relative Hestenes skip |g|^2 <= eps^2 a b (`tnqs/ops/osj.py:117`).
-    Inputs [B, m] float32; returns (c, s) for J = [[c, -conj(s)], [s, c]]."""
+    Inputs [B, m] float32; returns (c, s) for J = [[c, -conj(s)], [s, c]],
+    and whether each rotation is taken."""
     g2 = gr * gr + gi * gi
     safe = g2 > (eps * eps) * (a * b)
     absg = torch.sqrt(torch.where(safe, g2, 1.0))
@@ -34,32 +35,37 @@ def _rot_params_rel(a, b, gr, gi, eps: float):
     sm = t * c
     c = torch.where(safe, c, 1.0)
     s = torch.complex(torch.where(safe, sm * phr, 0.0), torch.where(safe, -sm * phi, 0.0))
-    return c, s
+    return c, s, safe
 
 
 def _osj_svd_plain(A: torch.Tensor, V: torch.Tensor, sweeps: int):
     """The kernel's rounds in PyTorch: pair i is (column i, column m+i),
     as in the JAX kernel body (`_make_osj_kernel`, `tnqs/ops/osj.py:141`),
     and the columns move between rounds.  A [B, R, n], V [B, n, n]
-    complex64.  Returns the rotated (A, V)."""
+    complex64.  Returns the rotated (A, V); the count of rotations taken
+    (not skipped), a device scalar, stays in `_osj_svd_plain.rotations`."""
     _osj_svd_plain.calls += 1
     R, n = A.shape[-2], A.shape[-1]
     m = n // 2
     perm = round_robin(n, A.device)
     X = torch.cat([A, V], 1)  # columns of A and V rotate together
+    taken = torch.zeros((), dtype=torch.int64, device=A.device)
     for _ in range(sweeps * (n - 1)):
         sq = torch.sum(A.real * A.real + A.imag * A.imag, dim=1)
         g = torch.sum(A[:, :, :m].conj() * A[:, :, m:], dim=1)
-        c, s = _rot_params_rel(sq[:, :m], sq[:, m:], g.real, g.imag, EPS32)
+        c, s, live = _rot_params_rel(sq[:, :m], sq[:, m:], g.real, g.imag, EPS32)
+        taken += live.sum()
         c, s = c[:, None, :], s[:, None, :]
         # [l', r'] = [l, r] @ [[c, -conj(s)], [s, c]]
         lft, rgt = X[:, :, :m], X[:, :, m:]
         X = torch.cat([c * lft + s * rgt, -s.conj() * lft + c * rgt], 2)[:, :, perm]
         A = X[:, :R]
+    _osj_svd_plain.rotations = taken
     return A, X[:, R:]
 
 
 _osj_svd_plain.calls = 0
+_osj_svd_plain.rotations = None
 
 
 def _osj_svd_cuda(A: torch.Tensor, V: torch.Tensor, sweeps: int):
