@@ -1,35 +1,64 @@
-// Batched one-sided (Hestenes) Jacobi SVD on a warm-started iterate.
+// Batched one-sided (Hestenes) Jacobi SVD on a warm-started iterate, one
+// thread-block cluster per matrix with the iterate resident in shared memory.
 //
 // Replaces the Pallas kernel of `tnqs/ops/osj.py::osj_svd` (kernel body
 // `_make_osj_kernel`, tnqs/ops/osj.py:141; rotation `_rot_params_rel`,
 // :117).  It computes the same thing: sweeps*(n-1) rounds of the
 // round-robin tournament over the n columns of A [R, n] (R >= n, n even),
-// each rotating the n/2 disjoint column pairs (left i, right i) from the
-// RIGHT, with a = |l|^2, b = |r|^2, g = l^H r recomputed fresh every round
-// and the relative Hestenes skip |g|^2 <= eps^2 a b.  The same rotations
-// accumulate into V.  Column norms, the sort, U = A/s and the Frobenius
-// prescale stay in PyTorch (tnqs_torch/ops/osj.py).
+// each rotating the n/2 disjoint column pairs (position i, position m+i)
+// from the RIGHT, with a = |l|^2, b = |r|^2, g = l^H r recomputed fresh
+// every round and the relative Hestenes skip |g|^2 <= eps^2 a b.  The same
+// rotations accumulate into V.  Column norms, the sort, U = A/s and the
+// Frobenius prescale stay in PyTorch (tnqs_torch/ops/osj.py).
 //
-// Layout: one CTA per matrix.  At the engine's widest shape A is
-// [256, 128] complex64 (256 KB) and V is 128 KB, more than the 227 KB of
-// shared memory a block may use, so both stay in the global buffers, which
-// the wrapper fills column-contiguous (at[col][row], vt[col][row]) so that
-// a column pair's reductions and updates are coalesced.  The whole batch's
-// working set (B x 384 KB, ~10 MB) stays resident in the 50 MB L2.  Each
-// warp owns column pairs; the 2x2 Gram entries are warp-shuffle
-// reductions; a block barrier separates rounds.  The pairing is a
-// permutation array in shared memory updated each round; columns never
-// move (the TPU kernel shifts tile columns instead, `pcol`).
+// Layout: one cluster of C CTAs per matrix (C in {1, 2, 4, 8}, picked by
+// the wrapper, `osj_plan`/`osj_cluster` in tnqs_torch/ops/osj.py).  The rows
+// of A and of V are cut into 32-row chunks; CTA c holds chunks
+// [c*cpc, (c+1)*cpc) of A and [c*vpc, (c+1)*vpc) of V in its shared memory
+// for all rounds, column-major with an odd pitch, so that lanes over rows
+// (and the transposing load and store) are free of bank conflicts.  Columns
+// never move; the pairing of round r has a closed form (`index_at`), so
+// there is no permutation array.  A round:
+//   1. each warp forms the partial (a, b, Re g, Im g) of 8 pairs over one
+//      chunk (lane = row), folds the 32 values across the warp, 31 shuffles
+//      in all, lane L ending with the chunk's sum of value L, and sends it
+//      into every CTA of the cluster (distributed shared memory) with
+//      `st.async`, which counts its bytes against that CTA's mbarrier for
+//      the round;
+//   2. each of m threads waits on its own CTA's mbarrier for every chunk's
+//      partials (no cluster-wide barrier), then sums one pair's four values
+//      over all chunks in chunk order, from its own shared memory.  The sum
+//      does not depend on C or on which CTA forms it, so every CTA takes
+//      bitwise the same rotation and skip, and the result is the same for
+//      every C; the rotations go to shared memory, with a table of the next
+//      round's index at each position; block barrier;
+//   3. each warp rotates 8 pairs over one chunk of A or of V, reading only
+//      the pairs that rotate, all loads before any store; block barrier.
+// The partials and their mbarriers are double-buffered by round parity: a
+// CTA sends round r+2's into a peer only after it has received the peer's
+// round r+1 partials, which the peer sends after it has summed round r's,
+// so a buffer is never overwritten while it is read.  Every CTA waits for
+// everything sent to it, so none leaves while a peer still writes to it.
 //
-// What bounds it on Hopper: the latency of the sequential rounds (each a
-// reduction, a dependent update and a barrier), not FLOPs or bytes.  The
-// engine's batches (B <= 26 matrices) fill at most 26 of the 132 SMs; a
-// version in distributed shared memory across a thread-block cluster is
-// left for later work.
+// What bounds it on Hopper: the latency of the 508-762 dependent rounds (a
+// DSMEM exchange, a rotation and two block barriers each) and one SM's
+// issue rate for a CTA's rows, not FLOPs or bytes; the iterate never leaves
+// shared memory between its one load and its one store.  256 threads of at
+// most 128 registers let two CTAs share an SM, so the card holds twice the
+// clusters: 30 of 8 at [R, 128] = [256, 128], where a batch of 26 takes one
+// wave.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
+
+constexpr int kThreads = 256;
+constexpr int kChunk = 32;  // rows of a chunk: one warp, lane = row
+constexpr int kGroup = 8;   // pairs of a warp's task: 8 x 4 values = 32 lanes
+constexpr unsigned kFull = 0xffffffffu;
 
 // `_rot_params_rel` (tnqs/ops/osj.py:117): ([l, r] @ J) has orthogonal
 // columns.  Returns false (identity rotation) when |g|^2 <= eps^2 * a * b.
@@ -51,90 +80,278 @@ __device__ __forceinline__ bool rot_params_rel(float a, float b, float gr,
   return true;
 }
 
-// Round-robin of `pcol` with position 0 fixed (see jacobi_eigh.cu).
-__device__ __forceinline__ int next_src(int j, int m) {
+// Index that stands at position j after r rounds (0 <= r < n-1) of the
+// round-robin of `pcol` with position 0 fixed (`round_robin`,
+// tnqs_torch/ops/jacobi.py).  The other n-1 positions form one cycle,
+// m -> 1 -> 2 -> ... -> m-1 -> n-1 -> n-2 -> ... -> m+1 -> m, along which
+// every entry moves one step a round; k is the cycle step of position j.
+__device__ __forceinline__ int index_at(int j, int r, int m) {
   if (j == 0) return 0;
-  if (j == 1) return m;
-  if (j < m) return j - 1;
-  if (j < 2 * m - 1) return j + 1;
-  return m - 1;
+  int k = (j < m ? j : j == m ? 0 : 3 * m - 1 - j) - r;
+  if (k < 0) k += 2 * m - 1;
+  return k == 0 ? m : k < m ? k : 3 * m - 1 - k;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// One step of the warp's transposing reduction: lanes with bit OFF set keep
+// the upper half of their OFF*2 values, the others the lower half, and each
+// adds its partner's copy of the half it keeps.
+template <int OFF>
+__device__ __forceinline__ void fold(float (&v)[32], int lane) {
+  const bool up = (lane & OFF) != 0;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// [l', r'] = [l, r] @ [[c, -conj(s)], [s, c]] on `len` rows, lane-strided.
-__device__ __forceinline__ void colmix(float2* __restrict__ l, float2* __restrict__ r,
-                                       int len, int lane, float c, float sr, float si) {
-  for (int k = lane; k < len; k += 32) {
-    const float2 x = l[k], y = r[k];
-    l[k] = make_float2(x.x * c + (y.x * sr - y.y * si), x.y * c + (y.x * si + y.y * sr));
-    r[k] = make_float2(-(x.x * sr + x.y * si) + y.x * c, -(x.y * sr - x.x * si) + y.y * c);
+  for (int j = 0; j < OFF; ++j) {
+    const float send = up ? v[j] : v[j + OFF];
+    const float keep = up ? v[j + OFF] : v[j];
+    v[j] = keep + __shfl_xor_sync(kFull, send, OFF);
   }
 }
 
-__global__ void osj_svd_kernel(float2* __restrict__ at, float2* __restrict__ vt,
-                               int rows, int n, int rounds, float eps) {
-  extern __shared__ int perm[];
-  const int m = n / 2;
-  int* P = perm;      // [n] position -> column
-  int* Pn = perm + n; // [n] next round's
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  float2* A = at + (size_t)blockIdx.x * n * rows;
-  float2* V = vt + (size_t)blockIdx.x * n * n;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) P[j] = j;
-  __syncthreads();
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
 
+// `v` into CTA `rank`'s shared memory at this CTA's address `addr`, counted
+// as 4 bytes against the transaction count of the mbarrier there at `bar`.
+__device__ __forceinline__ void send(unsigned addr, float v, unsigned bar, unsigned rank) {
+  unsigned raddr, rbar;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(raddr) : "r"(addr), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(rbar) : "r"(bar), "r"(rank));
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];"
+               ::"r"(raddr), "r"(__float_as_uint(v)), "r"(rbar) : "memory");
+}
+
+// Wait for the phase of parity `parity` of the mbarrier at `bar`; a wait far
+// longer than any round traps rather than hangs.
+__device__ __forceinline__ void wait_phase(unsigned bar, unsigned parity) {
+  for (long long spin = 0;; ++spin) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (spin > (1ll << 24)) __trap();
+  }
+}
+
+// [l', r'] = [l, r] @ [[c, -conj(s)], [s, c]] on one row.
+__device__ __forceinline__ void colmix(float2& l, float2& r, float c, float sr, float si) {
+  const float2 x = l, y = r;
+  l = make_float2(x.x * c + (y.x * sr - y.y * si), x.y * c + (y.x * si + y.y * sr));
+  r = make_float2(-(x.x * sr + x.y * si) + y.x * c, -(x.y * sr - x.x * si) + y.y * c);
+}
+
+constexpr size_t smem_bytes(int rows, int n, int cpc, int vpc) {
+  // A [n][cpc*32+1] and V [n][vpc*32+1] complex64, every chunk's partials
+  // [2][nch][groups][32] float, the rotations [m] float4, the index at each
+  // position [2][n] int, two mbarriers (tnqs_torch/ops/osj.py `osj_plan`
+  // states the same sum)
+  return (size_t)8 * n * (cpc * kChunk + 1 + vpc * kChunk + 1) +
+         (size_t)8 * ((rows + kChunk - 1) / kChunk) * ((n / 2 + kGroup - 1) / kGroup) * 32 +
+         (size_t)16 * (n / 2) + (size_t)8 * n + 16;
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+osj_svd_kernel(const float2* __restrict__ a_in, const float2* __restrict__ v_in,
+               float2* __restrict__ a_out, float2* __restrict__ v_out, int rows,
+               int n, int rounds, int cpc, int vpc, float eps) {
+  extern __shared__ float4 smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int mat = blockIdx.x / C;
+  const int m = n / 2;
+  const int groups = (m + kGroup - 1) / kGroup;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int lda = cpc * kChunk + 1, ldv = vpc * kChunk + 1;
+  const int nch = (rows + kChunk - 1) / kChunk;  // chunks that hold rows of A
+  const int a0 = rank * cpc, v0 = rank * vpc;    // this CTA's first chunks
+  const int ach = max(0, min(cpc, nch - a0));    // its chunks of A, of V
+  const int vch = max(0, min(vpc, (n + kChunk - 1) / kChunk - v0));
+  const int pstride = nch * groups * 32;  // floats of one round's partials
+  float2* As = reinterpret_cast<float2*>(smem);                  // [n][lda]
+  float2* Vs = As + (size_t)n * lda;                             // [n][ldv]
+  float* part = reinterpret_cast<float*>(Vs + (size_t)n * ldv);  // [2][nch][groups][32]
+  float4* rot = reinterpret_cast<float4*>(part + 2 * pstride);   // [m] (c, Re s, Im s, taken)
+  int* tab = reinterpret_cast<int*>(rot + m);                     // [2][n], by round parity
+  // [2], by round parity: a round's partials from every CTA have arrived
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(tab + 2 * n);
+
+  const float2* ab = a_in + (size_t)mat * rows * n;
+  const float2* vb = v_in + (size_t)mat * n * n;
+  for (int t = threadIdx.x; t < cpc * kChunk * n; t += blockDim.x) {
+    const int r = t / n, col = t - r * n, g = a0 * kChunk + r;
+    As[col * lda + r] = g < rows ? ab[(size_t)g * n + col] : make_float2(0.0f, 0.0f);
+  }
+  for (int t = threadIdx.x; t < vpc * kChunk * n; t += blockDim.x) {
+    const int r = t / n, col = t - r * n, g = v0 * kChunk + r;
+    Vs[col * ldv + r] = g < n ? vb[(size_t)g * n + col] : make_float2(0.0f, 0.0f);
+  }
+  for (int j = threadIdx.x; j < n; j += blockDim.x) tab[j] = index_at(j, 0, m);
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(full + b)));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // every CTA of the cluster is running, its rows are loaded and its
+  // mbarriers are set
+  cluster.sync();
+  const unsigned round_bytes = 4u * nch * groups * 32;  // the partials a CTA receives a round
+
+  int rr = 0;  // round mod (n-1)
   for (int round = 0; round < rounds; ++round) {
-    for (int i = warp; i < m; i += nwarps) {
-      const int cl = P[i], cr = P[m + i];
-      float2* Al = A + (size_t)cl * rows;
-      float2* Ar = A + (size_t)cr * rows;
-      float a = 0.0f, b = 0.0f, gr = 0.0f, gi = 0.0f;
-      for (int k = lane; k < rows; k += 32) {
-        const float2 x = Al[k], y = Ar[k];
-        a += x.x * x.x + x.y * x.y;
-        b += y.x * y.x + y.y * y.y;
-        gr += x.x * y.x + x.y * y.y;
-        gi += x.x * y.y - x.y * y.x;
+    float* pbuf = part + (round & 1) * pstride;
+    const int* pos = tab + (round & 1) * n;  // the index at each position
+    const unsigned bar = smem_addr(full + (round & 1));
+    if (threadIdx.x == 0)  // this round's phase expects every chunk's partials
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(round_bytes)
+                   : "memory");
+    // 1. partial Gram entries of 8 pairs over one chunk, folded across the warp
+    for (int task = warp; task < ach * groups; task += nwarps) {
+      const int ch = task / groups, gp = task - ch * groups;
+      const int row = ch * kChunk + lane;
+      float v[32];
+#pragma unroll
+      for (int p = 0; p < kGroup; ++p) {
+        const int i = gp * kGroup + p;
+        float2 x = make_float2(0.0f, 0.0f), y = x;
+        if (i < m) {
+          x = As[pos[i] * lda + row];
+          y = As[pos[m + i] * lda + row];
+        }
+        v[4 * p] = x.x * x.x + x.y * x.y;
+        v[4 * p + 1] = y.x * y.x + y.y * y.y;
+        v[4 * p + 2] = x.x * y.x + x.y * y.y;
+        v[4 * p + 3] = x.x * y.y - x.y * y.x;
       }
-      // xor butterflies leave bitwise-identical sums in every lane, so all
-      // lanes take the same rotation
-      a = warp_sum(a);
-      b = warp_sum(b);
-      gr = warp_sum(gr);
-      gi = warp_sum(gi);
+      fold<16>(v, lane);
+      fold<8>(v, lane);
+      fold<4>(v, lane);
+      fold<2>(v, lane);
+      fold<1>(v, lane);
+      // into every CTA of the cluster, this one included: [chunk][gp][lane]
+      const unsigned dst = smem_addr(pbuf + ((a0 + ch) * groups + gp) * 32 + lane);
+      for (int c = 0; c < C; ++c) send(dst, v[0], bar, c);
+    }
+
+    // 2. pair t's (a, b, Re g, Im g) summed over all chunks in chunk order,
+    // and its rotation; meanwhile threads m .. m+n-1 write the next round's
+    // index at each position
+    const int t = threadIdx.x;
+    if (t < m) {
+      wait_phase(bar, (round >> 1) & 1);
+      const float4* pv = reinterpret_cast<const float4*>(pbuf) + t;
+      float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int k = 0; k < nch; ++k) {
+        const float4 val = pv[k * groups * 8];
+        sum.x += val.x;
+        sum.y += val.y;
+        sum.z += val.z;
+        sum.w += val.w;
+      }
       float c = 1.0f, sr = 0.0f, si = 0.0f;
-      if (rot_params_rel(a, b, gr, gi, eps, c, sr, si)) {
-        colmix(Al, Ar, rows, lane, c, sr, si);
-        colmix(V + (size_t)cl * n, V + (size_t)cr * n, n, lane, c, sr, si);
+      const bool live = rot_params_rel(sum.x, sum.y, sum.z, sum.w, eps, c, sr, si);
+      rot[t] = make_float4(c, sr, si, live ? 1.0f : 0.0f);
+    } else if (t < m + n) {
+      tab[((round + 1) & 1) * n + t - m] = index_at(t - m, rr + 1 == n - 1 ? 0 : rr + 1, m);
+    }
+    __syncthreads();
+
+    // 3. rotate 8 pairs over one chunk of A (the first ach*groups tasks) or V
+    for (int task = warp; task < (ach + vch) * groups; task += nwarps) {
+      const int ch = task / groups, gp = task - ch * groups;
+      const bool in_a = ch < ach;
+      float2* X = in_a ? As : Vs;
+      const int ld = in_a ? lda : ldv;
+      const int row = (in_a ? ch : ch - ach) * kChunk + lane;
+      // all 8 pairs at once: every load before any store (the pairs'
+      // columns are disjoint), so the loads overlap
+      int lo[kGroup], ro[kGroup];
+      float4 q[kGroup];
+      float2 x[kGroup], y[kGroup];
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const int i = gp * kGroup + u, ic = min(i, m - 1);
+        q[u] = rot[ic];
+        if (i >= m) q[u].w = 0.0f;
+        lo[u] = pos[ic] * ld + row;
+        ro[u] = pos[m + ic] * ld + row;
+        if (q[u].w != 0.0f) {  // a pair that does not rotate is not read
+          x[u] = X[lo[u]];
+          y[u] = X[ro[u]];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        if (q[u].w == 0.0f) continue;
+        colmix(x[u], y[u], q[u].x, q[u].y, q[u].z);
+        X[lo[u]] = x[u];
+        X[ro[u]] = y[u];
       }
     }
-    for (int j = threadIdx.x; j < n; j += blockDim.x) Pn[j] = P[next_src(j, m)];
     __syncthreads();
-    int* tmp = P;
-    P = Pn;
-    Pn = tmp;
+    if (++rr == n - 1) rr = 0;
   }
+
+  float2* ao = a_out + (size_t)mat * rows * n;
+  float2* vo = v_out + (size_t)mat * n * n;
+  for (int t = threadIdx.x; t < ach * kChunk * n; t += blockDim.x) {
+    const int r = t / n, col = t - r * n, g = a0 * kChunk + r;
+    if (g < rows) ao[(size_t)g * n + col] = As[col * lda + r];
+  }
+  for (int t = threadIdx.x; t < vch * kChunk * n; t += blockDim.x) {
+    const int r = t / n, col = t - r * n, g = v0 * kChunk + r;
+    if (g < n) vo[(size_t)g * n + col] = Vs[col * ldv + r];
+  }
+}
+
+cudaLaunchConfig_t launch_config(int batch, int cluster, int smem, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(batch * cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace
 
-// at [batch, n, rows] and vt [batch, n, n] complex64, column-contiguous
-// (at[b][col][row] = A[row, col]); both are rotated in place.
-extern "C" int tnqs_osj_svd(void* at, void* vt, int batch, int rows, int n,
-                            int rounds, float eps, void* stream) {
-  if (batch <= 0 || n < 4 || n % 2 != 0 || rows < n || rounds < 0)
+// The most clusters of `cluster` CTAs with `smem` bytes each that the card
+// holds at once (cudaOccupancyMaxActiveClusters), into *active.
+extern "C" int tnqs_osj_svd_clusters(int cluster, int smem, int* active) {
+  cudaError_t err = cudaFuncSetAttribute(
+      osj_svd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(1, cluster, smem, 0, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(active, (const void*)osj_svd_kernel, &cfg);
+}
+
+// a_in [batch, rows, n] and v_in [batch, n, n] complex64, row-major; the
+// rotated iterate and accumulator go to a_out and v_out, row-major.  One
+// cluster of `cluster` CTAs per matrix, each holding `cpc` chunks of 32 rows
+// of A and `vpc` of V in `smem` bytes of shared memory.
+extern "C" int tnqs_osj_svd(const void* a_in, const void* v_in, void* a_out, void* v_out,
+                            int batch, int rows, int n, int rounds, float eps, int cluster,
+                            int cpc, int vpc, int smem, void* stream) {
+  if (batch <= 0 || n < 4 || n % 2 != 0 || rows < n || rounds < 0 || cluster < 1 ||
+      cluster > 8 || cluster * cpc * kChunk < rows || cluster * vpc * kChunk < n ||
+      (size_t)smem < smem_bytes(rows, n, cpc, vpc))
     return (int)cudaErrorInvalidValue;
-  const int m = n / 2;
-  const int threads = 32 * (m < 32 ? m : 32);
-  const size_t smem = (size_t)2 * n * sizeof(int);
-  osj_svd_kernel<<<batch, threads, smem, (cudaStream_t)stream>>>(
-      (float2*)at, (float2*)vt, rows, n, rounds, eps);
+  cudaError_t err = cudaFuncSetAttribute(
+      osj_svd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(batch, cluster, smem, (cudaStream_t)stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, osj_svd_kernel, (const float2*)a_in, (const float2*)v_in,
+                           (float2*)a_out, (float2*)v_out, rows, n, rounds, cpc, vpc, eps);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

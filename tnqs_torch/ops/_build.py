@@ -34,8 +34,12 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # (h_in, vt_out, w_out, batch, n, rounds, eps, stream)
     "tnqs_jacobi_eigh": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
-    # (at_inout, vt_inout, batch, rows, n, rounds, eps, stream)
-    "tnqs_osj_svd": [_P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
+    # (n, active_out)
+    "tnqs_jacobi_eigh_clusters": [_I, ctypes.POINTER(_I)],
+    # (a_in, v_in, a_out, v_out, batch, rows, n, rounds, eps, cluster, cpc, vpc, smem, stream)
+    "tnqs_osj_svd": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I, _P],
+    # (cluster, smem, active_out)
+    "tnqs_osj_svd_clusters": [_I, _I, ctypes.POINTER(_I)],
     # (t, rows, min, out, scratch, n_k, batch, k, chi, d, slot, stream)
     "tnqs_bp_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # (batch, k, chi, elems_out)

@@ -2,14 +2,17 @@
 
 Port of `tnqs/ops/jacobi.py::jacobi_eigh` (`tnqs/ops/jacobi.py:208`).  The
 rotation rounds run in the CUDA kernel `tnqs_torch/csrc/jacobi_eigh.cu` on a
-CUDA tensor, and in `_jacobi_eigh_plain`, the same schedule written in
-PyTorch, on a CPU tensor.  The Newton–Schulz repair of V, the Rayleigh
-eigenvalues and the ascending sort (`tnqs/ops/jacobi.py:300-318`) are
-PyTorch in both cases.
+CUDA tensor (a cluster of three CTAs per matrix, H resident in one CTA's
+shared memory and V in the other two's), and in `_jacobi_eigh_plain`, the
+same schedule written in PyTorch, on a CPU tensor.  The Newton–Schulz
+repair of V, the Rayleigh eigenvalues and the ascending sort
+(`tnqs/ops/jacobi.py:300-318`) are PyTorch in both cases.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
@@ -46,6 +49,20 @@ def round_robin(n: int, device) -> torch.Tensor:
     m = n // 2
     order = [0, m] + list(range(1, m - 1)) + list(range(m + 1, n)) + [m - 1]
     return torch.tensor(order, device=device)
+
+
+def index_at(j: int, r: int, n: int) -> int:
+    """Index that stands at position j after r rounds of `round_robin`, in
+    closed form, as the CUDA kernels compute it (`index_at` in
+    `tnqs_torch/csrc/jacobi_eigh.cu` and `osj_svd.cu`).  Position 0 stays;
+    the other n-1 positions form one cycle, m -> 1 -> 2 -> ... -> m-1 -> n-1
+    -> n-2 -> ... -> m+1 -> m, along which every entry moves one step a
+    round, so after whole sweeps of n-1 rounds every index is home again."""
+    m = n // 2
+    if j == 0:
+        return 0
+    k = ((j if j < m else 0 if j == m else 3 * m - 1 - j) - r) % (n - 1)
+    return m if k == 0 else k if k < m else 3 * m - 1 - k
 
 
 def _jacobi_eigh_plain(H: torch.Tensor, sweeps: int):
@@ -86,13 +103,16 @@ _jacobi_eigh_plain.rotations = None
 
 def _jacobi_eigh_cuda(H: torch.Tensor, sweeps: int):
     """Launch `tnqs_jacobi_eigh` on H [B, n, n] hermitian complex64 (CUDA,
-    contiguous).  Returns (w [B, n] unsorted, V [B, n, n])."""
-    if not (H.is_cuda and H.dtype == torch.complex64 and H.dim() == 3 and H.is_contiguous()):
+    contiguous), one cluster of three CTAs per matrix.  Returns (w [B, n]
+    unsorted, V [B, n, n])."""
+    if H.dim() != 3 or H.shape[1] != H.shape[2] or H.shape[1] % 2 or not 4 <= H.shape[1] <= 128:
+        raise ValueError(f"jacobi_eigh kernel takes [B, n, n] with even 4 <= n <= 128, got {tuple(H.shape)}")
+    if not (H.is_cuda and H.dtype == torch.complex64 and H.is_contiguous()):
         raise ValueError("jacobi_eigh kernel takes a contiguous complex64 CUDA tensor [B, n, n]")
-    B, n, n2 = H.shape
-    if n != n2 or n % 2 or not 4 <= n <= 128:
-        raise ValueError(f"jacobi_eigh kernel supports even 4 <= n <= 128, got {tuple(H.shape)}")
+    B, n, _ = H.shape
     lib = _build.kernels()
+    if active_clusters(H.device, n) == 0:
+        raise RuntimeError(f"jacobi_eigh kernel: no cluster of three CTAs for n={n} fits on {H.device}")
     vt = torch.empty_like(H)
     w = torch.empty((B, n), dtype=torch.float32, device=H.device)
     with torch.cuda.device(H.device):
@@ -102,7 +122,19 @@ def _jacobi_eigh_cuda(H: torch.Tensor, sweeps: int):
         )
     _build.check(err, "tnqs_jacobi_eigh")
     jacobi_eigh.launches += 1
+    jacobi_eigh.launches_by_shape[(B, n)] = jacobi_eigh.launches_by_shape.get((B, n), 0) + 1
     return w, vt.mT
+
+
+@functools.cache
+def active_clusters(device: torch.device, n: int) -> int:
+    """How many of the kernel's three-CTA clusters for size n the card holds
+    at once (`cudaOccupancyMaxActiveClusters`)."""
+    active = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _build.check(_build.kernels().tnqs_jacobi_eigh_clusters(n, ctypes.byref(active)),
+                     "tnqs_jacobi_eigh_clusters")
+    return active.value
 
 
 def jacobi_eigh(H: torch.Tensor, sweeps: int = 12, refine: bool = True):
@@ -136,6 +168,7 @@ def jacobi_eigh(H: torch.Tensor, sweeps: int = 12, refine: bool = True):
 
 
 jacobi_eigh.launches = 0
+jacobi_eigh.launches_by_shape = {}  # (B, n) -> launches
 
 
 def eigh_from_rounds(Hb: torch.Tensor, w: torch.Tensor, V: torch.Tensor, refine: bool = True):

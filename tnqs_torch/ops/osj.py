@@ -2,14 +2,18 @@
 
 Port of `tnqs/ops/osj.py::osj_svd` (`:225`) and `pjsvd` (`:349`).  The
 rotation rounds of `osj_svd` run in the CUDA kernel
-`tnqs_torch/csrc/osj_svd.cu` on a CUDA tensor, and in `_osj_svd_plain`, the
-same schedule written in PyTorch, on a CPU tensor.  The Frobenius prescale,
+`tnqs_torch/csrc/osj_svd.cu` on a CUDA tensor (one thread-block cluster per
+matrix, the iterate resident in its CTAs' shared memory; `osj_plan` is its
+layout), and in `_osj_svd_plain`, the same schedule written in PyTorch, on a
+CPU tensor.  The Frobenius prescale,
 the column norms, the descending sort and U = A/s (`tnqs/ops/osj.py:
 245-345`) are PyTorch in both cases.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
@@ -68,26 +72,94 @@ _osj_svd_plain.calls = 0
 _osj_svd_plain.rotations = None
 
 
-def _osj_svd_cuda(A: torch.Tensor, V: torch.Tensor, sweeps: int):
+SMEM_LIMIT = 232_448  # bytes of shared memory one CTA of an H100 may use
+CLUSTERS = (1, 2, 4, 8)  # cluster sizes the kernel is launched with
+CHUNK = 32  # rows of A or V a warp sums over: the unit the kernel splits rows by
+
+
+def osj_plan(R: int, n: int, C: int):
+    """The kernel's layout for A [R, n] on a cluster of C CTAs: (chunks of 32
+    rows of A per CTA, chunks of V's n rows per CTA, shared bytes per CTA).
+    The sum is the one `smem_bytes` in `tnqs_torch/csrc/osj_svd.cu` takes:
+    A and V column-major with an odd pitch, two rounds of every chunk's Gram
+    partials (4 floats a pair for each 8-pair group), the m rotations, two
+    rounds' index at each position, and two mbarriers."""
+    nch, vch = -(-R // CHUNK), -(-n // CHUNK)
+    cpc, vpc = -(-nch // C), -(-vch // C)
+    groups = -(-(n // 2) // 8)
+    smem = 8 * n * (cpc * CHUNK + 1 + vpc * CHUNK + 1) + 8 * nch * groups * 32 + 16 * (n // 2) + 8 * n + 16
+    return cpc, vpc, smem
+
+
+def osj_fits(R: int, n: int) -> list[int]:
+    """The cluster sizes whose CTAs each hold at least one chunk of A and fit
+    their share in shared memory, or ValueError when none does.  This is the
+    kernel's one limit on shape: even 4 <= n <= 128, R >= n, and R at most
+    what a cluster of 8 holds (992 rows at n = 128)."""
+    fits = []
+    if n % 2 == 0 and 4 <= n <= 128 and R >= n:
+        nch = -(-R // CHUNK)
+        fits = [C for C in CLUSTERS
+                if (C - 1) * osj_plan(R, n, C)[0] < nch and osj_plan(R, n, C)[2] <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"osj_svd kernel takes even 4 <= n <= 128 and n <= R with R rows fitting the "
+                         f"shared memory of a cluster of 8 ({SMEM_LIMIT} bytes a CTA), got [{R}, {n}]")
+    return fits
+
+
+def osj_cluster(B: int, R: int, n: int, active) -> int:
+    """The cluster size for a batch of B matrices [R, n]: the largest that
+    fits and of which the card holds B clusters at once (`active(C, smem)`,
+    `cudaOccupancyMaxActiveClusters`), else the smallest that fits.  Raises
+    ValueError past the kernel's shapes and RuntimeError when the card holds
+    no cluster at all."""
+    fits = osj_fits(R, n)
+    for C in reversed(fits):
+        if B <= active(C, osj_plan(R, n, C)[2]):
+            return C
+    C = fits[0]
+    if active(C, osj_plan(R, n, C)[2]) == 0:
+        raise RuntimeError(f"osj_svd kernel: no cluster of {C} CTAs for [{R}, {n}] fits on the card")
+    return C
+
+
+@functools.cache
+def active_clusters(device: torch.device, C: int, smem: int) -> int:
+    """How many clusters of C CTAs with `smem` shared bytes each the card
+    holds at once (`cudaOccupancyMaxActiveClusters`)."""
+    active = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _build.check(_build.kernels().tnqs_osj_svd_clusters(C, smem, ctypes.byref(active)),
+                     "tnqs_osj_svd_clusters")
+    return active.value
+
+
+def _osj_svd_cuda(A: torch.Tensor, V: torch.Tensor, sweeps: int, cluster: int | None = None):
     """Launch `tnqs_osj_svd` on A [B, R, n] and V [B, n, n] complex64 CUDA
-    tensors.  Returns the rotated (A, V) as views of column-contiguous
-    buffers."""
+    tensors, one cluster per matrix (`cluster` CTAs, or as `osj_cluster`
+    picks).  The kernel reads both row-major and writes the rotated (A, V)
+    into new row-major tensors."""
+    B, R, n = A.shape
+    if V.shape != (B, n, n):
+        raise ValueError(f"osj_svd kernel: bad shapes A {tuple(A.shape)}, V {tuple(V.shape)}")
+    if cluster not in osj_fits(R, n) + [None]:
+        raise ValueError(f"osj_svd kernel: a cluster of {cluster} does not fit [{R}, {n}]")
     if not (A.is_cuda and V.device == A.device and A.dtype == V.dtype == torch.complex64):
         raise ValueError("osj_svd kernel takes complex64 CUDA tensors on one device")
-    B, R, n = A.shape
-    if V.shape != (B, n, n) or n % 2 or n < 4 or R < n:
-        raise ValueError(f"osj_svd kernel: bad shapes A {tuple(A.shape)}, V {tuple(V.shape)}")
     lib = _build.kernels()
-    at = torch.empty((B, n, R), dtype=A.dtype, device=A.device)
-    at.copy_(A.mT)
-    vt = torch.empty((B, n, n), dtype=V.dtype, device=V.device)
-    vt.copy_(V.mT)
+    if cluster is None:
+        cluster = osj_cluster(B, R, n, lambda C, smem: active_clusters(A.device, C, smem))
+    cpc, vpc, smem = osj_plan(R, n, cluster)
+    A, V = A.contiguous(), V.contiguous()
+    A_out, V_out = torch.empty_like(A), torch.empty_like(V)
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tnqs_osj_svd(at.data_ptr(), vt.data_ptr(), B, R, n, sweeps * (n - 1), EPS32, stream)
+        err = lib.tnqs_osj_svd(A.data_ptr(), V.data_ptr(), A_out.data_ptr(), V_out.data_ptr(), B, R, n,
+                               sweeps * (n - 1), EPS32, cluster, cpc, vpc, smem, stream)
     _build.check(err, "tnqs_osj_svd")
     osj_svd.launches += 1
-    return at.mT, vt.mT
+    osj_svd.launches_by_shape[(B, R, n)] = osj_svd.launches_by_shape.get((B, R, n), 0) + 1
+    return A_out, V_out
 
 
 def osj_svd(A: torch.Tensor, V0: torch.Tensor | None = None, sweeps: int = 10):
@@ -126,6 +198,7 @@ def osj_svd(A: torch.Tensor, V0: torch.Tensor | None = None, sweeps: int = 10):
 
 
 osj_svd.launches = 0
+osj_svd.launches_by_shape = {}  # (B, R, n) -> launches
 
 
 def prescale(Ab: torch.Tensor):

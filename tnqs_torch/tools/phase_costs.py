@@ -1,0 +1,139 @@
+"""Where a round of the Jacobi kernels K1 (`osj_svd.cu`) and K2
+(`jacobi_eigh.cu`) spends its time, on the card.
+
+    python3 -m tnqs_torch.tools.phase_costs
+
+Run from the repository root on a machine with the GPU.  It compiles
+variants of the two sources with one phase removed (their results are
+wrong; only their time is read), each into its own library under
+`build/tnqs_torch/phases/`, and times every variant with CUDA events at the
+main path's shapes: K1 at [18, 128, 128] (4 sweeps) and [26, 256, 128] (6
+sweeps) at every cluster size it can take, K2 at [26, 128, 128] (8 sweeps).
+A phase's cost is the base time less the variant's.  Each variant names
+the text it removes, and the tool stops if a source no longer holds it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from tnqs_torch.ops import _build, jacobi, osj
+
+# the Gram variant still sends its (zero) partials: the rounds wait for them
+K1_GRAM = [("        if (i < m) {\n          x = As", "        if (false) {\n          x = As"),
+           ("      fold<16>(v, lane);\n      fold<8>(v, lane);\n      fold<4>(v, lane);\n"
+            "      fold<2>(v, lane);\n      fold<1>(v, lane);\n", "")]
+K1_UPDATE = [("task < (ach + vch) * groups;", "task < 0;")]
+K1 = {
+    "base": [],
+    "no Gram loads, products or folds": K1_GRAM,
+    "no update": K1_UPDATE,
+    "exchange and rotations only": K1_GRAM + K1_UPDATE,
+}
+K2_H = ("for (int e = tid; e < tri; e += workers)", "for (int e = tid; e < 0; e += workers)")
+K2_V = ("for (int e0 = tid; e0 < m * hv; e0 += 4 * blockDim.x)", "for (int e0 = tid; e0 < 0; e0 += 4 * blockDim.x)")
+K2_MIRROR = ("if (i != j) H[cl[bb] * ld + rw[a]] = make_float2(x.x, -x.y);", "")
+K2 = {
+    "base": [],
+    "no H update": [K2_H],
+    "no V update": [K2_V],
+    "no mirror stores": [K2_MIRROR],
+    "no H or V update": [K2_H, K2_V],
+}
+
+
+def build(stem: str, variants: dict) -> dict:
+    """One library per variant of `csrc/<stem>.cu`, compiled in parallel."""
+    out = _build.BUILD_DIR / "phases"
+    out.mkdir(parents=True, exist_ok=True)
+    src = (_build.CSRC / f"{stem}.cu").read_text()
+    procs = {}
+    for i, (name, cuts) in enumerate(variants.items()):
+        text = src
+        for old, new in cuts:
+            if old not in text:
+                sys.exit(f"{stem}.cu no longer holds {old!r}: update the variant {name!r}")
+            text = text.replace(old, new)
+        cu = out / f"{stem}_{i}.cu"
+        cu.write_text(text)
+        so = cu.with_suffix(".so")
+        procs[name] = (so, subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+                                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            sys.exit(f"nvcc failed on the variant {name!r} of {stem}.cu:\n{log}")
+        lib = ctypes.CDLL(str(so))
+        for fn, argtypes in _build._SIGNATURES.items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = argtypes
+        libs[name] = lib
+    return libs
+
+
+def cuda_ms(fn, reps=10):
+    if fn() != 0:
+        sys.exit("a variant's launch failed")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("phase_costs: no CUDA device")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+
+    def rand_c(shape):
+        return torch.as_tensor((rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(np.complex64),
+                               device=dev)
+
+    stream = torch.cuda.current_stream().cuda_stream
+    libs = build("osj_svd", K1)
+    n = 128
+    for B, R, sweeps in ((18, 128, 4), (26, 256, 6)):
+        A = rand_c((B, R, n))
+        _, V0 = jacobi.jacobi_eigh(A.mH @ A, sweeps=8)
+        A0 = osj.prescale(A @ V0)[0].contiguous()
+        V0 = V0.contiguous()
+        A1, V1 = torch.empty_like(A0), torch.empty_like(V0)
+        rounds = sweeps * (n - 1)
+        for C in osj.osj_fits(R, n):
+            cpc, vpc, smem = osj.osj_plan(R, n, C)
+            row = []
+            for name, lib in libs.items():
+                ms = cuda_ms(lambda: lib.tnqs_osj_svd(A0.data_ptr(), V0.data_ptr(), A1.data_ptr(), V1.data_ptr(),
+                                                      B, R, n, rounds, jacobi.EPS32, C, cpc, vpc, smem, stream))
+                row.append(f"{name} {ms:.3f} ms ({1e3 * ms / rounds:.2f} us a round)")
+            print(f"K1 [{B},{R},{n}] {sweeps} sweeps, C={C}: " + "; ".join(row), flush=True)
+
+    libs = build("jacobi_eigh", K2)
+    A = rand_c((26, 256, n))
+    G = A.mH @ A
+    H = (0.5 * (G + G.mH)).contiguous()
+    vt, w = torch.empty_like(H), torch.empty((26, n), device=dev)
+    rounds = 8 * (n - 1)
+    row = []
+    for name, lib in libs.items():
+        ms = cuda_ms(lambda: lib.tnqs_jacobi_eigh(H.data_ptr(), vt.data_ptr(), w.data_ptr(), 26, n, rounds,
+                                                  jacobi.EPS32, stream))
+        row.append(f"{name} {ms:.3f} ms ({1e3 * ms / rounds:.2f} us a round)")
+    print(f"K2 [26,{n},{n}] 8 sweeps: " + "; ".join(row))
+
+
+if __name__ == "__main__":
+    main()
