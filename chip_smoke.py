@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of tnqs_torch on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--layers N]
+    python3 chip_smoke.py [--layers N] [--bp-kernel-only]
 
 Run from the repository root.  Phases, each of which fails the run:
 
@@ -23,19 +23,25 @@ Run from the repository root.  Phases, each of which fails the run:
 4. BP kernel: `bp_sweep_group` against its plain version on every degree
    >= 2 group of the Eagle chi=64 color plan, on random site tensors and
    positive messages, plus groups of gathered rows at degree 2-6 that
-   reach its other tilings; the largest group timed beside one
-   multi-operand `torch.einsum` of the same messages (the yardstick); one
-   BP sweep timed on the kernel and on the einsum route;
+   reach its other tilings; two calls on each Eagle group must agree
+   bitwise; each Eagle group timed on the kernel, on the einsum chain
+   `group_messages` and as one multi-operand `torch.einsum` (the
+   yardstick), beside its bound; the largest group's kernels' device time
+   (torch.profiler); the host side of one launch; one BP sweep timed on the
+   kernel and on the einsum route;
 5. main path: `LatticeEngine.make_step` on the Eagle-127 kicked-Ising layer
    (J = pi/4, theta_h = 0.4) at chi=64, complex64, cutoff 1e-12,
    bp_maxiter=25, N layers (default 10) from "↑".  After each layer <Z> at
    (7,8) and (11,5) must lie within max(3 x the running multi-seed flex-f32
    floor, 2e-5) of the flex-f64 trajectory in
-   `tests/golden/golden_f32_controls.json`, and both Jacobi kernels must
-   have been launched by the step (their launches are printed by shape);
-   then a torch.profiler window over two more steady layers run on a copy
-   of the layer-10 state: K1's, K2's and the top other kernels' device time
-   and launches, and the device's idle share;
+   `tests/golden/golden_f32_controls.json`, and all three kernels must
+   have been launched by the step with no plain run (the Jacobi kernels'
+   launches are printed by shape, K3's a layer); then a torch.profiler
+   window over two more steady layers run on a copy of the layer-10 state:
+   K1's, K2's, K3's and the top other kernels' device time and launches,
+   and the device's idle share; then the step's BP routes in turns, 3
+   layers each from the layer-10 state (kernel, einsum, kernel, einsum),
+   layers/s and their <Z> agreement;
 6. BP path, on the state the main path leaves: `normalize` (Z_BP -> 1, <Z>
    still within the last layer's bound), then a cold `bp_update` from the
    initial messages on the kernel route and on an einsum-route engine
@@ -44,7 +50,8 @@ Run from the repository root.  Phases, each of which fails the run:
    on this path with no plain run.
 
 The line before the last is {"kernels": [...]}, the last
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}.  `--bp-kernel-only` runs phases 1, 2 and 4
+and prints K3's row alone (no result lines), e.g. on an older tree.
 """
 
 import argparse
@@ -289,6 +296,32 @@ def normalized(m):
     return m / m.sum(dim=(1, 2), keepdim=True)
 
 
+def einsum_expr(k, t):
+    """One torch.einsum of a group's gathered site tensors, its k-1 messages
+    and the conjugate: "Bsibc,Bbp,Bcq,Bsjpq->Bij" at k=3, t=0."""
+    ket = ["s"] + [chr(ord("a") + j) for j in range(k)]
+    bra = list(ket)
+    ket[1 + t], bra[1 + t] = "i", "j"
+    msgs = []
+    for col, j in enumerate(j for j in range(k) if j != t):
+        bra[1 + j] = chr(ord("p") + col)
+        msgs.append(f"B{ket[1 + j]}{bra[1 + j]}")
+    return f"B{''.join(ket)},{','.join(msgs)},B{''.join(bra)}->Bij"
+
+
+def bp_flops(B, k, chi):
+    """A group's FP32 operations: per message and site value, k contractions
+    of depth chi over chi^k entries (k-1 absorbs and the bra product), each
+    a complex MAC of 4 FMAs (8 FLOP)."""
+    return B * 2 * k * chi ** (k + 1) * 8
+
+
+def bp_bytes(B, k, chi):
+    """A group's bytes: each site tensor and message read once, each
+    outgoing message written once."""
+    return (B * 2 * chi**k + B * k * chi * chi) * 8
+
+
 def bp_kernel_phase(dev, chi=64):
     import tnqs_torch
     from tnqs_torch.engine import LatticeEngine
@@ -308,28 +341,43 @@ def bp_kernel_phase(dev, chi=64):
     # orders; rounding of ~sqrt(8192) ulps of the largest entry is ~1e-5, so
     # 1e-4 of the largest normalized entry leaves a factor 10
     tol = 1e-4
-    errs, largest = [], None
-    for (stage, k, t, _, _, _, rows, in_all) in eng._bp_groups:
+    # each group as the engine's sweep calls it (the messages gathered in
+    # the timed call): the kernel against its plain version, twice bitwise,
+    # then timed beside the einsum chain `group_messages` (the einsum route),
+    # one multi-operand torch.einsum (the yardstick) and the bound
+    print(f"BP groups of the Eagle chi={chi} color plan (CUDA events, 10 calls each; bound: FP32 operations at "
+          f"{PEAK_FP32 / 1e12:.0f} TFLOP/s or bytes at {PEAK_BYTES / 1e12:.2f} TB/s):")
+    errs, table = [], {}
+    for (stage, k, t, src, _, ins, rows, in_all) in eng._bp_groups:
         if k < 2:
             continue
-        Min = M[in_all]
-        m_k = normalized(bp_sweep.bp_sweep_group(T[k], Min, rows, t))
+        B, Min = rows.shape[0], M[in_all]
+        m1 = bp_sweep.bp_sweep_group(T[k], Min, rows, t)
+        m2 = bp_sweep.bp_sweep_group(T[k], Min, rows, t)
         m_p = normalized(bp_sweep._bp_sweep_group_plain(T[k], Min, rows, t))
-        torch.cuda.synchronize()
-        require(torch.isfinite(m_k).all(), f"bp_sweep_group k={k} t={t}: non-finite output")
-        err = (m_k - m_p).abs().max().item()
+        require(torch.isfinite(m1).all(), f"bp_sweep_group k={k} t={t}: non-finite output")
+        require(torch.equal(m1, m2), f"bp_sweep_group stage {stage} k={k} t={t}: two calls differ")
+        err = (normalized(m1) - m_p).abs().max().item()
         rel = err / m_p.abs().max().item()
         errs.append(err)
-        print(f"bp_sweep_group stage {stage} k={k} t={t} B={Min.shape[0]}: max |dm| {err:.3e}, "
-              f"relative to largest {rel:.3e}")
         require(rel < tol, f"bp_sweep_group k={k} t={t}: kernel and plain differ by more than {tol}")
-        if largest is None or Min.shape[0] * chi**k > largest[0]:
-            largest = (Min.shape[0] * chi**k, k, t, rows, Min)
+        k_ms = cuda_ms(lambda: bp_sweep.bp_sweep_group(T[k], M[in_all], rows, t), 10)
+        g_ms = cuda_ms(lambda: bp_sweep.group_messages(T[k][src], [M[e] for e in ins], t), 10)
+        A, expr = T[k][rows], einsum_expr(k, t)
+        l_ms = cuda_ms(lambda: torch.einsum(expr, A, *Min.unbind(1), A.conj()), 10)
+        b_ms, b_by = bound(bp_flops(B, k, chi), bp_bytes(B, k, chi))
+        table[(stage, k, t)] = (B, k_ms, g_ms, l_ms, b_ms, b_by, rows, Min)
+        print(f"  stage {stage} k={k} t={t} B={B}: vs plain max |dm| {err:.3e} ({rel:.3e} of the largest), two calls "
+              f"bitwise equal; kernel {k_ms:.4f} ms, group_messages {g_ms:.4f} ms, torch.einsum {l_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}; kernel at {100 * b_ms / k_ms:.1f}%)")
+    print(f"  sum over the groups: kernel {sum(v[1] for v in table.values()):.4f} ms, group_messages "
+          f"{sum(v[2] for v in table.values()):.4f} ms, torch.einsum {sum(v[3] for v in table.values()):.4f} ms, "
+          f"bound {sum(v[4] for v in table.values()):.4f} ms")
 
-    # the kernel's other tilings, on rows gathered out of order (the
-    # wavefront schedule's groups): degree 3 at chi=64, degree 4-5 buffers
-    # in shared memory, degree 6 in global scratch, a 512-wide bond with the
-    # message in global memory; and the empty group
+    # the kernel's other shape classes, on rows gathered out of order (the
+    # wavefront schedule's groups): degree 3 at chi=64, degree 4-6 at chi=8
+    # (ket absorbs before pass 2), a 512-wide bond (pass 2 over 64-blocks);
+    # and the empty group
     for kk, w, n_k, B in ((3, 64, 5, 3), (4, 8, 4, 3), (5, 8, 3, 2), (6, 8, 2, 2), (2, 512, 4, 3)):
         Tk = torch.as_tensor(rand_c(rng, (n_k, 2) + (w,) * kk), device=dev)
         Min = torch.as_tensor(rand_c(rng, (B, kk - 1, w, w)), device=dev)
@@ -345,34 +393,46 @@ def bp_kernel_phase(dev, chi=64):
     require(bp_sweep.bp_sweep_group(T[3], M[:0].reshape(0, 2, chi, chi), no_rows, 0).shape == (0, chi, chi),
             "bp_sweep_group: empty group")
 
-    _, k, t, rows, Min = largest
-    B = Min.shape[0]
-    ms = cuda_ms(lambda: bp_sweep.bp_sweep_group(T[k], Min, rows, t), 10)
+    # the host side of one launch alone: a 1-message chi=8 group, whose
+    # kernel is shorter than its launch, issued 200 times with no sync
+    Tt = torch.as_tensor(rand_c(rng, (2, 2, 8, 8)), device=dev)
+    Mt = torch.as_tensor(rand_c(rng, (1, 1, 8, 8)), device=dev)
+    rt = torch.ones(1, dtype=torch.int64, device=dev)
+    bp_sweep.bp_sweep_group(Tt, Mt, rt, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        bp_sweep.bp_sweep_group(Tt, Mt, rt, 0)
+    host_us = 1e6 * (time.perf_counter() - t0) / 200
+    torch.cuda.synchronize()
+    print(f"bp_sweep_group host path: {host_us:.2f} us a launch (wrapper and ctypes, 200 calls, no sync)")
+
+    # the kernel table's row: the largest group
+    stage, k, t = max(table, key=lambda key: table[key][0] * chi ** key[1])
+    B, ms, _, library_ms, bound_ms, bound_by, rows, Min = table[(stage, k, t)]
+    # where the largest group's time goes: each of its kernels' device time
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            bp_sweep.bp_sweep_group(T[k], Min, rows, t)
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        us = getattr(ev, "self_cuda_time_total", 0) if us is None else us
+        if us > 0 and "bp_" in ev.key:
+            print(f"  k={k} t={t} B={B}, {ev.key[:60]}: {us / 1e3 / 10:.4f} ms a call, {ev.count // 10} a call "
+                  f"(torch.profiler, 10 calls)")
     plain_ms = cuda_ms(lambda: bp_sweep._bp_sweep_group_plain(T[k], Min, rows, t), 2)
-    # the yardstick: one torch.einsum of the gathered site tensors, the k-1
-    # messages and the conjugate, "Bsibc,Bbp,Bcq,Bsjpq->Bij" at k=3, t=0
-    A = T[k][rows]
-    ket = ["s"] + [chr(ord("a") + j) for j in range(k)]
-    bra = list(ket)
-    ket[1 + t], bra[1 + t] = "i", "j"
-    msgs = []
-    for col, j in enumerate(j for j in range(k) if j != t):
-        bra[1 + j] = chr(ord("p") + col)
-        msgs.append(f"B{ket[1 + j]}{bra[1 + j]}")
-    expr = f"B{''.join(ket)},{','.join(msgs)},B{''.join(bra)}->Bij"
+    A, expr = T[k][rows], einsum_expr(k, t)
     m_lib = normalized(torch.einsum(expr, A, *Min.unbind(1), A.conj()))
     lib_rel = ((m_lib - normalized(bp_sweep._bp_sweep_group_plain(T[k], Min, rows, t))).abs().max()
                / m_lib.abs().max()).item()
     require(lib_rel < tol, f"the library einsum {expr} differs from the plain version by {lib_rel:.3e}")
-    library_ms = cuda_ms(lambda: torch.einsum(expr, A, *Min.unbind(1), A.conj()), 10)
-    # k absorbs-and-contract passes of chi^(k+1) complex MACs (4 FMAs, 8
-    # FLOP) per site value and message; each site tensor and message read
-    # once, each message written
-    flops = B * 2 * k * chi ** (k + 1) * 8
-    bound_ms, bound_by = bound(flops, (B * 2 * chi**k + B * k * chi * chi) * 8)
-    print(f"bp_sweep_group k={k} t={t} B={B}: kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s), "
-          f"plain {plain_ms:.3f} ms, torch.einsum {expr} {library_ms:.3f} ms (vs plain {lib_rel:.1e}), "
-          f"bound {bound_ms:.3f} ms ({bound_by})")
+    print(f"bp_sweep_group k={k} t={t} B={B}: kernel {ms:.4f} ms "
+          f"({bp_flops(B, k, chi) / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.3f} ms, torch.einsum {expr} "
+          f"{library_ms:.4f} ms (vs plain {lib_rel:.1e}), bound {bound_ms:.4f} ms ({bound_by})")
     sweep = {}
     for use_kernel in (False, True, True, False):
         sweep.setdefault(use_kernel, []).append(cuda_ms(lambda: eng._bp_new_messages(T, M, use_kernel), 5))
@@ -386,7 +446,7 @@ def bp_kernel_phase(dev, chi=64):
 def main_path(dev, layers):
     import tnqs_torch
     from tnqs_torch.engine import LatticeEngine
-    from tnqs_torch.ops import jacobi, osj
+    from tnqs_torch.ops import bp_sweep, jacobi, osj
 
     controls = json.loads((ROOT / "tests" / "golden" / "golden_f32_controls.json").read_text())["chi64"]
     cfg = controls["config"]
@@ -404,11 +464,12 @@ def main_path(dev, layers):
     circuit = tnqs_torch.heavy_hex_kicked_ising_layer(g, cfg["J"], cfg["theta_h"])
     eng = LatticeEngine(g, chi=int(cfg["maxdim"]), dtype=torch.complex64, device=dev)
     step = eng.make_step(circuit, cutoff=float(cfg["cutoff"]), bp_maxiter=25)
-    plain_calls = (jacobi._jacobi_eigh_plain.calls, osj._osj_svd_plain.calls)
+    plain_calls = (jacobi._jacobi_eigh_plain.calls, osj._osj_svd_plain.calls, bp_sweep._bp_sweep_group_plain.calls)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     jacobi.jacobi_eigh.launches = 0
     osj.osj_svd.launches = 0
+    bp_sweep.bp_sweep_group.launches = 0
     jacobi.jacobi_eigh.launches_by_shape.clear()
     osj.osj_svd.launches_by_shape.clear()
     devs, times = [], []
@@ -427,14 +488,17 @@ def main_path(dev, layers):
               f"|dev| {dev_l:.3e} (bound {bound[li]:.3e}, floor {floors[li]:.3e})", flush=True)
         require(np.isfinite(dev_l), f"layer {li + 1}: non-finite <Z>")
         require(dev_l <= bound[li], f"layer {li + 1}: deviation {dev_l:.3e} above bound {bound[li]:.3e}")
-    launches = {"jacobi_eigh": jacobi.jacobi_eigh.launches, "osj_svd": osj.osj_svd.launches}
+    launches = {"jacobi_eigh": jacobi.jacobi_eigh.launches, "osj_svd": osj.osj_svd.launches,
+                "bp_sweep_group": bp_sweep.bp_sweep_group.launches}
     by_shape = (dict(jacobi.jacobi_eigh.launches_by_shape), dict(osj.osj_svd.launches_by_shape))
     require(all(torch.isfinite(t).all() for t in eng.T.values()), "non-finite state")
     require(torch.isfinite(eng.M).all(), "non-finite messages")
     require(all(n > 0 for n in launches.values()), f"a kernel was not launched by the main path: {launches}")
-    require(plain_calls == (jacobi._jacobi_eigh_plain.calls, osj._osj_svd_plain.calls),
-            "the main path ran a plain version on the card")
+    require(plain_calls == (jacobi._jacobi_eigh_plain.calls, osj._osj_svd_plain.calls,
+                            bp_sweep._bp_sweep_group_plain.calls), "the main path ran a plain version on the card")
     print(f"kernel launches in the main path: {launches}; K2 by [B, n]: {by_shape[0]}; K1 by [B, R, n]: {by_shape[1]}")
+    print(f"K3 launches a layer (the step's BP refreshes and final BP run): "
+          f"{launches['bp_sweep_group'] / layers:.1f}")
     print(f"certification clause max|dev| <= max(floor): {max(devs):.3e} <= {floors.max():.3e}: "
           f"{max(devs) <= floors.max()}")
     print(f"first layer {times[0]:.3f} s")
@@ -482,14 +546,54 @@ def profile_window(eng, step, layers=2):
         return
     print(f"profile window, {layers} steady layers (torch.profiler): wall {wall_ms:.3f} ms, device busy "
           f"{busy:.3f} ms, idle share {1 - busy / wall_ms:.4f}")
-    for label, key in (("K1 osj_svd", "osj_svd_kernel"), ("K2 jacobi_eigh", "jacobi_eigh_kernel")):
-        sel = [v for k, v in kernels.items() if key in k]
+    labels = (("K1 osj_svd", ("osj_svd_kernel",)), ("K2 jacobi_eigh", ("jacobi_eigh_kernel",)),
+              ("K3 bp_sweep_group", ("bp_mode_product", "bp_pass2", "bp_reduce")))
+    for label, keys in labels:
+        sel = [v for k, v in kernels.items() if any(key in k for key in keys)]
         ms, n = sum(v[0] for v in sel), sum(v[1] for v in sel)
         print(f"  {label}: {ms:.3f} ms in {n} launches ({100 * ms / busy:.1f}% of device time)")
-    others = sorted(((v, k) for k, v in kernels.items() if "osj_svd_kernel" not in k and "jacobi_eigh_kernel" not in k),
-                    reverse=True)
+    ours = [key for _, keys in labels for key in keys]
+    others = sorted(((v, k) for k, v in kernels.items() if not any(key in k for key in ours)), reverse=True)
     for (ms, n), k in others[:8]:
         print(f"  {ms:9.3f} ms {n:5d}x ({100 * ms / busy:4.1f}%) {k[:110]}")
+
+
+def step_ab(dev, eng, step, probe, layers=3):
+    """The step's BP routes against each other in one call: `layers` steady
+    layers from the layer-10 state with bp_kernel="kernel" (the main path's
+    engine) and with "einsum" (an engine carried over by `from_arrays`), run
+    kernel, einsum, kernel, einsum, each from its own copy of the state,
+    after one untimed layer on each."""
+    import tnqs_torch
+    from tnqs_torch.engine import LatticeEngine
+
+    cfg = probe[2]["config"]
+    circuit = tnqs_torch.heavy_hex_kicked_ising_layer(eng.plan.graph, cfg["J"], cfg["theta_h"])
+    T_host = {k: v.cpu().numpy() for k, v in eng.T.items()}
+    e_ein = LatticeEngine.from_arrays(eng.plan.graph, T_host, eng.M.cpu().numpy(), chi=eng.chi, device=dev,
+                                      bp_kernel="einsum")
+    steps = {"kernel": (eng, step), "einsum": (e_ein, e_ein.make_step(circuit, cutoff=float(cfg["cutoff"]), bp_maxiter=25))}
+    for e, st in steps.values():  # one untimed layer each: caches and the allocator warm
+        st({k: v.clone() for k, v in eng.T.items()}, eng.M.clone())
+    rates, z = {}, {}
+    for route in ("kernel", "einsum", "kernel", "einsum"):
+        e, st = steps[route]
+        T, M = {k: v.clone() for k, v in eng.T.items()}, eng.M.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(layers):
+            T, M, _ = st(T, M)
+        torch.cuda.synchronize()
+        rates.setdefault(route, []).append(layers / (time.perf_counter() - t0))
+        zs = e._expect_1site_all(T, M, e._op("Z"))
+        z[route] = torch.cat([zs[k] for k in sorted(zs)]).real
+    # two float32 routes that round in other orders, three layers on: each
+    # layer stays within ~2e-5 of flex-f64 (main path), so they agree to 1e-4
+    dz = (z["kernel"] - z["einsum"]).abs().max().item()
+    print(f"step A/B from the layer-10 state, {layers} layers a run (kernel, einsum, kernel, einsum): layers/s "
+          f"kernel route {[round(r, 4) for r in rates['kernel']]}, einsum route "
+          f"{[round(r, 4) for r in rates['einsum']]}; max |d<Z>| between the routes {dz:.3e}")
+    require(np.isfinite(dz) and dz < 1e-4, f"the step's kernel and einsum routes differ by {dz:.3e} in <Z>")
 
 
 def bp_path(dev, eng, probe):
@@ -577,12 +681,13 @@ def bp_path(dev, eng, probe):
     require(ds < 1e-4, f"kernel and einsum routes: bond entropies differ by {ds:.3e}")
     require(dZ < 1e-3, f"kernel and einsum routes: Z_BP differs by {dZ:.3e}")
     print(f"max_memory_allocated on the BP path {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    return {"bp_sweep_group": launches}
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=10, help="main-path layers (default 10)")
+    ap.add_argument("--bp-kernel-only", action="store_true",
+                    help="only the environment, the build and the BP kernel phase (no result lines)")
     args = ap.parse_args()
 
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
@@ -608,11 +713,15 @@ def main():
         for line in _build.build_log().splitlines():
             if line.startswith("==") or any(w in line for w in ("Function properties", "registers", "spill")):
                 print(f"  {line.strip()}")
+        if args.bp_kernel_only:
+            print(json.dumps(bp_kernel_phase(dev)))
+            return 0
         kernels = kernel_phase(dev)
         kernels.append(bp_kernel_phase(dev))
         launches, eng, step, probe = main_path(dev, args.layers)
         profile_window(eng, step)
-        launches.update(bp_path(dev, eng, probe))
+        step_ab(dev, eng, step, probe)
+        bp_path(dev, eng, probe)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

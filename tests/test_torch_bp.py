@@ -230,13 +230,16 @@ def test_bp_kernel_switch():
     assert LatticeEngine(p, chi=4, device="cpu", bp_kernel="kernel").bp_kernel == "kernel"
     with pytest.raises(ValueError):
         LatticeEngine(p, chi=4, device="cpu", bp_kernel="xla")
-    # the layer step keeps its einsum refreshes under any bp_kernel; chi=8
-    # is the smallest bond the kernel takes
-    eng = LatticeEngine(p, chi=8, device="cpu", bp_kernel="kernel")
+    # the layer step's BP follows bp_kernel as bp_update does; chi=8 is the
+    # smallest bond the kernel takes
+    layer = tt.heavy_hex_kicked_ising_layer(p, np.pi / 4, 0.4)
+    eng = LatticeEngine(p, chi=8, device="cpu", bp_kernel="einsum")
     calls = bp_sweep._bp_sweep_group_plain.calls
-    eng.evolve(tt.heavy_hex_kicked_ising_layer(p, np.pi / 4, 0.4), cutoff=1e-12, bp_maxiter=5)
-    assert bp_sweep._bp_sweep_group_plain.calls == calls
+    eng.evolve(layer, cutoff=1e-12, bp_maxiter=5)
     eng.bp_update(maxiter=2)
+    assert bp_sweep._bp_sweep_group_plain.calls == calls
+    eng = LatticeEngine(p, chi=8, device="cpu", bp_kernel="kernel")
+    eng.evolve(layer, cutoff=1e-12, bp_maxiter=5)
     assert bp_sweep._bp_sweep_group_plain.calls > calls
 
 

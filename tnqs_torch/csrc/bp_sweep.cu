@@ -3,70 +3,69 @@
 // Replaces the Pallas kernel of `tnqs/ops/bp_sweep.py::bp_sweep_group`
 // (tnqs/ops/bp_sweep.py:230; kernel body `_make_kernel`, :129).  For each
 // source b of the group (bucket row rows[b] of T[k]) it computes the
-// un-normalized outgoing message
+// un-normalized outgoing message through slot t
 //
 //   m[b, i, j] = sum_s sum_{x, y} K[s, i, x] (M_0 x ... x M_{k-2})[x, y] conj(K[s, j, y])
 //
-// where K[s, i, x] is the site tensor T[k][rows[b], s] with the outgoing slot t
-// indexed by i and the other k-1 bond slots (ascending) by the multi-index x,
-// and message col is absorbed into the other slot col as `...x, xy -> ...y`
-// (`_absorb_message`).  The caller sum-normalizes.  The rows come as an
-// index array, so gathered groups (the wavefront schedule's) take the kernel
-// too; the TPU kernel takes a contiguous range `lo` only.
+// where K[s] = T[k][rows[b], s], i and j index slot t, x and y the other k-1
+// slots (ascending), and message col is absorbed into the col-th other slot
+// as `...x, xy -> ...y` (`_absorb_message`).  The caller sum-normalizes.
+// The rows come as an index array, so gathered groups (the wavefront
+// schedule's) take the kernel too.  T[k] is read in place, complex64 in its
+// natural [n_k, d, chi^k] layout: the TPU kernel's pre-permuted real and
+// imaginary plane copies and blocked-real embedding are Mosaic workarounds
+// and are not carried over.
 //
-// The kernel reads complex64 T[k] in place, in its natural [n_k, d, chi^k]
-// layout: removing the slot-t digit from a flat site offset f gives the
-// other slots' linear index y directly, f = (y / st) * st * chi + i * st +
-// y % st with st = chi^(k-1-t).  The TPU kernel needs pre-permuted real and
-// imaginary plane copies and a blocked-real embedding instead (Mosaic has no
-// complex type and only 2D dots); none of that is carried over.
+// What bounds it on Hopper: FP32 operations.  A degree-3 message at chi=64
+// is 3 d chi^4 complex MACs (805 MFLOP) against 4 MB of site tensor, and
+// the precision contract ("highest") rules out TF32, so the floor is the
+// CUDA cores' 67 TFLOP/s.  The design keeps the FMA pipes fed:
 //
-// Layout: one CTA of 512 threads per (message b, chunk of ROWS = 8 or 4
-// outgoing rows i; the bond dimension is a multiple of 8, as the wrapper's
-// `supports_group` requires).  The incoming messages are staged in shared
-// memory once per CTA when they fit (both of them at degree 3, chi=64),
-// else read from global memory (degree 2 at chi=512).
-// Per site value s and row i of the chunk, the k-1 absorbs run as mode
-// products between two buffers of X = chi^(k-1) elements (Z_i, then a
-// shared temp), each a small complex GEMM over the contracted slot in
-// which every thread keeps a 4 x 2 register tile of independent
-// accumulators (rows x output columns), so the FMA chains overlap and a
-// complex MAC costs 0.75 shared loads.  At degree 2 the one absorb takes
-// all rows of the chunk in a single product.  The chunk's ket rows are
-// gathered in one pass, row index fastest when slot t is the last (stride
-// 1), so the gather is coalesced for every t.  The chunk's Z rows stay
-// resident for the final product: each warp owns groups of 4 consecutive
-// bra indices j, its lanes walk the other-slot index y, and the bra
-// K[s, j, y] is read straight from L2 (consecutive y per lane, or two
-// float4 of consecutive j when t is the last slot) with no barrier in the
-// loop, so each element read serves all ROWS rows; warp shuffles reduce
-// over y and the owning warp adds the sum over s in shared memory (the TPU
-// wrote per-site partial slabs and summed them in XLA, since its grid
-// could not revisit an output).  The buffers live in dynamic shared memory
-// when they fit, else in a global scratch the wrapper allocates (large
-// chi^(k-1), e.g. k=6 at chi=8); the code reaches both through generic
-// pointers.  The limits on k and chi are stated once, in the wrapper's
-// `supports_group` (tnqs_torch/ops/bp_sweep.py); this file checks only that
-// the arguments are well formed.
+// * Split absorbs.  One incoming message (slot u) goes to the bra side,
+//   V = K x_u conj(M_u), the others to the ket side, W = K x_v M_v x ...;
+//   then m[i, j] = sum_{s, rest} W[s, i, rest] conj(V[s, j, rest]).  Every
+//   step is a contraction of depth chi over whole 64 x 64 tiles, and the
+//   total stays k d chi^(k+1) complex MACs a message.
+// * Passes.  `bp_mode_product` writes V (and, at degree >= 4, all but one
+//   ket absorb) for the whole group into a scratch the wrapper allocates, in
+//   T's natural layout.  `bp_pass2` takes, per CTA, a chunk of (s, o) items
+//   of one message, o the index of every slot but t and the last ket-absorb
+//   slot v: it loads the tile K[s, i, o, y], makes W = K M_v in shared
+//   memory against M_v held there for the whole CTA, and accumulates
+//   W V^H over the tile into a 64 x 64 register-tiled partial.  Chunks of
+//   one message are summed by `bp_reduce` in chunk order: no float atomics,
+//   so two calls give the same bits.  A bond wider than 64 (degree 2 only)
+//   runs the same pass over 64-blocks of i, j, y and q.
+// * Register-tiled FP32 GEMM.  Operands sit in shared memory k-major (a row
+//   per depth index, pitch 66 float2: 16-byte rows, fewer bank conflicts on
+//   transposed stores).  256 threads each own a 4 x 4 complex tile of a
+//   64 x 64 output, rows and columns interleaved in pairs so a warp's four
+//   16-byte loads a depth step are broadcasts or conflict-free: 64 FMAs for
+//   4 shared loads, with no barrier inside a contraction.
+// * Copies.  Tiles arrive by 8-byte cp.async (any index order, no register
+//   staging): pass 1 double-buffers its column blocks, pass 2 loads V's tile
+//   while W's product runs.
+// * Occupancy.  Each pass holds three tiles (99 KB) in <= 128 registers, so
+//   two CTAs share an SM and one CTA's tile loads overlap another's FMAs;
+//   the wrapper's plan sizes the chunks so the grid fills the card's CTA
+//   slots in whole waves.
 //
-// What bounds it on Hopper: FLOPs.  At Eagle chi=64 a degree-3 message is
-// 3 * d * chi^4 complex MACs (~805 MFLOP) against 4 MB of site tensor, so
-// the floor is the FP32 CUDA-core rate (67 TFLOP/s; TF32 tensor cores are
-// ruled out by the "highest" precision contract).  The design reaches about
-// a quarter of it: one 227 KB CTA per SM (16 warps) leaves the absorbs'
-// shared-memory latency partly exposed, and 576 CTAs make 4.4 waves.  The
-// final product reads every bra element once per CTA from L2, so four rows
-// per CTA (what shared memory holds at chi=64) also lean on L2 bandwidth.
-// Batching the chunk's rows into larger absorb GEMMs, 3xTF32 wgmma and a
-// cluster-shared bra are the next steps.
+// The limits on k and chi are stated once, in the wrapper's `supports_group`
+// (tnqs_torch/ops/bp_sweep.py), and the launch plan (slots u and v, chunk
+// sizes, scratch layout) is made there too; this file checks only that the
+// arguments are well formed.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TW = 4;  // register tile: absorb rows, final-product bra indices
-constexpr int TC = 2;  // register tile: absorb output columns
-constexpr int THREADS = 512;
+constexpr int TILE = 64;                  // rows and columns of every shared tile
+constexpr int PITCH = TILE + 2;           // float2 per shared row
+constexpr int TILE_ELEMS = TILE * PITCH;  // float2 per shared tile
+constexpr int THREADS = 256;              // a 16 x 16 grid of 4 x 4 register tiles
+constexpr int MAX_DEGREE = 6;             // chi >= 8 and chi^k <= 2^18
+constexpr size_t SMEM_MODE = 3 * TILE_ELEMS * sizeof(float2);
+constexpr size_t SMEM_PASS2 = 3 * TILE_ELEMS * sizeof(float2);
 
 __device__ __forceinline__ void cmac(float2& acc, float2 a, float2 b) {
   acc.x = fmaf(a.x, b.x, fmaf(-a.y, b.y, acc.x));
@@ -79,284 +78,388 @@ __device__ __forceinline__ void cmac_conj(float2& acc, float2 a, float2 b) {
   acc.y = fmaf(a.y, b.x, fmaf(-a.x, b.y, acc.y));
 }
 
-// rows of X elements in the absorb buffers: Z [rows][X] and the temp
-__host__ __device__ __forceinline__ int buffer_rows(int rows, int k) { return rows + (k == 2 ? rows : 1); }
+// this thread's m-th row (or column) of a 64-wide tile: 2 g, 2 g + 1,
+// 32 + 2 g, 33 + 2 g for its row (or column) group g in 0..15
+__device__ __forceinline__ int lane_index(int g, int m) { return (m < 2 ? 0 : 30) + 2 * g + m; }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// acc[m][n] += sum_{kk < depth} A[kk][row m] * op(B[kk][column n]) over
+// k-major shared tiles A and B (op = conj with CONJ_B)
+template <bool CONJ_B>
+__device__ __forceinline__ void tile_gemm(const float2* __restrict__ As, const float2* __restrict__ Bs, int depth,
+                                          float2 (&acc)[4][4]) {
+  const float2* a = As + 2 * (threadIdx.x / 16);
+  const float2* b = Bs + 2 * (threadIdx.x % 16);
+#pragma unroll 8
+  for (int kk = 0; kk < depth; ++kk) {
+    const float4 a0 = *reinterpret_cast<const float4*>(a + kk * PITCH);
+    const float4 a1 = *reinterpret_cast<const float4*>(a + kk * PITCH + 32);
+    const float4 b0 = *reinterpret_cast<const float4*>(b + kk * PITCH);
+    const float4 b1 = *reinterpret_cast<const float4*>(b + kk * PITCH + 32);
+    const float2 av[4] = {make_float2(a0.x, a0.y), make_float2(a0.z, a0.w), make_float2(a1.x, a1.y),
+                          make_float2(a1.z, a1.w)};
+    const float2 bv[4] = {make_float2(b0.x, b0.y), make_float2(b0.z, b0.w), make_float2(b1.x, b1.y),
+                          make_float2(b1.z, b1.w)};
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// dst[hi, y, lo] = sum_x src[hi, x, lo] M[x, y] over X elements with the
-// contracted slot of extent chi and stride L: a GEMM with X / chi rows
-// (hi, lo), in TW-row x TC-column thread tiles; columns y = yb + YB * n
-__device__ __forceinline__ void mode_product(const float2* src, float2* dst, const float2* M, int X,
-                                             int chi, int L) {
-  const int R = X / chi;
-  const int RB = (R + TW - 1) / TW;
-  const int YB = (chi + TC - 1) / TC;
-  for (int tt = threadIdx.x; tt < RB * YB; tt += blockDim.x) {
-    const int yb = tt % YB;
-    const int rb = tt / YB;
-    int addr[TW], col[TC];
+    for (int m = 0; m < 4; ++m)
 #pragma unroll
-    for (int m = 0; m < TW; ++m) {
-      const int r = min(rb * TW + m, R - 1);
-      addr[m] = (r / L) * L * chi + r % L;
-    }
-#pragma unroll
-    for (int n = 0; n < TC; ++n) col[n] = min(yb + YB * n, chi - 1);
-    float2 acc[TW][TC];
-#pragma unroll
-    for (int m = 0; m < TW; ++m)
-#pragma unroll
-      for (int n = 0; n < TC; ++n) acc[m][n] = make_float2(0.0f, 0.0f);
-#pragma unroll 4
-    for (int x = 0; x < chi; ++x) {
-      float2 a[TW], b[TC];
-#pragma unroll
-      for (int m = 0; m < TW; ++m) a[m] = src[addr[m] + x * L];
-#pragma unroll
-      for (int n = 0; n < TC; ++n) b[n] = M[x * chi + col[n]];
-#pragma unroll
-      for (int m = 0; m < TW; ++m)
-#pragma unroll
-        for (int n = 0; n < TC; ++n) cmac(acc[m][n], a[m], b[n]);
-    }
-#pragma unroll
-    for (int m = 0; m < TW; ++m) {
-      if (rb * TW + m >= R) break;
-#pragma unroll
-      for (int n = 0; n < TC; ++n) {
-        const int y = yb + YB * n;
-        if (y < chi) dst[addr[m] + y * L] = acc[m][n];
-      }
-    }
-  }
-}
-
-// macc[o, j] += sum_y Z_o[y] conj(K[j, y]) with K's slot-t index j at
-// stride st; warp w owns the bra indices j = TW * g + n of groups g = w, w +
-// nwarps, ..., its lanes walk y = yh * st + yl.  VEC (st == 1, chi % 4 ==
-// 0): a lane's four j are contiguous and load as two float4.
-template <int ROWS, bool VEC>
-__device__ __forceinline__ void bra_product(const float2* __restrict__ K, const float2* bufs, float2* macc,
-                                            int X, int chi, int st) {
-  const int lane = threadIdx.x & 31;
-  const int NJ = (chi + TW - 1) / TW;
-  for (int g = threadIdx.x >> 5; g < NJ; g += blockDim.x >> 5) {
-    int jofs[TW];
-#pragma unroll
-    for (int n = 0; n < TW; ++n) jofs[n] = min(TW * g + n, chi - 1) * st;
-    float2 acc[ROWS][TW];
-#pragma unroll
-    for (int o = 0; o < ROWS; ++o)
-#pragma unroll
-      for (int n = 0; n < TW; ++n) acc[o][n] = make_float2(0.0f, 0.0f);
-    int yh = lane / st, yl = lane % st;
-#pragma unroll 2
-    for (int y = lane; y < X; y += 32) {
-      const float2* bra = K + (size_t)yh * st * chi + yl;
-      float2 bv[TW], z[ROWS];
-      if (VEC) {
-        const float4* v = reinterpret_cast<const float4*>(bra + TW * g);
-        const float4 a = __ldg(v), c = __ldg(v + 1);
-        bv[0] = make_float2(a.x, a.y);
-        bv[1] = make_float2(a.z, a.w);
-        bv[2] = make_float2(c.x, c.y);
-        bv[3] = make_float2(c.z, c.w);
-      } else {
-#pragma unroll
-        for (int n = 0; n < TW; ++n) bv[n] = __ldg(bra + jofs[n]);
-      }
-#pragma unroll
-      for (int o = 0; o < ROWS; ++o) z[o] = bufs[(size_t)o * X + y];
-#pragma unroll
-      for (int o = 0; o < ROWS; ++o)
-#pragma unroll
-        for (int n = 0; n < TW; ++n) cmac_conj(acc[o][n], z[o], bv[n]);
-      yl += 32;
-      if (yl >= st) {
-        yh += yl / st;
-        yl %= st;
-      }
-    }
-#pragma unroll
-    for (int o = 0; o < ROWS; ++o)
-#pragma unroll
-      for (int n = 0; n < TW; ++n) {
-        const float re = warp_sum(acc[o][n].x);
-        const float im = warp_sum(acc[o][n].y);
-        const int j = TW * g + n;
-        if (lane == 0 && j < chi) {
-          macc[o * chi + j].x += re;
-          macc[o * chi + j].y += im;
-        }
+      for (int n = 0; n < 4; ++n) {
+        if (CONJ_B)
+          cmac_conj(acc[m][n], av[m], bv[n]);
+        else
+          cmac(acc[m][n], av[m], bv[n]);
       }
   }
 }
 
-// dst[o][y] = K[i0 + o at slot t, y at the other slots] for the chunk's rows
-__device__ __forceinline__ void gather_rows(const float2* __restrict__ K, float2* dst, int nrows, int i0, int X,
-                                            int chi, int st) {
-  for (int q = threadIdx.x; q < nrows * X; q += blockDim.x) {
-    const int o = st == 1 ? q % nrows : q / X;
-    const int y = st == 1 ? q / nrows : q % X;
-    dst[(size_t)o * X + y] = K[(size_t)(y / st) * st * chi + (size_t)(i0 + o) * st + y % st];
+__device__ __forceinline__ void zero(float2 (&acc)[4][4]) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n) acc[m][n] = make_float2(0.0f, 0.0f);
+}
+
+// dst[r][c] (dst[c][r] with TRANS) = src[r * sr + c * sc] (conjugated with
+// CONJ) for r < nr, c < nc; lanes walk r when its stride is 1, else c, so
+// the reads coalesce whichever index is contiguous
+template <bool TRANS, bool CONJ>
+__device__ __forceinline__ void load_tile(float2* dst, const float2* __restrict__ src, long long sr, long long sc,
+                                          int nr, int nc) {
+  const bool along_r = sr == 1 && sc != 1;
+  for (int e = threadIdx.x; e < nr * nc; e += THREADS) {
+    const int r = along_r ? e % nr : e / nc;
+    const int c = along_r ? e / nr : e % nc;
+    float2 x = __ldg(src + r * sr + c * sc);
+    if (CONJ) x.y = -x.y;
+    dst[TRANS ? c * PITCH + r : r * PITCH + c] = x;
   }
 }
 
-template <int ROWS>
-__global__ void __launch_bounds__(THREADS) bp_sweep_kernel(const float2* __restrict__ T,
-                                                           const float2* __restrict__ Min,
-                                                           float2* __restrict__ out,
-                                                           float2* __restrict__ scratch,
-                                                           const long long* __restrict__ rows, int n_k,
-                                                           int k, int chi, int d, int t, int use_smem,
-                                                           int m_smem) {
-  extern __shared__ float2 smem[];
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y;
-  const int i0 = blockIdx.x * ROWS;
-  const int nrows = min(ROWS, chi - i0);
-
-  int X = 1;  // chi^(k-1)
-  for (int c = 0; c < k - 1; ++c) X *= chi;
-  int st = 1;  // stride of slot t in a site block: chi^(k-1-t)
-  for (int c = t + 1; c < k; ++c) st *= chi;
-  const size_t site = (size_t)X * chi;
-  const long long row = rows[b];
-  if (row < 0 || row >= n_k) __trap();  // a row outside the bucket
-
-  // shared: the messages [k-1][chi, chi] when they fit, the sum over s
-  // [ROWS][chi], then the buffers Z [ROWS][X] and temp (X, or [ROWS][X] at
-  // degree 2), when they fit
-  float2* Ms = smem;
-  float2* macc = smem + (m_smem ? (size_t)(k - 1) * chi * chi : 0);
-  float2* bufs = use_smem ? macc + (size_t)ROWS * chi
-                          : scratch + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * buffer_rows(ROWS, k) * X;
-  float2* temp = bufs + (size_t)ROWS * X;
-  for (int q = tid; q < ROWS * chi; q += blockDim.x) macc[q] = make_float2(0.0f, 0.0f);
-  const float2* Mb = Min + (size_t)b * (k - 1) * chi * chi;
-  if (m_smem)
-    for (int q = tid; q < (k - 1) * chi * chi; q += blockDim.x) Ms[q] = Mb[q];
-  const float2* Mr = m_smem ? Ms : Mb;  // message c at Mr + c * chi * chi
-
-  for (int s = 0; s < d; ++s) {
-    const float2* K = T + ((size_t)row * d + s) * site;
-
-    // phase A: Z_i = K_i absorbed with every incoming message
-    if (k == 2) {  // one absorb, every row of the chunk in one product
-      gather_rows(K, temp, nrows, i0, X, chi, st);
-      __syncthreads();
-      mode_product(temp, bufs, Mr, nrows * X, chi, 1);
-      __syncthreads();
-    } else {
-      // with an even number of absorbs each row ends where it starts, in Z_i
-      const bool even = (k - 1) % 2 == 0;
-      if (even) gather_rows(K, bufs, nrows, i0, X, chi, st);
-      for (int o = 0; o < nrows; ++o) {
-        float2* Z = bufs + (size_t)o * X;
-        float2* src = even ? Z : temp;
-        float2* dst = even ? temp : Z;
-        if (!even) gather_rows(K + (size_t)o * st, temp, 1, i0, X, chi, st);
-        int L = X / chi;  // extent of the slots after mode c
-        for (int c = 0; c < k - 1; ++c) {
-          __syncthreads();
-          mode_product(src, dst, Mr + (size_t)c * chi * chi, X, chi, L);
-          __syncthreads();
-          float2* tmp = src;
-          src = dst;
-          dst = tmp;
-          L /= chi;
-        }
-      }
-    }
-
-    // phase B: m[i, j] += sum_y Z_i[y] conj(K[s, j, y])
-    if (st == 1 && chi % TW == 0)
-      bra_product<ROWS, true>(K, bufs, macc, X, chi, st);
-    else
-      bra_product<ROWS, false>(K, bufs, macc, X, chi, st);
-    __syncthreads();  // the buffers are rewritten for the next s
-  }
-
-  for (int q = tid; q < ROWS * chi; q += blockDim.x) {
-    const int o = q / chi;
-    if (i0 + o < chi) out[((size_t)b * chi + i0) * chi + q] = macc[q];
+// dst[r][c] (dst[c][r] with TRANS) = src[r * sr + c * sc] for r < nr,
+// c < nc, 8-byte cp.async copies that the caller commits and waits for;
+// lanes walk r when its stride is 1, else c, so the reads coalesce
+template <bool TRANS>
+__device__ __forceinline__ void copy_tile_async(float2* dst, const float2* __restrict__ src, long long sr,
+                                                long long sc, int nr, int nc) {
+  const bool along_r = sr == 1 && sc != 1;
+  for (int e = threadIdx.x; e < nr * nc; e += THREADS) {
+    const int r = along_r ? e % nr : e / nc;
+    const int c = along_r ? e / nr : e % nc;
+    const unsigned to = (unsigned)__cvta_generic_to_shared(dst + (TRANS ? c * PITCH + r : r * PITCH + c));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(to), "l"(src + r * sr + c * sc));
   }
 }
 
-// the shared memory a launch needs, in float2
-size_t smem_elems(int rows, int k, int X, int chi, int use_smem, int m_smem) {
-  return (m_smem ? (size_t)(k - 1) * chi * chi : 0) + (size_t)rows * chi +
-         (use_smem ? (size_t)buffer_rows(rows, k) * X : 0);
+__device__ __forceinline__ void async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-struct Plan {
-  int rows;      // outgoing rows per CTA (8 or 4)
-  int use_smem;  // the absorb buffers in shared memory, else in the scratch
-  int m_smem;    // the messages in shared memory, else read from global
-  int X;         // chi^(k-1)
-};
-
-// Eight rows per CTA, else four, with the buffers in shared memory beside
-// the messages if possible, else without them; four rows in the global
-// scratch when not even four fit, with the messages in shared memory if
-// they fit there.
-Plan plan(int k, int chi) {
-  const size_t limit = 227 * 1024 / sizeof(float2);
-  Plan p = {4, 0, 0, 1};
-  for (int c = 0; c < k - 1; ++c) p.X *= chi;
-  for (int m = 1; m >= 0 && !p.use_smem; --m)
-    for (int rows = 8; rows >= 4 && !p.use_smem; rows /= 2)
-      if (smem_elems(rows, k, p.X, chi, 1, m) <= limit) p = {rows, 1, m, p.X};
-  if (!p.use_smem) p.m_smem = smem_elems(p.rows, k, p.X, chi, 0, 1) <= limit;
+__host__ __device__ __forceinline__ long long ipow(int base, int e) {
+  long long p = 1;
+  for (int c = 0; c < e; ++c) p *= base;
   return p;
 }
 
-size_t scratch_elems(int batch, int k, int chi, const Plan& p) {
-  return p.use_smem ? 0 : (size_t)batch * ((chi + p.rows - 1) / p.rows) * buffer_rows(p.rows, k) * p.X;
+// the bucket row of group entry b, or b itself for the group's own scratch
+__device__ __forceinline__ long long source_row(const long long* rows, int b, int n_k) {
+  if (rows == nullptr) return b;
+  const long long row = rows[b];
+  if (row < 0 || row >= n_k) __trap();  // a row outside the bucket
+  return row;
 }
 
-template <int ROWS>
-int launch(const void* T, const void* Min, void* out, void* scratch, const long long* rows, int n_k,
-           int batch, int k, int chi, int d, int t, const Plan& p, cudaStream_t stream) {
-  const size_t smem = smem_elems(ROWS, k, p.X, chi, p.use_smem, p.m_smem) * sizeof(float2);
-  cudaError_t err = cudaFuncSetAttribute(bp_sweep_kernel<ROWS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((chi + ROWS - 1) / ROWS, batch);
-  bp_sweep_kernel<ROWS><<<grid, THREADS, smem, stream>>>((const float2*)T, (const float2*)Min, (float2*)out,
-                                                         (float2*)scratch, rows, n_k, k, chi, d, t,
-                                                         p.use_smem, p.m_smem);
-  return (int)cudaGetLastError();
+// Bs[p][c] = in[p@slot, r0 + c], p < chi, c < 64, by cp.async in one
+// committed group; the other slots' index r sits at offset (r / st) st chi
+// + r % st, st the contracted slot's stride
+__device__ __forceinline__ void copy_columns_async(float2* Bs, const float2* __restrict__ src, int chi, int st,
+                                                   int r0) {
+  const bool along_p = st == 1;
+  for (int e = threadIdx.x; e < chi * TILE; e += THREADS) {
+    const int p = along_p ? e % chi : e / TILE;
+    const int c = along_p ? e / chi : e % TILE;
+    const int r = r0 + c;
+    const unsigned to = (unsigned)__cvta_generic_to_shared(Bs + p * PITCH + c);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(to), "l"(src + p * st + (r / st) * st * chi + r % st));
+  }
+  async_commit();
 }
 
-bool well_formed(int batch, int k, int chi) { return batch > 0 && k >= 2 && chi >= 1; }
+// out[b, s] = in[row b, s] x_slot A: with CONJ_T out[.., x@slot, ..] =
+// sum_p conj(M[x, p]) in[.., p@slot, ..] (the bra side, V), else
+// out[.., y@slot, ..] = sum_x in[.., x@slot, ..] M[x, y] (a ket absorb);
+// M = Min[b, col].  As a GEMM per (b, s): C[x, r] = sum_p A[x, p] In[p, r]
+// over the chi^(k-1) columns r of the other slots, in 64-column blocks,
+// the next block's copy in flight during this one's product; grid
+// (column-block chunks, d, B), `per_cta` blocks a CTA.
+__global__ void __launch_bounds__(THREADS, 2)
+    bp_mode_product(const float2* __restrict__ in, const long long* __restrict__ in_rows,
+                    const float2* __restrict__ Min, float2* __restrict__ out, int n_k, int k, int chi, int d,
+                    int slot, int col, int conj_t, int per_cta) {
+  extern __shared__ float4 smem_f4[];
+  float2* As = reinterpret_cast<float2*>(smem_f4);  // then two column buffers
+  const int b = blockIdx.z, s = blockIdx.y;
+  const int site = (int)ipow(chi, k);
+  const int st = (int)ipow(chi, k - 1 - slot);  // stride of the contracted slot
+  const int nrb = site / chi / TILE;           // chi^(k-1) is a multiple of 64
+  const float2* src = in + ((size_t)source_row(in_rows, b, n_k) * d + s) * site;
+  float2* dst = out + ((size_t)b * d + s) * site;
+  const float2* M = Min + ((size_t)b * (k - 1) + col) * chi * chi;
+  const int rb0 = blockIdx.x * per_cta, rb1 = min(nrb, rb0 + per_cta);
+  copy_columns_async(As + TILE_ELEMS, src, chi, st, rb0 * TILE);
+  if (conj_t)
+    load_tile<true, true>(As, M, chi, 1, chi, chi);  // As[p][x] = conj(M[x][p])
+  else
+    load_tile<false, false>(As, M, chi, 1, chi, chi);  // As[x][y] = M[x][y]
+  const int tm = threadIdx.x / 16, tn = threadIdx.x % 16;
+  for (int rb = rb0; rb < rb1; ++rb) {
+    float2* Bs = As + (1 + ((rb - rb0) & 1)) * TILE_ELEMS;
+    if (rb + 1 < rb1) {  // the other buffer, free since the last block's barrier
+      copy_columns_async(As + (2 - ((rb - rb0) & 1)) * TILE_ELEMS, src, chi, st, (rb + 1) * TILE);
+      async_wait<1>();
+    } else {
+      async_wait<0>();
+    }
+    __syncthreads();
+    float2 acc[4][4];
+    zero(acc);
+    tile_gemm<false>(As, Bs, chi, acc);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int x = lane_index(tm, m);
+      if (x >= chi) continue;
+#pragma unroll
+      for (int n = 0; n < 4; n += 2) {  // columns r, r + 1: adjacent unless st == 1
+        const int r = rb * TILE + lane_index(tn, n);
+        float2* o = dst + x * st + (r / st) * st * chi + r % st;
+        if (st > 1) {
+          *reinterpret_cast<float4*>(o) = make_float4(acc[m][n].x, acc[m][n].y, acc[m][n + 1].x, acc[m][n + 1].y);
+        } else {
+          o[0] = acc[m][n];
+          o[chi] = acc[m][n + 1];
+        }
+      }
+    }
+    __syncthreads();  // Bs is rewritten two blocks on
+  }
+}
+
+// One CTA: message b, the chunk of its (s, o) items [chunk * per_cta, ...),
+// output block (ib, jb) of 64 x 64.  Per item K = ket[b, s] and V = vt[b, s]
+// at the offset of o (the slots other than t and v, ascending, the last
+// fastest):
+//   W[i, q] = sum_y K[i@t, y@v] M_v[y, q],  P[i, j] += sum_q W[i, q] conj(V[j@t, q@v]).
+// P goes to dst[b, chunk] ([B, chunks, chi, chi]; with one chunk that is
+// the output).  WIDE (chi > 64, degree 2 only) walks 64-blocks of i and j
+// over the grid and of y and q in the CTA, reloading M_v's blocks, with one
+// CTA an SM (the block loops need more than 128 registers); else M_v stays
+// in shared memory for the whole CTA.
+template <bool WIDE>
+__global__ void __launch_bounds__(THREADS, WIDE ? 1 : 2)
+    bp_pass2(const float2* __restrict__ ket, const long long* __restrict__ ket_rows, const float2* __restrict__ vt,
+             const long long* __restrict__ v_rows, const float2* __restrict__ Min, float2* __restrict__ dst,
+             int n_k, int k, int chi, int d, int t, int v, int per_cta, int chunks) {
+  extern __shared__ float4 smem_f4[];
+  float2* Ms = reinterpret_cast<float2*>(smem_f4);
+  float2* KW = Ms + TILE_ELEMS;  // K's tile, then W's
+  float2* Vs = KW + TILE_ELEMS;
+  const int nblk = WIDE ? (chi + TILE - 1) / TILE : 1;
+  const int b = blockIdx.y;
+  const int chunk = blockIdx.x / (nblk * nblk);
+  const int i0 = WIDE ? (blockIdx.x / nblk) % nblk * TILE : 0, j0 = WIDE ? blockIdx.x % nblk * TILE : 0;
+  const int ni = min(TILE, chi - i0), nj = min(TILE, chi - j0);
+  const int site = (int)ipow(chi, k);
+  const int st_t = (int)ipow(chi, k - 1 - t), st_v = (int)ipow(chi, k - 1 - v);
+  const int O = (int)ipow(chi, k - 2);  // values of the outer slots
+  const float2* ket_b = ket + (size_t)source_row(ket_rows, b, n_k) * d * site;
+  const float2* vt_b = vt + (size_t)source_row(v_rows, b, n_k) * d * site;
+  const float2* Mv = Min + ((size_t)b * (k - 1) + (v < t ? v : v - 1)) * chi * chi;
+  if (!WIDE) load_tile<false, false>(Ms, Mv, chi, 1, chi, chi);  // Ms[y][q] = M_v[y][q], for the whole CTA
+
+  float2 P[4][4];
+  zero(P);
+  const int tm = threadIdx.x / 16, tn = threadIdx.x % 16;
+  const int it1 = min(d * O, (chunk + 1) * per_cta);
+  for (int it = chunk * per_cta; it < it1; ++it) {
+    int o = it % O, off = (it / O) * site;
+    for (int j = k - 1; j >= 0; --j) {  // o's digits, the last outer slot fastest
+      if (j == t || j == v) continue;
+      off += (o % chi) * (int)ipow(chi, k - 1 - j);
+      o /= chi;
+    }
+    const int span = WIDE ? chi : 1;  // one block of q and y unless WIDE
+    for (int q0 = 0; q0 < span; q0 += TILE) {
+      const int nq = WIDE ? min(TILE, chi - q0) : chi;
+      float2 W[4][4];
+      zero(W);
+      for (int y0 = 0; y0 < span; y0 += TILE) {
+        const int ny = WIDE ? min(TILE, chi - y0) : chi;
+        if (WIDE) copy_tile_async<false>(Ms, Mv + (size_t)y0 * chi + q0, chi, 1, ny, nq);
+        copy_tile_async<true>(KW, ket_b + off + i0 * st_t + y0 * st_v, st_t, st_v, ni, ny);  // KW[y][i] = K[i][y]
+        async_commit();
+        if (!WIDE || y0 + TILE >= chi) {  // V's tile lands while W's product runs
+          copy_tile_async<true>(Vs, vt_b + off + j0 * st_t + q0 * st_v, st_t, st_v, nj, nq);  // Vs[q][j] = V[j][q]
+          async_commit();
+          async_wait<1>();
+        } else {
+          async_wait<0>();
+        }
+        __syncthreads();
+        tile_gemm<false>(KW, Ms, ny, W);
+        __syncthreads();  // KW (and Ms when WIDE) are rewritten next
+      }
+      // KW[q][i] = W[i][q], in pairs of rows
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        float2* w = KW + lane_index(tn, n) * PITCH + 2 * tm;
+        *reinterpret_cast<float4*>(w) = make_float4(W[0][n].x, W[0][n].y, W[1][n].x, W[1][n].y);
+        *reinterpret_cast<float4*>(w + 32) = make_float4(W[2][n].x, W[2][n].y, W[3][n].x, W[3][n].y);
+      }
+      async_wait<0>();
+      __syncthreads();
+      tile_gemm<true>(KW, Vs, nq, P);
+      __syncthreads();  // KW and Vs are rewritten for the next item
+    }
+  }
+  float2* out = dst + ((size_t)b * chunks + chunk) * chi * chi;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int i = lane_index(tm, m);
+    if (i >= ni) continue;
+#pragma unroll
+    for (int n = 0; n < 4; n += 2) {  // columns j, j + 1, both inside since nj % 8 == 0
+      const int j = lane_index(tn, n);
+      if (j < nj)
+        *reinterpret_cast<float4*>(out + (size_t)(i0 + i) * chi + j0 + j) =
+            make_float4(P[m][n].x, P[m][n].y, P[m][n + 1].x, P[m][n + 1].y);
+    }
+  }
+}
+
+// out[b] = sum over c = 0, 1, ... of part[b, c], in that order
+__global__ void bp_reduce(const float2* __restrict__ part, float2* __restrict__ out, int chunks, int per_msg,
+                          long long total) {
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total;
+       e += (long long)gridDim.x * blockDim.x) {
+    const float2* p = part + (e / per_msg) * chunks * per_msg + e % per_msg;
+    float2 acc = p[0];
+    for (int c = 1; c < chunks; ++c) {
+      acc.x += p[(size_t)c * per_msg].x;
+      acc.y += p[(size_t)c * per_msg].y;
+    }
+    out[e] = acc;
+  }
+}
 
 }  // namespace
 
-// Complex64 elements of global scratch that tnqs_bp_sweep needs for a
-// group of `batch` messages (0 when its buffers fit in shared memory).
-extern "C" int tnqs_bp_sweep_scratch(int batch, int k, int chi, long long* elems) {
-  if (!well_formed(batch, k, chi)) return (int)cudaErrorInvalidValue;
-  *elems = (long long)scratch_elems(batch, k, chi, plan(k, chi));
-  return (int)cudaSuccess;
+// Once per device: raise the kernels' dynamic shared memory limits and
+// report their shared memory, how many CTAs of each an SM holds (pass 1,
+// pass 2, pass 2 for bonds wider than 64), and the SM count.
+extern "C" int tnqs_bp_sweep_setup(int* smem_mode, int* smem_pass2, int* ctas_mode, int* ctas_pass2,
+                                   int* ctas_wide, int* sms) {
+  cudaError_t err = cudaFuncSetAttribute(bp_mode_product, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MODE);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(bp_pass2<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_PASS2);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(bp_pass2<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_PASS2);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_mode, bp_mode_product, THREADS, SMEM_MODE);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_pass2, bp_pass2<false>, THREADS, SMEM_PASS2);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_wide, bp_pass2<true>, THREADS, SMEM_PASS2);
+  int dev = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  *smem_mode = (int)SMEM_MODE;
+  *smem_pass2 = (int)SMEM_PASS2;
+  return (int)err;
 }
 
-// T: the bucket [n_k, d, chi^k] complex64, contiguous; rows [batch] int64,
-// each in [0, n_k) (the kernel traps otherwise); Min [batch, k-1, chi, chi];
-// out [batch, chi, chi]; scratch as tnqs_bp_sweep_scratch says (may be null
-// when that is 0).
+namespace {
+
+// the group's launches, in order, on `st`
+cudaError_t launch_group(const float2* T, const long long* rows, const float2* M, float2* out, float2* scratch,
+                         const long long* plan, int n_k, cudaStream_t st) {
+  const int batch = (int)plan[0], k = (int)plan[1], chi = (int)plan[2], d = (int)plan[3], t = (int)plan[4];
+  const int u = (int)plan[5], v = (int)plan[6], mode_per_cta = (int)plan[7], per_cta = (int)plan[8];
+  const int chunks = (int)plan[9];
+  const bool ok = batch > 0 && n_k > 0 && d > 0 && k >= 2 && k <= MAX_DEGREE && chi >= 8 && chi % 8 == 0 &&
+                  (k == 2 || chi <= TILE) && t >= 0 && t < k && v >= 0 && v < k && v != t &&
+                  (k == 2 ? u == -1 : u >= 0 && u < k && u != t && u != v) && mode_per_cta > 0 && per_cta > 0 &&
+                  chunks > 0 && (scratch != nullptr || (k == 2 && chunks == 1));
+  if (!ok) return cudaErrorInvalidValue;
+  float2* vbuf = scratch + plan[10];
+  float2* wbuf[2] = {scratch + plan[11], scratch + plan[12]};
+  float2* part = scratch + plan[13];
+  const int nrb = k >= 3 ? (int)(ipow(chi, k - 1) / TILE) : 0;
+  const dim3 mode_grid((nrb + mode_per_cta - 1) / mode_per_cta, d, batch);
+  const float2* vt = T;
+  const long long* v_rows = rows;
+  if (k >= 3) {  // the bra side: V = K x_u conj(M_u)
+    bp_mode_product<<<mode_grid, THREADS, SMEM_MODE, st>>>(T, rows, M, vbuf, n_k, k, chi, d, u, u < t ? u : u - 1, 1,
+                                                           mode_per_cta);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    vt = vbuf;
+    v_rows = nullptr;
+  }
+  const float2* ket = T;
+  const long long* ket_rows = rows;
+  int w = 0;
+  for (int j = 0; j < k; ++j) {  // the ket absorbs before pass 2
+    if (j == t || j == u || j == v) continue;
+    bp_mode_product<<<mode_grid, THREADS, SMEM_MODE, st>>>(ket, ket_rows, M, wbuf[w], n_k, k, chi, d, j,
+                                                           j < t ? j : j - 1, 0, mode_per_cta);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ket = wbuf[w];
+    ket_rows = nullptr;
+    w ^= 1;
+  }
+  const int nblk = (chi + TILE - 1) / TILE;
+  float2* dst = chunks == 1 ? out : part;
+  const dim3 grid(chunks * nblk * nblk, batch);
+  if (nblk > 1)
+    bp_pass2<true><<<grid, THREADS, SMEM_PASS2, st>>>(ket, ket_rows, vt, v_rows, M, dst, n_k, k, chi, d, t, v, per_cta,
+                                                      chunks);
+  else
+    bp_pass2<false><<<grid, THREADS, SMEM_PASS2, st>>>(ket, ket_rows, vt, v_rows, M, dst, n_k, k, chi, d, t, v,
+                                                       per_cta, chunks);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || chunks == 1) return err;
+  const long long total = (long long)batch * chi * chi;
+  bp_reduce<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(part, out, chunks, chi * chi, total);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// T: the bucket [n_k, d, chi^k] complex64, contiguous, on CUDA device
+// `device`; rows [batch] int64, each in [0, n_k) (the kernels trap
+// otherwise); Min [batch, k-1, chi, chi]; out [batch, chi, chi].  `plan`
+// (`_launch_args` in tnqs_torch/ops/bp_sweep.py, from `bp_plan`): batch, k,
+// chi, d, t, u (the bra-side slot, -1 at k = 2), v (the ket slot absorbed in
+// pass 2; the other ket slots are absorbed first, ascending), the 64-column
+// blocks a pass-1 CTA, the (s, o) items a pass-2 CTA, the chunks, then the
+// element offsets in `scratch` of V [batch, d, chi^k] (k >= 3), of the two
+// alternating ket-absorb buffers of the same shape (k >= 4) and of the
+// partials [batch, chunks, chi, chi] (chunks > 1).  The launches go on
+// `stream`; the caller's current device is restored.
 extern "C" int tnqs_bp_sweep(const void* T, const void* rows, const void* Min, void* out, void* scratch,
-                             int n_k, int batch, int k, int chi, int d, int t, void* stream) {
-  if (!well_formed(batch, k, chi) || n_k < 1 || d < 1 || t < 0 || t >= k) return (int)cudaErrorInvalidValue;
-  const Plan p = plan(k, chi);
-  if (!p.use_smem && scratch == nullptr) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const long long* r = (const long long*)rows;
-  return p.rows == 8 ? launch<8>(T, Min, out, scratch, r, n_k, batch, k, chi, d, t, p, s)
-                     : launch<4>(T, Min, out, scratch, r, n_k, batch, k, chi, d, t, p, s);
+                             const long long* plan, int n_k, int device, void* stream) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_group((const float2*)T, (const long long*)rows, (const float2*)Min, (float2*)out, (float2*)scratch,
+                     plan, n_k, (cudaStream_t)stream);
+  if (prev != device) {
+    const cudaError_t back = cudaSetDevice(prev);
+    if (err == cudaSuccess) err = back;
+  }
+  return (int)err;
 }

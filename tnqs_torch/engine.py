@@ -4,11 +4,13 @@ Port of `tnqs/engine.py::LatticeEngine` in its production configuration:
 ``factor_method="gram"`` with the Cholesky environment gauge, shifted
 CholeskyQR2 on the tall sides, and ``trunc_method="svd"`` whose theta
 truncations route to the Jacobi kernels through `pjsvd`
-(`tnqs/engine.py:1231-1255`).  BP refreshes inside the step use the einsum
-sweep, as the JAX step does (`use_kernel=False`, `tnqs/engine.py:1433`,
-`:1445`); standalone convergence (`bp_update`, `normalize`) routes every
-degree >= 2 group through the fused BP kernel
-(`ops.bp_sweep_group`) under ``bp_kernel="kernel"``.  The BP measurements
+(`tnqs/engine.py:1231-1255`).  Every BP sweep, the step's refreshes and
+its final run as well as `bp_update` and `normalize`, routes every degree
+>= 2 group through the fused BP kernel (`ops.bp_sweep_group`) under
+``bp_kernel="kernel"``.  The JAX step passes ``use_kernel=False``
+(`tnqs/engine.py:1433`, `:1445`) because its TPU kernel needs pre-permuted
+real/imaginary plane copies of every site tensor; the port's kernel reads
+``T[k]`` in place, so that reason does not carry over.  The BP measurements
 of `tnqs/engine.py:1566-1961` follow: `expect_1site`, `expect_2site`,
 `freenergy`, `partitionfunction`, `rescale` and `bond_entropies`.
 
@@ -444,12 +446,14 @@ class LatticeEngine:
     schedule defaults to "color", which the production parity runs used;
     elsewhere to "wavefront", as in the JAX engine on the CPU.
 
-    `bp_kernel` picks the standalone BP sweep (`tnqs/engine.py:597-601`):
-    "kernel" routes every degree >= 2 group that `ops.supports_group`
-    admits (all of them at chi = 64) through `ops.bp_sweep_group` (the CUDA
-    kernel on the card, its plain version on the CPU, as JAX's
-    "interpret"), "einsum" keeps the einsum chain, and "auto" means
-    "kernel" on a CUDA device and "einsum" elsewhere."""
+    `bp_kernel` picks the BP sweep of `bp_update`, `normalize` and the
+    layer step (`tnqs/engine.py:597-601`): "kernel" routes every degree >= 2
+    group that `ops.supports_group` admits (all of them at chi = 64) through
+    `ops.bp_sweep_group` (the CUDA kernel on the card, its plain version on
+    the CPU, as JAX's "interpret"), "einsum" keeps the einsum chain, and
+    "auto" means "kernel" on a CUDA device and "einsum" elsewhere.  Unlike
+    the JAX engine, the step follows it too: the JAX kernel's plane copies,
+    which kept its step on einsum, do not exist here."""
 
     def __init__(
         self,
@@ -553,7 +557,7 @@ class LatticeEngine:
         return {k: v.cpu().numpy() for k, v in self.T.items()}, self.M.cpu().numpy()
 
     # -- BP sweep (`tnqs/engine.py:784-884`) -------------------------------
-    def _bp_new_messages(self, T: dict, M: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
+    def _bp_new_messages(self, T: dict, M: torch.Tensor, use_kernel: bool = True) -> torch.Tensor:
         """One BP iteration: batched within each (stage, degree, slot) group,
         Gauss-Seidel between stages (a stage reads the messages of the
         previous one).  With `use_kernel` and ``bp_kernel="kernel"``, every
@@ -578,19 +582,19 @@ class LatticeEngine:
         return out
 
     def _bp_fixed_point(
-        self, T: dict, M: torch.Tensor, maxiter: int, tolerance: float, use_kernel: bool = True
+        self, T: dict, M: torch.Tensor, maxiter: int, tolerance: float
     ) -> torch.Tensor:
         """BP to `tolerance` or `maxiter` iterations, with the loop of
         `tnqs/engine.py:853-884`: the first update counts as iteration 1,
         then iterate while ``it < maxiter and eps > tolerance``.  The count
         and the last eps stay in `bp_iterations` and `bp_eps`."""
-        if use_kernel and self.bp_kernel == "kernel":
+        if self.bp_kernel == "kernel":
             T = {k: v.contiguous() for k, v in T.items()}  # the kernel reads T in place
-        M_cur = self._bp_new_messages(T, M, use_kernel)
+        M_cur = self._bp_new_messages(T, M)
         eps = _bp_diff(M, M_cur)
         it = 1
         while it < maxiter and float(eps) > tolerance:
-            M_new = self._bp_new_messages(T, M_cur, use_kernel)
+            M_new = self._bp_new_messages(T, M_cur)
             eps = _bp_diff(M_cur, M_new)
             M_cur = M_new
             it += 1
@@ -807,8 +811,12 @@ class LatticeEngine:
         touched since the last one (`build_program`), capped at
         `bp_inner_maxiter` iterations: they only feed the gauge, which
         cancels exactly, and the truncation weighting.  The layer ends with
-        a BP run to `bp_tolerance` or `bp_maxiter`.  The step writes into
-        the T and M it is given."""
+        a BP run to `bp_tolerance` or `bp_maxiter`.  Both take the sweep
+        `bp_kernel` picks: the JAX step's ``use_kernel=False``
+        (`tnqs/engine.py:1433`, `:1445`) saved its TPU kernel's plane copies
+        of every site tensor, and the port's kernel reads T in place.  The
+        step writes into the T and M it is given, and keeps every T[k]
+        contiguous, so the kernel takes it without a copy."""
         if bp_tolerance is None:
             bp_tolerance = default_engine_tolerance(self.dtype)
         compiled = compile_circuit(self.plan, circuit, d=self.d)
@@ -835,12 +843,12 @@ class LatticeEngine:
             errors = torch.zeros((n_gates,), dtype=self.real_dtype, device=self.device)
             for entry in program:
                 if entry[0] == "bp":
-                    M = self._bp_fixed_point(T, M, inner, bp_tolerance, use_kernel=False)
+                    M = self._bp_fixed_point(T, M, inner, bp_tolerance)
                 elif entry[0] == "one":
                     self._apply_one_site_group(T, group_data[entry[2]])
                 else:
                     self._apply_two_site_group(T, M, errors, group_data[entry[2]], cutoff, normalize)
-            M = self._bp_fixed_point(T, M, bp_maxiter, bp_tolerance, use_kernel=False)
+            M = self._bp_fixed_point(T, M, bp_maxiter, bp_tolerance)
             return T, M, errors
 
         L = int(layers_per_call)

@@ -40,10 +40,10 @@ _SIGNATURES = {
     "tnqs_osj_svd": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I, _P],
     # (cluster, smem, active_out)
     "tnqs_osj_svd_clusters": [_I, _I, ctypes.POINTER(_I)],
-    # (t, rows, min, out, scratch, n_k, batch, k, chi, d, slot, stream)
-    "tnqs_bp_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # (batch, k, chi, elems_out)
-    "tnqs_bp_sweep_scratch": [_I, _I, _I, ctypes.POINTER(ctypes.c_longlong)],
+    # (t, rows, min, out, scratch, plan int64[14], n_k, device, stream)
+    "tnqs_bp_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # (smem_mode, smem_pass2, ctas_mode, ctas_pass2, ctas_wide, sms), all out
+    "tnqs_bp_sweep_setup": [ctypes.POINTER(_I)] * 6,
 }
 
 

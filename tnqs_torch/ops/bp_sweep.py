@@ -1,27 +1,42 @@
 """Fused BP message update of one (stage, degree, slot) group.
 
 Port of `tnqs/ops/bp_sweep.py::bp_sweep_group` (`tnqs/ops/bp_sweep.py:230`).
-On a CUDA tensor the whole chain — absorb the k-1 incoming messages into the
-ket site tensor, contract with the conjugate bra over the site axis and the
-other bonds, sum over the site value — runs in the CUDA kernel
+On a CUDA tensor the update runs in the CUDA kernels of
 `tnqs_torch/csrc/bp_sweep.cu`; on a CPU tensor `_bp_sweep_group_plain` runs
-`group_messages`, the einsum chain the engine's einsum route uses too
-(`tnqs/engine.py:816-831`).
+the same algebra in PyTorch.  Both split the absorbs between the ket and
+the bra: one incoming message (slot u) goes to the bra, V = K x_u conj(M_u),
+the others to the ket, W = K x_v M_v x ..., and the message is the sum of
+W conj(V) over the site value and every slot but t.  `group_messages` is
+the einsum chain the engine's einsum route runs (`tnqs/engine.py:816-831`).
 
 The kernel reads the complex64 bucket ``T[k]`` in place, at the rows an
 index tensor names; the TPU version's pre-permuted real/imaginary planes
 (`plane_layouts`) and blocked-real embedding are Mosaic workarounds and are
-not ported.
+not ported.  `bp_plan` makes the kernel's launch plan (slots, chunks,
+scratch); the wrapper caches it per shape and device as the int64 array the
+kernel reads and sets the kernels' attributes once per device, so a launch
+is one ctypes call and makes no host sync.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from collections.abc import Sequence
+from dataclasses import dataclass
 
 import torch
 
 from . import _build
+
+# the kernels' shared tiles (`bp_sweep.cu`): 64 x 64 complex64 at a pitch of
+# 66; pass 1 (`bp_mode_product`) and pass 2 (`bp_pass2`) hold three each
+TILE = 64
+PITCH = TILE + 2
+SMEM_MODE = 3 * TILE * PITCH * 8
+SMEM_PASS2 = 3 * TILE * PITCH * 8
+# cost of the reduce pass in pass-2 items, for choosing the chunks
+_REDUCE_COST = 0.25
 
 
 def supports_group(k: int, chi: int, dtype) -> bool:
@@ -32,11 +47,119 @@ def supports_group(k: int, chi: int, dtype) -> bool:
     return dtype == torch.complex64 and k >= 2 and chi % 8 == 0 and 0 < chi**k <= 1 << 18
 
 
+def split_slots(k: int, t: int) -> tuple[int | None, int]:
+    """(u, v) of a degree-`k` group through slot `t`: u the slot whose
+    message goes to the bra side (None at k = 2, where the one message stays
+    on the ket), v the ket slot absorbed last, inside the kernel's second
+    pass.  v is the last slot unless t is, so one index of the tiles K[t, v]
+    is contiguous; u is the first slot left."""
+    v = k - 1 if t != k - 1 else k - 2
+    if k == 2:
+        return None, v
+    return min(j for j in range(k) if j not in (t, v)), v
+
+
+def _per_cta(items: int, ctas_per_chunk: int, slots: int, reduce_cost: float) -> int:
+    """Items a CTA takes so that the grid's makespan, in items, is least:
+    ceil(CTAs / slots) waves of `per` items each, plus `reduce_cost` when
+    the chunks need summing; ties go to more items a CTA."""
+    best = None
+    for per in range(1, items + 1):
+        chunks = -(-items // per)
+        cost = -(-ctas_per_chunk * chunks // slots) * per + (reduce_cost if chunks > 1 else 0.0)
+        if best is None or cost <= best[0]:
+            best = (cost, per)
+    return best[1]
+
+
+@dataclass(frozen=True)
+class BPPlan:
+    """The kernel's launch plan for one group shape (`bp_sweep.cu`).
+
+    Pass 1 (`bp_mode_product`, k >= 3) makes V = K x_u conj(M_u) and, at
+    k >= 4, the ket absorbs of `pre` in turn, per (message, s) in
+    `mode_blocks` blocks of 64 columns, `mode_per_cta` a CTA.  Pass 2
+    (`bp_pass2`) has a CTA per (message, chunk, i-block, j-block); a chunk
+    is `per_cta` of the message's `items` = d chi^(k-2) items (s, o), o the
+    index of the slots other than t and v.  With more than one chunk the
+    partials are summed in chunk order (`bp_reduce`)."""
+
+    k: int
+    chi: int
+    batch: int
+    d: int
+    t: int
+    u: int | None
+    v: int
+    pre: tuple[int, ...]
+    nblk: int
+    items: int
+    per_cta: int
+    chunks: int
+    mode_blocks: int
+    mode_per_cta: int
+
+    @property
+    def site(self) -> int:
+        return self.chi**self.k
+
+    @property
+    def v_elems(self) -> int:
+        """complex64 elements of V: the group's [B, d, chi^k], for k >= 3."""
+        return self.batch * self.d * self.site if self.k >= 3 else 0
+
+    @property
+    def w_elems(self) -> int:
+        """The ket absorbs before pass 2 (k >= 4), in up to two alternating
+        buffers of [B, d, chi^k]."""
+        return self.batch * self.d * self.site * min(len(self.pre), 2)
+
+    @property
+    def part_elems(self) -> int:
+        """The partials [B, chunks, chi, chi], when there is more than one."""
+        return self.batch * self.chunks * self.chi**2 if self.chunks > 1 else 0
+
+    @property
+    def scratch_elems(self) -> int:
+        return self.v_elems + self.w_elems + self.part_elems
+
+    def pass2_items(self, chunk: int) -> list[tuple[int, int]]:
+        """The (s, o) items of a message that pass-2 chunk `chunk` sums, in
+        its order (the kernel's `it / O`, `it % O`)."""
+        O = self.chi ** (self.k - 2)
+        return [divmod(it, O) for it in range(chunk * self.per_cta, min(self.items, (chunk + 1) * self.per_cta))]
+
+
+@functools.lru_cache(maxsize=None)
+def bp_plan(k: int, chi: int, batch: int, t: int, d: int, mode_slots: int, pass2_slots: int) -> BPPlan:
+    """The plan of a (k, chi, B, t) group for a card that holds `mode_slots`
+    pass-1 and `pass2_slots` pass-2 CTAs at once."""
+    u, v = split_slots(k, t)
+    pre = tuple(j for j in range(k) if j not in (t, u, v))
+    nblk = -(-chi // TILE)
+    items = d * chi ** (k - 2)
+    per_cta = _per_cta(items, batch * nblk * nblk, pass2_slots, _REDUCE_COST)
+    mode_blocks = chi ** (k - 1) // TILE if k >= 3 else 0
+    mode_per_cta = _per_cta(mode_blocks, batch * d, mode_slots, 0.0) if k >= 3 else 1
+    return BPPlan(k, chi, batch, d, t, u, v, pre, nblk, items, per_cta, -(-items // per_cta), mode_blocks,
+                  mode_per_cta)
+
+
 def absorb_message(A: torch.Tensor, M: torch.Tensor, axis: int) -> torch.Tensor:
     """Contract bond `axis` of the batched tensor A [B, ..., chi@axis, ...]
     with the batched message M [B, chi, chi] as (ket, out)."""
     A = torch.einsum("B...i,Bij->B...j", A.movedim(axis, -1), M)
     return A.movedim(-1, axis)
+
+
+def _bra_product(A: torch.Tensor, Bra: torch.Tensor, t: int) -> torch.Tensor:
+    """m[B, i, j] = sum over the site axis and every bond but slot t of
+    A[.., i@t, ..] conj(Bra[.., j@t, ..])."""
+    k = A.dim() - 2
+    a_sub = ["B", "s"] + [chr(ord("a") + j) for j in range(k)]
+    b_sub = list(a_sub)
+    a_sub[2 + t], b_sub[2 + t] = "i", "j"
+    return torch.einsum(f"{''.join(a_sub)},{''.join(b_sub)}->Bij", A, Bra.conj())
 
 
 def group_messages(A: torch.Tensor, Ms: Sequence[torch.Tensor], t: int) -> torch.Tensor:
@@ -48,10 +171,7 @@ def group_messages(A: torch.Tensor, Ms: Sequence[torch.Tensor], t: int) -> torch
     Asrc = A
     for M, j in zip(Ms, (j for j in range(k) if j != t)):
         A = absorb_message(A, M, 2 + j)
-    a_sub = ["B", "s"] + [chr(ord("a") + j) for j in range(k)]
-    b_sub = list(a_sub)
-    a_sub[2 + t], b_sub[2 + t] = "i", "j"
-    return torch.einsum(f"{''.join(a_sub)},{''.join(b_sub)}->Bij", A, Asrc.conj())
+    return _bra_product(A, Asrc, t)
 
 
 def _check_group(Tk: torch.Tensor, Min: torch.Tensor, rows: torch.Tensor, t: int) -> tuple[int, int, int]:
@@ -71,13 +191,54 @@ def _check_group(Tk: torch.Tensor, Min: torch.Tensor, rows: torch.Tensor, t: int
 
 
 def _bp_sweep_group_plain(Tk: torch.Tensor, Min: torch.Tensor, rows: torch.Tensor, t: int) -> torch.Tensor:
-    """The kernel's messages by the einsum chain (`group_messages`)."""
+    """The kernel's messages by its formulation in PyTorch: the ket side W
+    takes every message but slot u's, the bra side V = K x_u conj(M_u)
+    (K itself at k = 2), then the sum of W conj(V) over s and every slot but
+    t (`split_slots`)."""
     _bp_sweep_group_plain.calls += 1
-    _check_group(Tk, Min, rows, t)
-    return group_messages(Tk[rows], Min.unbind(1), t)
+    k, _, _ = _check_group(Tk, Min, rows, t)
+    u, _ = split_slots(k, t)
+    W = V = Tk[rows]
+    for col, j in enumerate(j for j in range(k) if j != t):
+        if j == u:  # V[.., x@u, ..] = sum_p conj(M_u[x, p]) K[.., p@u, ..]
+            V = absorb_message(V, Min[:, col].mH, 2 + j)
+        else:
+            W = absorb_message(W, Min[:, col], 2 + j)
+    return _bra_product(W, V, t)
 
 
 _bp_sweep_group_plain.calls = 0
+
+
+@functools.cache
+def _slots(device_index: int) -> tuple[int, int, int]:
+    """Once per device: set the kernels' shared-memory limits and return how
+    many pass-1, pass-2 and wide pass-2 (chi > 64) CTAs the card holds at
+    once."""
+    lib = _build.kernels()
+    vals = [ctypes.c_int() for _ in range(6)]
+    with torch.cuda.device(device_index):
+        _build.check(lib.tnqs_bp_sweep_setup(*(ctypes.byref(x) for x in vals)), "tnqs_bp_sweep_setup")
+    smem_mode, smem_pass2, *ctas, sms = (x.value for x in vals)
+    if (smem_mode, smem_pass2) != (SMEM_MODE, SMEM_PASS2):
+        raise RuntimeError(f"bp_sweep.cu's shared memory {smem_mode}, {smem_pass2} B is not the plan's "
+                           f"{SMEM_MODE}, {SMEM_PASS2} B")
+    if min(ctas) < 1:
+        raise RuntimeError(f"no BP kernel CTA fits an SM {ctas}")
+    return tuple(n * sms for n in ctas)
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_args(k: int, chi: int, batch: int, t: int, d: int, device_index: int):
+    """(scratch elements, the plan as the int64[14] `tnqs_bp_sweep` reads)
+    of a group shape on a device, made once."""
+    mode_slots, pass2_slots, wide_slots = _slots(device_index)
+    plan = bp_plan(k, chi, batch, t, d, mode_slots, pass2_slots if chi <= TILE else wide_slots)
+    buf = batch * d * plan.site
+    offsets = (0, plan.v_elems, plan.v_elems + buf, plan.v_elems + plan.w_elems)  # V, W0, W1, partials
+    args = (ctypes.c_longlong * 14)(batch, k, chi, d, t, -1 if plan.u is None else plan.u, plan.v, plan.mode_per_cta,
+                                    plan.per_cta, plan.chunks, *offsets)
+    return plan.scratch_elems, args
 
 
 def _bp_sweep_group_cuda(Tk: torch.Tensor, Min: torch.Tensor, rows: torch.Tensor, t: int) -> torch.Tensor:
@@ -89,18 +250,17 @@ def _bp_sweep_group_cuda(Tk: torch.Tensor, Min: torch.Tensor, rows: torch.Tensor
     k, B, chi = _check_group(Tk, Min, rows, t)
     if not supports_group(k, chi, Tk.dtype):
         raise ValueError(f"bp_sweep_group kernel does not take k={k}, chi={chi}")
-    lib = _build.kernels()
-    elems = ctypes.c_longlong()
-    _build.check(lib.tnqs_bp_sweep_scratch(B, k, chi, ctypes.byref(elems)), "tnqs_bp_sweep_scratch")
-    # the absorb buffers of shapes too large for shared memory
-    scratch = torch.empty(elems.value, dtype=Tk.dtype, device=Tk.device) if elems.value else None
     out = torch.empty((B, chi, chi), dtype=Tk.dtype, device=Tk.device)
-    with torch.cuda.device(Tk.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tnqs_bp_sweep(
-            Tk.data_ptr(), rows.data_ptr(), Min.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), Tk.shape[0], B, k, chi, Tk.shape[1], t, stream,
-        )
+    if B == 0:
+        return out
+    dev = Tk.device.index
+    elems, args = _launch_args(k, chi, B, t, Tk.shape[1], dev)
+    # V, the ket absorbs before pass 2 and the partials, in one allocation
+    scratch = torch.empty(elems, dtype=Tk.dtype, device=Tk.device) if elems else None
+    err = _build.kernels().tnqs_bp_sweep(
+        Tk.data_ptr(), rows.data_ptr(), Min.data_ptr(), out.data_ptr(), scratch.data_ptr() if elems else None,
+        args, Tk.shape[0], dev, torch.cuda.current_stream(Tk.device).cuda_stream,
+    )
     _build.check(err, "tnqs_bp_sweep")
     bp_sweep_group.launches += 1
     return out
@@ -116,12 +276,12 @@ def bp_sweep_group(Tk: torch.Tensor, Min: torch.Tensor, rows: torch.Tensor, t: i
     index, bra index); the caller sum-normalizes.  A CPU tensor runs the
     plain version; any other device goes to the kernel launcher, which
     raises off a CUDA device."""
+    if Tk.device.type != "cpu":
+        return _bp_sweep_group_cuda(Tk, Min, rows, t)
     _, B, chi = _check_group(Tk, Min, rows, t)
     if B == 0:
         return Tk.new_empty((0, chi, chi))
-    if Tk.device.type == "cpu":
-        return _bp_sweep_group_plain(Tk, Min, rows, t)
-    return _bp_sweep_group_cuda(Tk, Min, rows, t)
+    return _bp_sweep_group_plain(Tk, Min, rows, t)
 
 
 bp_sweep_group.launches = 0
