@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of tnqs_torch on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--layers N] [--bp-kernel-only]
+    python3 chip_smoke.py [--layers N] [--bp-kernel-only | --switches-only]
 
 Run from the repository root.  Phases, each of which fails the run:
 
@@ -18,8 +18,11 @@ Run from the repository root.  Phases, each of which fails the run:
    five singular-value families; K1 at every cluster size it can take on
    one input, which must agree bitwise; the library call of the same
    function (`torch.linalg.eigh`, `torch.linalg.svd`) timed beside them as a
-   yardstick the port never calls; both kernels timed alone at each of the
-   main path's 8 shapes a layer;
+   yardstick; both kernels timed alone at each of the main path's 8 shapes
+   a layer; K2 also at the switches' shapes (phase 7), the eigh gauge's
+   environment bank [144, 64, 64], the subspace solve [54, 72, 72] and full
+   truncation's Grams [54, 128, 128], at `default_eigh`'s 12 sweeps and
+   relative skip, each beside `torch.linalg.eigh` and its bound;
 4. BP kernel: `bp_sweep_group` against its plain version on every degree
    >= 2 group of the Eagle chi=64 color plan, on random site tensors and
    positive messages, plus groups of gathered rows at degree 2-6 that
@@ -47,11 +50,35 @@ Run from the repository root.  Phases, each of which fails the run:
    initial messages on the kernel route and on an einsum-route engine
    carried over by `from_arrays`; the two must agree on the messages, <Z>,
    <ZZ>, bond entropies and Z_BP, and the BP kernel must have been launched
-   on this path with no plain run.
+   on this path with no plain run;
+7. switches, each run from "↑" on Eagle-127 with the main path's layer and
+   failing on non-finite values: (a) the golden gate of
+   `tests/test_golden.py:158`, direct, complex128, chi=8, 20 layers, layer
+   20 within 1e-5 of `golden_eagle127.json`; (b) direct, complex128,
+   chi=64, the device's f64 oracle, every layer within the main path's
+   bound and the CPU tests' complex128 bar of 1e-8, 10 layers or fewer (at
+   least 4) if they pass 90 s, then one layer's time in
+   `torch.linalg.qr`/`svd`/`eigh`; (c-e) complex64, chi=64, N layers of
+   `trunc_method="full"`, `"subspace"` and `env_gauge="eigh"`, with K2
+   launched at n = 128, 72 and 64 and no plain run, every layer within the
+   1e-2 envelope of `tests/test_f32_floor.py:119-129`; (f)
+   `reduce_method="gram_nofactor"`, which breaks down as the reference
+   does: its factorizations of the first group's real Grams from "↑"
+   (complex64) and from (b)'s state (complex128), failures NaN and never a
+   partial factor, X R^-1's orthonormality where they succeed, and one
+   group on a random full-rank state with identity messages
+   (well-conditioned sides) against cholqr2, the site tensors compared
+   where the bond gauge drops out; (g) `svd_impl="xla"`, complex64, chi=64,
+   N layers within the main bound with no K1/K2 launch, layers/s beside
+   phase 5's.  Complex128 runs launch no float32 kernel and run no plain
+   version.
 
-The line before the last is {"kernels": [...]}, the last
-{"ok": true, "device": {...}}.  `--bp-kernel-only` runs phases 1, 2 and 4
-and prints K3's row alone (no result lines), e.g. on an older tree.
+The line before the last is {"kernels": [...]}: `launches` counts the main
+path's (phase 5) launches, `launches_by_path` each run's of phases 5 and 7;
+the last line is {"ok": true, "device": {...}}.  `--bp-kernel-only` runs
+phases 1, 2 and 4 and prints K3's row alone (no result lines), e.g. on an
+older tree; `--switches-only` runs phases 1, 2, K2 at the switches' shapes
+and 7 (no result lines).
 """
 
 import argparse
@@ -185,16 +212,17 @@ def kernel_phase(dev):
             for B in sorted({b for b, r, _ in REAL_PATH if r == R})))
 
     # K2: jacobi_eigh on Grams of [26, 256, 128] thetas, then at n = 4, 32,
-    # 64 on [5, 2n, n] thetas.  Checked at its default 12 sweeps: pjsvd's 8
-    # leave clustered spectra at ~1e-4 residual by design (the polish repairs
-    # the basis); timed at pjsvd's 8
+    # 64 on [5, 2n, n] thetas, with the absolute skip of pjsvd's
+    # preconditioner (the main path's).  Checked at its default 12 sweeps:
+    # pjsvd's 8 leave clustered spectra at ~1e-4 residual by design (the
+    # polish repairs the basis); timed at pjsvd's 8
     errs = []
     for B, R, n in ((26, 256, 128), (5, 8, 4), (5, 64, 32), (5, 128, 64)):
         A = torch.as_tensor(spectrum_batch(rng, B, R, n), device=dev)
         G = A.mH @ A
         Hb = (0.5 * (G + G.mH)).contiguous()
-        w_k, V_k = jacobi.jacobi_eigh(G, sweeps=12)
-        w_p, V_p = jacobi.eigh_from_rounds(Hb, *jacobi._jacobi_eigh_plain(Hb, 12))
+        w_k, V_k = jacobi.jacobi_eigh(G, sweeps=12, relative=False)
+        w_p, V_p = jacobi.eigh_from_rounds(Hb, *jacobi._jacobi_eigh_plain(Hb, 12, False))
         torch.cuda.synchronize()
         check_eigh(f"kernel [{B},{n},{n}]", Hb, w_k, V_k)
         check_eigh(f"plain [{B},{n},{n}]", Hb, w_p, V_p)
@@ -205,8 +233,8 @@ def kernel_phase(dev):
         errs.append(err)
         if n == 128:
             G26, Hb26 = G, Hb
-    ms = cuda_ms(lambda: jacobi.jacobi_eigh(G26, sweeps=8), 10)
-    plain_ms = cuda_ms(lambda: jacobi.eigh_from_rounds(Hb26, *jacobi._jacobi_eigh_plain(Hb26, 8)), 2)
+    ms = cuda_ms(lambda: jacobi.jacobi_eigh(G26, sweeps=8, relative=False), 10)
+    plain_ms = cuda_ms(lambda: jacobi.eigh_from_rounds(Hb26, *jacobi._jacobi_eigh_plain(Hb26, 8, False)), 2)
     library_ms = cuda_ms(lambda: torch.linalg.eigh(Hb26), 10)
     B, n = Hb26.shape[:2]
     taken = jacobi._jacobi_eigh_plain.rotations.item()
@@ -225,7 +253,7 @@ def kernel_phase(dev):
     errs, times = [], {}
     for B, R, n, polish in ((18, 128, 128, 4), (26, 256, 128, 6), (5, 8, 4, 6), (5, 64, 32, 6), (5, 128, 64, 6)):
         A = torch.as_tensor(spectrum_batch(rng, B, R, n), device=dev)
-        _, V0 = jacobi.jacobi_eigh(A.mH @ A, sweeps=8)
+        _, V0 = jacobi.jacobi_eigh(A.mH @ A, sweeps=8, relative=False)
         B0 = A @ V0
         U_k, s_k, Vh_k = osj.osj_svd(B0, V0, sweeps=polish)
         Ab, scale = osj.prescale(B0)
@@ -277,8 +305,8 @@ def kernel_phase(dev):
         A = torch.as_tensor(spectrum_batch(rng, B, R, 128), device=dev)
         Hb = (A.mH @ A).contiguous()
         Hb = (0.5 * (Hb + Hb.mH)).contiguous()
-        k2_ms = cuda_ms(lambda: jacobi._jacobi_eigh_cuda(Hb, 8), 10)
-        w, V0 = jacobi.eigh_from_rounds(Hb, *jacobi._jacobi_eigh_plain(Hb, 8))
+        k2_ms = cuda_ms(lambda: jacobi._jacobi_eigh_cuda(Hb, 8, False), 10)
+        w, V0 = jacobi.eigh_from_rounds(Hb, *jacobi._jacobi_eigh_plain(Hb, 8, False))
         k2_bound = eigh_bound(B, 128, jacobi._jacobi_eigh_plain.rotations.item())
         Ab, _ = osj.prescale(A @ V0)
         Ab = Ab.contiguous()
@@ -502,10 +530,10 @@ def main_path(dev, layers):
     print(f"certification clause max|dev| <= max(floor): {max(devs):.3e} <= {floors.max():.3e}: "
           f"{max(devs) <= floors.max()}")
     print(f"first layer {times[0]:.3f} s")
-    if layers > 1:
-        print(f"layers/s over layers 2-{layers}: {(layers - 1) / sum(times[1:]):.4f}")
+    rate = (layers - 1) / sum(times[1:]) if layers > 1 else float("nan")
+    print(f"layers/s over layers 2-{layers}: {rate:.4f}")
     print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    return launches, eng, step, (center, bench_v, controls, bound[-1], layers)
+    return launches, eng, step, (center, bench_v, controls, bound[-1], layers), rate
 
 
 def profile_window(eng, step, layers=2):
@@ -683,11 +711,467 @@ def bp_path(dev, eng, probe):
     print(f"max_memory_allocated on the BP path {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
 
+# ----------------------------------------------------------------------
+# phase 7: the engine's other switches
+# ----------------------------------------------------------------------
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def reset_counts():
+    """Zero every kernel's launch counts (the plain runs' counts stay, and are
+    compared before and after)."""
+    from tnqs_torch.ops import bp_sweep, jacobi, osj
+    from tnqs_torch.ops.factorizations import default_eigh
+
+    jacobi.jacobi_eigh.launches = osj.osj_svd.launches = bp_sweep.bp_sweep_group.launches = 0
+    jacobi.jacobi_eigh.launches_by_shape.clear()
+    osj.osj_svd.launches_by_shape.clear()
+    default_eigh.library_calls = 0
+    return (jacobi._jacobi_eigh_plain.calls, osj._osj_svd_plain.calls, bp_sweep._bp_sweep_group_plain.calls)
+
+
+def read_counts(plain_before):
+    """(launches by kernel name, K2's launches by [B, n], library eigh calls,
+    whether a plain version ran since `reset_counts`)."""
+    from tnqs_torch.ops import bp_sweep, jacobi, osj
+    from tnqs_torch.ops.factorizations import default_eigh
+
+    plain = (jacobi._jacobi_eigh_plain.calls, osj._osj_svd_plain.calls, bp_sweep._bp_sweep_group_plain.calls)
+    launches = {"jacobi_eigh": jacobi.jacobi_eigh.launches, "osj_svd": osj.osj_svd.launches,
+                "bp_sweep_group": bp_sweep.bp_sweep_group.launches}
+    return launches, dict(jacobi.jacobi_eigh.launches_by_shape), default_eigh.library_calls, plain != plain_before
+
+
+def switch_shapes(eng, circuit):
+    """K2's shapes on the switches' paths, per two-site group of the layer:
+    the eigh gauge's environment bank [N, chi, chi] (every class side of
+    degree k > 1 brings k-1 environments) and the count B of thetas whose
+    smaller-side Gram is 2*chi wide (both ends of degree > 1): full
+    truncation's [B, 2chi, 2chi], subspace's Rayleigh-Ritz [B, chi+8, chi+8]."""
+    from tnqs_torch.engine import TwoSiteGroup, compile_circuit
+
+    shapes = []
+    for grp in compile_circuit(eng.plan, circuit):
+        if isinstance(grp, TwoSiteGroup):
+            N = sum(len(c.u_pos) * ((c.ku - 1) + (c.kv - 1)) for c in grp.classes)
+            B = sum(len(c.u_pos) for c in grp.classes if min(c.ku, c.kv) > 1)
+            shapes.append((N, B))
+    return shapes
+
+
+def k2_switch_shapes(dev):
+    """K2 against its plain version at the switches' shapes, the largest of
+    each on the Eagle chi=64 layer: the environment bank [N, 64, 64], the
+    subspace solve [B, 72, 72] and full truncation's Grams [B, 128, 128], at
+    `default_eigh`'s 12 sweeps and relative skip; each timed beside
+    `torch.linalg.eigh` and its bound."""
+    import tnqs_torch
+    from tnqs_torch.engine import LatticeEngine
+    from tnqs_torch.ops import jacobi
+
+    g = tnqs_torch.eagle_lattice()
+    eng = LatticeEngine(g, chi=64, device=dev)
+    shapes = switch_shapes(eng, tnqs_torch.heavy_hex_kicked_ising_layer(g, np.pi / 4, 0.4))
+    rng = np.random.default_rng(7)
+    rows, errs = [], []
+    for B, n in ((max(N for N, _ in shapes), 64), (max(b for _, b in shapes), 72), (max(b for _, b in shapes), 128)):
+        A = torch.as_tensor(spectrum_batch(rng, B, 2 * n, n), device=dev)
+        G = A.mH @ A
+        Hb = (0.5 * (G + G.mH)).contiguous()
+        w_k, V_k = jacobi.jacobi_eigh(G)
+        w_p, V_p = jacobi.eigh_from_rounds(Hb, *jacobi._jacobi_eigh_plain(Hb, 12))
+        sync(dev)
+        check_eigh(f"kernel [{B},{n},{n}]", Hb, w_k, V_k)
+        check_eigh(f"plain [{B},{n},{n}]", Hb, w_p, V_p)
+        rel = ((w_k - w_p).abs().amax(1) / w_p.abs().amax(1)).max().item()
+        errs.append((w_k - w_p).abs().max().item())
+        print(f"jacobi_eigh [{B},{n},{n}] kernel vs plain: max |dw| {errs[-1]:.3e}, relative to largest {rel:.3e}")
+        require(rel < 1e-4, f"jacobi_eigh [{B},{n},{n}]: kernel and plain eigenvalues differ by more than 1e-4")
+        taken = jacobi._jacobi_eigh_plain.rotations.item()
+        ms = cuda_ms(lambda: jacobi.jacobi_eigh(G), 10)
+        plain_ms = cuda_ms(lambda: jacobi.eigh_from_rounds(Hb, *jacobi._jacobi_eigh_plain(Hb, 12)), 1)
+        library_ms = cuda_ms(lambda: torch.linalg.eigh(Hb), 10)
+        bound_ms, bound_by = eigh_bound(B, n, taken)
+        rows.append((B, n, ms, plain_ms, library_ms, bound_ms, bound_by))
+        print(f"jacobi_eigh [{B},{n},{n}] sweeps=12: kernel {ms:.3f} ms (wrapper, refinement included), plain "
+              f"{plain_ms:.3f} ms, torch.linalg.eigh {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
+              f"{taken} of {B * 12 * (n - 1) * (n // 2)} rotations taken; kernel at {100 * bound_ms / ms:.1f}%)")
+    return max(errs)
+
+
+def evolve_eagle(dev, label, chi, dtype, layers, refs, cutoff, gate=None, time_cap=None, min_layers=None,
+                 state=None, **options):
+    """`layers` kicked-Ising layers (J = pi/4, theta_h = 0.4) on Eagle-127 from
+    "↑" (or from `state` = (T, M) host arrays) on an engine built with
+    `options`.  After each layer <Z> is read at each vertex of `refs`
+    {vertex: reference values a layer, or None} and held against its
+    reference; every value must be finite, and the deviation within
+    `gate[layer]` where `gate` is given.  With `time_cap`, the run stops
+    after `min_layers` once the next layer would pass it.  Returns (engine,
+    step, <Z> [layers, vertices], deviations, seconds a layer, counts)."""
+    import tnqs_torch
+    from tnqs_torch.engine import LatticeEngine
+
+    g = tnqs_torch.eagle_lattice()
+    circuit = tnqs_torch.heavy_hex_kicked_ising_layer(g, np.pi / 4, 0.4)
+    if state is None:
+        eng = LatticeEngine(g, chi=chi, dtype=dtype, device=dev, **options)
+    else:
+        eng = LatticeEngine.from_arrays(g, *state, chi=chi, dtype=dtype, device=dev, **options)
+    step = eng.make_step(circuit, cutoff=cutoff, bp_maxiter=25)
+    plain_before = reset_counts()
+    zs, devs, times = [], [], []
+    for li in range(layers):
+        sync(dev)
+        t0 = time.perf_counter()
+        eng.T, eng.M, errors = step(eng.T, eng.M)
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+        finite = (bool(torch.isfinite(errors).all()) and bool(torch.isfinite(eng.M).all())
+                  and all(bool(torch.isfinite(t).all()) for t in eng.T.values()))
+        require(finite, f"{label}, layer {li + 1}: non-finite state")
+        z = eng.expect_1site("Z")
+        zs.append([z[v].real for v in refs])
+        require(np.isfinite(zs[-1]).all(), f"{label}, layer {li + 1}: non-finite <Z>")
+        line = f"{label} layer {li + 1}: {times[-1]:.3f} s  " + "  ".join(f"Z{v}={z[v].real:+.9f}" for v in refs)
+        if all(vals is not None for vals in refs.values()):
+            devs.append(max(abs(z[v].real - vals[li]) for v, vals in refs.items()))
+            line += f"  |dev| {devs[-1]:.3e}" + ("" if gate is None else f" (bound {gate[li]:.3e})")
+            if gate is not None:
+                require(devs[-1] <= gate[li], f"{label}, layer {li + 1}: deviation {devs[-1]:.3e} above {gate[li]:.3e}")
+        print(line, flush=True)
+        if time_cap is not None and li + 1 >= min_layers and sum(times) + times[-1] > time_cap:
+            print(f"{label}: cut at {li + 1} of {layers} layers, the next would pass {time_cap:.0f} s")
+            break
+    counts = read_counts(plain_before)
+    print(f"{label}: {1e3 * np.mean(times[1:] or times):.1f} ms a layer over layers 2-{len(times)}, launches "
+          f"{counts[0]}, K2 by [B, n] {counts[1]}, library eigh calls {counts[2]}")
+    return eng, step, np.array(zs), devs, times, counts
+
+
+def linalg_split(dev, label, eng, step):
+    """One more layer, on a copy of the state, with every `torch.linalg.qr`,
+    `svd` and `eigh` call synchronised on both sides and timed on the host
+    clock: the layer's time in each against the whole."""
+    spent = {}
+    real = {name: getattr(torch.linalg, name) for name in ("qr", "svd", "eigh")}
+
+    def timed(name):
+        def call(*args, **kwargs):
+            sync(dev)
+            t0 = time.perf_counter()
+            out = real[name](*args, **kwargs)
+            sync(dev)
+            n, ms = spent.get(name, (0, 0.0))
+            spent[name] = (n + 1, ms + 1e3 * (time.perf_counter() - t0))
+            return out
+
+        return call
+
+    T, M = {k: v.clone() for k, v in eng.T.items()}, eng.M.clone()
+    for name in real:
+        setattr(torch.linalg, name, timed(name))
+    try:
+        sync(dev)
+        t0 = time.perf_counter()
+        step(T, M)
+        sync(dev)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        for name, fn in real.items():
+            setattr(torch.linalg, name, fn)
+    print(f"{label}, one more layer with each library factorization synchronised: {wall_ms:.1f} ms; "
+          + ", ".join(f"torch.linalg.{k} {n} calls {ms:.1f} ms ({100 * ms / wall_ms:.1f}%)"
+                      for k, (n, ms) in sorted(spent.items()))
+          + f"; the rest {wall_ms - sum(ms for _, ms in spent.values()):.1f} ms")
+    return spent
+
+
+# 7f's bars.  X R^{-1} built from the Gram alone is orthonormal to a small
+# multiple of eps kappa^2 plus CholeskyQR2's own, shift-limited defect
+# (kappa: the live columns' condition number; on the CPU the Eagle layer at
+# chi=16 gives at most 0.25 eps kappa^2, well-conditioned random sides 1x
+# CholeskyQR2's 3e-5); one
+# group on well-conditioned sides through the Q-free reduction and through
+# cholqr2 agrees to the bar of the CPU group tests
+# (`tests/test_torch_switches.py`)
+NOFACTOR_ORTH = 10.0
+NOFACTOR_GROUP = 1e-4
+
+
+def first_group_tall_sides(eng):
+    """The real tall gauged sides X [B, chi^2, d*chi] of the first two-site
+    group of one layer from `eng`'s state (the layer runs on a copy)."""
+    import tnqs_torch
+
+    captured, first = [], {"on": False}
+    orig_gauged, orig_group = eng._gauged_matrix, eng._apply_two_site_group
+
+    def gauged(A, W, k):
+        X = orig_gauged(A, W, k)
+        if first["on"] and X.shape[1] > eng.d * eng.chi:
+            captured.append(X)
+        return X
+
+    def group(*args, **kwargs):
+        first["on"] = not captured
+        try:
+            return orig_group(*args, **kwargs)
+        finally:
+            first["on"] = False
+
+    eng._gauged_matrix, eng._apply_two_site_group = gauged, group
+    try:
+        step = eng.make_step(tnqs_torch.heavy_hex_kicked_ising_layer(eng.plan.graph, np.pi / 4, 0.4),
+                             cutoff=1e-12, bp_maxiter=25)
+        step({k: v.clone() for k, v in eng.T.items()}, eng.M.clone())
+    finally:
+        del eng._gauged_matrix, eng._apply_two_site_group
+    return torch.cat(captured)
+
+
+def nofactor_factorizations(X, label):
+    """`gram_rfactor` on the Grams of real tall sides X.  Its Gram-space
+    second Cholesky round fails wherever a live direction's eigenvalue lies
+    at the shift (every product state; truncated bonds): the reference
+    returns NaN for such a matrix, and so must the port, never a partial
+    factor.  Returns which factorizations succeeded."""
+    from tnqs_torch.ops.factorizations import gram_rfactor
+
+    R, _, _ = gram_rfactor(X.mH @ X)
+    finite, nan = torch.isfinite(R).all(dim=(1, 2)), torch.isnan(R).all(dim=(1, 2))
+    print(f"7f: gram_rfactor on the first group's tall sides {label} {tuple(X.shape)}, {X.dtype}: "
+          f"{int((~finite).sum())} of {len(finite)} factorizations failed (a failure is NaN, as the reference "
+          f"returns it)")
+    require(bool((finite | nan).all()), f"7f: gram_rfactor returned a partial factor {label}")
+    return finite
+
+
+def nofactor_orthonormality(X, ok):
+    """X R^{-1} of `gram_rfactor` against `cholesky_qr`'s Q on the tall sides
+    X whose factorization succeeded (`ok`), on their live columns
+    (exactly-null bond columns are zero).  Per matrix: the largest
+    |Q^H Q - I| of each, and eps kappa^2 for kappa the live columns'
+    condition number: the Gram-space second round repairs Q1 = X L1^{-H}
+    from G alone, so X R^{-1} is orthonormal to ~eps kappa^2 on top of the
+    defect the shift leaves CholeskyQR2 on X itself."""
+    from tnqs_torch.ops.factorizations import apply_rinv, cholesky_qr, eps_of, gram_rfactor
+
+    X = X[ok]
+    G = X.mH @ X
+    _, L1, L2 = gram_rfactor(G)
+    eye = torch.eye(X.shape[-1], dtype=X.dtype, device=X.device)
+    Qn = X @ apply_rinv(L1, L2, eye.expand(G.shape))
+    Qc, _ = cholesky_qr(X)
+    live = torch.linalg.vector_norm(X, dim=1) > 0  # [B, n]
+    mask = (live[:, :, None] & live[:, None, :]).to(X.real.dtype)
+    dn, dc = (((Q.mH @ Q - eye).abs() * mask).amax(dim=(1, 2)) for Q in (Qn, Qc))
+    s = torch.linalg.svdvals(X)
+    kappa = s[:, 0] / s.gather(1, (live.sum(1, keepdim=True) - 1).clamp(min=0))[:, 0]
+    scale = eps_of(X.dtype) * kappa**2 + dc
+    print(f"7f: on {len(X)} tall sides ({int(live.sum())} live columns of {live.numel()}): max |Q^H Q - I| "
+          f"X R^-1 {dn.max().item():.3e}, cholesky_qr {dc.max().item():.3e}; live kappa "
+          f"{kappa.min().item():.3e}..{kappa.max().item():.3e}; largest X R^-1 defect / (eps kappa^2 + "
+          f"cholesky_qr's) {(dn / scale).max().item():.3e} (bar {NOFACTOR_ORTH})")
+    require(bool((dn <= NOFACTOR_ORTH * scale).all()), "7f: X R^-1 further from orthonormal than eps kappa^2")
+    return max(dn.max().item(), dc.max().item())
+
+
+def nofactor_group(dev, chi):
+    """The engine's Q-free path where it is well posed: the first two-site
+    group of the layer on a random full-rank complex64 state (numpy, seed 5)
+    with the initial identity/chi messages, so the gauged tall sides are
+    well conditioned.  Their factorizations must all succeed and X R^-1 be
+    orthonormal to ~eps kappa^2; the group, once with
+    ``reduce_method="gram_nofactor"`` and once with "cholqr2", must leave the
+    state finite, and the messages and <Z> on every vertex within
+    `NOFACTOR_GROUP` of each other.
+
+    The site tensors themselves are compared where the bond gauge (the SVD's
+    free phase of each singular pair) drops out.  The thetas (R factors
+    unique up to rounding) must agree to `NOFACTOR_GROUP`; each gate's
+    two-site tensor, the bond contraction of its new site tensors, must
+    agree to within `NOFACTOR_ORTH` times the first-order bound of the
+    rank-chi truncation, (d theta + d Q) (1 + 2 s_chi / (s_chi -
+    s_chi+1)): d theta the gate's theta difference, d Q the larger
+    orthonormality defect of the two reductions, and the gap that of
+    cholqr2's theta at the cut."""
+    import tnqs_torch
+    from tnqs_torch.engine import LatticeEngine, TwoSiteGroup, _ClassData, compile_circuit
+
+    g = tnqs_torch.eagle_lattice()
+    circuit = tnqs_torch.heavy_hex_kicked_ising_layer(g, np.pi / 4, 0.4)
+    ref = LatticeEngine(g, chi=chi, device=dev)
+    rng = np.random.default_rng(5)
+    T0 = {k: rand_c(rng, tuple(v.shape)) for k, v in ref.T.items()}
+    M0 = ref.M.cpu().numpy()
+    out, cds, thetas, captured = {}, {}, {}, []
+    for method in ("cholqr2", "gram_nofactor"):
+        eng = LatticeEngine.from_arrays(g, T0, M0, chi=chi, device=dev, reduce_method=method)
+        if method == "cholqr2":
+            def gauged(A, W, k, eng=eng, orig=eng._gauged_matrix):
+                X = orig(A, W, k)
+                if X.shape[1] > eng.d * eng.chi:
+                    captured.append(X)
+                return X
+
+            eng._gauged_matrix = gauged
+
+        def svds(ths, method=method, orig=eng._theta_svds):
+            thetas[method] = [t.clone() for t in ths]
+            return orig(ths)
+
+        eng._theta_svds = svds
+        group = next(c for c in compile_circuit(eng.plan, circuit) if isinstance(c, TwoSiteGroup))
+        cds[method] = [_ClassData(c, eng.dtype, eng.device) for c in group.classes]
+        errors = torch.zeros(len(circuit), dtype=torch.float32, device=dev)
+        eng._apply_two_site_group(eng.T, eng.M, errors, cds[method], 1e-12, True)
+        sync(dev)
+        require(all(bool(torch.isfinite(t).all()) for t in eng.T.values()) and bool(torch.isfinite(eng.M).all()),
+                f"7f: {method} group on the random state: non-finite")
+        out[method] = eng
+    X = torch.cat(captured)
+    ok = nofactor_factorizations(X, "of a random full-rank state")
+    require(bool(ok.all()), "7f: a factorization of the random state's well-conditioned sides failed")
+    dq = nofactor_orthonormality(X, ok)
+    z = {m: torch.cat(list(e._expect_1site_all(e.T, e.M, e._op("Z")).values())).real for m, e in out.items()}
+    dz = (z["gram_nofactor"] - z["cholqr2"]).abs().max().item()
+    dM = (out["gram_nofactor"].M - out["cholqr2"].M).abs().max().item()
+    dT = max((out["gram_nofactor"].T[k] - out["cholqr2"].T[k]).abs().max().item() for k in T0)
+
+    def rel(a, b):
+        return torch.linalg.vector_norm((a - b).flatten(1), dim=1) / torch.linalg.vector_norm(b.flatten(1), dim=1)
+
+    def two_site(eng, cd):
+        B, cls = len(cd.cls.u_pos), cd.cls
+        Au = eng._gather_permuted(eng.T, cls.ku, cd.u).reshape(B, -1, chi)
+        Av = eng._gather_permuted(eng.T, cls.kv, cd.v).reshape(B, -1, chi)
+        return Au @ Av.mT
+
+    d_theta, d_two, bound, gaps = [], [], [], []
+    for ci in range(len(cds["cholqr2"])):
+        th_c, th_n = thetas["cholqr2"][ci], thetas["gram_nofactor"][ci]
+        dth = rel(th_n, th_c)
+        s = torch.linalg.svdvals(th_c.to(torch.complex128))
+        gap = ((s[:, chi - 1] - s[:, chi]) / s[:, chi - 1]) if s.shape[1] > chi else torch.full_like(s[:, 0], np.inf)
+        d_theta.append(dth)
+        gaps.append(gap)
+        d_two.append(rel(two_site(out["gram_nofactor"], cds["gram_nofactor"][ci]),
+                         two_site(out["cholqr2"], cds["cholqr2"][ci])))
+        bound.append((dth + dq) * (1.0 + 2.0 / gap.float()))
+    d_theta, d_two, bound, gaps = (torch.cat(x) for x in (d_theta, d_two, bound, gaps))
+    worst = int(torch.argmax(d_two / bound))
+    print(f"7f: the first group on the random state, gram_nofactor against cholqr2: max |dM| {dM:.3e}, max "
+          f"|d<Z>| {dz:.3e} over every vertex, thetas {d_theta.max().item():.3e} relative (bar {NOFACTOR_GROUP}); "
+          f"max |dT| {dT:.3e} entrywise; the gates' two-site tensors (free of the bond gauge) {d_two.max().item():.3e} "
+          f"relative, at most {(d_two / bound).max().item():.3e} of the first-order truncation bound (bar "
+          f"{NOFACTOR_ORTH}; there d theta {d_theta[worst].item():.3e}, d Q {dq:.3e}, relative gap at the cut "
+          f"{gaps[worst].item():.3e}); smallest gap at the cut {gaps.min().item():.3e}")
+    require(dM < NOFACTOR_GROUP and dz < NOFACTOR_GROUP and d_theta.max().item() < NOFACTOR_GROUP,
+            "7f: gram_nofactor and cholqr2 groups differ")
+    require(bool((d_two <= NOFACTOR_ORTH * bound).all()),
+            "7f: a gate's two-site tensor differs beyond its truncation bound")
+
+
+def switches_phase(dev, layers, main_rate=float("nan"), chi=64):
+    """Phase 7: every switch of the engine on the card, from "↑" on Eagle-127
+    with the main path's layer.  Returns each run's kernel launches by path
+    ("7a" .. "7g"), each counted from 0 just before that run."""
+    import tnqs_torch
+    from tnqs_torch.engine import LatticeEngine
+
+    gold = json.loads((ROOT / "tests" / "golden" / "golden_eagle127.json").read_text())
+    controls = json.loads((ROOT / "tests" / "golden" / "golden_f32_controls.json").read_text())["chi64"]
+    cfg = controls["config"]
+    center, bench_v = tuple(cfg["center"]), tuple(cfg["bench_vertex"])
+    floors = np.max([controls["f32_floor_per_layer"]]
+                    + [sd["dev_from_f64_per_layer"] for sd in controls["multiseed_controls"]["seeds"].values()], axis=0)
+    main_bound = np.maximum(3.0 * np.maximum.accumulate(floors), 2e-5)
+    refs64 = {center: controls["z_center_f64"], bench_v: controls["z_bench_f64"]}
+    envelope = np.full(cfg["layers"], 1e-2)  # the non-production envelope, tests/test_f32_floor.py:119-129
+    # complex128 against flex-f64: the main bound, and the CPU tests' 1e-8
+    # complex128 bar (`tests/test_torch_switches.py`), the tighter of the two
+    oracle_bound = np.minimum(main_bound, 1e-8)
+    by_path = {}
+
+    def none_launched(label, counts):
+        require(not any(counts[0].values()) and not counts[3],
+                f"{label}: a float32 kernel or its plain version ran: {counts[0]}")
+
+    # a. the golden: direct, complex128, chi=8, 20 layers, the reference
+    # test's BP schedule (the JAX engine's on the CPU)
+    c = gold["config"]
+    *_, devs, _, counts = evolve_eagle(dev, "7a golden direct c128 chi=8", c["maxdim"], torch.complex128, c["layers"],
+                                       {tuple(c["central"]): gold["z_central"]}, c["cutoff"],
+                                       factor_method="direct", bp_schedule="wavefront")
+    print(f"7a: layer {c['layers']} |dev| {devs[-1]:.3e} from golden_eagle127.json (bound 1e-5)")
+    require(devs[-1] < 1e-5, f"7a: layer {c['layers']} deviates {devs[-1]:.3e} from the golden")
+    none_launched("7a", counts)
+    by_path["7a"] = counts[0]
+
+    # b. direct, complex128, chi=64: the device's f64 oracle
+    eng, step, _, devs, times, counts = evolve_eagle(
+        dev, f"7b direct c128 chi={chi}", chi, torch.complex128, cfg["layers"], refs64, cfg["cutoff"],
+        gate=oracle_bound, time_cap=90.0, min_layers=4, factor_method="direct")
+    none_launched("7b", counts)
+    by_path["7b"] = counts[0]
+    linalg_split(dev, f"7b direct c128 chi={chi}", eng, step)
+    oracle = ({k: v.cpu().numpy() for k, v in eng.T.items()}, eng.M.cpu().numpy())
+    del eng, step
+
+    # c-e. K2 on the Gram truncations and the eigh gauge
+    for label, options, n, k1 in (("7c trunc full", dict(trunc_method="full"), 2 * chi, False),
+                                  ("7d trunc subspace", dict(trunc_method="subspace"), chi + 8, False),
+                                  ("7e env_gauge eigh", dict(env_gauge="eigh"), chi, True)):
+        *_, devs, _, counts = evolve_eagle(dev, f"{label} c64 chi={chi}", chi, torch.complex64, layers, refs64,
+                                           cfg["cutoff"], gate=envelope, **options)
+        by_n = sorted(shape for shape in counts[1] if shape[1] == n)
+        print(f"{label}: K2 at n={n}: {by_n}; max |dev| {max(devs):.3e}; within the main path's bound at every "
+              f"layer: {all(d <= b for d, b in zip(devs, main_bound))}")
+        require(by_n, f"{label}: K2 not launched at n={n}")
+        require(not counts[3], f"{label}: a plain version ran on the card")
+        require(counts[0]["bp_sweep_group"] > 0 and (counts[0]["osj_svd"] > 0) == k1,
+                f"{label}: launches {counts[0]}")
+        by_path[label[:2]] = counts[0]
+
+    # f. the Q-free reduction.  Its Gram-space second round breaks down, as
+    # the reference's does, wherever a live direction sits at the shift
+    # (kappa(X)^2 past 1/eps), so no trajectory from "↑" runs (ROADMAP Queue
+    # 3): its factorizations on real tall sides from "↑" (complex64) and
+    # from 7b's state (complex128), X R^-1 where they succeed, and the
+    # engine's Q-free group path on well-conditioned sides
+    g = tnqs_torch.eagle_lattice()
+    nofactor_factorizations(first_group_tall_sides(LatticeEngine(g, chi=chi, device=dev)), "from the product state")
+    X = first_group_tall_sides(LatticeEngine.from_arrays(g, *oracle, chi=chi, dtype=torch.complex128, device=dev))
+    ok = nofactor_factorizations(X, "from 7b's state")
+    if ok.any():
+        nofactor_orthonormality(X, ok)
+    del X
+    nofactor_group(dev, chi)
+
+    # g. the library SVD for every theta
+    _, _, _, devs, times, counts = evolve_eagle(dev, f"7g svd_impl xla c64 chi={chi}", chi, torch.complex64, layers, refs64,
+                                             cfg["cutoff"], gate=main_bound, svd_impl="xla")
+    require(counts[0]["osj_svd"] == 0 and counts[0]["jacobi_eigh"] == 0 and counts[0]["bp_sweep_group"] > 0,
+            f"7g: launches {counts[0]}")
+    require(not counts[3], "7g: a plain version ran on the card")
+    by_path["7g"] = counts[0]
+    rate = (len(times) - 1) / sum(times[1:]) if len(times) > 1 else float("nan")
+    print(f"7g: layers/s over layers 2-{len(times)} {rate:.4f} with torch.linalg.svd, against {main_rate:.4f} on "
+          f"the pjsvd route (phase 5)")
+    return by_path
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=10, help="main-path layers (default 10)")
     ap.add_argument("--bp-kernel-only", action="store_true",
                     help="only the environment, the build and the BP kernel phase (no result lines)")
+    ap.add_argument("--switches-only", action="store_true",
+                    help="only the environment, the build and the switches phase (no result lines)")
     args = ap.parse_args()
 
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
@@ -716,18 +1200,29 @@ def main():
         if args.bp_kernel_only:
             print(json.dumps(bp_kernel_phase(dev)))
             return 0
+        if args.switches_only:
+            k2_switch_shapes(dev)
+            switches_phase(dev, args.layers)
+            return 0
         kernels = kernel_phase(dev)
+        k2_err = k2_switch_shapes(dev)
+        kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], k2_err)
         kernels.append(bp_kernel_phase(dev))
-        launches, eng, step, probe = main_path(dev, args.layers)
+        launches, eng, step, probe, main_rate = main_path(dev, args.layers)
         profile_window(eng, step)
         step_ab(dev, eng, step, probe)
         bp_path(dev, eng, probe)
+        del eng, step
+        by_path = {"5": launches, **switches_phase(dev, args.layers, main_rate)}
+        print(f"kernel launches by path (phases 5 and 7): {by_path}")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
-    kernels = [{key: dict(k, launches=launches[k["name"]])[key] for key in keys} for k in kernels]
+            "bound_by", "library_ms", "launches_by_path")
+    kernels = [{key: dict(k, launches=launches[k["name"]],
+                          launches_by_path={p: c[k["name"]] for p, c in by_path.items()})[key] for key in keys}
+               for k in kernels]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

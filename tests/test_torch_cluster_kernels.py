@@ -136,7 +136,7 @@ def _jacobi_fixed_indices(H, sweeps):
         P = [jacobi.index_at(i, r % (n - 1), n) for i in range(m)]
         Q = [jacobi.index_at(m + i, r % (n - 1), n) for i in range(m)]
         g = H[:, P, Q]
-        c, s, _ = jacobi._rot_params(H[:, P, P].real, H[:, Q, Q].real, g.real, g.imag, jacobi.EPS32)
+        c, s, _ = jacobi._rot_params(H[:, P, P].real, H[:, Q, Q].real, g.real, g.imag, jacobi.EPS32, True)
         ci, si = c[:, :, None], s[:, :, None]  # pair i's rows
         cj, sj = c[:, None, :], s[:, None, :]  # pair j's columns
         b = [[H[:, P][:, :, P], H[:, P][:, :, Q]], [H[:, Q][:, :, P], H[:, Q][:, :, Q]]]

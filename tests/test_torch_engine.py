@@ -148,21 +148,20 @@ def test_slice_matches_jax_production_engine():
 
 
 @pytest.mark.parametrize(
-    "switch",
+    "switch, error",
     [
-        dict(factor_method="direct"),
-        dict(trunc_method="full"),
-        dict(trunc_method="subspace"),
-        dict(env_gauge="eigh"),
-        dict(reduce_method="gram_nofactor"),
-        dict(bp_kernel="pallas"),
-        dict(dtype=torch.complex128),
+        (dict(bp_kernel="pallas"), NotImplementedError),
+        (dict(dtype=torch.complex128, svd_impl="pjsvd"), NotImplementedError),
+        (dict(dtype=torch.complex128, bp_kernel="kernel"), ValueError),
+        (dict(svd_impl="cusolver"), ValueError),
     ],
-    ids=lambda d: "-".join(f"{k}={v}" for k, v in d.items()),
+    ids=lambda x: "-".join(f"{k}={v}" for k, v in x.items()) if isinstance(x, dict) else x.__name__,
 )
-def test_unported_switches_raise(switch):
+def test_unported_switches_raise(switch, error):
+    """The TPU kernel's name, the float32 kernels asked for at complex128,
+    and an unknown SVD route are refused."""
     _, p = _hh22()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error):
         LatticeEngine(p, chi=4, device="cpu", **switch)
 
 

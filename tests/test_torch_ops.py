@@ -35,10 +35,10 @@ def test_jacobi_eigh_plain_matches_jax_interpret(n, refine):
     A = _rand_c(rng, (2, n, n))
     H = 0.5 * (A + np.swapaxes(A.conj(), -1, -2))
     w_j, _ = j_jacobi_eigh(jnp.asarray(H), sweeps=8, interpret=True, refine=refine)
-    w, V = jacobi.jacobi_eigh(torch.as_tensor(H), sweeps=8, refine=refine)
+    w, V = jacobi.jacobi_eigh(torch.as_tensor(H), sweeps=8, refine=refine, relative=False)
     w, V = w.numpy(), V.numpy()
     scale = np.max(np.abs(np.linalg.eigvalsh(H)))
-    # same schedule, float32 rounding in another order: eigenvalues (Rayleigh
+    # same schedule and skip, float32 rounding in another order: eigenvalues (Rayleigh
     # quotients, or the rotated diagonal without refinement) agree to a few
     # ulps of the spectral norm
     assert np.max(np.abs(w - np.asarray(w_j))) < 1e-5 * scale
@@ -47,6 +47,28 @@ def test_jacobi_eigh_plain_matches_jax_interpret(n, refine):
         # the refined eigenpairs are float32-accurate (LAPACK-f32 class ~1e-6)
         resid = np.einsum("bij,bjk->bik", H, V) - V * w[:, None, :]
         assert np.max(np.abs(resid)) < 1e-5 * scale
+
+
+@pytest.mark.parametrize("n", [32, 64])
+def test_jacobi_eigh_relative_skip_is_scale_free(n):
+    """The relative skip takes the same rotations at any power-of-two scale
+    of H, so the eigenpairs scale bit for bit, and a graded PSD Gram's small
+    eigenvalues keep their relative accuracy; the reference's absolute skip
+    leaves them unconverged once the Gram is small."""
+    rng = np.random.default_rng(n + 3)
+    A = torch.as_tensor(_rand_c(rng, (2, 3 * n // 2, n))) * torch.as_tensor(
+        np.geomspace(1.0, 1e-3, n).astype(np.float32))
+    G = A.mH @ A
+    c = 2.0**-12
+    w64 = torch.linalg.eigvalsh((G * c).to(torch.complex128))
+    small = {}
+    for relative in (True, False):
+        w, V = jacobi.jacobi_eigh(G, relative=relative)
+        ws, Vs = jacobi.jacobi_eigh(G * c, relative=relative)
+        if relative:
+            assert torch.equal(Vs, V) and torch.equal(ws, w * c)
+        small[relative] = ((ws.double() - w64).abs() / w64.abs())[:, :8].max().item()
+    assert small[True] < 1e-5 < 1e-2 < small[False]
 
 
 def test_osj_svd_cold_plain_matches_jax_interpret():

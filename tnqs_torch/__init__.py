@@ -1,11 +1,13 @@
 """tnqs_torch — the tensor-network quantum simulator in PyTorch for NVIDIA Hopper.
 
 The PyTorch port of `tnqs` (the JAX package beside it, which stays the
-reference).  This slice runs the compiled engine's production evolution:
-`LatticeEngine.make_step` -> `evolve` -> `expect_1site` on the heavy-hex
-kicked-Ising layer, with the two Jacobi kernels of the truncated SVD written
-in CUDA C++ for sm_90a (`tnqs_torch/csrc`).  On a CPU tensor each kernel
-wrapper runs the kernel's plain PyTorch version instead.
+reference).  It runs the compiled engine: `LatticeEngine.make_step` ->
+`evolve` -> `expect_1site` and the BP tail on the heavy-hex kicked-Ising
+layer, with the JAX engine's factor, gauge, reduction, truncation and SVD
+switches at complex64 and complex128, and the package's three TPU kernels
+(the two Jacobi kernels of the truncated SVD and the fused BP sweep)
+written in CUDA C++ for sm_90a (`tnqs_torch/csrc`).  On a CPU tensor each
+kernel wrapper runs the kernel's plain PyTorch version instead.
 
 The package imports torch, numpy and the standard library only: no jax, no
 networkx, no `tnqs`.

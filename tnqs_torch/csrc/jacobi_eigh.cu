@@ -6,7 +6,11 @@
 // It computes the same thing: sweeps*(n-1) rounds of the round-robin
 // tournament, each rotating the n/2 disjoint index pairs (position i,
 // position m+i) with the complex Givens J = [[c, -conj(s)], [s, c]] from the
-// stable small-root tangent, skipping a pair when |g| <= eps (absolute).
+// stable small-root tangent, skipping a pair when |g| <= eps (absolute, as
+// the TPU kernel) or, with `relative`, when |g| <= eps sqrt(|a|) sqrt(|b|)
+// (Demmel-Veselic: the rotation decisions, and so the result, are then
+// invariant under a scaling of H, and small eigenpairs of a graded PSD
+// matrix keep their relative accuracy).
 // Rows are rotated first, then columns of H and of the accumulated V.
 // Eigenvalues are the final diagonal; the Newton-Schulz repair, Rayleigh
 // quotients and sort stay in PyTorch (tnqs_torch/ops/jacobi.py).
@@ -49,12 +53,14 @@ constexpr int kBatch = 16;  // rounds of rotations CTA 0 hands the V CTAs at a t
 constexpr int kVCtas = 2;   // CTAs that hold V, each n/2 of its rows
 
 // `_rot_params` (tnqs/ops/jacobi.py:58): J diagonalizes [[a, g], [conj(g), b]].
-// Returns false (identity rotation) when |g| <= eps.
+// Returns false (identity rotation) when |g| <= eps, or with `relative` when
+// |g| <= eps sqrt(|a|) sqrt(|b|).
 __device__ __forceinline__ bool rot_params(float a, float b, float gr, float gi,
-                                           float eps, float& c, float& sr,
-                                           float& si) {
+                                           float eps, bool relative, float& c,
+                                           float& sr, float& si) {
   const float absg = sqrtf(gr * gr + gi * gi);
-  if (!(absg > eps)) return false;
+  const float tol = relative ? eps * sqrtf(fabsf(a)) * sqrtf(fabsf(b)) : eps;
+  if (!(absg > tol)) return false;
   const float phr = gr / absg;
   const float phi = gi / absg;
   const float tau = (b - a) / (2.0f * absg);
@@ -108,7 +114,8 @@ constexpr size_t smem_bytes(int n) {
 template <int N>
 __global__ void __launch_bounds__(kThreads, 1)
 jacobi_eigh_kernel(const float2* __restrict__ h_in, float2* __restrict__ vt,
-                   float* __restrict__ w, int n_rt, int rounds, float eps) {
+                   float* __restrict__ w, int n_rt, int rounds, float eps,
+                   int relative) {
   const int n = N ? N : n_rt;
   const int m = n / 2;
   extern __shared__ float4 smem[];
@@ -154,7 +161,8 @@ jacobi_eigh_kernel(const float2* __restrict__ h_in, float2* __restrict__ vt,
           float4 q = make_float4(1.0f, 0.0f, 0.0f, 0.0f);
           const int p = index_at(tid, rr, m), qq = index_at(m + tid, rr, m);
           const float2 g = H[p * ld + qq];
-          live = rot_params(H[p * ld + p].x, H[qq * ld + qq].x, g.x, g.y, eps, q.x, q.y, q.z);
+          live = rot_params(H[p * ld + p].x, H[qq * ld + qq].x, g.x, g.y, eps, relative != 0,
+                           q.x, q.y, q.z);
           q.w = live ? 1.0f : 0.0f;
           rot[tid] = q;
         }
@@ -271,7 +279,7 @@ jacobi_eigh_kernel(const float2* __restrict__ h_in, float2* __restrict__ vt,
   cluster.sync();
 }
 
-using Kernel = void (*)(const float2*, float2*, float*, int, int, float);
+using Kernel = void (*)(const float2*, float2*, float*, int, int, float, int);
 
 Kernel kernel_for(int n) { return n == kMaxN ? jacobi_eigh_kernel<kMaxN> : jacobi_eigh_kernel<0>; }
 
@@ -306,10 +314,11 @@ extern "C" int tnqs_jacobi_eigh_clusters(int n, int* active) {
 }
 
 // h_in [batch, n, n] hermitian complex64 (row-major), vt_out [batch, n, n]
-// with vt_out[b][col][row] = V[row, col], w_out [batch, n] (unsorted).
+// with vt_out[b][col][row] = V[row, col], w_out [batch, n] (unsorted);
+// `relative` != 0 takes the scale-relative skip.
 extern "C" int tnqs_jacobi_eigh(const void* h_in, void* vt_out, void* w_out,
                                 int batch, int n, int rounds, float eps,
-                                void* stream) {
+                                int relative, void* stream) {
   if (batch <= 0 || n < 4 || n > kMaxN || n % 2 != 0 || rounds < 0)
     return (int)cudaErrorInvalidValue;
   const Kernel kernel = kernel_for(n);
@@ -319,7 +328,7 @@ extern "C" int tnqs_jacobi_eigh(const void* h_in, void* vt_out, void* w_out,
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(batch, n, (cudaStream_t)stream, &attr);
   err = cudaLaunchKernelEx(&cfg, kernel, (const float2*)h_in, (float2*)vt_out,
-                           (float*)w_out, n, rounds, eps);
+                           (float*)w_out, n, rounds, eps, relative);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

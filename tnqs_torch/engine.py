@@ -1,12 +1,16 @@
 """Batched simple-update evolution engine in PyTorch.
 
-Port of `tnqs/engine.py::LatticeEngine` in its production configuration:
+Port of `tnqs/engine.py::LatticeEngine` with the switches of the JAX
+engine (`LatticeEngine` lists them).  The production configuration is
 ``factor_method="gram"`` with the Cholesky environment gauge, shifted
 CholeskyQR2 on the tall sides, and ``trunc_method="svd"`` whose theta
 truncations route to the Jacobi kernels through `pjsvd`
-(`tnqs/engine.py:1231-1255`).  Every BP sweep, the step's refreshes and
-its final run as well as `bp_update` and `normalize`, routes every degree
->= 2 group through the fused BP kernel (`ops.bp_sweep_group`) under
+(`tnqs/engine.py:1231-1255`).  The direct path (`tnqs/engine.py:914-1007`),
+the eigh gauge, the Q-free reduction, the Gram truncations and the library
+SVD are the other values; complex128 runs every one of them except the
+float32 kernels.  Every BP sweep, the step's refreshes and its final run
+as well as `bp_update` and `normalize`, routes every degree >= 2 group
+through the fused BP kernel (`ops.bp_sweep_group`) under
 ``bp_kernel="kernel"``.  The JAX step passes ``use_kernel=False``
 (`tnqs/engine.py:1433`, `:1445`) because its TPU kernel needs pre-permuted
 real/imaginary plane copies of every site tensor; the port's kernel reads
@@ -37,7 +41,16 @@ import torch.nn.functional as F
 from .gates import gate_matrix, op_matrix
 from .graphs import NamedGraph, center
 from .ops.bp_sweep import absorb_message, bp_sweep_group, group_messages, supports_group
-from .ops.factorizations import cholesky_qr, eps_of
+from .ops.factorizations import (
+    apply_rinv,
+    cholesky_nan,
+    cholesky_qr,
+    default_eigh,
+    eps_of,
+    gram_rfactor,
+    subspace_eigh,
+    svd_from_eigh,
+)
 from .ops.osj import pjsvd
 
 
@@ -330,22 +343,57 @@ def build_program(plan: LatticePlan, compiled: list) -> list:
 # device helpers (`tnqs/engine.py:383-495`)
 # ----------------------------------------------------------------------
 
-def _truncate_mask(s: torch.Tensor, chi: int, cutoff: float):
+def _truncate_mask(s: torch.Tensor, chi: int, cutoff: float, tail_extra: torch.Tensor | None = None):
     """Static-shape truncation of singular values s [B, K] (descending) with
-    the relative-cutoff semantics of `tnqs/engine.py:415`.  Returns
-    (s_padded [B, chi] masked, mask [B, chi], discarded weight [B])."""
+    the relative-cutoff semantics of `tnqs/engine.py:415`.  `tail_extra` [B]
+    is weight known to lie below the given values (the subspace
+    eigensolver's unresolved tail): it joins the total and every cumulative
+    tail.  Returns (s_padded [B, chi] masked, mask [B, chi], discarded
+    weight [B])."""
     B, K = s.shape
     p = s * s
     total = torch.sum(p, dim=1, keepdim=True)
     tail = torch.flip(torch.cumsum(torch.flip(p, [1]), dim=1), [1])  # tail[k] = sum_{j>=k} p_j
+    beyond = tail.new_zeros((B, 1))
+    if tail_extra is not None:
+        beyond = tail_extra.to(p.dtype)[:, None]
+        total = total + beyond
+        tail = tail + beyond
     total = torch.where(total > 0, total, 1.0)
     # keep the smallest count whose dropped tail is within cutoff * total
     nstar = (K - torch.sum(tail <= cutoff * total, dim=1)).clamp(1, chi)
     s_pad = s[:, :chi] if K >= chi else F.pad(s, (0, chi - K))
     mask = torch.arange(chi, device=s.device)[None, :] < nstar[:, None]
-    tail_full = torch.cat([tail, tail.new_zeros((B, 1))], dim=1)
+    tail_full = torch.cat([tail, beyond], dim=1)
     err = torch.gather(tail_full, 1, nstar[:, None])[:, 0] / total[:, 0]
     return s_pad * mask, mask, err
+
+
+def _pseudo_sqrt_roots(E: torch.Tensor, cutoff: float, eigh_fn=None):
+    """Batched pseudo sqrt and inverse sqrt (W, Winv) of the hermitized
+    environments E [..., chi, chi], eigenvalues below `cutoff` in absolute
+    value zeroed (`tnqs/engine.py:396`); `eigh_fn` defaults to
+    `torch.linalg.eigh`."""
+    H = 0.5 * (E + E.mH)
+    w, U = (torch.linalg.eigh if eigh_fn is None else eigh_fn)(H)
+    w = w.real
+    ok = torch.abs(w) >= cutoff
+    sq = torch.where(ok, torch.sqrt(torch.clamp(w, min=0.0)), 0.0)
+    isq = torch.where(ok & (sq > 0), 1.0 / torch.where(sq > 0, sq, 1.0), 0.0)
+    W = (U * sq.to(U.dtype)[..., None, :]) @ U.mH
+    Winv = (U * isq.to(U.dtype)[..., None, :]) @ U.mH
+    return W, Winv
+
+
+def _svd_fallback(mat: torch.Tensor):
+    """The library's batched thin SVD, the direct path's and
+    ``svd_impl="xla"``'s (`tnqs/engine.py:498`): LAPACK's on the CPU, and on
+    the card cuSOLVER's ``gesvd``, the QR-iteration method of LAPACK's
+    accuracy class.  torch's default there, ``gesvdj``, stops its Jacobi
+    sweeps at a tolerance that leaves float32 thetas measurably less
+    accurate: the library route's Eagle chi=64 trajectory then leaves the
+    main path's bound (`PERF.md`)."""
+    return torch.linalg.svd(mat, full_matrices=False, driver="gesvd" if mat.is_cuda else None)
 
 
 def _cholesky_gauge_roots(E: torch.Tensor, eps: float):
@@ -357,15 +405,14 @@ def _cholesky_gauge_roots(E: torch.Tensor, eps: float):
     Null directions (L[j,j]^2 ~ delta) are ZEROED in Winv.  Their rows
     would be ~1/sqrt(delta) ~ 1e4 in float32, which amplifies the truncated
     SVD's residual in the dead bond directions into garbage that reached NaN
-    within 3 layers on the chi=64 Eagle run.  The Cholesky is unchecked
-    (`cholesky_ex`), so a failure propagates as non-finite values rather
-    than raising."""
+    within 3 layers on the chi=64 Eagle run.  A failed Cholesky gives NaN
+    (`cholesky_nan`), as in JAX, rather than raising."""
     H = 0.5 * (E + E.mH)
     chi = H.shape[-1]
     diag_scale = torch.diagonal(H, dim1=-2, dim2=-1).real.sum(-1) / chi
     delta = torch.clamp(torch.abs(diag_scale) * (32.0 * eps), min=1e-30)
     eye = torch.eye(chi, dtype=H.dtype, device=H.device)
-    L = torch.linalg.cholesky_ex(H + delta[..., None, None] * eye).L
+    L = cholesky_nan(H + delta[..., None, None] * eye)
     Linv = torch.linalg.solve_triangular(L, eye.expand(H.shape), upper=False)
     diagL2 = torch.abs(torch.diagonal(L, dim1=-2, dim2=-1)) ** 2
     keep = (diagL2 > (64.0 * delta)[..., None]).to(Linv.dtype)
@@ -439,21 +486,46 @@ class LatticeEngine:
     """Batched simple-update evolution on a fixed graph at a fixed bond cap
     (`tnqs/engine.py:562`), starting from the product state "↑".
 
-    The switches name the JAX engine's options; only the production values
-    are ported, and any other value raises NotImplementedError.  The engine
-    runs on the CUDA device unless `device` names another (``"cpu"`` for
-    the tests); with no CUDA device the default raises.  On CUDA the BP
-    schedule defaults to "color", which the production parity runs used;
-    elsewhere to "wavefront", as in the JAX engine on the CPU.
+    The engine runs on the CUDA device unless `device` names another
+    (``"cpu"`` for the tests); with no CUDA device the default raises.  On
+    CUDA the BP schedule defaults to "color", which the production parity
+    runs used; elsewhere to "wavefront", as in the JAX engine on the CPU.
 
-    `bp_kernel` picks the BP sweep of `bp_update`, `normalize` and the
-    layer step (`tnqs/engine.py:597-601`): "kernel" routes every degree >= 2
-    group that `ops.supports_group` admits (all of them at chi = 64) through
-    `ops.bp_sweep_group` (the CUDA kernel on the card, its plain version on
-    the CPU, as JAX's "interpret"), "einsum" keeps the einsum chain, and
-    "auto" means "kernel" on a CUDA device and "einsum" elsewhere.  Unlike
-    the JAX engine, the step follows it too: the JAX kernel's plane copies,
-    which kept its step on einsum, do not exist here."""
+    The switches are the JAX engine's options (`tnqs/engine.py:585-677`),
+    taken as constructor arguments only: the port reads none of the JAX
+    package's ``TNQS_TRUNC``, ``TNQS_REDUCE`` or ``TNQS_SVD_IMPL``
+    environment overrides.  The defaults are the production values.
+
+    - `dtype`: complex64 or complex128.  K1, K2 and K3 are float32 kernels,
+      so a complex128 engine launches none of them.
+    - `factor_method`: "gram" (per edge-color group, batched: the gauge
+      roots of every environment at once, MXU-style reductions) or
+      "direct" (per class, one after another: the eigh pseudo-sqrt gauge
+      with the library eigh, `torch.linalg.qr` on tall sides and
+      `torch.linalg.svd` of theta, as the JAX engine's CPU path).  The
+      switches below act on the gram path only.
+    - `env_gauge`: "cholesky" (the Cholesky root of each environment) or
+      "eigh" (the pseudo-sqrt, its eigensolve through `default_eigh`).
+    - `reduce_method`: "cholqr2" (shifted CholeskyQR2 of each tall side) or
+      "gram_nofactor" (the Q-free R factor of every tall side's Gram, banked
+      into one `gram_rfactor` chain, recombined as X R^{-1} R_new; the
+      reference calls it float32-unstable and opt-in).
+    - `trunc_method`: "svd" (the SVD of theta, by `svd_impl`), "full"
+      (`default_eigh` of each theta's smaller-side Gram) or "subspace"
+      (`subspace_eigh` of Grams wider than chi + 16, `default_eigh` below).
+    - `svd_impl`, for ``trunc_method="svd"``: "pjsvd" (the Jacobi kernels,
+      K2 then K1, for thetas whose smaller side is even and >= 64, the
+      library below), "xla" (`torch.linalg.svd` for every theta) or "auto"
+      ("pjsvd" at complex64, "xla" at complex128).
+    - `bp_kernel` picks the BP sweep of `bp_update`, `normalize` and the
+      layer step (`tnqs/engine.py:597-601`): "kernel" routes every degree
+      >= 2 group that `ops.supports_group` admits (all of them at chi = 64)
+      through `ops.bp_sweep_group` (the CUDA kernel on the card, its plain
+      version on the CPU, as JAX's "interpret"), "einsum" keeps the einsum
+      chain, and "auto" means "kernel" for complex64 on a CUDA device and
+      "einsum" otherwise.  Unlike the JAX engine, the step follows it too:
+      the JAX kernel's plane copies, which kept its step on einsum, do not
+      exist here."""
 
     def __init__(
         self,
@@ -466,22 +538,30 @@ class LatticeEngine:
         env_gauge: str = "cholesky",
         reduce_method: str = "cholqr2",
         trunc_method: str = "svd",
+        svd_impl: str = "auto",
         bp_kernel: str = "auto",
     ):
-        ported = {
-            "dtype": (dtype, torch.complex64),
-            "factor_method": (factor_method, "gram"),
-            "env_gauge": (env_gauge, "cholesky"),
-            "reduce_method": (reduce_method, "cholqr2"),
-            "trunc_method": (trunc_method, "svd"),
+        if dtype not in (torch.complex64, torch.complex128):
+            raise NotImplementedError(f"dtype={dtype!r} is not ported; complex64 or complex128")
+        switches = {
+            "factor_method": (factor_method, ("gram", "direct")),
+            "env_gauge": (env_gauge, ("cholesky", "eigh")),
+            "reduce_method": (reduce_method, ("cholqr2", "gram_nofactor")),
+            "trunc_method": (trunc_method, ("svd", "full", "subspace")),
+            "svd_impl": (svd_impl, ("auto", "pjsvd", "xla")),
         }
-        for name, (value, supported) in ported.items():
-            if value != supported:
-                raise NotImplementedError(f"{name}={value!r} is not ported; only {supported!r}")
+        for name, (value, known) in switches.items():
+            if value not in known:
+                raise ValueError(f"unknown {name} {value!r}; one of {known}")
         if bp_kernel == "pallas":
             raise NotImplementedError("bp_kernel='pallas' is the TPU kernel; the port's is 'kernel'")
         if bp_kernel not in ("auto", "kernel", "einsum"):
             raise ValueError(f"unknown bp_kernel {bp_kernel!r}")
+        single = dtype == torch.complex64
+        if svd_impl == "pjsvd" and not single:
+            raise NotImplementedError("svd_impl='pjsvd' runs the float32 Jacobi kernels; complex128 takes 'xla'")
+        if bp_kernel == "kernel" and not single:
+            raise ValueError("bp_kernel='kernel' is the float32 BP kernel; complex128 takes 'einsum'")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError("LatticeEngine runs on the CUDA device and none is available; "
@@ -489,8 +569,11 @@ class LatticeEngine:
             device = "cuda"
         self.device = torch.device(device)
         if bp_kernel == "auto":
-            bp_kernel = "kernel" if self.device.type == "cuda" else "einsum"
+            bp_kernel = "kernel" if self.device.type == "cuda" and single else "einsum"
         self.bp_kernel = bp_kernel
+        self.factor_method, self.env_gauge = factor_method, env_gauge
+        self.reduce_method, self.trunc_method = reduce_method, trunc_method
+        self.svd_impl = ("pjsvd" if single else "xla") if svd_impl == "auto" else svd_impl
         if bp_schedule == "auto":
             bp_schedule = "color" if self.device.type == "cuda" else "wavefront"
         self.plan = LatticePlan.build(graph, bp_schedule=bp_schedule)
@@ -498,6 +581,7 @@ class LatticeEngine:
         self.d = 2
         self.dtype = dtype
         self.real_dtype = dtype.to_real()
+        self.sqrt_cutoff = 10 * eps_of(self.real_dtype)  # `tnqs/engine.py:701`
         self._bp_groups = []
         for (stage, k, t, src_pos, out_eids, in_eids, other_slots) in self.plan.bp_groups:
             lo, hi = int(src_pos[0]), int(src_pos[-1]) + 1
@@ -652,12 +736,42 @@ class LatticeEngine:
             A = A.movedim(-1, 2 + j)
         return A
 
-    # -- gate groups (`tnqs/engine.py:1009-1367`) --------------------------
+    # -- gate groups (`tnqs/engine.py:975-1367`) ---------------------------
+    def _apply_two_site_class(self, T, M, errors, cd: _ClassData, cutoff: float, normalize: bool) -> None:
+        """The direct path's update of one class in place on (T, M, errors)
+        (`tnqs/engine.py:975-1007`): per side the eigh pseudo-sqrt gauge of
+        its environments (library eigh) and `torch.linalg.qr` when tall
+        (wide sides skip it, R = X); theta by the reference's two einsums,
+        so rounding follows it; the library SVD."""
+        chi, d = self.chi, self.d
+        cls = cd.cls
+        Bn = len(cls.u_pos)
+        sides = []
+        for rows, k, env in ((cd.u, cls.ku, cd.env_u), (cd.v, cls.kv, cd.env_v)):
+            A = self._gather_permuted(T, k, rows)
+            E = M[env] if k > 1 else M.new_zeros((Bn, 0, chi, chi))
+            W, Winv = _pseudo_sqrt_roots(E, self.sqrt_cutoff)
+            X = self._gauged_matrix(A, W, k)
+            if X.shape[1] <= d * chi:
+                sides.append((X, None, Winv))
+            else:
+                Q, R = torch.linalg.qr(X)
+                sides.append((R, lambda Rn, Q=Q: Q @ Rn, Winv))
+        (Ru, *side_u), (Rv, *side_v) = sides
+        ru, rv = Ru.shape[1], Rv.shape[1]
+        theta = torch.einsum("Bxda,Byea->Bxdye", Ru.reshape(Bn, ru, d, chi), Rv.reshape(Bn, rv, d, chi))
+        theta = torch.einsum("Bxdye,Bpqde->Bxpyq", theta, cd.gates).reshape(Bn, ru * d, rv * d)
+        self._finish_two_site(T, M, errors, cd, *_svd_fallback(theta), (ru, *side_u), (rv, *side_v), cutoff,
+                              normalize)
+
     def _apply_two_site_group(self, T, M, errors, classes: list, cutoff: float, normalize: bool) -> None:
-        """Apply one edge-color gate group in place on (T, M, errors): one
-        batched Cholesky gauge over every environment of the group, then per
-        class the gauged sides (CholeskyQR2 on tall ones, R = X on wide
-        ones), theta as one matmul, and one truncated SVD per theta shape.
+        """Apply one edge-color gate group in place on (T, M, errors)
+        (`tnqs/engine.py:1009-1308`): one batched gauge over every
+        environment of the group (Cholesky roots, or the pseudo-sqrt through
+        `default_eigh`), then per class the gauged sides (tall ones reduced
+        by CholeskyQR2 or banked into one `gram_rfactor` chain; wide ones
+        R = X), theta as one matmul, and one truncation solve per theta
+        shape (SVD) or per Gram size (eigh).
 
         Gathering every class's environments from the pre-group M and
         writing T and M in place are safe: a group's gates are
@@ -685,15 +799,20 @@ class LatticeEngine:
                     sl.append(None)
             gathered.append((Au, Av, sl))
         if env_bank:
-            W_all, Winv_all = _cholesky_gauge_roots(torch.cat(env_bank), eps)
+            if self.env_gauge == "cholesky":
+                W_all, Winv_all = _cholesky_gauge_roots(torch.cat(env_bank), eps)
+            else:
+                W_all, Winv_all = _pseudo_sqrt_roots(torch.cat(env_bank), self.sqrt_cutoff, eigh_fn=default_eigh)
 
-        # phase 2: gauge + matricize; tall sides reduce by CholeskyQR2, wide
-        # sides (chi^(k-1) <= d*chi) need no reduction (R = X); theta
-        mids = []
+        # phase 2: gauge + matricize; a side is (R, recombination R_new ->
+        # flat side or None for the identity, Winv).  Wide sides (chi^(k-1)
+        # <= d*chi) need no reduction (R = X); tall ones take CholeskyQR2,
+        # or bank their Gram for one Q-free `gram_rfactor` chain
+        sides, banked = [], []
         for cd, (Au, Av, sl) in zip(classes, gathered):
             cls = cd.cls
             Bn = len(cls.u_pos)
-            sides = []
+            pair = []
             for A, slot, k in ((Au, sl[0], cls.ku), (Av, sl[1], cls.kv)):
                 if slot is None:
                     W = Winv = A.new_zeros((Bn, 0, chi, chi))
@@ -703,30 +822,60 @@ class LatticeEngine:
                     Winv = Winv_all[start : start + count].reshape(Bn, k - 1, chi, chi)
                 X = self._gauged_matrix(A, W, k)
                 if X.shape[1] <= d * chi:
-                    sides.append((X, None, Winv))
+                    pair.append([X, None, Winv])
+                elif self.reduce_method == "gram_nofactor":
+                    pair.append([None, X, Winv])  # R and the recombination come from the bank
+                    banked.append((pair[-1], X.mH @ X))
                 else:
                     Q, R = cholesky_qr(X)
-                    sides.append((R, Q, Winv))
-            (Ru, Qu, Winv_u), (Rv, Qv, Winv_v) = sides
-            ru, rv = Ru.shape[1], Rv.shape[1]
-            # theta[(x p), (y q)] = gate[p,q,d,e] Ru[x,(d a)] Rv[y,(e a)]: fold
-            # the gate into Rv, then one matmul contracting (d, a)
+                    pair.append([R, lambda Rn, Q=Q: Q @ Rn, Winv])
+            sides.append(pair)
+        if banked:
+            R_all, L1_all, L2_all = gram_rfactor(torch.cat([G for _, G in banked]))
+            ofs = 0
+            for side, G in banked:
+                b = slice(ofs, ofs + G.shape[0])
+                X, L1, L2 = side[1], L1_all[b], L2_all[b]
+                side[0], side[1] = R_all[b], lambda Rn, X=X, L1=L1, L2=L2: X @ apply_rinv(L1, L2, Rn)
+                ofs += G.shape[0]
+
+        # theta[(x p), (y q)] = gate[p,q,d,e] Ru[x,(d a)] Rv[y,(e a)]: fold
+        # the gate into Rv, then one matmul contracting (d, a).  A side keeps
+        # only R's row count past this point, so no R outlives its theta
+        thetas = []
+        for cd, pair in zip(classes, sides):
+            (Ru, _, _), (Rv, _, _) = pair
+            Bn, ru, rv = Ru.shape[0], Ru.shape[1], Rv.shape[1]
             Rv5 = torch.einsum("Bpqde,Byea->Bdapyq", cd.gates, Rv.reshape(Bn, rv, d, chi))
             theta = (Ru.reshape(Bn, ru, d * chi) @ Rv5.reshape(Bn, d * chi, d * rv * d)).reshape(
                 Bn, ru * d, rv * d
             )
-            mids.append((theta, Qu, Qv, Winv_u, Winv_v, ru, rv))
+            thetas.append(theta)
+            pair[0][0], pair[1][0] = ru, rv
+        del Ru, Rv, Rv5
 
-        # phase 3b: one SVD per theta shape.  The Jacobi route covers an even
-        # smaller dimension >= 64 (`tnqs/engine.py:1231-1255`); wide thetas go
-        # through the adjoint; rectangular ones polish 6 sweeps, square 4
-        svd_bank: dict = {}
-        for ci, mid in enumerate(mids):
-            svd_bank.setdefault(tuple(mid[0].shape[1:]), []).append(ci)
-        svd_results = {}
-        for (m_, n_), cis in svd_bank.items():
-            Ts = torch.cat([mids[ci][0] for ci in cis])
-            if min(m_, n_) % 2 == 0 and min(m_, n_) >= 64:
+        if self.trunc_method == "svd":
+            results = self._theta_svds(thetas)
+        else:
+            results = self._theta_gram_eighs(thetas)
+
+        # phase 4: truncate, recombine, un-gauge, write back
+        for cd, (side_u, side_v), res in zip(classes, sides, results):
+            self._finish_two_site(T, M, errors, cd, *res[:3], side_u, side_v, cutoff, normalize, tail_extra=res[3])
+
+    def _theta_svds(self, thetas: list) -> list:
+        """(U, s, Vh, None) of every theta, one SVD per theta shape
+        (`tnqs/engine.py:1195-1268`).  Under ``svd_impl="pjsvd"`` an even
+        smaller dimension >= 64 takes `pjsvd` (wide thetas through the
+        adjoint; rectangular ones polish 6 sweeps, square 4); every other
+        theta, and every theta under "xla", takes `_svd_fallback`."""
+        bank: dict = {}
+        for ci, theta in enumerate(thetas):
+            bank.setdefault(tuple(theta.shape[1:]), []).append(ci)
+        results = [None] * len(thetas)
+        for (m_, n_), cis in bank.items():
+            Ts = torch.cat([thetas[ci] for ci in cis])
+            if self.svd_impl == "pjsvd" and min(m_, n_) % 2 == 0 and min(m_, n_) >= 64:
                 polish = 6 if m_ != n_ else 4
                 if m_ >= n_:
                     U, s, Vh = pjsvd(Ts, polish_sweeps=polish)
@@ -734,28 +883,49 @@ class LatticeEngine:
                     Ut, s, Vht = pjsvd(Ts.mH, polish_sweeps=polish)
                     U, Vh = Vht.mH, Ut.mH
             else:
-                U, s, Vh = torch.linalg.svd(Ts, full_matrices=False)
+                U, s, Vh = _svd_fallback(Ts)
             ofs = 0
             for ci in cis:
-                b = mids[ci][0].shape[0]
-                svd_results[ci] = (U[ofs : ofs + b], s[ofs : ofs + b], Vh[ofs : ofs + b])
-                ofs += b
+                b = slice(ofs, ofs + thetas[ci].shape[0])
+                results[ci] = (U[b], s[b], Vh[b], None)
+                ofs += thetas[ci].shape[0]
+        return results
 
-        # phase 4: truncate, recombine, un-gauge, write back
-        for ci, cd in enumerate(classes):
-            theta, Qu, Qv, Winv_u, Winv_v, ru, rv = mids[ci]
-            self._finish_two_site(
-                T, M, errors, cd, *svd_results[ci], Qu, Qv, Winv_u, Winv_v, ru, rv, cutoff, normalize
-            )
+    def _theta_gram_eighs(self, thetas: list) -> list:
+        """(U, s, Vh, tail) of every theta from the eigh of its smaller-side
+        Gram, one eigensolve per Gram size (`tnqs/engine.py:1155-1193`, the
+        algebra `:1289-1303`): `subspace_eigh` to the top chi + 8 pairs for
+        ``trunc_method="subspace"`` and Grams wider than chi + 16, where
+        `tail` is the weight it left out; `default_eigh` otherwise."""
+        bank: dict = {}
+        for ci, theta in enumerate(thetas):
+            m_, n_ = theta.shape[1:]
+            G = theta @ theta.mH if m_ <= n_ else theta.mH @ theta
+            bank.setdefault(min(m_, n_), []).append((ci, G))
+        results = [None] * len(thetas)
+        for n_small, items in bank.items():
+            Gs = torch.cat([G for _, G in items])
+            if self.trunc_method == "subspace" and n_small > self.chi + 16:
+                w, V, tail = subspace_eigh(self.chi)(Gs)
+            else:
+                (w, V), tail = default_eigh(Gs), None
+            ofs = 0
+            for ci, G in items:
+                b = slice(ofs, ofs + G.shape[0])
+                results[ci] = (*svd_from_eigh(thetas[ci], w[b], V[b]), None if tail is None else tail[b])
+                ofs += G.shape[0]
+        return results
 
-    def _finish_two_site(self, T, M, errors, cd, U, s, Vh, Qu, Qv, Winv_u, Winv_v, ru, rv, cutoff, normalize):
-        """Truncation, recombination (Q @ R_new on tall sides), gauge
+    def _finish_two_site(self, T, M, errors, cd, U, s, Vh, side_u, side_v, cutoff, normalize, tail_extra=None):
+        """Truncation, recombination (each side's (rows of R, recombination
+        R_new -> the flat side or None for the identity, Winv)), gauge
         removal, scatter and singular-value message writeback
         (`tnqs/engine.py:1310`), in place."""
         chi, d = self.chi, self.d
         cls = cd.cls
         Bn = len(cls.u_pos)
-        s_m, _, err = _truncate_mask(s.to(self.real_dtype), chi, cutoff)
+        (ru, recomb_u, Winv_u), (rv, recomb_v, Winv_v) = side_u, side_v
+        s_m, _, err = _truncate_mask(s.to(self.real_dtype), chi, cutoff, tail_extra)
         K = s.shape[1]
         if K >= chi:
             U, Vh = U[:, :, :chi], Vh[:, :chi, :]
@@ -767,10 +937,10 @@ class LatticeEngine:
         rs = torch.sqrt(s_m).to(self.dtype)
         Ru_new = (U * rs[:, None, :]).reshape(Bn, ru, d * chi)
         Rv_new = (rs[:, :, None] * Vh).mT.reshape(Bn, rv, d * chi)
-        if Qu is not None:
-            Ru_new = Qu @ Ru_new
-        if Qv is not None:
-            Rv_new = Qv @ Rv_new
+        if recomb_u is not None:
+            Ru_new = recomb_u(Ru_new)
+        if recomb_v is not None:
+            Rv_new = recomb_v(Rv_new)
         Au_new = self._restore(Ru_new, Winv_u, cls.ku)
         Av_new = self._restore(Rv_new, Winv_v, cls.kv)
         if normalize:
@@ -846,8 +1016,11 @@ class LatticeEngine:
                     M = self._bp_fixed_point(T, M, inner, bp_tolerance)
                 elif entry[0] == "one":
                     self._apply_one_site_group(T, group_data[entry[2]])
-                else:
+                elif self.factor_method == "gram":
                     self._apply_two_site_group(T, M, errors, group_data[entry[2]], cutoff, normalize)
+                else:  # direct: class by class, each seeing the previous one's writes
+                    for cd in group_data[entry[2]]:
+                        self._apply_two_site_class(T, M, errors, cd, cutoff, normalize)
             M = self._bp_fixed_point(T, M, bp_maxiter, bp_tolerance)
             return T, M, errors
 

@@ -32,8 +32,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argtypes; every function returns the launch's cudaError_t as int
 _SIGNATURES = {
-    # (h_in, vt_out, w_out, batch, n, rounds, eps, stream)
-    "tnqs_jacobi_eigh": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
+    # (h_in, vt_out, w_out, batch, n, rounds, eps, relative, stream)
+    "tnqs_jacobi_eigh": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P],
     # (n, active_out)
     "tnqs_jacobi_eigh_clusters": [_I, ctypes.POINTER(_I)],
     # (a_in, v_in, a_out, v_out, batch, rows, n, rounds, eps, cluster, cpc, vpc, smem, stream)

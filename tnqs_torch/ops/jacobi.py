@@ -22,13 +22,14 @@ from . import _build
 EPS32 = float(torch.finfo(torch.float32).eps)
 
 
-def _rot_params(a, b, gr, gi, eps: float):
+def _rot_params(a, b, gr, gi, eps: float, relative: bool):
     """Complex Jacobi rotation annihilating g in [[a, g], [conj(g), b]],
-    identity when |g| <= eps (`tnqs/ops/jacobi.py:58`).  Inputs [B, m]
-    float32; returns (c, s) with J = [[c, -conj(s)], [s, c]], and whether
-    each rotation is taken."""
+    identity when |g| <= eps (`tnqs/ops/jacobi.py:58`), or with `relative`
+    when |g| <= eps sqrt(|a|) sqrt(|b|).  Inputs [B, m] float32; returns
+    (c, s) with J = [[c, -conj(s)], [s, c]], and whether each rotation is
+    taken."""
     absg = torch.sqrt(gr * gr + gi * gi)
-    safe = absg > eps
+    safe = absg > (eps * torch.sqrt(torch.abs(a)) * torch.sqrt(torch.abs(b)) if relative else eps)
     ga = torch.where(safe, absg, 1.0)
     phr = torch.where(safe, gr / ga, 1.0)
     phi = torch.where(safe, gi / ga, 0.0)
@@ -65,7 +66,7 @@ def index_at(j: int, r: int, n: int) -> int:
     return m if k == 0 else k if k < m else 3 * m - 1 - k
 
 
-def _jacobi_eigh_plain(H: torch.Tensor, sweeps: int):
+def _jacobi_eigh_plain(H: torch.Tensor, sweeps: int, relative: bool = True):
     """The kernel's rounds in PyTorch: pair i is (position i, position
     m+i) of the top and bottom halves, as in the JAX kernel body
     (`_make_kernel`, `tnqs/ops/jacobi.py:81`), and the data moves between
@@ -81,8 +82,11 @@ def _jacobi_eigh_plain(H: torch.Tensor, sweeps: int):
     for _ in range(sweeps * (n - 1)):
         d = H.diagonal(dim1=1, dim2=2).real
         g = H[:, :m, m:].diagonal(dim1=1, dim2=2)
-        c, s, live = _rot_params(d[:, :m], d[:, m:], g.real, g.imag, EPS32)
+        c, s, live = _rot_params(d[:, :m], d[:, m:], g.real, g.imag, EPS32, relative)
         taken += live.sum()
+        if not live.any():  # the kernel's skipped round: the move alone
+            H, W = H[:, :, perm][:, perm], W[:, :, perm]
+            continue
         # rows: top' = c*top + conj(s)*bot ; bot' = -s*top + c*bot
         cc, sc = c[:, :, None], s[:, :, None]
         top, bot = H[:, :m], H[:, m:]
@@ -101,7 +105,7 @@ _jacobi_eigh_plain.calls = 0
 _jacobi_eigh_plain.rotations = None
 
 
-def _jacobi_eigh_cuda(H: torch.Tensor, sweeps: int):
+def _jacobi_eigh_cuda(H: torch.Tensor, sweeps: int, relative: bool = True):
     """Launch `tnqs_jacobi_eigh` on H [B, n, n] hermitian complex64 (CUDA,
     contiguous), one cluster of three CTAs per matrix.  Returns (w [B, n]
     unsorted, V [B, n, n])."""
@@ -118,7 +122,7 @@ def _jacobi_eigh_cuda(H: torch.Tensor, sweeps: int):
     with torch.cuda.device(H.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.tnqs_jacobi_eigh(
-            H.data_ptr(), vt.data_ptr(), w.data_ptr(), B, n, sweeps * (n - 1), EPS32, stream
+            H.data_ptr(), vt.data_ptr(), w.data_ptr(), B, n, sweeps * (n - 1), EPS32, int(relative), stream
         )
     _build.check(err, "tnqs_jacobi_eigh")
     jacobi_eigh.launches += 1
@@ -137,7 +141,7 @@ def active_clusters(device: torch.device, n: int) -> int:
     return active.value
 
 
-def jacobi_eigh(H: torch.Tensor, sweeps: int = 12, refine: bool = True):
+def jacobi_eigh(H: torch.Tensor, sweeps: int = 12, refine: bool = True, relative: bool = True):
     """Eigendecomposition of batched hermitian H [..., n, n] (n even,
     complex64).  Returns (w ascending [..., n] float32, V [..., n, n]) with
     H ~= V diag(w) V^H — the `torch.linalg.eigh` contract.
@@ -147,7 +151,17 @@ def jacobi_eigh(H: torch.Tensor, sweeps: int = 12, refine: bool = True):
     accumulated rotation product by two Newton–Schulz steps and recomputes
     the eigenvalues as Rayleigh quotients (`tnqs/ops/jacobi.py:300-312`:
     without it the ~4e-5 orthogonality drift of n=128 rotation products
-    dominates the eigenpair residual)."""
+    dominates the eigenpair residual).
+
+    `relative` skips a pair when |g| <= eps sqrt(|a| |b|) (Demmel–Veselić)
+    rather than the reference's |g| <= eps.  The absolute skip makes the
+    accuracy depend on H's scale: the theta Grams of the chi=64 Eagle run
+    shrink with depth, the absolute skip leaves their small eigenpairs
+    unconverged, and the Gram truncation then breaks down at layer 7 (a
+    non-positive-definite message).  With the relative skip the rounds are
+    invariant under a power-of-two scaling of H, bit for bit.  `pjsvd`'s
+    preconditioner, which only picks a starting basis for K1, keeps the
+    absolute skip."""
     batch_shape = H.shape[:-2]
     n = H.shape[-1]
     if n % 2 != 0:
@@ -160,9 +174,9 @@ def jacobi_eigh(H: torch.Tensor, sweeps: int = 12, refine: bool = True):
     if B == 0:
         w, V = Hb.real.new_empty((0, n)), torch.empty_like(Hb)
     elif Hb.device.type == "cpu":
-        w, V = _jacobi_eigh_plain(Hb, sweeps)
+        w, V = _jacobi_eigh_plain(Hb, sweeps, relative)
     else:  # the kernel, which raises on a tensor off a CUDA device
-        w, V = _jacobi_eigh_cuda(Hb, sweeps)
+        w, V = _jacobi_eigh_cuda(Hb, sweeps, relative)
     w, V = eigh_from_rounds(Hb, w, V, refine)
     return w.reshape(batch_shape + (n,)), V.reshape(batch_shape + (n, n))
 

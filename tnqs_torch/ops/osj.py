@@ -238,7 +238,7 @@ def pjsvd(A: torch.Tensor, precond_sweeps: int = 8, polish_sweeps: int = 4):
     computed from unsquared columns of A @ (unitary), so errors stay graded
     like LAPACK's gesdd."""
     G = A.mH @ A
-    _, V0 = jacobi_eigh(G, sweeps=precond_sweeps)
+    _, V0 = jacobi_eigh(G, sweeps=precond_sweeps, relative=False)
     # literal NaNs from the preconditioner (two-sided Jacobi on rank-deficient
     # spectra) cannot be rotated away: those matrices restart cold
     finite = torch.isfinite(V0)

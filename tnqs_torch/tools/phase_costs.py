@@ -8,7 +8,8 @@ variants of the two sources with one phase removed (their results are
 wrong; only their time is read), each into its own library under
 `build/tnqs_torch/phases/`, and times every variant with CUDA events at the
 main path's shapes: K1 at [18, 128, 128] (4 sweeps) and [26, 256, 128] (6
-sweeps) at every cluster size it can take, K2 at [26, 128, 128] (8 sweeps).
+sweeps) at every cluster size it can take, K2 at [26, 128, 128] (8 sweeps,
+the absolute skip of `pjsvd`'s preconditioner).
 A phase's cost is the base time less the variant's.  Each variant names
 the text it removes, and the tool stops if a source no longer holds it.
 """
@@ -107,7 +108,7 @@ def main():
     n = 128
     for B, R, sweeps in ((18, 128, 4), (26, 256, 6)):
         A = rand_c((B, R, n))
-        _, V0 = jacobi.jacobi_eigh(A.mH @ A, sweeps=8)
+        _, V0 = jacobi.jacobi_eigh(A.mH @ A, sweeps=8, relative=False)
         A0 = osj.prescale(A @ V0)[0].contiguous()
         V0 = V0.contiguous()
         A1, V1 = torch.empty_like(A0), torch.empty_like(V0)
@@ -130,7 +131,7 @@ def main():
     row = []
     for name, lib in libs.items():
         ms = cuda_ms(lambda: lib.tnqs_jacobi_eigh(H.data_ptr(), vt.data_ptr(), w.data_ptr(), 26, n, rounds,
-                                                  jacobi.EPS32, stream))
+                                                  jacobi.EPS32, 0, stream))
         row.append(f"{name} {ms:.3f} ms ({1e3 * ms / rounds:.2f} us a round)")
     print(f"K2 [26,{n},{n}] 8 sweeps: " + "; ".join(row))
 
