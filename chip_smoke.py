@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of tnqs_torch on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--layers N] [--bp-kernel-only | --switches-only]
+    python3 chip_smoke.py [--layers N] [--bp-kernel-only | --switches-only | --measure-only]
 
 Run from the repository root.  Phases, each of which fails the run:
 
@@ -71,14 +71,38 @@ Run from the repository root.  Phases, each of which fails the run:
    where the bond gauge drops out; (g) `svd_impl="xla"`, complex64, chi=64,
    N layers within the main bound with no K1/K2 launch, layers/s beside
    phase 5's.  Complex128 runs launch no float32 kernel and run no plain
-   version.
+   version;
+8. measurement, `BMPSEngine` on the card: (a) the w2 readout, Eagle-127 at
+   chi=8, complex64, 20 kicked-Ising layers from "↑", BP <Z>(11,5) within
+   5e-4 of flex-f64, then BMPS rank 10 <Z> at (7,8) and (11,5), every emit
+   an exact SVD, gated as `tests/test_f32_floor.py:219-229` gates the
+   committed readout (inside the CPU readout spread of
+   `scripts/bisect_w2_gap_results.json` widened by its width, and within
+   twice the width of the flex tier's 0.853), with `expect_2site` on one
+   column pair, `rdm` (trace 1, Hermitian, its <Z> that of `expect_1site`
+   within 1e-5), `fidelity(self)` within 1e-4 of 1 and `norm_sqr` against
+   exp(`lognorm`), no kernel launched inside BMPS; (b) the same readout on
+   a CPU engine carried over by `from_arrays`, within 1e-5 of the card's;
+   (c) on the main path's state after phase 6's `bp_update`, rank 16 cold
+   and warm and rank 24 with a power iteration and `split=True`
+   (`bench.py:315-343`) beside BP: finite, |Im| <= 1e-3 |Re| (the sketched
+   zip's truncation class), |z16 - z24| <= 1e-2; wall times, peak memory, library eigh/SVD calls, host-to-device
+   sketch bytes and one torch.profiler window of a rank-16 call; (d)
+   chi=96 from "↑", 8 layers or fewer past 150 s (CHI96_CAP_S): every
+   theta 192 wide or more takes the library SVD (counted by shape), no K1
+   or K2 launch past n = 128, every layer finite, and on the layers where
+   the main path discarded nothing past the cutoff <Z> within the main
+   path's bound of flex-f64.
 
 The line before the last is {"kernels": [...]}: `launches` counts the main
-path's (phase 5) launches, `launches_by_path` each run's of phases 5 and 7;
-the last line is {"ok": true, "device": {...}}.  `--bp-kernel-only` runs
-phases 1, 2 and 4 and prints K3's row alone (no result lines), e.g. on an
-older tree; `--switches-only` runs phases 1, 2, K2 at the switches' shapes
-and 7 (no result lines).
+path's (phase 5) launches, `launches_by_path` each run's of phases 5-8
+("6" the BP path, "8a" the w2 evolution, "8a bmps" and "8c bmps" the BMPS
+calls); the last line is {"ok": true, "device": {...}}.
+`--bp-kernel-only` runs phases 1, 2 and 4 and prints K3's row alone (no
+result lines), e.g. on an older tree; `--switches-only` runs phases 1, 2,
+K2 at the switches' shapes and 7 (no result lines); `--measure-only` runs
+phases 1, 2, the main path's evolution and `bp_update`, and 8 (no result
+lines).
 """
 
 import argparse
@@ -500,7 +524,7 @@ def main_path(dev, layers):
     bp_sweep.bp_sweep_group.launches = 0
     jacobi.jacobi_eigh.launches_by_shape.clear()
     osj.osj_svd.launches_by_shape.clear()
-    devs, times = [], []
+    devs, times, discarded = [], [], []
     for li in range(layers):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -508,6 +532,7 @@ def main_path(dev, layers):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         require(torch.isfinite(errors).all(), f"layer {li + 1}: non-finite truncation errors")
+        discarded.append(float(errors.max()))
         z = eng.expect_1site("Z")
         zc, zb = z[center].real, z[bench_v].real
         dev_l = max(abs(zc - controls["z_center_f64"][li]), abs(zb - controls["z_bench_f64"][li]))
@@ -533,7 +558,20 @@ def main_path(dev, layers):
     rate = (layers - 1) / sum(times[1:]) if layers > 1 else float("nan")
     print(f"layers/s over layers 2-{layers}: {rate:.4f}")
     print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    return launches, eng, step, (center, bench_v, controls, bound[-1], layers), rate
+    return launches, eng, step, (center, bench_v, controls, bound[-1], layers), rate, discarded
+
+
+def device_times(prof):
+    """{kernel name: (device ms, launches)} of a torch.profiler window."""
+    kernels = {}
+    for ev in prof.key_averages():
+        if "CUDA" not in str(ev.device_type):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        us = getattr(ev, "self_cuda_time_total", 0) if us is None else us
+        if us > 0:
+            kernels[ev.key] = (us / 1e3, ev.count)
+    return kernels
 
 
 def profile_window(eng, step, layers=2):
@@ -552,14 +590,7 @@ def profile_window(eng, step, layers=2):
             T, M, _ = step(T, M)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = {}
-    for ev in prof.key_averages():
-        if "CUDA" not in str(ev.device_type):
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        us = getattr(ev, "self_cuda_time_total", 0) if us is None else us
-        if us > 0:
-            kernels[ev.key] = (us / 1e3, ev.count)
+    kernels = device_times(prof)
     busy = sum(ms for ms, _ in kernels.values())
     if busy == 0:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -687,6 +718,7 @@ def bp_path(dev, eng, probe):
     require(launches > 0, "normalize and bp_update did not launch the BP kernel")
     require(bp_sweep._bp_sweep_group_plain.calls == plain_calls, "the BP path ran the plain BP version on the card")
     print(f"BP kernel launches on the BP path: {launches}")
+    by_path = {"jacobi_eigh": 0, "osj_svd": 0, "bp_sweep_group": launches}
 
     # Tolerances: the two routes round in other orders (~1e-6 relative per
     # sweep) and the BP map contracts those differences, so the fixed points
@@ -709,6 +741,7 @@ def bp_path(dev, eng, probe):
     require(ds < 1e-4, f"kernel and einsum routes: bond entropies differ by {ds:.3e}")
     require(dZ < 1e-3, f"kernel and einsum routes: Z_BP differs by {dZ:.3e}")
     print(f"max_memory_allocated on the BP path {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return by_path
 
 
 # ----------------------------------------------------------------------
@@ -1164,6 +1197,213 @@ def switches_phase(dev, layers, main_rate=float("nan"), chi=64):
           f"the pjsvd route (phase 5)")
     return by_path
 
+# ----------------------------------------------------------------------
+# phase 8: the boundary-MPS measurement path
+# ----------------------------------------------------------------------
+
+CHI96_CAP_S = 150.0  # 8d's layers stop once the next would pass this
+
+
+def bmps_library_calls():
+    """(library eighs, library SVDs) the boundary-MPS tier has made."""
+    from tnqs_torch import bmps_engine
+
+    return bmps_engine._eigh.calls, bmps_engine._svd.calls
+
+
+def checked_z(label, z, verts, im_rel=1e-4):
+    """<Z> at `verts` as reals, each finite with |Im| <= im_rel |Re|."""
+    for v in verts:
+        require(np.isfinite(z[v]), f"{label}: non-finite <Z>{v}")
+        require(abs(z[v].imag) <= im_rel * abs(z[v].real), f"{label}: <Z>{v} = {z[v]} is not real")
+    return {v: z[v].real for v in verts}
+
+
+def measure_w2(dev):
+    """8a: the w2 readout, Eagle-127 at chi=8 after 20 kicked-Ising layers,
+    BMPS rank 10, gated as `tests/test_f32_floor.py:219-229` gates the
+    committed readout, with the 2-site, rdm, fidelity and norm entry points
+    on the same state; 8b: the same readout on a CPU engine carried over by
+    `from_arrays`.  Returns the launches of the evolution and of the BMPS
+    calls."""
+    from tnqs_torch.bmps_engine import BMPSEngine
+    from tnqs_torch.engine import LatticeEngine
+
+    w2 = json.loads((ROOT / "tests" / "golden" / "golden_f32_controls.json").read_text())["w2"]
+    rows = json.loads((ROOT / "scripts" / "bisect_w2_gap_results.json").read_text())["rows"]
+    z_flex = json.loads((ROOT / "scripts" / "w2_onchip_results.json").read_text())["cross_tier_gap_closure"][
+        "flex_z_bench"]
+    cfg = w2["config"]
+    center, bench_v = tuple(cfg["center"]), tuple(cfg["bench_vertex"])
+    verts = [center, bench_v]
+    eng, _, zs, devs, _, counts = evolve_eagle(
+        dev, "8a w2 c64 chi=8", cfg["maxdim"], torch.complex64, cfg["layers"],
+        {center: w2["z_center_f64"], bench_v: w2["z_bench_f64"]}, cfg["cutoff"])
+    require(not counts[3], "8a: a plain kernel version ran on the card")
+    by_path = {"8a": counts[0]}
+    z_bp = eng.expect_1site("Z")[bench_v].real
+    print(f"8a: BP <Z>{bench_v} {z_bp:+.7f}, |dev| {abs(z_bp - w2['z_bench_f64'][-1]):.3e} from flex-f64 (bound 5e-4)")
+    require(abs(z_bp - w2["z_bench_f64"][-1]) <= 5e-4, "8a: the BP evolution left flex-f64 at the bench vertex")
+
+    plain_before = reset_counts()
+    calls0 = bmps_library_calls()
+    be = BMPSEngine(eng, rank=cfg["mps_bond_dimension"])
+    sync(dev)
+    t0 = time.perf_counter()
+    z = checked_z("8a", be.expect_1site("Z", vertices=verts), verts)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    lo, hi = min(r["z_bmps_bench"] for r in rows), max(r["z_bmps_bench"] for r in rows)
+    width = hi - lo
+    print(f"8a: BMPS rank {cfg['mps_bond_dimension']} <Z>{center} {z[center]:+.7f}, <Z>{bench_v} {z[bench_v]:+.7f} "
+          f"({wall:.3f} s); envelope [{lo - width:.7f}, {hi + width:.7f}], |z - flex {z_flex}| "
+          f"{abs(z[bench_v] - z_flex):.3e} (bound {2 * width:.3e})")
+    require(lo - width <= z[bench_v] <= hi + width, f"8a: readout {z[bench_v]:.7f} outside the committed envelope")
+    require(abs(z[bench_v] - z_flex) <= 2 * width, "8a: readout too far from the flex tier")
+    require(be.sketch_bytes == 0, "8a: an emit drew a sketch at chi=8, rank 10")
+
+    cp = be.cplan
+    pair = next((u, w) for (u, w) in eng.plan.graph.edges() if center in (u, w) and cp.col_of[u] == cp.col_of[w])
+    zz = be.expect_2site("Z", "Z", pairs=[pair])[pair]
+    zz_bp = eng.expect_2site("Z", "Z")[pair]
+    print(f"8a: <ZZ>{pair} BMPS {zz.real:+.7f}, BP {zz_bp.real:+.7f}")
+    require(np.isfinite(zz) and abs(zz.imag) <= 1e-4 * abs(zz.real), f"8a: <ZZ>{pair} = {zz}")
+    rho = be.rdm([center])
+    z_rho = (rho[0, 0] - rho[1, 1]).real
+    herm = np.abs(rho - rho.conj().T).max()
+    print(f"8a: rdm{center} trace {np.trace(rho):.7f}, |rho - rho^H| {herm:.3e}, <Z> from it {z_rho:+.7f} "
+          f"(expect_1site {z[center]:+.7f})")
+    require(abs(np.trace(rho) - 1) <= 1e-6 and herm <= 1e-6, "8a: rdm not a unit-trace Hermitian matrix")
+    require(abs(z_rho - z[center]) <= 1e-5, "8a: rdm's <Z> and expect_1site's differ")
+    f = be.fidelity(eng)
+    ln, ns = be.lognorm(), be.norm_sqr()
+    print(f"8a: fidelity(self) {f:.9f}, lognorm {ln:.7f}, norm_sqr {ns:.7e}")
+    require(abs(f - 1) <= 1e-4, f"8a: self-fidelity {f}")
+    require(abs(ns - np.exp(ln)) <= 1e-6 * ns, "8a: norm_sqr and exp(lognorm) differ")
+    counts = read_counts(plain_before)
+    calls = np.subtract(bmps_library_calls(), calls0)
+    print(f"8a: BMPS calls launched {counts[0]}, library eigh {calls[0]}, SVD {calls[1]}")
+    require(not any(counts[0].values()) and not counts[3], "8a: a kernel or its plain version ran inside BMPS")
+    by_path["8a bmps"] = counts[0]
+
+    # 8b: the same readout on the CPU
+    cpu = LatticeEngine.from_arrays(eng.plan.graph, *eng.to_arrays(), chi=eng.chi, device="cpu",
+                                    bp_schedule=eng.plan.bp_schedule)
+    t0 = time.perf_counter()
+    zc = checked_z("8b", BMPSEngine(cpu, rank=cfg["mps_bond_dimension"]).expect_1site("Z", vertices=verts), verts)
+    d = max(abs(zc[v] - z[v]) for v in verts)
+    print(f"8b: CPU readout {zc[center]:+.7f}, {zc[bench_v]:+.7f} ({time.perf_counter() - t0:.3f} s), card - CPU "
+          f"{d:.3e} (bound 1e-5)")
+    require(d <= 1e-5, "8b: the card's and the CPU's readouts differ")
+    return by_path
+
+
+def measure_chi64(dev, eng, probe):
+    """8c: BMPS <Z> on the main path's final state after `bp_update`, at
+    rank 16 cold and warm and at rank 24 with a power iteration and
+    `split=True` (`bench.py:315-343`), beside BP's; wall times, peak memory,
+    library calls, host-to-device sketch bytes and one torch.profiler
+    window of the rank-16 call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tnqs_torch.bmps_engine import BMPSEngine, cpu_sketch
+
+    center, bench_v = probe[0], probe[1]
+    verts = [center, bench_v]
+    z_bp = checked_z("8c BP", eng.expect_1site("Z"), verts)
+    plain_before = reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    runs = {}
+    for label, rank, kw in (("rank 16 cold", 16, {}), ("rank 16 warm", 16, {}),
+                            ("rank 24 power_iters=1 split", 24, dict(split=True))):
+        be = BMPSEngine(eng, rank=rank, power_iters=1)
+        calls0 = bmps_library_calls()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        zc = be.expect_1site("Z", vertices=verts, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        calls = np.subtract(bmps_library_calls(), calls0)
+        print(f"8c {label}: <Z>{center} {zc[center]:+.7f}, <Z>{bench_v} {zc[bench_v]:+.7f}, {wall:.3f} s, library "
+              f"eigh {calls[0]} SVD {calls[1]}, sketches {be.sketch_bytes} bytes host to device", flush=True)
+        # the sketched zip truncates the doubled (ket x bra) layer without
+        # keeping its ket <-> bra symmetry, so <Z> carries an imaginary part
+        # of the truncation's size (1.04e-4 at rank 16 on the normalized
+        # state, where rank 16 and 24 differ by ~3e-4): 1e-3 |Re| holds that
+        # class and still catches a conjugation fault
+        runs[label] = z = checked_z(f"8c {label}", zc, verts, im_rel=1e-3)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    z16, z24 = runs["rank 16 warm"], runs["rank 24 power_iters=1 split"]
+    d = max(abs(z16[v] - z24[v]) for v in verts)
+    print(f"8c: BP <Z> {z_bp[center]:+.7f}, {z_bp[bench_v]:+.7f}; |z16 - z24| {d:.3e} (bound 1e-2); |z16 - BP| "
+          f"{max(abs(z16[v] - z_bp[v]) for v in verts):.3e}; cold - warm "
+          f"{max(abs(runs['rank 16 cold'][v] - z16[v]) for v in verts):.3e}; peak memory above the state "
+          f"{peak:.3f} GiB")
+    require(d <= 1e-2, f"8c: rank 16 and rank 24 differ by {d:.3e}")
+    counts = read_counts(plain_before)
+    require(not any(counts[0].values()) and not counts[3], f"8c: a kernel ran inside BMPS: {counts[0]}")
+
+    def timed_sketch(code, shape):  # the default draw, its host time summed
+        t = time.perf_counter()
+        omega = cpu_sketch(7, code, shape)
+        timed_sketch.seconds += time.perf_counter() - t
+        return omega
+
+    timed_sketch.seconds = 0.0
+    be = BMPSEngine(eng, rank=16, power_iters=1, sketch=timed_sketch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        be.expect_1site("Z", vertices=verts)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = device_times(prof)
+    busy = sum(ms for ms, _ in kernels.values())
+    print(f"8c profile window, one rank-16 call (torch.profiler): wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, "
+          f"idle share {1 - busy / wall_ms:.4f}, {sum(n for _, n in kernels.values())} kernel launches; the host "
+          f"drew the sketches in {1e3 * timed_sketch.seconds:.3f} ms")
+    for (ms, n), k in sorted(((v, k) for k, v in kernels.items()), reverse=True)[:8]:
+        print(f"  {ms:9.3f} ms {n:5d}x ({100 * ms / max(busy, 1e-9):4.1f}%) {k[:110]}")
+    return {"8c bmps": counts[0]}
+
+
+def measure_chi96(dev, discarded):
+    """8d: Eagle-127 from "↑" at chi=96, complex64, default switches, up to
+    8 layers within CHI96_CAP_S.  Every theta is 192 wide or more, past the
+    Jacobi kernels' 128, so all take the library SVD (`_svd_fallback`).  On
+    the layers where the chi=64 main path discarded no more than the cutoff
+    (`discarded`, its largest per layer), both runs are the same physics:
+    there <Z> must lie within the main path's bound of flex-f64."""
+    from tnqs_torch.engine import _svd_fallback
+    from tnqs_torch.ops import jacobi, osj
+
+    controls = json.loads((ROOT / "tests" / "golden" / "golden_f32_controls.json").read_text())["chi64"]
+    cfg = controls["config"]
+    center, bench_v = tuple(cfg["center"]), tuple(cfg["bench_vertex"])
+    floors = np.max([controls["f32_floor_per_layer"]]
+                    + [sd["dev_from_f64_per_layer"] for sd in controls["multiseed_controls"]["seeds"].values()], axis=0)
+    bound = np.maximum(3.0 * np.maximum.accumulate(floors), 2e-5)
+    _svd_fallback.calls_by_shape.clear()
+    refs = {center: controls["z_center_f64"], bench_v: controls["z_bench_f64"]}
+    _, _, _, devs, times, counts = evolve_eagle(dev, "8d c64 chi=96", 96, torch.complex64, 8, refs, cfg["cutoff"],
+                                                time_cap=CHI96_CAP_S, min_layers=2)
+    routed = dict(sorted(_svd_fallback.calls_by_shape.items()))
+    wide = {shape: n for shape, n in routed.items() if min(shape[1:]) >= 192}
+    print(f"8d: thetas to the library SVD by [B, m, n]: {routed}; {1e3 * np.mean(times[1:] or times):.1f} ms a layer")
+    print(f"8d: K2 by [B, n] {counts[1]}, K1 by [B, R, n] {dict(osj.osj_svd.launches_by_shape)}")
+    require(wide, "8d: no theta 192 wide reached the library SVD")
+    require(not any(n > 128 for _, n in jacobi.jacobi_eigh.launches_by_shape)
+            and not any(n > 128 for _, _, n in osj.osj_svd.launches_by_shape), "8d: K1 or K2 launched past n = 128")
+    require(not counts[3], "8d: a plain kernel version ran on the card")
+    same = [li for li in range(len(devs)) if li < len(discarded) and discarded[li] <= cfg["cutoff"]]
+    for li in same:
+        print(f"8d layer {li + 1}: |dev| {devs[li]:.3e}, bound {bound[li]:.3e} (chi=64 discarded {discarded[li]:.3e})")
+        require(devs[li] <= bound[li], f"8d: layer {li + 1} deviates {devs[li]:.3e} from flex-f64")
+    print(f"8d: {len(times)} layers, all finite; {len(same)} of them gated against flex-f64")
+    return {"8d": counts[0]}
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1172,6 +1412,9 @@ def main():
                     help="only the environment, the build and the BP kernel phase (no result lines)")
     ap.add_argument("--switches-only", action="store_true",
                     help="only the environment, the build and the switches phase (no result lines)")
+    ap.add_argument("--measure-only", action="store_true",
+                    help="only the environment, the build, the main path's evolution and the measurement phase "
+                         "(no result lines)")
     args = ap.parse_args()
 
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
@@ -1204,17 +1447,28 @@ def main():
             k2_switch_shapes(dev)
             switches_phase(dev, args.layers)
             return 0
+        if args.measure_only:
+            _, eng, _, probe, _, discarded = main_path(dev, args.layers)
+            eng.bp_update(maxiter=30)
+            measure_chi64(dev, eng, probe)
+            del eng
+            measure_w2(dev)
+            measure_chi96(dev, discarded)
+            return 0
         kernels = kernel_phase(dev)
         k2_err = k2_switch_shapes(dev)
         kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], k2_err)
         kernels.append(bp_kernel_phase(dev))
-        launches, eng, step, probe, main_rate = main_path(dev, args.layers)
+        launches, eng, step, probe, main_rate, discarded = main_path(dev, args.layers)
         profile_window(eng, step)
         step_ab(dev, eng, step, probe)
-        bp_path(dev, eng, probe)
+        by_path = {"5": launches, "6": bp_path(dev, eng, probe)}
+        by_path.update(measure_chi64(dev, eng, probe))
         del eng, step
-        by_path = {"5": launches, **switches_phase(dev, args.layers, main_rate)}
-        print(f"kernel launches by path (phases 5 and 7): {by_path}")
+        by_path.update(switches_phase(dev, args.layers, main_rate))
+        by_path.update(measure_w2(dev))
+        by_path.update(measure_chi96(dev, discarded))
+        print(f"kernel launches by path (phases 5-8): {by_path}")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

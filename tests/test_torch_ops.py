@@ -171,3 +171,39 @@ def test_cpu_tensor_takes_the_plain_path():
     with pytest.raises(ValueError):
         osj.osj_svd(meta)
     assert (jacobi._jacobi_eigh_plain.calls, osj._osj_svd_plain.calls) == (calls[0] + 1, calls[1] + 1)
+
+
+@pytest.mark.parametrize(
+    "shape, route",
+    [((5, 256, 128), "pjsvd"), ((5, 128, 256), "pjsvd"), ((5, 128, 128), "pjsvd"), ((5, 384, 192), "library"),
+     ((5, 192, 384), "library"), ((5, 512, 256), "library"), ((5, 256, 62), "library")],
+)
+def test_theta_route_holds_the_kernels_shapes(monkeypatch, shape, route):
+    """`_theta_svds` sends a theta to `pjsvd` only where both kernels hold
+    its shape (`osj.pjsvd_fits`: smaller side even, 64..128), decided from
+    the shape before any launch, so meta tensors take the card's route; the
+    chi > 64 thetas (smaller side 2 chi) go to the library SVD."""
+    import tnqs_torch.engine as pe
+    from tnqs_torch.graphs import NamedGraph
+
+    calls = []
+
+    def stub(name):
+        def svd(A, **kwargs):
+            calls.append((name, tuple(A.shape)))
+            B, m, n = A.shape
+            k = min(m, n)
+            return A.new_empty((B, m, k)), A.real.new_empty((B, k)), A.new_empty((B, k, n))
+        return svd
+
+    monkeypatch.setattr(pe, "pjsvd", stub("pjsvd"))
+    monkeypatch.setattr(pe, "library_svd", stub("library"))
+    eng = pe.LatticeEngine(NamedGraph.from_edges([0, 1], [(0, 1)]), chi=2, device="cpu")
+    before = dict(pe._svd_fallback.calls_by_shape)
+    theta = torch.empty(shape, dtype=torch.complex64, device="meta")
+    (U, s, Vh, _), = eng._theta_svds([theta])
+    assert [c[0] for c in calls] == [route]
+    assert U.shape == shape[:2] + (min(shape[1:]),) and Vh.shape == (shape[0], min(shape[1:]), shape[2])
+    assert pe._svd_fallback.calls_by_shape.get(shape, 0) - before.get(shape, 0) == (route == "library")
+    m, n = max(shape[1:]), min(shape[1:])
+    assert osj.pjsvd_fits(m, n) == (route == "pjsvd" or n % 2 == 1 or n < 64)

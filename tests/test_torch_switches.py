@@ -25,7 +25,14 @@ from tnqs.engine import compile_circuit as jax_compile_circuit
 from tnqs.ops import factorizations as jf
 
 import tnqs_torch as tt
-from tnqs_torch.engine import LatticeEngine, _ClassData, _pseudo_sqrt_roots, _truncate_mask, compile_circuit
+from tnqs_torch.engine import (
+    LatticeEngine,
+    _ClassData,
+    _pseudo_sqrt_roots,
+    _svd_fallback,
+    _truncate_mask,
+    compile_circuit,
+)
 from tnqs_torch.ops import factorizations as pf
 from tnqs_torch.ops import jacobi, osj
 
@@ -175,6 +182,34 @@ def test_pseudo_sqrt_roots_match_jax(dtypes, tol):
     # W Winv W = W: the pseudo-inverse of the root
     W = W_p.numpy()
     assert _rel(W @ Winv_p.numpy() @ W, W) < 10 * tol
+
+
+@pytest.mark.parametrize("route", ["svd_fallback", "pseudo_sqrt", "default_eigh"])
+def test_library_routes_give_nan_for_a_non_finite_member(route):
+    """A batch member with a non-finite entry gives NaN from the library
+    routes, as JAX does, where `torch.linalg` raises; every other member's
+    result is bit for bit the library's on the finite batch."""
+    rng = np.random.default_rng(12)
+    if route == "svd_fallback":
+        A = torch.as_tensor(_rand_c(rng, (4, 12, 6)))
+        fn = _svd_fallback
+        clean = torch.linalg.svd(A, full_matrices=False)
+    else:
+        X = _rand_c(rng, (4, 10, 30))
+        A = torch.as_tensor(X @ np.conj(np.swapaxes(X, 1, 2)))  # n = 30: the library route
+        if route == "pseudo_sqrt":
+            def fn(H):
+                return _pseudo_sqrt_roots(H, 1e-6)
+        else:
+            fn = pf.default_eigh
+        clean = fn(A)
+    bad = A.clone()
+    bad[1, 2, 3] = float("nan")
+    out = fn(bad)
+    for ref, got in zip(clean, out):
+        assert torch.isnan(got[1]).all()
+        for i in (0, 2, 3):
+            assert torch.equal(got[i], ref[i])
 
 
 def test_truncate_mask_tail_extra_matches_jax():

@@ -48,10 +48,12 @@ from .ops.factorizations import (
     default_eigh,
     eps_of,
     gram_rfactor,
+    library_eigh,
+    library_svd,
     subspace_eigh,
     svd_from_eigh,
 )
-from .ops.osj import pjsvd
+from .ops.osj import pjsvd, pjsvd_fits
 
 
 # ----------------------------------------------------------------------
@@ -372,10 +374,10 @@ def _truncate_mask(s: torch.Tensor, chi: int, cutoff: float, tail_extra: torch.T
 def _pseudo_sqrt_roots(E: torch.Tensor, cutoff: float, eigh_fn=None):
     """Batched pseudo sqrt and inverse sqrt (W, Winv) of the hermitized
     environments E [..., chi, chi], eigenvalues below `cutoff` in absolute
-    value zeroed (`tnqs/engine.py:396`); `eigh_fn` defaults to
-    `torch.linalg.eigh`."""
+    value zeroed (`tnqs/engine.py:396`); `eigh_fn` defaults to the library's
+    (`library_eigh`: NaN for a non-finite environment, as in JAX)."""
     H = 0.5 * (E + E.mH)
-    w, U = (torch.linalg.eigh if eigh_fn is None else eigh_fn)(H)
+    w, U = (library_eigh if eigh_fn is None else eigh_fn)(H)
     w = w.real
     ok = torch.abs(w) >= cutoff
     sq = torch.where(ok, torch.sqrt(torch.clamp(w, min=0.0)), 0.0)
@@ -386,14 +388,16 @@ def _pseudo_sqrt_roots(E: torch.Tensor, cutoff: float, eigh_fn=None):
 
 
 def _svd_fallback(mat: torch.Tensor):
-    """The library's batched thin SVD, the direct path's and
-    ``svd_impl="xla"``'s (`tnqs/engine.py:498`): LAPACK's on the CPU, and on
-    the card cuSOLVER's ``gesvd``, the QR-iteration method of LAPACK's
-    accuracy class.  torch's default there, ``gesvdj``, stops its Jacobi
-    sweeps at a tolerance that leaves float32 thetas measurably less
-    accurate: the library route's Eagle chi=64 trajectory then leaves the
-    main path's bound (`PERF.md`)."""
-    return torch.linalg.svd(mat, full_matrices=False, driver="gesvd" if mat.is_cuda else None)
+    """The library's batched thin SVD (`library_svd`: gesvd on the card, NaN
+    for a non-finite theta as in JAX), the direct path's, ``svd_impl="xla"``'s
+    and every theta's that `pjsvd` cannot take (`tnqs/engine.py:498`).  Calls
+    are counted by [B, m, n] in `_svd_fallback.calls_by_shape`."""
+    shape = tuple(mat.shape)
+    _svd_fallback.calls_by_shape[shape] = _svd_fallback.calls_by_shape.get(shape, 0) + 1
+    return library_svd(mat)
+
+
+_svd_fallback.calls_by_shape = {}  # (B, m, n) -> calls
 
 
 def _cholesky_gauge_roots(E: torch.Tensor, eps: float):
@@ -514,9 +518,10 @@ class LatticeEngine:
       (`default_eigh` of each theta's smaller-side Gram) or "subspace"
       (`subspace_eigh` of Grams wider than chi + 16, `default_eigh` below).
     - `svd_impl`, for ``trunc_method="svd"``: "pjsvd" (the Jacobi kernels,
-      K2 then K1, for thetas whose smaller side is even and >= 64, the
-      library below), "xla" (`torch.linalg.svd` for every theta) or "auto"
-      ("pjsvd" at complex64, "xla" at complex128).
+      K2 then K1, for thetas whose smaller side is even and 64..128, the
+      library elsewhere: below, and past the kernels' 128 from chi = 65 on),
+      "xla" (`torch.linalg.svd` for every theta) or "auto" ("pjsvd" at
+      complex64, "xla" at complex128).
     - `bp_kernel` picks the BP sweep of `bp_update`, `normalize` and the
       layer step (`tnqs/engine.py:597-601`): "kernel" routes every degree
       >= 2 group that `ops.supports_group` admits (all of them at chi = 64)
@@ -867,15 +872,21 @@ class LatticeEngine:
         """(U, s, Vh, None) of every theta, one SVD per theta shape
         (`tnqs/engine.py:1195-1268`).  Under ``svd_impl="pjsvd"`` an even
         smaller dimension >= 64 takes `pjsvd` (wide thetas through the
-        adjoint; rectangular ones polish 6 sweeps, square 4); every other
-        theta, and every theta under "xla", takes `_svd_fallback`."""
+        adjoint; rectangular ones polish 6 sweeps, square 4) where its
+        kernels hold the shape (`pjsvd_fits`: even, at most 128); every
+        other theta, and every theta under "xla", takes `_svd_fallback`.
+        The JAX gate (`tnqs/engine.py:1231-1235`) has no upper limit, since
+        its kernels take any even width; the port's K1 and K2 stop at 128,
+        so from chi = 65 on (a saturated bond's theta is 2 chi wide at
+        d = 2) the thetas take the library SVD instead.  The route depends
+        on the shape alone, so it is the same on every device."""
         bank: dict = {}
         for ci, theta in enumerate(thetas):
             bank.setdefault(tuple(theta.shape[1:]), []).append(ci)
         results = [None] * len(thetas)
         for (m_, n_), cis in bank.items():
             Ts = torch.cat([thetas[ci] for ci in cis])
-            if self.svd_impl == "pjsvd" and min(m_, n_) % 2 == 0 and min(m_, n_) >= 64:
+            if self.svd_impl == "pjsvd" and min(m_, n_) >= 64 and pjsvd_fits(max(m_, n_), min(m_, n_)):
                 polish = 6 if m_ != n_ else 4
                 if m_ >= n_:
                     U, s, Vh = pjsvd(Ts, polish_sweeps=polish)

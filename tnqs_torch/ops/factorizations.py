@@ -7,6 +7,8 @@ Port of `tnqs/ops/factorizations.py`:
   tall side from its Gram matrix alone, for ``reduce_method="gram_nofactor"``;
 * `default_eigh` (`:121`) — the Hermitian eigensolver of the eigh gauge and
   the Gram truncations, routed to K2 (`jacobi.jacobi_eigh`) or the library;
+* `library_eigh` / `library_svd` — the library's eigh and thin SVD with
+  JAX's answer, NaN, for a batch member that holds a non-finite entry;
 * `gram_svd` (`:132`) — the thin SVD from the smaller-side Gram's eigh;
 * `subspace_eigh` (`:166`) — the top eigenpairs of a PSD Gram by randomized
   subspace iteration and a Rayleigh–Ritz solve.
@@ -107,10 +109,45 @@ def default_eigh(H: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if H.dtype == torch.complex64 and n % 2 == 0 and 32 <= n <= 128:
         return jacobi_eigh(H)
     default_eigh.library_calls += 1
-    return torch.linalg.eigh(H)
+    return library_eigh(H)
 
 
 default_eigh.library_calls = 0
+
+
+def _finite_members(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A [..., m, n] with every batch member that holds a non-finite entry
+    replaced by the identity, and the mask [...] of those members."""
+    bad = ~torch.isfinite(A).all(-1).all(-1)
+    eye = torch.eye(A.shape[-2], A.shape[-1], dtype=A.dtype, device=A.device)
+    return torch.where(bad[..., None, None], eye, A), bad
+
+
+def _nan_members(bad: torch.Tensor, *outs: torch.Tensor) -> tuple:
+    """Each output with NaN written into the batch members `bad` marks."""
+    return tuple(torch.where(bad.reshape(bad.shape + (1,) * (x.dim() - bad.dim())), float("nan"), x) for x in outs)
+
+
+def library_eigh(H: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """`torch.linalg.eigh(H)`, with NaN in both outputs of every batch member
+    that holds a non-finite entry, as `jnp.linalg.eigh` returns them: the
+    library raises on such input.  Those members are solved as the identity
+    and then overwritten, so the other members' results are bit for bit the
+    library's, and no value is read back to the host to decide."""
+    Hs, bad = _finite_members(H)
+    return _nan_members(bad, *torch.linalg.eigh(Hs))
+
+
+def library_svd(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The library's batched thin SVD (U, s, Vh) of A [..., m, n], NaN for a
+    non-finite batch member as in `library_eigh`: LAPACK's on the CPU, and on
+    the card cuSOLVER's ``gesvd``, the QR-iteration method of LAPACK's
+    accuracy class.  torch's default there, ``gesvdj``, stops its Jacobi
+    sweeps at a tolerance that leaves float32 thetas measurably less
+    accurate: the library route's Eagle chi=64 trajectory then leaves the
+    main path's bound (`PERF.md`)."""
+    As, bad = _finite_members(A)
+    return _nan_members(bad, *torch.linalg.svd(As, full_matrices=False, driver="gesvd" if A.is_cuda else None))
 
 
 def svd_from_eigh(A: torch.Tensor, w: torch.Tensor, V: torch.Tensor):

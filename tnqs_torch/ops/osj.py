@@ -91,16 +91,29 @@ def osj_plan(R: int, n: int, C: int):
     return cpc, vpc, smem
 
 
+def _fitting_clusters(R: int, n: int) -> list[int]:
+    """The cluster sizes whose CTAs each hold at least one chunk of A [R, n]
+    and fit their share in shared memory; empty past the kernel's shapes."""
+    if n % 2 or not 4 <= n <= 128 or R < n:
+        return []
+    nch = -(-R // CHUNK)
+    return [C for C in CLUSTERS if (C - 1) * osj_plan(R, n, C)[0] < nch and osj_plan(R, n, C)[2] <= SMEM_LIMIT]
+
+
+def pjsvd_fits(R: int, n: int) -> bool:
+    """Whether `pjsvd` takes A [R, n] (R >= n) through its kernels: K2 on
+    the Gram [n, n] (even 4 <= n <= 128) and K1 on [R, n] (`osj_fits`).
+    Decided from the shape alone, before any launch, and never raises, so a
+    caller routes every other shape elsewhere on every device."""
+    return bool(_fitting_clusters(R, n))
+
+
 def osj_fits(R: int, n: int) -> list[int]:
     """The cluster sizes whose CTAs each hold at least one chunk of A and fit
     their share in shared memory, or ValueError when none does.  This is the
     kernel's one limit on shape: even 4 <= n <= 128, R >= n, and R at most
     what a cluster of 8 holds (992 rows at n = 128)."""
-    fits = []
-    if n % 2 == 0 and 4 <= n <= 128 and R >= n:
-        nch = -(-R // CHUNK)
-        fits = [C for C in CLUSTERS
-                if (C - 1) * osj_plan(R, n, C)[0] < nch and osj_plan(R, n, C)[2] <= SMEM_LIMIT]
+    fits = _fitting_clusters(R, n)
     if not fits:
         raise ValueError(f"osj_svd kernel takes even 4 <= n <= 128 and n <= R with R rows fitting the "
                          f"shared memory of a cluster of 8 ({SMEM_LIMIT} bytes a CTA), got [{R}, {n}]")

@@ -1,1 +1,2 @@
-"""Measurement tools for the port's kernels; they run on a CUDA card."""
+"""Measurement tools for the port: `phase_costs` runs on a CUDA card, `bmps_cost` on
+any machine (meta tensors)."""
