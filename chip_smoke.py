@@ -92,16 +92,36 @@ Run from the repository root.  Phases, each of which fails the run:
    theta 192 wide or more takes the library SVD (counted by shape), no K1
    or K2 launch past n = 128, every layer finite, and on the layers where
    the main path discarded nothing past the cutoff <Z> within the main
-   path's bound of flex-f64.
+   path's bound of flex-f64;
+9. certified sampling, `BMPSSampler` on the card, on the states phases 5-6
+   and 8a made (K1, K2 and K3 must have run in those evolutions, none inside
+   the sampler): (a) bench's w2 sampler (`bench.py:446-452`: rank 10,
+   power_iters 3, factored proj_rank 12) on 8a's state, 50 samples with
+   seed 0 cold and seed 1 timed, each p/q finite and > 0, each bit 0 or 1,
+   |pq_mean - 1| < 0.1 and pq_min > 0.5 (`tests/test_f32_floor.py:231-232`),
+   pq_rel_std beside the flex-f64 floor, no sketch drawn; seed 1 again in
+   groups of 10: the same bits, p/q within 1e-4; the time seed 1 spends in
+   the library SVDs; (b) the first 10 of seed 1 on a CPU engine from
+   `from_arrays`: the card's bits, p/q within 1e-4 of the card's group of
+   10 (the same contraction order);
+   (c) `sample_certified(8, seed=2, cert_rank=12)`: finite, positive, mean
+   within 0.1 of 1; (d) bench's chi=64 sampler (`bench.py:365-368`: rank 8,
+   proj_rank 16, groups of 2) on the main path's state after `bp_update`:
+   one two-lane call cold, then as many samples (4 to 50) as fit
+   SAMPLE_CAP_S at its rate, whose first two must be the cold call's;
+   p/q and the norm estimate finite and > 0, log q <= 0; seconds a sample,
+   peak memory, library calls, sketch bytes a call (each fold drawn once a
+   call) and one torch.profiler window of a two-lane group.
 
 The line before the last is {"kernels": [...]}: `launches` counts the main
-path's (phase 5) launches, `launches_by_path` each run's of phases 5-8
+path's (phase 5) launches, `launches_by_path` each run's of phases 5-9
 ("6" the BP path, "8a" the w2 evolution, "8a bmps" and "8c bmps" the BMPS
-calls); the last line is {"ok": true, "device": {...}}.
+calls, "9a", "9c" and "9d" the sampler calls); the last line is {"ok":
+true, "device": {...}}.
 `--bp-kernel-only` runs phases 1, 2 and 4 and prints K3's row alone (no
 result lines), e.g. on an older tree; `--switches-only` runs phases 1, 2,
 K2 at the switches' shapes and 7 (no result lines); `--measure-only` runs
-phases 1, 2, the main path's evolution and `bp_update`, and 8 (no result
+phases 1, 2, the main path's evolution and `bp_update`, 8 and 9 (no result
 lines).
 """
 
@@ -1295,7 +1315,7 @@ def measure_w2(dev):
     print(f"8b: CPU readout {zc[center]:+.7f}, {zc[bench_v]:+.7f} ({time.perf_counter() - t0:.3f} s), card - CPU "
           f"{d:.3e} (bound 1e-5)")
     require(d <= 1e-5, "8b: the card's and the CPU's readouts differ")
-    return by_path
+    return by_path, eng
 
 
 def measure_chi64(dev, eng, probe):
@@ -1405,6 +1425,213 @@ def measure_chi96(dev, discarded):
     return {"8d": counts[0]}
 
 
+# ----------------------------------------------------------------------
+# phase 9: certified sampling
+# ----------------------------------------------------------------------
+
+SAMPLE_CAP_S = 150.0  # 9d draws the most samples, up to 50, whose groups fit this
+
+
+def sample_stats(label, out):
+    """(p/q array, mean, relative std) of a sampler call's dicts, each p/q
+    finite and > 0 and each bit 0 or 1, log q <= 0 and the norm estimate
+    finite and > 0."""
+    pq = np.array([o["poverq"] for o in out])
+    require(np.all(np.isfinite(pq)) and np.all(pq > 0), f"{label}: p/q not finite and positive: {pq}")
+    require(all(b in (0, 1) for o in out for b in o["bitstring"].values()), f"{label}: a bit outside {{0, 1}}")
+    require(all(o["logq"] <= 0 for o in out), f"{label}: log q > 0")
+    n_hat = out[0]["norm_estimate"]
+    require(np.isfinite(n_hat) and n_hat > 0, f"{label}: norm estimate {n_hat}")
+    return pq, float(pq.mean()), float(pq.std() / pq.mean())
+
+
+def same_draws(label, a, b, rel=1e-4):
+    """The same bitstrings, and p/q within `rel` (another group width may
+    round differently in cuBLAS); returns the largest relative difference."""
+    require(all(x["bitstring"] == y["bitstring"] for x, y in zip(a, b)), f"{label}: the bitstrings differ")
+    d = max(abs(x["poverq"] - y["poverq"]) / abs(y["poverq"]) for x, y in zip(a, b))
+    require(d <= rel, f"{label}: p/q differs by {d:.3e} relative (bound {rel:.0e})")
+    return d
+
+
+def sample_w2(dev, eng):
+    """9a: bench's w2 sampler (`bench.py:446-452`) on 8a's Eagle chi=8 state:
+    50 factored samples with seed 0 cold, 50 with seed 1 timed, gated as
+    `tests/test_f32_floor.py:231-232` gates the committed run, again in
+    groups of 10; 9b: the first 10 of seed 1 on a CPU engine carried over
+    by `from_arrays`; 9c: 8 independently certified samples.  Returns the
+    launches of 9a and 9c."""
+    from tnqs_torch.bmps_engine import BMPSEngine, BMPSSampler
+    from tnqs_torch.engine import LatticeEngine
+
+    floor = json.loads((ROOT / "tests" / "golden" / "golden_f32_controls.json").read_text())["w2"]["pq_rel_std_f64"]
+    kw = dict(rank=10, oversample=8, power_iters=3)
+    plain_before = reset_counts()
+    calls0 = bmps_library_calls()
+    sam = BMPSSampler(BMPSEngine(eng, **kw), proj_rank=12, q_mode="factored")
+    times = {}
+    for seed in (0, 1):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = sam.sample_directly_certified(50, seed=seed)
+        times[seed] = time.perf_counter() - t0
+        pq, mean, rel_std = sample_stats(f"9a seed {seed}", out)
+        print(f"9a w2 seed {seed} ({'cold' if seed == 0 else 'warm'}): 50 factored samples in {times[seed]:.3f} s, "
+              f"pq_mean {mean:.7f}, pq_rel_std {rel_std:.4e} (flex-f64 floor {floor:.2e}), pq_min {pq.min():.7f}, "
+              f"pq_max {pq.max():.7f}", flush=True)
+        require(abs(mean - 1) < 0.1 and pq.min() > 0.5, f"9a: pq_mean {mean}, pq_min {pq.min()}")
+    calls = np.subtract(bmps_library_calls(), calls0)
+    require(sam.bmps.sketch_bytes == 0, "9a: an emit drew a sketch at chi=8")
+    sync(dev)
+    t0 = time.perf_counter()
+    chunked = sam.sample_directly_certified(50, seed=1, chunk=10)
+    t_chunk = time.perf_counter() - t0
+    d = same_draws("9a chunk=10", chunked, out)
+    print(f"9a: every emit an exact SVD (no sketch), library eigh {calls[0]} SVD {calls[1]} in the two calls; "
+          f"chunk=10: {t_chunk:.3f} s, the same bits, p/q within {d:.3e}")
+    svd_s, wall = timed_library_svd(lambda: sam.sample_directly_certified(50, seed=1))
+    print(f"9a: one 50-sample call with each library SVD synchronised and timed: {wall:.3f} s, {svd_s:.3f} s of it "
+          f"in the SVDs (cuSOLVER's gesvd takes a batch one matrix at a time)")
+    counts = read_counts(plain_before)
+    require(not any(counts[0].values()) and not counts[3], f"9a: a kernel or its plain version ran: {counts[0]}")
+    by_path = {"9a": counts[0]}
+
+    cpu = LatticeEngine.from_arrays(eng.plan.graph, *eng.to_arrays(), chi=eng.chi, device="cpu",
+                                    bp_schedule=eng.plan.bp_schedule)
+    t0 = time.perf_counter()
+    on_cpu = BMPSSampler(BMPSEngine(cpu, **kw), proj_rank=12, q_mode="factored").sample_directly_certified(10, seed=1)
+    t_cpu = time.perf_counter() - t0
+    # held against the card's first group of 10, which contracts in the
+    # same order (the group width sets the per-lane budget, and so the
+    # chunking); beside it the difference from the 50-lane call
+    d = same_draws("9b card vs CPU", on_cpu, chunked[:10])
+    d50 = max(abs(x["poverq"] - y["poverq"]) / abs(y["poverq"]) for x, y in zip(on_cpu, out[:10]))
+    print(f"9b: 10 samples on the CPU in {t_cpu:.3f} s: the card's bits, p/q within {d:.3e} of the card's group of "
+          f"10 ({d50:.3e} of its 50-lane call)")
+
+    plain_before = reset_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    cert = sam.sample_certified(8, seed=2, cert_rank=12)
+    t_cert = time.perf_counter() - t0
+    pq = np.array([o["poverq"] for o in cert])
+    ratio = pq / np.array([o["poverq_direct"] for o in cert])
+    print(f"9c: 8 independently certified samples (cert_rank 12) in {t_cert:.3f} s, mean p/q {pq.mean():.7f}; "
+          f"p/q over the draw's: {' '.join(f'{r:.6f}' for r in ratio)}")
+    require(np.all(np.isfinite(pq)) and np.all(pq > 0), f"9c: certificates {pq}")
+    require(abs(pq.mean() - 1) < 0.1, f"9c: mean certificate {pq.mean()}")
+    counts = read_counts(plain_before)
+    require(not any(counts[0].values()) and not counts[3], f"9c: a kernel or its plain version ran: {counts[0]}")
+    by_path["9c"] = counts[0]
+    return by_path
+
+
+def sample_chi64(dev, eng):
+    """9d: bench's chi=64 sampler (`bench.py:365-368`, `BMPSEngine(rank=8)`,
+    proj_rank 16, groups of 2) on the main path's state after
+    `bp_update`: one two-lane call cold, then as many samples as
+    SAMPLE_CAP_S allows at that rate (4 to 50) with seed 1, whose first two
+    must be the cold call's; p/q, seconds a sample, peak memory, library
+    calls, sketch bytes a call, and one torch.profiler window of a group."""
+    from tnqs_torch.bmps_engine import BMPSEngine, BMPSSampler, cpu_uniforms
+
+    plain_before = reset_counts()
+    sam = BMPSSampler(BMPSEngine(eng, rank=8), proj_rank=16)
+    be = sam.bmps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    calls0, bytes0 = bmps_library_calls(), be.sketch_bytes
+    t0 = time.perf_counter()
+    first = sam.sample_directly_certified(2, seed=1, chunk=2)
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    calls = np.subtract(bmps_library_calls(), calls0)
+    bytes_cold = be.sketch_bytes - bytes0
+    sample_stats("9d cold", first)
+    n = int(min(50, max(4, 2 * int(SAMPLE_CAP_S // t_cold))))
+    print(f"9d chi=64: one two-lane call cold (norm boundaries + one group) {t_cold:.3f} s, peak memory above the "
+          f"state {peak:.3f} GiB, library eigh {calls[0]} SVD {calls[1]}, sketches {bytes_cold} bytes host to device; "
+          f"{n} samples fit {SAMPLE_CAP_S:.0f} s", flush=True)
+    calls0, bytes0 = bmps_library_calls(), be.sketch_bytes
+    t0 = time.perf_counter()
+    out = sam.sample_directly_certified(n, seed=1, chunk=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    calls = np.subtract(bmps_library_calls(), calls0)
+    pq, mean, rel_std = sample_stats("9d", out)
+    d = same_draws("9d first two lanes", out[:2], first)
+    print(f"9d: {n} samples in {wall:.3f} s ({wall / n:.3f} s a sample), pq_mean {mean:.7f}, pq_rel_std "
+          f"{rel_std:.4e}, pq_min {pq.min():.7f}, pq_max {pq.max():.7f}, norm_estimate {out[0]['norm_estimate']:.7e}; "
+          f"library eigh {calls[0]} SVD {calls[1]}, sketches {be.sketch_bytes - bytes0} bytes host to device "
+          f"(the cold 2-sample call {bytes_cold}); first two as the cold call's, p/q within {d:.3e}", flush=True)
+    require(be.sketch_bytes - bytes0 == bytes_cold, "9d: the sketches were not drawn once per call")
+    counts = read_counts(plain_before)
+    require(not any(counts[0].values()) and not counts[3], f"9d: a kernel or its plain version ran: {counts[0]}")
+
+    u = torch.stack([cpu_uniforms(3, s, len(sam.keys_order)) for s in range(2)]).to(dev)
+    with be.sketches_cached():
+        norm = sam._norm()
+        sam._group(norm, u, sam._lane_budget(2))  # draws the folds outside the window
+        profiled("9d profile window, one two-lane group", lambda: sam._group(norm, u, sam._lane_budget(2)))
+    return {"9d": counts[0]}
+
+
+def timed_library_svd(fn):
+    """(seconds inside the BMPS tier's library SVDs, wall seconds) of fn(),
+    each SVD synchronised before and after."""
+    from tnqs_torch import bmps_engine
+
+    orig = bmps_engine.library_svd
+
+    def timed(A):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(A)
+        torch.cuda.synchronize()
+        timed.seconds += time.perf_counter() - t
+        return out
+
+    timed.seconds = 0.0
+    bmps_engine.library_svd = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return timed.seconds, time.perf_counter() - t0
+    finally:
+        bmps_engine.library_svd = orig
+
+
+def profiled(label, fn):
+    """One torch.profiler window over fn(): wall time, device busy time,
+    idle share and the top kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = device_times(prof)
+    busy = sum(ms for ms, _ in kernels.values())
+    print(f"{label} (torch.profiler): wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / wall_ms:.4f}, {sum(c for _, c in kernels.values())} kernel launches")
+    for (ms, c), k in sorted(((v, k) for k, v in kernels.items()), reverse=True)[:8]:
+        print(f"  {ms:9.3f} ms {c:5d}x ({100 * ms / max(busy, 1e-9):4.1f}%) {k[:110]}")
+
+
+def evolutions_launched(by_path):
+    """K1, K2 and K3 ran in the chi=64 evolution (phase 5) and K3 in the w2
+    one (8a), whose states phase 9 samples; K1 and K2 take no chi=8 theta
+    (16 wide, below `pjsvd_fits`)."""
+    require(all(by_path["5"].values()), f"phase 5 launched {by_path['5']}")
+    require(by_path["8a"]["bp_sweep_group"] > 0, f"8a launched {by_path['8a']}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=10, help="main-path layers (default 10)")
@@ -1448,11 +1675,15 @@ def main():
             switches_phase(dev, args.layers)
             return 0
         if args.measure_only:
-            _, eng, _, probe, _, discarded = main_path(dev, args.layers)
+            launches, eng, _, probe, _, discarded = main_path(dev, args.layers)
             eng.bp_update(maxiter=30)
             measure_chi64(dev, eng, probe)
+            sample_chi64(dev, eng)
             del eng
-            measure_w2(dev)
+            by_w2, eng = measure_w2(dev)
+            evolutions_launched({"5": launches, **by_w2})
+            sample_w2(dev, eng)
+            del eng
             measure_chi96(dev, discarded)
             return 0
         kernels = kernel_phase(dev)
@@ -1464,11 +1695,16 @@ def main():
         step_ab(dev, eng, step, probe)
         by_path = {"5": launches, "6": bp_path(dev, eng, probe)}
         by_path.update(measure_chi64(dev, eng, probe))
+        by_path.update(sample_chi64(dev, eng))
         del eng, step
         by_path.update(switches_phase(dev, args.layers, main_rate))
-        by_path.update(measure_w2(dev))
+        by_w2, eng = measure_w2(dev)
+        by_path.update(by_w2)
+        evolutions_launched(by_path)
+        by_path.update(sample_w2(dev, eng))
+        del eng
         by_path.update(measure_chi96(dev, discarded))
-        print(f"kernel launches by path (phases 5-8): {by_path}")
+        print(f"kernel launches by path (phases 5-9): {by_path}")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -12,40 +12,21 @@ import numpy as np
 import pytest
 import torch
 
-import jax.numpy as jnp
-
 import tnqs
 import tnqs.bmps_engine as JB
-from tnqs.engine import LatticeEngine as JaxEngine
 from tnqs.engine import LatticePlan as JaxPlan
 
-import tnqs_torch as tt
 import tnqs_torch.bmps_engine as PB
 from tnqs_torch.engine import LatticeEngine, LatticePlan
+import torch_bmps_cases as cases
 from torch_bmps_cases import Z_TOL, port_graph
 
 torch.set_num_threads(1)
 
 
-def _cylinder(dt=0.3, layers=2):
-    """(graph, port engine, JAX engine) of `tests/test_ring_bmps.py:30`'s
-    TFIM state on the 6x3 cylinder, evolved by the port."""
-    g = tnqs.named_grid((6, 3), periodic=(True, False))
-    pe = LatticeEngine(port_graph(g), chi=2, device="cpu")
-    pe.bp_update(maxiter=10)
-    if layers:
-        pe.evolve(tt.tfim_layer(pe.plan.graph, J=0.5, hx=1.0, dt=dt), num_layers=layers, cutoff=1e-10, bp_maxiter=10)
-    psi = tnqs.tensornetworkstate(lambda v: "↑", g, "S=1/2", dtype=np.complex64)
-    je = JaxEngine(psi, chi=2, dtype=jnp.complex64)
-    assert je.plan.bp_schedule == pe.plan.bp_schedule
-    T, M = pe.to_arrays()
-    je.T, je.M = {k: jnp.asarray(v) for k, v in T.items()}, jnp.asarray(M)
-    return g, pe, je
-
-
 @pytest.fixture(scope="module")
 def cylinder():
-    return _cylinder()
+    return cases.cylinder()
 
 
 def test_ring_plan_matches_jax():
@@ -73,7 +54,7 @@ def test_malformed_ring_rejected():
 
 
 def test_ring_product_state_exact():
-    _, pe, _ = _cylinder(layers=0)
+    _, pe, _ = cases.cylinder(layers=0)
     z = PB.BMPSEngine(pe, rank=4, ring_iters=2).expect_1site("Z")
     assert max(abs(z[v] - 1.0) for v in z) < 1e-5
 
@@ -112,7 +93,7 @@ def test_ring_inner_fidelity_lognorm(cylinder):
     """The quotient-BP overlap on ring plans against JAX and against exact
     contraction (`tests/test_ring_bmps.py:272`)."""
     g, ket, jket = cylinder
-    _, bra, jbra = _cylinder(dt=0.28)
+    _, bra, jbra = cases.cylinder(dt=0.28)
     bj, bp = JB.BMPSEngine(jket, rank=8), PB.BMPSEngine(ket, rank=8)
     got = bp.inner(bra)
     assert abs(got - complex(bj.inner(jbra))) < 1e-5 * abs(got)

@@ -31,12 +31,12 @@ def carry(je):
                                      device="cpu", bp_schedule=je.plan.bp_schedule)
 
 
-def flex_state(g, theta=0.3, layers=2, maxdim=4):
-    """Rzz(theta) on every edge and Rx(0.5) on every vertex, `layers` times
+def flex_state(g, theta=0.3, layers=2, maxdim=4, hx=0.5):
+    """Rzz(theta) on every edge and Rx(hx) on every vertex, `layers` times
     from "↑", by the flex tier's simple update (`tests/test_bmps_engine.py:18`)."""
     psi = tnqs.tensornetworkstate(lambda v: "↑", g, "S=1/2", dtype=np.complex64)
     bpc = tnqs.BeliefPropagationCache(psi)
-    layer = [("Rzz", e, theta) for e in g.edges()] + [("Rx", [v], 0.5) for v in g.vertices()]
+    layer = [("Rzz", e, theta) for e in g.edges()] + [("Rx", [v], hx) for v in g.vertices()]
     for _ in range(layers):
         bpc, _ = tnqs.apply_gates(layer, bpc, apply_kwargs=dict(cutoff=1e-12, maxdim=maxdim, normalize_tensors=True))
     return bpc.network
@@ -74,3 +74,48 @@ def counting(sketch):
 
     draw.draws = 0
     return draw
+
+
+def cylinder(dt=0.3, layers=2):
+    """(graph, port engine, JAX engine) of `tests/test_ring_bmps.py:30`'s
+    TFIM state on the 6x3 cylinder, evolved by the port and carried into a
+    JAX engine of the same plan."""
+    g = tnqs.named_grid((6, 3), periodic=(True, False))
+    pe = LatticeEngine(port_graph(g), chi=2, device="cpu")
+    pe.bp_update(maxiter=10)
+    if layers:
+        pe.evolve(tt.tfim_layer(pe.plan.graph, J=0.5, hx=1.0, dt=dt), num_layers=layers, cutoff=1e-10, bp_maxiter=10)
+    psi = tnqs.tensornetworkstate(lambda v: "↑", g, "S=1/2", dtype=np.complex64)
+    je = JaxEngine(psi, chi=2, dtype=jnp.complex64)
+    assert je.plan.bp_schedule == pe.plan.bp_schedule
+    T, M = pe.to_arrays()
+    je.T, je.M = {k: jnp.asarray(v) for k, v in T.items()}, jnp.asarray(M)
+    return g, pe, je
+
+
+def replay(out, keys_order):
+    """The port's `BMPSSampler(uniforms=...)` that takes the bits of JAX's
+    samples `out`: at d = 2 the draw values 0.0 and 1.0 give bits 0 and 1
+    whatever the law (`inverse_cdf`)."""
+    bits = torch.tensor([[o["bitstring"][v] for v in keys_order] for o in out], dtype=torch.float32)
+    return lambda seed, s, nv: bits[s]
+
+
+def exact_probability(st):
+    """|<x|psi>|^2 of the flex state `st` by exact contraction
+    (`tests/test_bmps_engine.py:167-173`), memoized by bitstring."""
+    from tnqs.core.tensor import onehot
+    from tnqs.networks import TensorNetwork
+
+    s = st.siteinds()
+    memo = {}
+
+    def p(bitstring):
+        key = tuple(sorted(bitstring.items()))
+        if key not in memo:
+            proj = {v: st[v] * st._adapt_like(onehot(s[v][0], bitstring[v])) for v in st.vertices()}
+            amp = tnqs.contract_network(TensorNetwork(proj, st.graph.copy()), alg="exact")
+            memo[key] = abs(complex(amp)) ** 2
+        return memo[key]
+
+    return p

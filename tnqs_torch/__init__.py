@@ -5,7 +5,8 @@ reference).  It runs the compiled engine: `LatticeEngine.make_step` ->
 `evolve` -> `expect_1site` and the BP tail on the heavy-hex kicked-Ising
 layer, with the JAX engine's factor, gauge, reduction, truncation and SVD
 switches at complex64 and complex128; the boundary-MPS measurement of its
-states (`BMPSEngine`: expectation values, RDMs, overlaps); and the
+states (`BMPSEngine`: expectation values, RDMs, overlaps) and its certified
+sampling (`BMPSSampler`); and the
 package's three TPU kernels
 (the two Jacobi kernels of the truncated SVD and the fused BP sweep)
 written in CUDA C++ for sm_90a (`tnqs_torch/csrc`).  On a CPU tensor each
@@ -24,7 +25,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
-from .bmps_engine import BMPSEngine, ColumnPlan  # noqa: E402
+from .bmps_engine import BMPSEngine, BMPSSampler, ColumnPlan  # noqa: E402
 from .engine import LatticeEngine, LatticePlan, build_program, compile_circuit  # noqa: E402
 from .gates import gate_matrix, op_matrix  # noqa: E402
 from .graphs import NamedGraph, center, eagle_lattice, edge_color  # noqa: E402
@@ -32,6 +33,7 @@ from .models import heavy_hex_kicked_ising_layer, tfim_layer  # noqa: E402
 
 __all__ = [
     "BMPSEngine",
+    "BMPSSampler",
     "ColumnPlan",
     "LatticeEngine",
     "LatticePlan",

@@ -1,7 +1,8 @@
-"""Boundary-MPS measurement of engine states: expectation values, RDMs and
-overlaps.
+"""Boundary-MPS measurement of engine states: expectation values, RDMs,
+overlaps and certified sampling.
 
-Port of the expectation tier of `tnqs/bmps_engine.py` (`:58-1503`):
+Port of `tnqs/bmps_engine.py`: the expectation tier (`:58-1503`) and the
+certified sampler `BMPSSampler` (`:1504-2174`, at the end of this module):
 
 * a static :class:`ColumnPlan` derived once from the engine's lattice:
   columns (vertices grouped by a column key, ordered by a row key), the
@@ -14,7 +15,10 @@ Port of the expectation tier of `tnqs/bmps_engine.py` (`:58-1503`):
   every large operation is a matrix product;
 * expectations by a per-column "ladder" between the left and right
   boundary MPSes with prefix/suffix environments, and overlaps by bilinear
-  sweeps with the bra layer from a second state.
+  sweeps with the bra layer from a second state;
+* samples drawn column by column from conditional RDM diagonals between
+  the right boundary MPSes and a bit-projected left one, with their p/q
+  certificates (`BMPSSampler`).
 
 Scale factors are dropped throughout (every emission is norm-rescaled) and
 cancel in the ratios; overlaps carry them in log space.
@@ -36,6 +40,7 @@ draw, e.g. JAX's own in the tests.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass
 from functools import partial
 from itertools import product
@@ -264,9 +269,13 @@ def _ladder_transfer_two_cross(G, Ml, Mr, K, B, budget: int):
     per3 = P_dim * r_dim * q_dim * R_dim
     c = max(1, int(np.sqrt(budget / max(per1, per2, per3, 1))))
     cA, cB, cb = min(c, A_dim), min(c, B_dim), min(c, b_dim)
-    out = torch.empty((q_dim, Q_dim, A_dim, B_dim), dtype=K.dtype, device=K.device)
+    # the blocks are concatenated, not written into a preallocated output:
+    # the sampler maps this step over its lanes (`torch.func.vmap`), which
+    # cannot write a lane-batched block into an unbatched tensor
+    rows = []
     for iA in range(0, A_dim, cA):
         Kc = K[:, :, iA : iA + cA]
+        blocks = []
         for iB in range(0, B_dim, cB):
             Bc = B[:, :, iB : iB + cB]
             acc = None
@@ -276,8 +285,9 @@ def _ladder_transfer_two_cross(G, Ml, Mr, K, B, budget: int):
                 T3 = torch.einsum("PbsArmq,sbBmR->PArqBR", T2, Bc[:, ib : ib + cb])
                 part = torch.einsum("PArqBR,PrRQ->qQAB", T3, Mr)
                 acc = part if acc is None else acc + part
-            out[:, :, iA : iA + cA, iB : iB + cB] = acc
-    return out
+            blocks.append(acc)
+        rows.append(torch.cat(blocks, dim=3))
+    return torch.cat(rows, dim=2)
 
 
 def _pass_step_block(C, Min, K, B, *, budget: int):
@@ -433,12 +443,31 @@ class BMPSEngine:
         # sweep sees the same draws whatever it measures
         self._sketch = partial(cpu_sketch, self._seed) if sketch is None else sketch
         self.sketch_bytes = 0
+        self._sketch_cache = None
 
     def _draw(self, code: int, shape: tuple, dt) -> torch.Tensor:
+        key = (code, tuple(shape), dt)
+        if self._sketch_cache is not None and key in self._sketch_cache:
+            return self._sketch_cache[key]
         omega = self._sketch(code, shape)
         if omega.device != self.engine.device:
             self.sketch_bytes += omega.numel() * omega.element_size()
-        return omega.to(device=self.engine.device, dtype=dt)
+        omega = omega.to(device=self.engine.device, dtype=dt)
+        if self._sketch_cache is not None:
+            self._sketch_cache[key] = omega
+        return omega
+
+    @contextmanager
+    def sketches_cached(self):
+        """Within the block every fold is drawn and copied to the device once
+        and then reused: a sampler call zips the same folds for each group
+        of lanes.  A draw depends only on (seed, code, shape), so the cache
+        changes no value; it is freed when the block exits."""
+        self._sketch_cache = {}
+        try:
+            yield
+        finally:
+            self._sketch_cache = None
 
     def _ones(self, shape, dt) -> torch.Tensor:
         return torch.ones(shape, dtype=dt, device=self.engine.device)
@@ -981,3 +1010,468 @@ class BMPSEngine:
         log_bb, _ = BMPSEngine(bra, rank=self.rank, seed=self._seed, oversample=self.oversample,
                                power_iters=self.power_iters, sketch=self._sketch)._log_inner(None)
         return float(np.exp(2.0 * log_bk - log_kk - log_bb))
+
+
+# ----------------------------------------------------------------------
+# certified sampling
+# ----------------------------------------------------------------------
+
+
+def cpu_uniforms(seed: int, s: int, n: int) -> torch.Tensor:
+    """The draw values of sample `s` of `seed`: `n` float32 uniforms in [0, 1),
+    one per vertex in the sampler's `keys_order`, from a CPU
+    `torch.Generator` seeded from (seed, s) as `cpu_sketch` seeds its folds.
+    A sample's bits then depend on (seed, s) alone: not on the chunking,
+    nor on the device.  JAX draws each bit with `jax.random.categorical`
+    under `fold_in(split(PRNGKey(seed), nsamples)[s], vertex)`
+    (`tnqs/bmps_engine.py:1782`, `:2145`), which the port cannot reproduce."""
+    gen = torch.Generator().manual_seed(int(np.random.SeedSequence([int(seed), int(s)]).generate_state(1)[0]))
+    return torch.rand(n, generator=gen, dtype=torch.float32)
+
+
+def conditional_law(diag: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(q, tr) of a conditional RDM diagonal [d] (`tnqs/bmps_engine.py:
+    1756-1781`): the diagonal clipped at 0 with trace tr, normalized; the
+    uniform law where tr <= 1e-25 (an under-ranked projected boundary can
+    zero the whole diagonal, and a uniform draw keeps q a distribution);
+    floored at 1e-12 and renormalized before the draw, so the bit and its
+    weight come from one law.  No host branch: a lane's collapse is a
+    `torch.where`."""
+    diag = torch.clamp(diag, min=0.0)
+    tr = torch.sum(diag)
+    ok = tr > 1e-25
+    d = diag.shape[0]
+    q = torch.where(ok, diag / torch.where(ok, tr, 1.0), torch.full_like(diag, 1.0 / d))
+    q = torch.clamp(q, min=1e-12)
+    return q / torch.sum(q), tr
+
+
+def inverse_cdf(q: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The bit of draw value u under the law q [d]: min(#{k : cumsum(q)[k]
+    <= u}, d - 1), an int64 scalar on q's device.  u = 0 gives bit 0 and u
+    = 1 bit d - 1 for every law (q holds the 1e-12 floor)."""
+    return torch.clamp(torch.sum(torch.cumsum(q, 0) <= u), max=q.shape[0] - 1)
+
+
+class _FactoredCut:
+    """Lazy doubled view of a single-layer projected cut MPS
+    (`tnqs/bmps_engine.py:1504`).
+
+    Holds the single-layer tensors `l1[i]` [chain_in, bond, chain_out] and
+    builds the doubled ket x bra message ``l (x) conj(l) -> [chain^2,
+    bond_ket, bond_bra, chain^2]`` only where a vertex consumes it: one
+    expanded message is live per ladder step instead of a whole cut's."""
+
+    def __init__(self, l1: list):
+        self.l1 = l1
+
+    def __getitem__(self, i):
+        l = self.l1[i]
+        p, b, P = l.shape
+        return torch.einsum("pbP,qcQ->pqbcPQ", l, l.conj()).reshape(p * p, b, b, P * P)
+
+
+class BMPSSampler:
+    """Boundary-MPS certified sampler for engine states
+    (`tnqs/bmps_engine.py:1528`).
+
+    The autoregressive column sweep: each vertex's bit is drawn from the
+    diagonal of its conditional RDM, between the right (norm-network)
+    boundary MPS of its column and the left boundary MPS projected on the
+    bits drawn so far, scaled by 1/sqrt(q_v).  The right boundaries do not
+    depend on the sample and are built once per call (`_norm`); the
+    projected left boundary is zipped per sample.  The samples of a group
+    of `chunk` lanes advance together: one lane's sweep is mapped over the
+    group by `torch.func.vmap`, so every contraction is one batched call,
+    and nothing in a group reads a device value on the host.  Groups run
+    one after another against the shared boundaries, which bounds the live
+    memory by one group's.
+
+    Dropped norm factors are kept in log space, summed in float64 (a
+    127-site p(x) is ~2^-127, a float32 zero; `_zero`), and the certificate
+    ``poverq`` = p(x)/q(x) is normalized by the BP partition function Z_BP,
+    so E_q[p/q] = <psi|psi>/Z_BP ~= 1.  There is no division by the rank-limited norm
+    estimate, which is biased low; it is reported as ``norm_estimate``.
+    Converge the engine's messages (`bp_update`, or `evolve`) first: Z_BP
+    is read from them.
+
+    `proj_rank` bounds the projected sweep (default 5 chi).  `q_mode`
+    "factored" carries the projected boundary as a single-layer MPS of rank
+    `proj_rank` and expands l (x) conj(l) only where a vertex consumes it
+    (rank r carries a doubled rank r^2; not on ring plans).  A bit is the
+    `inverse_cdf` of its vertex's law at its draw value, the values of
+    sample s being ``uniforms(seed, s, nv)`` (default `cpu_uniforms`).  At
+    d = 2 the values 0.0 and 1.0 take bits 0 and 1 whatever the law, which
+    is how the tests replay JAX's bits.  The library calls and sketches are
+    the `BMPSEngine`'s, each fold drawn once per call
+    (`BMPSEngine.sketches_cached`)."""
+
+    def __init__(self, bmps: BMPSEngine, proj_rank: int | None = None, q_mode: str = "doubled", uniforms=None):
+        self.bmps = bmps
+        self.proj_rank = int(proj_rank) if proj_rank is not None else 5 * bmps.engine.chi
+        self.q_mode = str(q_mode)
+        if self.q_mode not in ("doubled", "factored"):
+            raise ValueError(f"unknown q_mode {q_mode!r}")
+        cp = bmps.cplan
+        if cp.periodic and self.q_mode == "factored":
+            raise NotImplementedError(
+                "factored-q sampling on ring column quotients is not supported (the wrap-cut norm message is a "
+                "doubled-layer object with no exact single-layer factorization); use q_mode='doubled'")
+        self.keys_order = [v for col in cp.columns for v in col]
+        self._vidx = {v: i for i, v in enumerate(self.keys_order)}
+        self.uniforms = cpu_uniforms if uniforms is None else uniforms
+
+    # -- column helpers ----------------------------------------------------
+    def _cut_maps(self, c: int):
+        cp = self.bmps.cplan
+        nC = len(cp.columns)
+        # ring plans: column 0's left cut is the wrap cut (index nC-1)
+        lcut = cp.cross[(c - 1) % nC] if (c > 0 or cp.periodic) else []
+        rcut = cp.cross[c] if c < len(cp.cross) else []
+        return {e[1]: i for i, e in enumerate(lcut)}, {e[0]: i for i, e in enumerate(rcut)}
+
+    def _msgs(self, v, l_of, r_of, L, R, pl: int, pr: int, dt):
+        Ml = L[l_of[v]] if v in l_of else self.bmps._eye4(pl, dt)
+        Mr = R[r_of[v]] if v in r_of else self.bmps._eye4(pr, dt)
+        return Ml, Mr
+
+    @staticmethod
+    def _step_up(D, Ml, Mr, K, B, budget: int = _EINSUM_BUDGET):
+        # the down step under the chain/bond axis swap (see `_ladder_walks`)
+        return BMPSEngine._ladder_transfer(D, Ml.permute(3, 1, 2, 0), Mr.permute(3, 1, 2, 0),
+                                           K.permute(0, 2, 1, 3, 4), B.permute(0, 2, 1, 3, 4), budget=budget)
+
+    @staticmethod
+    def _renorm(X):
+        """(X / n, log n) with n = ||X|| + 1e-30: every carry is renormalized
+        per step, its scale kept in log space (float64, `_zero`)."""
+        n = torch.sqrt(torch.sum(X.abs() ** 2)) + 1e-30
+        return X / n, torch.log(n.to(torch.float64))
+
+    def _zero(self):
+        """A log-space accumulator.  JAX sums the sampler's logs in float32
+        (`tnqs/bmps_engine.py:1641-1642`); at 127 sites they reach ~270,
+        where a float32 ulp is 3e-5, so p/q = exp(sum) would carry a few
+        times 3e-5 of rounding that depends on the device's reduction
+        order.  The port sums them in float64."""
+        return torch.zeros((), dtype=torch.float64, device=self.bmps.engine.device)
+
+    def _log_z_bp(self, T, M):
+        """log Z_BP = sum_v log|z_v| - sum_e log|z_e| on the device, each term
+        log(|z| + 1e-30) (`tnqs/bmps_engine.py:1644`) of the engine's
+        `_bp_scalars`, summed in float64 (`_zero`).  Not `freenergy`, which
+        reads the scalars on the host."""
+        vs, es = self.bmps.engine._bp_scalars(T, M)
+        logz = self._zero()
+        for z in vs.values():
+            logz = logz + torch.sum(torch.log(z.abs().to(torch.float64) + 1e-30))
+        return logz - torch.sum(torch.log(es.abs().to(torch.float64) + 1e-30))
+
+    def _column_norm(self, T, c: int, R: list, dt):
+        """Walk down column c closed against the cut-c MPS: the boundary-MPS
+        estimate of log <psi|psi> (relative scale)."""
+        be = self.bmps
+        l_of, r_of = self._cut_maps(c)
+        U = be._ones((1, 1, 1, 1), dt)
+        ulog = self._zero()
+        for v in be.cplan.columns[c]:
+            K = be._vertex_tensor(T, v)
+            Ml, Mr = self._msgs(v, l_of, r_of, [], R, U.shape[0], U.shape[1], dt)
+            U, dl = self._renorm(BMPSEngine._ladder_transfer(U, Ml, Mr, K, K.conj()))
+            ulog = ulog + dl
+        return torch.log(U.reshape(()).abs() + 1e-30) + ulog
+
+    def _sample_column(self, T, c: int, L, R: list, u_row, dt, budget: int):
+        """Draw every bit of column c top to bottom (`tnqs/bmps_engine.py:
+        1701`): (projected vertex tensors, bits, log q of the column, log of
+        the unnormalized trace at the column's first vertex).  Each
+        conditional diagonal is d site-projected down steps closed against
+        the environment below."""
+        be = self.bmps
+        col = be.cplan.columns[c]
+        l_of, r_of = self._cut_maps(c)
+        n = len(col)
+        D = [None] * (n + 1)
+        dlog = [None] * (n + 1)
+        D[n], dlog[n] = be._ones((1, 1, 1, 1), dt), self._zero()
+        for i in range(n - 1, -1, -1):
+            v = col[i]
+            K = be._vertex_tensor(T, v)
+            # identity messages carry the chain dims of the carry through
+            # vertices without a cross bond
+            Ml, Mr = self._msgs(v, l_of, r_of, L, R, D[i + 1].shape[0], D[i + 1].shape[1], dt)
+            D[i], dl = self._renorm(self._step_up(D[i + 1], Ml, Mr, K, K.conj(), budget))
+            dlog[i] = dlog[i + 1] + dl
+        U = be._ones((1, 1, 1, 1), dt)
+        ulog = self._zero()
+        Kp, bits, log_tr_first = {}, {}, None
+        logq = self._zero()
+        for i, v in enumerate(col):
+            K = be._vertex_tensor(T, v)
+            d = K.shape[0]
+            Ml, Mr = self._msgs(v, l_of, r_of, L, R, U.shape[0], U.shape[1], dt)
+            diag = torch.stack([
+                torch.sum(BMPSEngine._ladder_transfer(U, Ml, Mr, K[s : s + 1], K[s : s + 1].conj(), budget)
+                          * D[i + 1]).real
+                for s in range(d)])
+            q, tr = conditional_law(diag)
+            if i == 0:
+                log_tr_first = torch.log(tr.to(torch.float64) + 1e-30) + ulog + dlog[i + 1]
+            b = inverse_cdf(q, u_row[self._vidx[v]])
+            oh = torch.arange(d, device=q.device) == b
+            qv = torch.sum(torch.where(oh, q, 0.0)).to(torch.float32)
+            Kpv = torch.einsum("s,sudlr->udlr", oh.to(dt), K)[None] * torch.rsqrt(qv).to(dt)
+            Kp[v] = Kpv
+            bits[v] = b
+            logq = logq + torch.log(qv.to(torch.float64))
+            U, du = self._renorm(BMPSEngine._ladder_transfer(U, Ml, Mr, Kpv, Kpv.conj(), budget))
+            ulog = ulog + du
+        return Kp, bits, logq, log_tr_first
+
+    def _zip1_column(self, Kx_of, c: int, incoming: list, rank: int, budget: int, dt, tag: int = 0):
+        """Single-layer zip of the bit-projected column c, left to right
+        (`tnqs/bmps_engine.py:1801`): messages carry one bond leg [chain_in,
+        bond, chain_out].  Returns (emitted MPS tensors, log of the dropped
+        norm factors).  Sketch folds: tag 0 the independent certification
+        sweep, tag 1 the factored draw boundaries, so the certificate shares
+        no draw with the sample."""
+        be = self.bmps
+        cp = be.cplan
+        col = cp.columns[c]
+        consume_cut = cp.cross[c - 1] if c > 0 else []
+        emit_cut = cp.cross[c] if c < len(cp.cross) else []
+        consume_of = {e[1]: i for i, e in enumerate(consume_cut)}
+        emit_of = {e[0]: i for i, e in enumerate(emit_cut)}
+        C = be._ones((1, 1, 1), dt)  # [q, p, a]
+        logscale = self._zero()
+        emitted: list = [None] * len(emit_cut)
+        last_emit = -1
+        for v in col:
+            Kx = Kx_of(v)  # [u(a), d(A), l, r]
+            if v in consume_of:
+                Min = incoming[consume_of[v]]  # [p, l, P]
+            else:
+                p = C.shape[1]
+                Min = torch.eye(p, dtype=dt, device=be.engine.device).reshape(p, 1, p)
+            q, P = C.shape[0], Min.shape[2]
+            A, r = Kx.shape[1], Kx.shape[3]
+            if v in emit_of:
+                M_, N_ = q * r, P * A
+                x = min(rank, M_, N_)
+                # the per-lane budget gates the exact route, as in the doubled zip
+                if M_ * N_ <= min(_EXACT_EMIT_LIMIT, budget):
+                    Q, Cnew, logn = _exact_emit1_step_block(C, Min, Kx, keep=x)
+                else:
+                    xs = min(x + be.oversample, M_, N_)
+                    code = c * 4096 + 1024 + 512 * tag + cp.order_in_col[v]
+                    omega = be._draw(code, (P, A, xs), dt)
+                    per_x = 2 * max(A, 1) * max(r, 1) * max(q, P, 1)
+                    xc = max(1, int(budget // max(per_x, 1)))
+                    Q, Cnew, logn = _emit1_step_block(C, Min, Kx, omega, xc=xc, keep=x, power_iters=be.power_iters)
+                logscale = logscale + logn
+                emitted[emit_of[v]] = Q  # [q, r, x]
+                C = Cnew.movedim(-1, 0)  # [x, P, A]
+                last_emit = emit_of[v]
+            else:
+                C = _pass1_step_block(C, Min, Kx[..., 0], budget=int(budget))
+                nrm = torch.sqrt(torch.sum(C.abs() ** 2)) + 1e-30
+                logscale = logscale + torch.log(nrm.to(torch.float64))
+                C = C / nrm
+        if last_emit >= 0:
+            tail = C.reshape(C.shape[0])
+            emitted[last_emit] = torch.einsum("qrx,x->qr", emitted[last_emit], tail)[..., None]
+        else:
+            logscale = logscale + torch.log(C.reshape(()).abs().to(torch.float64) + 1e-30)
+        return emitted, logscale
+
+    # -- the sample-independent half --------------------------------------
+    def _norm(self):
+        """The boundaries every group shares (`tnqs/bmps_engine.py:1972`):
+        (right boundary MPS of each column, their dropped-norm logs, the
+        certificate's log divisor, the log norm estimate in the same
+        convention, the projected boundary's start).
+
+        Line plans: the right boundaries zipped from the last column, the
+        divisor log Z_BP, an empty start.  Ring plans: the Gauss-Seidel
+        fixed point (`_boundary_mpses`), whose scale is arbitrary, so the
+        divisor is the same pipeline run on the unprojected network (a
+        "ghost" reference sharing the wrap-cut caps, whose unknown scales
+        cancel), and the start is the wrap cut's left boundary."""
+        be = self.bmps
+        cp = be.cplan
+        nC = len(cp.columns)
+        T, M = be.engine.T, be.engine.M
+        dt = be._dtype(T)
+        log_zbp = self._log_z_bp(T, M)
+        if cp.periodic:
+            lefts, rights = be._boundary_mpses(T, M)
+
+            def ket_of(v):
+                return be._vertex_tensor(T, v)
+
+            Lg = list(lefts[0])
+            llog_ref = self._zero()
+            for c in range(nC - 1):
+                Lg, dl = be._zip_column(T, c, Lg, +1)
+                llog_ref = llog_ref + dl
+            log_col_ref, _ = be._column_scalar(T, nC - 1, Lg, rights[nC - 1], dt, ket_of)
+            log_div = log_col_ref + llog_ref
+            # the quotient partition formula (each message once in a column
+            # scalar and once in a cut scalar), shifted into the Z_BP
+            # convention: the caller reports exp(norm_log - log_div)
+            norm_log = self._zero()
+            for c in range(nC):
+                lz, _ = be._column_scalar(T, c, lefts[c], rights[c], dt, ket_of)
+                le, _ = be._cut_scalar(lefts[(c + 1) % nC], rights[c], dt)
+                norm_log = norm_log + lz - le
+            rlog = torch.zeros((nC,), dtype=torch.float64, device=be.engine.device)
+            return rights, rlog, log_div, norm_log - log_zbp + log_div, list(lefts[0])
+        rights: list = [None] * nC
+        rlog: list = [None] * nC
+        cur: list = []
+        acc = self._zero()
+        for c in range(nC - 1, -1, -1):
+            rights[c] = cur
+            rlog[c] = acc
+            if c > 0:
+                cur, ls = be._zip_column(T, c, cur, -1)
+                acc = acc + ls
+        norm_log = self._column_norm(T, 0, rights[0], dt) + rlog[0]
+        return rights, torch.stack(rlog), log_zbp, norm_log, []
+
+    # -- one lane, and a group of them ------------------------------------
+    def _lane(self, rights, rlog, log_div, start, budget: int, u_row):
+        """One sample's sweep (`tnqs/bmps_engine.py:2074`): (bits [nv] in
+        `keys_order`, log q, p/q)."""
+        be = self.bmps
+        cp = be.cplan
+        nC = len(cp.columns)
+        T = be.engine.T
+        dt = be._dtype(T)
+        L = list(start) if self.q_mode == "doubled" else _FactoredCut([])
+        llog = self._zero()
+        logq = self._zero()
+        bits_all = []
+        log_tr_last = None
+        for c in range(nC):
+            Kp, bits, lq, log_tr = self._sample_column(T, c, L, rights[c], u_row, dt, budget)
+            logq = logq + lq
+            bits_all.extend(bits[v] for v in cp.columns[c])
+            if c == nC - 1:
+                log_tr_last = log_tr
+            elif self.q_mode == "factored":
+                l1, dlog1 = self._zip1_column(lambda v, Kp=Kp: Kp[v][0], c, L.l1, self.proj_rank, budget, dt, tag=1)
+                L = _FactoredCut(l1)
+                llog = llog + 2.0 * dlog1  # the doubled boundary is l (x) conj(l)
+            else:
+                L, dlog = be._zip_column(T, c, L, +1, rank=self.proj_rank, K_of=lambda v, Kp=Kp: Kp[v],
+                                         budget=budget)
+                llog = llog + dlog
+        # the last column's conditionals are exact on the chain, so the
+        # partial-bitstring ratio is the whole one (`tnqs/bmps_engine.py:2114`)
+        poverq = log_tr_last + llog + rlog[nC - 1] - log_div
+        return torch.stack(bits_all), logq, torch.exp(poverq)
+
+    def _group(self, norm, u, budget: int):
+        """The lanes of u [width, nv] in one batched sweep."""
+        rights, rlog, log_div, _, start = norm
+        # randomness="same": a fold drawn inside the map is one draw for
+        # every lane (the sketches do not depend on the sample)
+        return torch.func.vmap(partial(self._lane, rights, rlog, log_div, start, budget), randomness="same")(u)
+
+    @staticmethod
+    def _lane_budget(width: int) -> int:
+        """Per-lane einsum budget: every intermediate of a group is `width`
+        lanes wide (`tnqs/bmps_engine.py:2067`)."""
+        return max(4096, _EINSUM_BUDGET // max(1, width))
+
+    def _padded(self, x: torch.Tensor, width: int) -> torch.Tensor:
+        """x with its last row repeated up to a multiple of `width` rows."""
+        pad = (-x.shape[0]) % width
+        return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])]) if pad else x
+
+    # -- public API -------------------------------------------------------
+    def sample_directly_certified(self, nsamples: int, seed: int = 0, chunk: int | None = None):
+        """Draw `nsamples` bitstrings with their p/q certificates
+        (`tnqs/bmps_engine.py:2121`).
+
+        `chunk` caps the lanes of a group (default: all at once); groups
+        run one after another against the shared boundaries, the last one
+        padded by repeating its last lane.  A sample's bits depend only on
+        (seed, its index), so any chunking gives the same bitstrings.
+
+        Returns a list of dicts with ``poverq``, ``logq``, ``norm_estimate``
+        and ``bitstring`` (vertex -> 0..d-1)."""
+        nv = len(self.keys_order)
+        width = nsamples if chunk is None else max(1, min(int(chunk), nsamples))
+        budget = self._lane_budget(width)
+        dev = self.bmps.engine.device
+        u = torch.stack([self.uniforms(seed, s, nv) for s in range(nsamples)]).to(dev)
+        u = self._padded(u, width)
+        with self.bmps.sketches_cached():
+            norm = self._norm()
+            parts = [self._group(norm, u[i : i + width], budget) for i in range(0, u.shape[0], width)]
+        bits = torch.cat([p[0] for p in parts])[:nsamples].cpu().numpy()
+        vals = torch.stack([torch.cat([p[1] for p in parts]), torch.cat([p[2] for p in parts])])[:, :nsamples]
+        logq, poverq = vals.cpu().numpy()
+        n_hat = float(torch.exp(norm[3] - norm[2]).cpu())
+        return [dict(poverq=float(poverq[s]), logq=float(logq[s]), norm_estimate=n_hat,
+                     bitstring={v: int(bits[s, i]) for i, v in enumerate(self.keys_order)})
+                for s in range(nsamples)]
+
+    def _log_abs_amplitude(self, bits_row, cert_rank: int, budget: int):
+        """log |<x|psi>| by single-layer zip sweeps over the bit-projected
+        network (`tnqs/bmps_engine.py:1875`), x as bits in `keys_order`."""
+        be = self.bmps
+        T = be.engine.T
+        dt = be._dtype(T)
+
+        def Kx_of(v):
+            K = be._vertex_tensor(T, v)  # [s, u, d, l, r]
+            oh = (torch.arange(K.shape[0], device=K.device) == bits_row[self._vidx[v]]).to(dt)
+            return torch.einsum("s,sudlr->udlr", oh, K)
+
+        cur: list = []
+        total = self._zero()
+        for c in range(len(be.cplan.columns)):
+            cur, ls = self._zip1_column(Kx_of, c, cur, cert_rank, budget, dt)
+            total = total + ls
+        return total
+
+    def sample_certified(self, nsamples: int, seed: int = 0, cert_rank: int | None = None,
+                         chunk: int | None = None):
+        """Samples with independently certified p/q (`tnqs/bmps_engine.py:
+        1913`): drawn by `sample_directly_certified`, then each certificate
+        estimated again by a single-layer zip contraction of <x|psi> at bond
+        dimension `cert_rank` (default `proj_rank`), which shares nothing
+        with the draw beyond the state.
+
+        Returns the draws' dicts with ``poverq`` the independent estimate and
+        ``poverq_direct`` the draw-time one; E_q[poverq] ~= 1."""
+        if self.bmps.cplan.periodic:
+            raise NotImplementedError(
+                "independent re-certification on ring column quotients is not supported (the single-layer "
+                "<x|psi> sweep would need a boundary MPO carrying the open wrap chain); use "
+                "sample_directly_certified")
+        out = self.sample_directly_certified(nsamples, seed=seed, chunk=chunk)
+        cert_rank = self.proj_rank if cert_rank is None else int(cert_rank)
+        width = nsamples if chunk is None else max(1, min(int(chunk), nsamples))
+        budget = self._lane_budget(width)
+        eng = self.bmps.engine
+        bits = torch.tensor([[o["bitstring"][v] for v in self.keys_order] for o in out], device=eng.device)
+        logq = torch.tensor([o["logq"] for o in out], dtype=torch.float64, device=eng.device)
+        bits, logq = self._padded(bits, width), self._padded(logq, width)
+
+        def one(log_zbp, bits_row, lq):
+            return torch.exp(2.0 * self._log_abs_amplitude(bits_row, cert_rank, budget) - log_zbp - lq)
+
+        with self.bmps.sketches_cached():
+            log_zbp = self._log_z_bp(eng.T, eng.M)
+            cert = partial(one, log_zbp)
+            parts = [torch.func.vmap(cert, randomness="same")(bits[i : i + width], logq[i : i + width])
+                     for i in range(0, bits.shape[0], width)]
+        poverq = torch.cat(parts)[:nsamples].cpu().numpy()
+        for o, pq in zip(out, poverq):
+            o["poverq_direct"] = o["poverq"]
+            o["poverq"] = float(pq)
+        return out
