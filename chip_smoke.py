@@ -9,7 +9,8 @@ Run from the repository root.  Phases, each of which fails the run:
    limit; exits nonzero when `torch.cuda.is_available()` is False;
 2. build: nvcc compiles each `tnqs_torch/csrc/*.cu` for sm_90a into a
    library of its own in `build/tnqs_torch/` (one process per source, in
-   parallel) and ptxas's register and spill lines are printed;
+   parallel) and ptxas's register and spill lines are printed; g++ builds
+   the host library of `tnqs_torch/csrc/host/` (the loop enumerator);
 3. kernels: the cluster occupancy of each Jacobi kernel and the cluster
    size K1's wrapper picks for each batch; each Jacobi kernel against its
    plain PyTorch version on the same card inputs, at the engine's chi=64
@@ -31,7 +32,12 @@ Run from the repository root.  Phases, each of which fails the run:
    `group_messages` and as one multi-operand `torch.einsum` (the
    yardstick), beside its bound; the largest group's kernels' device time
    (torch.profiler); the host side of one launch; one BP sweep timed on the
-   kernel and on the einsum route;
+   kernel and on the einsum route; then K3's bf16_3x mode against its own
+   plain version (the same bf16 splits, float32 products) on the same
+   groups and on the other shape classes (d = 4 and depth padding
+   included), two calls bitwise equal, each Eagle group timed beside the
+   FP32 mode, the largest beside its plain version, the library einsum and
+   its bound at the dense bf16 rate;
 5. main path: `LatticeEngine.make_step` on the Eagle-127 kicked-Ising layer
    (J = pi/4, theta_h = 0.4) at chi=64, complex64, cutoff 1e-12,
    bp_maxiter=25, N layers (default 10) from "↑".  After each layer <Z> at
@@ -111,13 +117,32 @@ Run from the repository root.  Phases, each of which fails the run:
    SAMPLE_CAP_S at its rate, whose first two must be the cold call's;
    p/q and the norm estimate finite and > 0, log q <= 0; seconds a sample,
    peak memory, library calls, sketch bytes a call (each fold drawn once a
-   call) and one torch.profiler window of a two-lane group.
+   call) and one torch.profiler window of a two-lane group;
+10. the engine's remainder: (a) the main path's engine saved by
+   `save_engine` after layer 5, restored by `load_engine` on the card and
+   run to layer 10: T and M bit for bit phase 5's, and the file restored on
+   the CPU gives the same arrays; (b) `evolve_ladder` from "↑" with rungs
+   (8, 16, 32, 64), every layer within the main bound, K3 launched at every
+   rung; (c) `bp_precision="high"` from "↑": every K3 launch bf16_3x, every
+   layer within the main bound and <Z>(7,8), <Z>(11,5) within 1e-5 of phase
+   5's, then one BP sweep on each route (K3 bf16_3x, K3 FP32, einsum)
+   timed in turns; (d) `loopcorrected_partitionfunction(12)` on the main
+   path's state after phase 6's `bp_update` (18 plaquettes; finite, the
+   shift against Z_BP, wall time, peak memory), on 8a's chi=8 state on the
+   card and on a CPU engine (the loop factor Z / Z_BP within 1e-6), and a
+   random 6-ring at chi=3, complex128, within 1e-12 of its exact
+   contraction; (e) the thermal state of `golden_thermal.json` (chi=32,
+   dbeta=0.01, 25 steps, operator sites) at complex128 on the card and the
+   CPU (1e-10 apart; within the JAX engine's own distance from the golden,
+   plus that) and at complex64 in both BP precisions (K3 at d = 4, k = 3,
+   chi=32), every recorded step within 2e-3 of the 4th-order HTSE.
 
-The line before the last is {"kernels": [...]}: `launches` counts the main
-path's (phase 5) launches, `launches_by_path` each run's of phases 5-9
-("6" the BP path, "8a" the w2 evolution, "8a bmps" and "8c bmps" the BMPS
-calls, "9a", "9c" and "9d" the sampler calls); the last line is {"ok":
-true, "device": {...}}.
+The line before the last is {"kernels": [...]}: `launches` counts the
+launches on each row's own path (phase 5 for K1-K3, 10c for K3's bf16_3x
+mode), `launches_by_path` each run's of phases 5-10 ("6" the BP path, "8a"
+the w2 evolution, "8a bmps" and "8c bmps" the BMPS calls, "9a", "9c" and
+"9d" the sampler calls, "10e" and "10e high" the complex64 thermal runs);
+the last line is {"ok": true, "device": {...}}.
 `--bp-kernel-only` runs phases 1, 2 and 4 and prints K3's row alone (no
 result lines), e.g. on an older tree; `--switches-only` runs phases 1, 2,
 K2 at the switches' shapes and 7 (no result lines); `--measure-only` runs
@@ -515,8 +540,98 @@ def bp_kernel_phase(dev, chi=64):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
-def main_path(dev, layers):
+# the dense bf16 tensor-core peak (H100 SXM at 700 W, NVIDIA's data sheet)
+PEAK_BF16 = 989e12
+
+
+def bp_3x_flops(B, k, chi):
+    """A group's bf16_3x operations: per complex MAC four real products of
+    three bf16 passes each, 24 FLOP, three times the FP32 mode's 8."""
+    return 3 * bp_flops(B, k, chi)
+
+
+def bp_kernel_3x_phase(dev, chi=64):
+    """K3's bf16_3x mode: the kernel against its plain version (the same
+    splits, float32 products of them) on every Eagle chi=64 group and on
+    the other shape classes (gathered rows, degree 4-6, a 512-wide and a
+    72-wide bond, depth padding at chi=24, d = 4), two calls bitwise equal,
+    every Eagle group timed beside the FP32 mode, the largest with its
+    plain version, the library einsum and its bound at the bf16 rate."""
     import tnqs_torch
+    from tnqs_torch.engine import LatticeEngine
+    from tnqs_torch.ops import bp_sweep
+
+    rng = np.random.default_rng(2)  # the FP32 phase's inputs
+    eng = LatticeEngine(tnqs_torch.eagle_lattice(), chi=chi, device=dev)
+    T = {k: torch.as_tensor(rand_c(rng, tuple(v.shape)), device=dev) for k, v in eng.T.items()}
+    G = torch.as_tensor(rand_c(rng, tuple(eng.M.shape)), device=dev)
+    M = G @ G.mH
+    M = M / torch.diagonal(M, dim1=1, dim2=2).sum(-1)[:, None, None]
+    # Tolerance: the kernel and its plain version split at the same points
+    # and multiply the same bf16 values exactly; they differ in the order of
+    # the float32 sums (the FP32 mode's 1e-4 bar) and where a float32 V or
+    # W rounds to another bf16 hi, whose lo then differs by one bf16 ulp of
+    # hi (2^-16 relative): within 1e-4 of the largest entry
+    tol = 1e-4
+    print(f"K3 bf16_3x on the Eagle chi={chi} color plan (CUDA events, 10 calls each; bound: 24 FLOP a complex MAC "
+          f"at {PEAK_BF16 / 1e12:.0f} TFLOP/s or bytes at {PEAK_BYTES / 1e12:.2f} TB/s):")
+    errs, table = [], {}
+    for (stage, k, t, src, _, ins, rows, in_all) in eng._bp_groups:
+        if k < 2:
+            continue
+        B, Min = rows.shape[0], M[in_all]
+        m1 = bp_sweep.bp_sweep_group(T[k], Min, rows, t, mode="bf16_3x")
+        m2 = bp_sweep.bp_sweep_group(T[k], Min, rows, t, mode="bf16_3x")
+        m_p = normalized(bp_sweep._bp_sweep_group_plain(T[k], Min, rows, t, mode="bf16_3x"))
+        m_hi = normalized(bp_sweep.bp_sweep_group(T[k], Min, rows, t))
+        require(torch.isfinite(m1).all(), f"bf16_3x k={k} t={t}: non-finite output")
+        require(torch.equal(m1, m2), f"bf16_3x stage {stage} k={k} t={t}: two calls differ")
+        err = (normalized(m1) - m_p).abs().max().item()
+        rel = err / m_p.abs().max().item()
+        rel_hi = ((normalized(m1) - m_hi).abs().max() / m_hi.abs().max()).item()
+        errs.append(err)
+        require(rel < tol, f"bf16_3x k={k} t={t}: kernel and plain differ by {rel:.3e}")
+        k_ms = cuda_ms(lambda: bp_sweep.bp_sweep_group(T[k], M[in_all], rows, t, mode="bf16_3x"), 10)
+        f_ms = cuda_ms(lambda: bp_sweep.bp_sweep_group(T[k], M[in_all], rows, t), 10)
+        b_ms, b_by = max((1e3 * bp_3x_flops(B, k, chi) / PEAK_BF16, "operations"),
+                         (1e3 * bp_bytes(B, k, chi) / PEAK_BYTES, "bytes"))
+        table[(stage, k, t)] = (B, k_ms, f_ms, b_ms, b_by, rows, Min)
+        print(f"  stage {stage} k={k} t={t} B={B}: vs plain {err:.3e} ({rel:.3e} of the largest), vs the FP32 mode "
+              f"{rel_hi:.3e}; two calls bitwise equal; bf16_3x {k_ms:.4f} ms, FP32 mode {f_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}; kernel at {100 * b_ms / k_ms:.1f}%)")
+    for kk, w, n_k, B, d in ((3, 64, 5, 3, 2), (4, 8, 4, 3, 2), (5, 8, 3, 2, 2), (6, 8, 2, 2, 2), (2, 512, 4, 3, 2),
+                             (2, 72, 4, 3, 2), (3, 24, 4, 3, 2), (3, 32, 5, 3, 4)):
+        Tk = torch.as_tensor(rand_c(rng, (n_k, d) + (w,) * kk), device=dev)
+        Min = torch.as_tensor(rand_c(rng, (B, kk - 1, w, w)), device=dev)
+        rows = torch.as_tensor(rng.permutation(n_k)[:B], device=dev)
+        rel = 0.0
+        for t in range(kk):
+            m_k = bp_sweep.bp_sweep_group(Tk, Min, rows, t, mode="bf16_3x")
+            m_p = bp_sweep._bp_sweep_group_plain(Tk, Min, rows, t, mode="bf16_3x")
+            require(torch.equal(m_k, bp_sweep.bp_sweep_group(Tk, Min, rows, t, mode="bf16_3x")),
+                    f"bf16_3x k={kk} chi={w} d={d} t={t}: two calls differ")
+            rel = max(rel, ((m_k - m_p).abs().max() / m_p.abs().max()).item())
+        print(f"bf16_3x k={kk} chi={w} d={d} rows {rows.tolist()}, every slot: max relative difference {rel:.3e}, "
+              f"two calls bitwise equal")
+        require(rel < tol, f"bf16_3x k={kk} chi={w} d={d}: kernel and plain differ by {rel:.3e}")
+    stage, k, t = max(table, key=lambda key: table[key][0] * chi ** key[1])
+    B, ms, fp32_ms, bound_ms, bound_by, rows, Min = table[(stage, k, t)]
+    plain_ms = cuda_ms(lambda: bp_sweep._bp_sweep_group_plain(T[k], Min, rows, t, mode="bf16_3x"), 2)
+    A, expr = T[k][rows], einsum_expr(k, t)
+    library_ms = cuda_ms(lambda: torch.einsum(expr, A, *Min.unbind(1), A.conj()), 10)
+    print(f"bf16_3x k={k} t={t} B={B}: kernel {ms:.4f} ms ({bp_3x_flops(B, k, chi) / ms / 1e9:.2f} TFLOP/s of bf16 "
+          f"products), FP32 mode {fp32_ms:.4f} ms, plain {plain_ms:.3f} ms, torch.einsum {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by})")
+    return dict(name="bp_sweep_group_bf16_3x", route="cuda", source="tnqs_torch/csrc/bp_sweep.cu",
+                replaces="tnqs/ops/bp_sweep.py:282 (mode bf16_3x, :154-166)", max_abs_err=max(errs), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms, fp32_ms=fp32_ms)
+
+
+def main_path(dev, layers, checkpoint=None):
+    """Phase 5; with `checkpoint` = (path, layer) the engine is saved there
+    after that layer (outside the timed steps) for 10a."""
+    import tnqs_torch
+    from tnqs_torch import checkpoint as ckpt
     from tnqs_torch.engine import LatticeEngine
     from tnqs_torch.ops import bp_sweep, jacobi, osj
 
@@ -542,9 +657,10 @@ def main_path(dev, layers):
     jacobi.jacobi_eigh.launches = 0
     osj.osj_svd.launches = 0
     bp_sweep.bp_sweep_group.launches = 0
+    bp_sweep.bp_sweep_group.launches_by_mode.update(dict.fromkeys(bp_sweep.MODES, 0))
     jacobi.jacobi_eigh.launches_by_shape.clear()
     osj.osj_svd.launches_by_shape.clear()
-    devs, times, discarded = [], [], []
+    devs, times, discarded, zs = [], [], [], []
     for li in range(layers):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -555,18 +671,22 @@ def main_path(dev, layers):
         discarded.append(float(errors.max()))
         z = eng.expect_1site("Z")
         zc, zb = z[center].real, z[bench_v].real
+        zs.append((zc, zb))
+        if checkpoint is not None and li + 1 == checkpoint[1]:
+            ckpt.save_engine(eng, checkpoint[0])
         dev_l = max(abs(zc - controls["z_center_f64"][li]), abs(zb - controls["z_bench_f64"][li]))
         devs.append(dev_l)
         print(f"layer {li + 1}: {times[-1]:.3f} s  Z{center}={zc:+.7f}  Z{bench_v}={zb:+.7f}  "
               f"|dev| {dev_l:.3e} (bound {bound[li]:.3e}, floor {floors[li]:.3e})", flush=True)
         require(np.isfinite(dev_l), f"layer {li + 1}: non-finite <Z>")
         require(dev_l <= bound[li], f"layer {li + 1}: deviation {dev_l:.3e} above bound {bound[li]:.3e}")
-    launches = {"jacobi_eigh": jacobi.jacobi_eigh.launches, "osj_svd": osj.osj_svd.launches,
-                "bp_sweep_group": bp_sweep.bp_sweep_group.launches}
+    launches = k3_launches()
+    require(launches["bp_sweep_group_bf16_3x"] == 0, "the main path launched K3's bf16_3x mode")
     by_shape = (dict(jacobi.jacobi_eigh.launches_by_shape), dict(osj.osj_svd.launches_by_shape))
     require(all(torch.isfinite(t).all() for t in eng.T.values()), "non-finite state")
     require(torch.isfinite(eng.M).all(), "non-finite messages")
-    require(all(n > 0 for n in launches.values()), f"a kernel was not launched by the main path: {launches}")
+    require(all(launches[k] > 0 for k in ("jacobi_eigh", "osj_svd", "bp_sweep_group")),
+            f"a kernel was not launched by the main path: {launches}")
     require(plain_calls == (jacobi._jacobi_eigh_plain.calls, osj._osj_svd_plain.calls,
                             bp_sweep._bp_sweep_group_plain.calls), "the main path ran a plain version on the card")
     print(f"kernel launches in the main path: {launches}; K2 by [B, n]: {by_shape[0]}; K1 by [B, R, n]: {by_shape[1]}")
@@ -578,7 +698,9 @@ def main_path(dev, layers):
     rate = (layers - 1) / sum(times[1:]) if layers > 1 else float("nan")
     print(f"layers/s over layers 2-{layers}: {rate:.4f}")
     print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    return launches, eng, step, (center, bench_v, controls, bound[-1], layers), rate, discarded
+    final = ({k: v.cpu().numpy() for k, v in eng.T.items()}, eng.M.cpu().numpy())
+    return launches, eng, step, (center, bench_v, controls, bound[-1], layers), rate, discarded, (np.array(zs), final,
+                                                                                                 bound)
 
 
 def device_times(prof):
@@ -738,7 +860,7 @@ def bp_path(dev, eng, probe):
     require(launches > 0, "normalize and bp_update did not launch the BP kernel")
     require(bp_sweep._bp_sweep_group_plain.calls == plain_calls, "the BP path ran the plain BP version on the card")
     print(f"BP kernel launches on the BP path: {launches}")
-    by_path = {"jacobi_eigh": 0, "osj_svd": 0, "bp_sweep_group": launches}
+    by_path = {"jacobi_eigh": 0, "osj_svd": 0, "bp_sweep_group": launches, "bp_sweep_group_bf16_3x": 0}
 
     # Tolerances: the two routes round in other orders (~1e-6 relative per
     # sweep) and the BP map contracts those differences, so the fixed points
@@ -782,6 +904,8 @@ def reset_counts():
     jacobi.jacobi_eigh.launches = osj.osj_svd.launches = bp_sweep.bp_sweep_group.launches = 0
     jacobi.jacobi_eigh.launches_by_shape.clear()
     osj.osj_svd.launches_by_shape.clear()
+    bp_sweep.bp_sweep_group.launches_by_mode.update(dict.fromkeys(bp_sweep.MODES, 0))
+    bp_sweep.bp_sweep_group.launches_by_shape.clear()
     default_eigh.library_calls = 0
     return (jacobi._jacobi_eigh_plain.calls, osj._osj_svd_plain.calls, bp_sweep._bp_sweep_group_plain.calls)
 
@@ -793,9 +917,16 @@ def read_counts(plain_before):
     from tnqs_torch.ops.factorizations import default_eigh
 
     plain = (jacobi._jacobi_eigh_plain.calls, osj._osj_svd_plain.calls, bp_sweep._bp_sweep_group_plain.calls)
-    launches = {"jacobi_eigh": jacobi.jacobi_eigh.launches, "osj_svd": osj.osj_svd.launches,
-                "bp_sweep_group": bp_sweep.bp_sweep_group.launches}
-    return launches, dict(jacobi.jacobi_eigh.launches_by_shape), default_eigh.library_calls, plain != plain_before
+    return k3_launches(), dict(jacobi.jacobi_eigh.launches_by_shape), default_eigh.library_calls, plain != plain_before
+
+
+def k3_launches():
+    """Launches by kernel row of the `kernels` line, K3's by mode."""
+    from tnqs_torch.ops import bp_sweep, jacobi, osj
+
+    by_mode = bp_sweep.bp_sweep_group.launches_by_mode
+    return {"jacobi_eigh": jacobi.jacobi_eigh.launches, "osj_svd": osj.osj_svd.launches,
+            "bp_sweep_group": by_mode["highest"], "bp_sweep_group_bf16_3x": by_mode["bf16_3x"]}
 
 
 def switch_shapes(eng, circuit):
@@ -1628,8 +1759,279 @@ def evolutions_launched(by_path):
     """K1, K2 and K3 ran in the chi=64 evolution (phase 5) and K3 in the w2
     one (8a), whose states phase 9 samples; K1 and K2 take no chi=8 theta
     (16 wide, below `pjsvd_fits`)."""
-    require(all(by_path["5"].values()), f"phase 5 launched {by_path['5']}")
+    require(all(by_path["5"][k] for k in ("jacobi_eigh", "osj_svd", "bp_sweep_group")),
+            f"phase 5 launched {by_path['5']}")
     require(by_path["8a"]["bp_sweep_group"] > 0, f"8a launched {by_path['8a']}")
+
+
+# ----------------------------------------------------------------------
+# phase 10: the engine's remainder
+# ----------------------------------------------------------------------
+
+CKPT_LAYER = 5  # 10a saves the main path at this layer and resumes from it
+
+
+def eagle_circuit(g):
+    import tnqs_torch
+
+    return tnqs_torch.heavy_hex_kicked_ising_layer(g, np.pi / 4, 0.4)
+
+
+def resume_checkpoint(dev, path, trajectory, layers):
+    """10a: the main path's engine saved after layer CKPT_LAYER, loaded into
+    a fresh engine on the card, run to the last layer: T and M bit for bit
+    the uninterrupted run's; the file loaded on the CPU: the same arrays."""
+    from tnqs_torch import checkpoint
+
+    zs, (T_end, M_end), _ = trajectory
+    plain_before = reset_counts()
+    t0 = time.perf_counter()
+    eng = checkpoint.load_engine(path, device=dev)
+    load_s = time.perf_counter() - t0
+    require(eng.device.type == "cuda" and eng.bp_kernel == "kernel" and eng.plan.bp_schedule == "color",
+            f"10a: restored on {eng.device}, {eng.bp_kernel}, {eng.plan.bp_schedule}")
+    cpu = checkpoint.load_engine(path, device="cpu")
+    same_cpu = all(torch.equal(cpu.T[k], eng.T[k].cpu()) for k in eng.T) and torch.equal(cpu.M, eng.M.cpu())
+    require(same_cpu, "10a: the CPU round trip changed the arrays")
+    step = eng.make_step(eagle_circuit(eng.plan.graph), cutoff=1e-12, bp_maxiter=25)
+    dz = []
+    for li in range(CKPT_LAYER, layers):
+        eng.T, eng.M, _ = step(eng.T, eng.M)
+        z = eng.expect_1site("Z")
+        dz.append(max(abs(z[v].real - ref) for v, ref in zip(((7, 8), (11, 5)), zs[li])))
+    print(f"10a: resumed <Z> - the main path's, layers {CKPT_LAYER + 1}-{layers}: {dz}")
+    same = all(np.array_equal(eng.T[k].cpu().numpy(), T_end[k]) for k in T_end) and np.array_equal(
+        eng.M.cpu().numpy(), M_end)
+    counts = read_counts(plain_before)
+    print(f"10a: checkpoint at layer {CKPT_LAYER} ({pathlib.Path(path).stat().st_size / 2**20:.1f} MiB npz), "
+          f"load_engine {load_s:.3f} s; layers {CKPT_LAYER + 1}-{layers} resumed: T and M bit for bit the main "
+          f"path's: {same}; load_engine(device='cpu') the same arrays: {same_cpu}; launches {counts[0]}")
+    require(same, "10a: the resumed run is not bit for bit the uninterrupted one")
+    require(not counts[3], "10a: a plain kernel version ran on the card")
+    return {"10a": counts[0]}
+
+
+def ladder_run(dev, bound_main, layers, chi=64, rungs=(8, 16, 32, 64)):
+    """10b: `evolve_ladder` from "↑", rungs (8, 16, 32, 64), every layer
+    within the main path's bound of flex-f64, K3 launches by chi."""
+    import tnqs_torch
+    from tnqs_torch.engine import LatticeEngine
+    from tnqs_torch.ops import bp_sweep
+
+    controls = json.loads((ROOT / "tests" / "golden" / "golden_f32_controls.json").read_text())["chi64"]
+    eng = LatticeEngine(tnqs_torch.eagle_lattice(), chi=chi, device=dev)
+    seen = []
+
+    def observe(layer, e):
+        z = e.expect_1site("Z")
+        dev_l = max(abs(z[(7, 8)].real - controls["z_center_f64"][layer - 1]),
+                    abs(z[(11, 5)].real - controls["z_bench_f64"][layer - 1]))
+        seen.append((layer, e.chi, dev_l))
+        print(f"10b ladder layer {layer}: chi={e.chi}  Z(7, 8)={z[(7, 8)].real:+.7f}  Z(11, 5)={z[(11, 5)].real:+.7f}  "
+              f"|dev| {dev_l:.3e} (bound {bound_main[layer - 1]:.3e})", flush=True)
+        require(np.isfinite(dev_l) and dev_l <= bound_main[layer - 1], f"10b: layer {layer} deviation {dev_l:.3e}")
+
+    plain_before = reset_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    out, errors = eng.evolve_ladder(eagle_circuit(eng.plan.graph), layers, rungs=rungs, observe=observe,
+                                    cutoff=1e-12, bp_maxiter=25)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = read_counts(plain_before)
+    by_chi = {}
+    for (mode, k, chi, B), n in bp_sweep.bp_sweep_group.launches_by_shape.items():
+        by_chi[chi] = by_chi.get(chi, 0) + n
+    print(f"10b: {layers} layers in {wall:.3f} s on rungs {[c for _, c, _ in seen]}; K3 launches by chi {by_chi}; "
+          f"launches {counts[0]}; max discarded weight {errors.max():.3e}")
+    require(out.chi == chi and np.isfinite(errors).all(), f"10b: the ladder did not end at chi={chi} finite")
+    require(all(by_chi.get(c, 0) > 0 for c in rungs), f"10b: K3 not launched at every rung: {by_chi}")
+    require(not counts[3], "10b: a plain kernel version ran on the card")
+    return {"10b": counts[0]}
+
+
+def precision_high_run(dev, trajectory, bound_main, layers, chi=64):
+    """10c: `bp_precision="high"` from "↑": every K3 launch bf16_3x, every
+    layer within the main bound and <Z>(7,8), <Z>(11,5) within 1e-5 of the
+    "highest" trajectory (phase 5), the JAX contract (`tnqs/engine.py:672`);
+    then one BP sweep on each route, timed."""
+    zs_main = trajectory[0]
+    controls = json.loads((ROOT / "tests" / "golden" / "golden_f32_controls.json").read_text())["chi64"]
+    refs = {(7, 8): controls["z_center_f64"], (11, 5): controls["z_bench_f64"]}
+    eng, step, zs, devs, times, counts = evolve_eagle(dev, f"10c bp_precision=high c64 chi={chi}", chi,
+                                                      torch.complex64, layers, refs, 1e-12, gate=bound_main,
+                                                      bp_precision="high")
+    d_main = np.abs(zs - zs_main[:len(zs)]).max(axis=1)
+    print(f"10c: |<Z> - the highest trajectory| by layer {[f'{x:.2e}' for x in d_main]} (bound 1e-5); "
+          f"{1e3 * np.mean(times[1:]):.1f} ms a layer (phase 5's rate is host-bound; no claim)")
+    require(d_main.max() <= 1e-5, f"10c: bp_precision='high' left the highest trajectory by {d_main.max():.3e}")
+    require(counts[0]["bp_sweep_group_bf16_3x"] > 0 and counts[0]["bp_sweep_group"] == 0 and not counts[3],
+            f"10c: K3 launches {counts[0]} (every one must be bf16_3x, no plain run)")
+    T = {k: v.contiguous() for k, v in eng.T.items()}
+    sweep = {}
+    for route in ("bf16_3x", "highest", "einsum", "einsum", "highest", "bf16_3x"):
+        eng.bp_precision = "high" if route == "bf16_3x" else None
+        sweep.setdefault(route, []).append(cuda_ms(lambda: eng._bp_new_messages(T, eng.M, route != "einsum"), 5))
+    eng.bp_precision = "high"
+    print(f"10c: one BP sweep of the Eagle chi=64 color plan, ms (in turns): K3 bf16_3x {sweep['bf16_3x']}, K3 FP32 "
+          f"{sweep['highest']}, einsum route {sweep['einsum']}")
+    return {"10c": counts[0]}
+
+
+def z_bp_and_loops(eng, size):
+    sync(eng.device)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    z = eng.loopcorrected_partitionfunction(size)
+    sync(eng.device)
+    wall = time.perf_counter() - t0
+    return z, eng.partitionfunction(), wall, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def loop_corrections(dev, state_main, state_w2):
+    """10d: `loopcorrected_partitionfunction(12)` on the main path's state
+    after `bp_update` (the 18 heavy-hex plaquettes, 4096 x 4096 doubled
+    transfer matrices), on 8a's chi=8 state on the card and on the CPU, and
+    the analytic anchor: a random 6-ring at chi=3, complex128, where the
+    series truncated at the ring is exact."""
+    import tnqs_torch
+    from tnqs_torch.engine import LatticeEngine
+
+    g = tnqs_torch.eagle_lattice()
+    plain_before = reset_counts()
+    eng = LatticeEngine.from_arrays(g, *state_main, chi=state_main[1].shape[-1], device=dev)
+    z, z_bp, wall, peak = z_bp_and_loops(eng, 12)
+    by_len, others = eng._loopcorr_cache[12]
+    n_cfg = sum(len(v) for v in by_len.values()) + len(others)
+    shift = abs(z - z_bp) / abs(z_bp)
+    print(f"10d chi={eng.chi}: {n_cfg} configurations (cycles by length {({L: len(c) for L, c in by_len.items()})}, "
+          f"{len(others)} others), Z_BP {z_bp}, loop-corrected {z}, relative shift {shift:.3e}; {wall:.3f} s, peak "
+          f"{peak:.3f} GiB above the state")
+    require(n_cfg == 18 == g.ne() - g.nv() + 1 and not others, f"10d: {n_cfg} configurations at size 12")
+    require(np.isfinite(z) and np.isfinite(z_bp), "10d: non-finite loop-corrected Z")
+    del eng
+
+    e8 = LatticeEngine.from_arrays(g, *state_w2, chi=state_w2[1].shape[-1], device=dev)
+    z8, z8_bp, wall8, _ = z_bp_and_loops(e8, 12)
+    cpu = LatticeEngine.from_arrays(g, *state_w2, chi=e8.chi, device="cpu", bp_schedule=e8.plan.bp_schedule)
+    t0 = time.perf_counter()
+    z8_cpu = cpu.loopcorrected_partitionfunction(12)
+    cpu_s = time.perf_counter() - t0
+    z8_cpu_bp = cpu.partitionfunction()
+    # Z = Z_BP (1 + sum w).  Z_BP of this unnormalized state is exp of 271
+    # logs near -270, each vertex and edge scalar a complex64 contraction:
+    # card and CPU differ there by the float32 class of phase 9b (~1e-4);
+    # the loop series' own factor 1 + sum w is held to 1e-6
+    rel8 = abs(z8 / z8_bp - z8_cpu / z8_cpu_bp) / abs(z8_cpu / z8_cpu_bp)
+    print(f"10d chi=8 (8a's state): card {z8} ({wall8:.3f} s), CPU {z8_cpu} ({cpu_s:.3f} s); Z / Z_BP card "
+          f"{z8 / z8_bp:.9f}, CPU {z8_cpu / z8_cpu_bp:.9f}, relative difference {rel8:.3e} (bound 1e-6); Z card - CPU "
+          f"{abs(z8 - z8_cpu) / abs(z8_cpu):.3e} relative, Z_BP card - CPU {abs(z8_bp - z8_cpu_bp) / abs(z8_cpu_bp):.3e}")
+    require(rel8 <= 1e-6, f"10d: chi=8 card and CPU loop factors differ by {rel8:.3e}")
+
+    # the ring anchor: exact <psi|psi> is the trace of the ring of doubled
+    # site tensors, contracted here in numpy from the plan's axis order
+    ring = tnqs_torch.named_ring_graph(6)
+    rng = np.random.default_rng(9)
+    proto = LatticeEngine(ring, 3, dtype=torch.complex128, device="cpu", bp_schedule="wavefront")
+    T = {k: rng.normal(size=v.shape) + 1j * rng.normal(size=v.shape) for k, v in proto.T.items()}
+    # the wavefront schedule of the JAX anchor (`tests/test_engine.py:384`, on
+    # the CPU), converged until eps stops falling: the series is exact only
+    # at the fixed point, and the color schedule stops ~2e-10 short of it at
+    # the default complex128 tolerance (in the JAX engine as well)
+    e6 = LatticeEngine.from_arrays(ring, T, proto.M.numpy(), chi=3, dtype=torch.complex128, device=dev,
+                                   bp_schedule="wavefront")
+    e6.bp_update(maxiter=80, tolerance=0.0)
+    plan = e6.plan
+    walk = list(range(1, 7))
+    W = np.eye(9, dtype=complex)
+    for i, v in enumerate(walk):
+        k, pos = plan.bucket_pos[v]
+        A = T[k][pos]
+        a, b = plan.neighbor_order[v].index(walk[i - 1]), plan.neighbor_order[v].index(walk[(i + 1) % 6])
+        A = np.moveaxis(A, (1 + a, 1 + b), (1, 2))
+        W = W @ np.einsum("sab,sAB->aAbB", A, A.conj()).reshape(9, 9)
+    z_ex = np.trace(W)
+    z6, z6_bp, _, _ = z_bp_and_loops(e6, 6)
+    rel6 = abs(z6 - z_ex) / abs(z_ex)
+    print(f"10d ring anchor (6-ring, chi=3, complex128, {e6.bp_iterations} BP iterations): exact {z_ex}, Z_BP {z6_bp} "
+          f"({abs(z6_bp - z_ex) / abs(z_ex):.3e} off), loop-corrected {z6}, relative {rel6:.3e} (bound 1e-12)")
+    require(abs(z6_bp - z_ex) / abs(z_ex) > 1e-3 and rel6 <= 1e-12, f"10d: ring anchor {rel6:.3e}")
+    counts = read_counts(plain_before)
+    require(not any(counts[0].values()) and not counts[3], f"10d: a kernel ran in the loop corrections {counts[0]}")
+    return {"10d": counts[0]}
+
+
+# the JAX engine's largest CPU distance from golden_thermal.json's
+# free_energy_density at chi=32, 25 steps, complex128 (printed by
+# `python tests/torch_thermal_reference.py`)
+JAX_THERMAL_DIST = 1.049161e-13
+
+
+def thermal_run(label, chi, dtype, device, bp_precision=None):
+    import tnqs_torch
+    from tnqs_torch.engine import LatticeEngine
+
+    gold = json.loads((ROOT / "tests" / "golden" / "golden_thermal.json").read_text())
+    c = gold["config"]
+    g = tnqs_torch.named_hexagonal_lattice_graph(2, 2, periodic=True)
+    t0 = time.perf_counter()
+    eng = LatticeEngine(g, chi, dtype=dtype, device=device, site_legs=2, state=tnqs_torch.identity_operator_vector(),
+                        bp_precision=bp_precision)
+    eng.bp_update(maxiter=30)
+    step = eng.make_step(tnqs_torch.heisenberg_thermal_layer(g, c["J"], c["dbeta"]), cutoff=c["cutoff"],
+                         normalize=False, bp_maxiter=30)
+    logz = -eng.freenergy()
+    eng.rescale()
+    f = []
+    for _ in range(c["steps"]):
+        eng.T, eng.M, _ = step(eng.T, eng.M)
+        logz -= eng.freenergy()
+        eng.rescale()
+        f.append(float(np.real(logz) / g.nv()))
+    sync(eng.device)
+    rec = np.array(f[c["record_every"] - 1:: c["record_every"]])
+    htse = np.abs(rec - np.array(gold["htse_4th"]))
+    flex = np.abs(rec - np.array(gold["free_energy_density"]))
+    print(f"10e {label}: {time.perf_counter() - t0:.3f} s, f at steps 5..25 {[f'{x:.10f}' for x in rec]}; |f - HTSE "
+          f"4th| max {htse.max():.3e} (bound 2e-3); |f - golden free_energy_density| max {flex.max():.3e}", flush=True)
+    require(np.isfinite(rec).all() and htse.max() < 2e-3, f"10e {label}: off the HTSE anchor")
+    return rec, flex if chi == c["maxdim"] else None
+
+
+def thermal_phase(dev, chi=32):
+    """10e: the thermal state (`examples/hexagonal_heisenberg_thermalstate.py`,
+    golden_thermal.json's configuration: chi=32, dbeta=0.01, 25 steps) at
+    complex128 on the card (no float32 kernel) and on the CPU, and at
+    complex64 on the card (K3 at d = 4, k = 3, chi=32) in both BP
+    precisions."""
+    from tnqs_torch.ops import bp_sweep
+
+    by_path = {}
+    plain_before = reset_counts()
+    f128, dist = thermal_run("complex128, card", chi, torch.complex128, dev)
+    counts = read_counts(plain_before)
+    require(not any(counts[0].values()) and not counts[3], f"10e: complex128 launched {counts[0]}")
+    f_cpu, _ = thermal_run("complex128, CPU port", chi, torch.complex128, "cpu")
+    d_cpu = np.abs(f128 - f_cpu).max()
+    print(f"10e: complex128 card - CPU {d_cpu:.3e} (bound 1e-10)")
+    require(d_cpu <= 1e-10, "10e: complex128 card and CPU differ")
+    if dist is not None:  # golden_thermal.json's chi
+        print(f"10e: complex128 card from the golden {dist.max():.3e}, the JAX engine's own CPU distance "
+              f"{JAX_THERMAL_DIST:.3e} (bound that + the card-CPU bound 1e-10)")
+        require(dist.max() <= JAX_THERMAL_DIST + 1e-10, "10e: complex128 off the golden")
+    for prec in (None, "high"):
+        plain_before = reset_counts()
+        f64, _ = thermal_run(f"complex64, card, bp_precision={prec}", chi, torch.complex64, dev, prec)
+        counts = read_counts(plain_before)
+        shapes = {key[:3] for key in bp_sweep.bp_sweep_group.launches_by_shape}
+        print(f"10e: complex64 (bp_precision={prec}) - complex128 {np.abs(f64 - f128).max():.3e}; K3 launches "
+              f"{counts[0]} at (mode, k, chi) {sorted(shapes)}")
+        mode = "bp_sweep_group_bf16_3x" if prec == "high" else "bp_sweep_group"
+        require(counts[0][mode] > 0 and not counts[3] and all(key[1:] == (3, chi) for key in shapes),
+                f"10e: complex64 launches {counts[0]}")
+        by_path["10e" if prec is None else "10e high"] = counts[0]
+    return by_path
 
 
 def main():
@@ -1667,15 +2069,21 @@ def main():
         for line in _build.build_log().splitlines():
             if line.startswith("==") or any(w in line for w in ("Function properties", "registers", "spill")):
                 print(f"  {line.strip()}")
+        t0 = time.perf_counter()
+        _build.host_library()
+        print(f"host library build (g++, the loop enumerator) {time.perf_counter() - t0:.2f} s -> "
+              f"{_build.host_library_path().relative_to(ROOT)}", flush=True)
         if args.bp_kernel_only:
             print(json.dumps(bp_kernel_phase(dev)))
+            print(json.dumps({k: (v.tolist() if hasattr(v, "tolist") else v)
+                              for k, v in bp_kernel_3x_phase(dev).items()}))
             return 0
         if args.switches_only:
             k2_switch_shapes(dev)
             switches_phase(dev, args.layers)
             return 0
         if args.measure_only:
-            launches, eng, _, probe, _, discarded = main_path(dev, args.layers)
+            launches, eng, _, probe, _, discarded, _ = main_path(dev, args.layers)
             eng.bp_update(maxiter=30)
             measure_chi64(dev, eng, probe)
             sample_chi64(dev, eng)
@@ -1690,10 +2098,14 @@ def main():
         k2_err = k2_switch_shapes(dev)
         kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], k2_err)
         kernels.append(bp_kernel_phase(dev))
-        launches, eng, step, probe, main_rate, discarded = main_path(dev, args.layers)
+        kernels.append(bp_kernel_3x_phase(dev))
+        ckpt_path = ROOT / "build" / "chip_smoke" / f"main_layer{CKPT_LAYER}.npz"
+        launches, eng, step, probe, main_rate, discarded, trajectory = main_path(
+            dev, args.layers, (ckpt_path, CKPT_LAYER) if args.layers > CKPT_LAYER else None)
         profile_window(eng, step)
         step_ab(dev, eng, step, probe)
         by_path = {"5": launches, "6": bp_path(dev, eng, probe)}
+        state_main = eng.to_arrays()  # after phase 6's bp_update, for 10d
         by_path.update(measure_chi64(dev, eng, probe))
         by_path.update(sample_chi64(dev, eng))
         del eng, step
@@ -1702,17 +2114,27 @@ def main():
         by_path.update(by_w2)
         evolutions_launched(by_path)
         by_path.update(sample_w2(dev, eng))
+        state_w2 = eng.to_arrays()
         del eng
         by_path.update(measure_chi96(dev, discarded))
-        print(f"kernel launches by path (phases 5-9): {by_path}")
+        if args.layers > CKPT_LAYER:
+            by_path.update(resume_checkpoint(dev, ckpt_path, trajectory, args.layers))
+            ckpt_path.unlink()
+        by_path.update(ladder_run(dev, trajectory[2], args.layers))
+        by_path.update(precision_high_run(dev, trajectory, trajectory[2], args.layers))
+        by_path.update(loop_corrections(dev, state_main, state_w2))
+        by_path.update(thermal_phase(dev))
+        print(f"kernel launches by path (phases 5-10): {by_path}")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "launches_by_path")
-    kernels = [{key: dict(k, launches=launches[k["name"]],
-                          launches_by_path={p: c[k["name"]] for p, c in by_path.items()})[key] for key in keys}
-               for k in kernels]
+            "bound_by", "library_ms", "launches_by_path", "fp32_ms")
+    # `launches`: each row's own path, phase 5 for K1-K3 and 10c for K3's bf16_3x mode
+    own = {"bp_sweep_group_bf16_3x": by_path["10c"]["bp_sweep_group_bf16_3x"]}
+    kernels = [{key: v for key, v in dict(k, launches=own.get(k["name"], launches[k["name"]]),
+                                          launches_by_path={p: c[k["name"]] for p, c in by_path.items()}).items()
+                if key in keys} for k in kernels]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -107,10 +107,11 @@ def test_compile_circuit_and_program_match(name):
 
 
 def test_import_pulls_no_jax_or_networkx():
-    """The port loads none of jax, networkx or the JAX package, and adds no
+    """The port (its checkpoints included) loads none of jax, networkx or the JAX package, and adds no
     opt_einsum of its own: torch imports opt_einsum where it is installed,
     and the card's machine has none."""
-    code = ("import sys, torch; before = set(sys.modules); import tnqs_torch, tnqs_torch.bmps_engine; tnqs_torch.BMPSSampler; "
+    code = ("import sys, torch; before = set(sys.modules); import tnqs_torch, tnqs_torch.bmps_engine, tnqs_torch.checkpoint; "
+            "tnqs_torch.BMPSSampler; tnqs_torch.load_engine; "
             "new = {m.split('.')[0] for m in set(sys.modules) - before}; "
             "loaded = [m for m in ('jax', 'networkx', 'tnqs') if m in sys.modules] + sorted(new & {'opt_einsum'}); "
             "assert not loaded, loaded")

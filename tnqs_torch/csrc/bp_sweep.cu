@@ -50,11 +50,29 @@
 //   the wrapper's plan sizes the chunks so the grid fills the card's CTA
 //   slots in whole waves.
 //
+// The second mode, "bf16_3x" (the TPU kernel's `mode="bf16_3x"`, which the
+// JAX engine runs under `bp_precision="high"`, tnqs/engine.py:801-812): every
+// complex product of the same three steps (V = K x_u conj(M_u), W = K M_v,
+// W V^H) is four real products, each hi.hi + hi.lo + lo.hi of the operands'
+// bfloat16 split (hi = bf16(x), lo = bf16(x - hi)) with float32
+// accumulation, on the tensor cores by `mma.sync.m16n8k16` (bf16 in, f32
+// accumulate).  The split is made as a tile is stored to shared memory, into
+// hi and lo planes of the real and imaginary parts in a k-major layout of
+// their own (pitch 72 bf16: 144-byte rows, so `ldmatrix.trans` reads eight
+// rows without a bank conflict), and the fragments come by `ldmatrix`.  A
+// 64 x 64 x 16 complex step is 12 MMAs per 16 x 8 output block.  Loads are
+// plain (no cp.async) and each warp owns a 32 x 16 block of the 64 x 64
+// output: a simple kernel that is right; `wgmma` and TMA are later work.
+// What bounds it: the same work at the dense bf16 rate (three passes), or
+// the site tensors' bytes.  The passes keep the chunked, in-order reduce, so
+// two calls give the same bits here too.
+//
 // The limits on k and chi are stated once, in the wrapper's `supports_group`
 // (tnqs_torch/ops/bp_sweep.py), and the launch plan (slots u and v, chunk
 // sizes, scratch layout) is made there too; this file checks only that the
 // arguments are well formed.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -353,6 +371,274 @@ __global__ void bp_reduce(const float2* __restrict__ part, float2* __restrict__ 
   }
 }
 
+// ---------------------------------------------------------------------
+// bf16_3x mode
+// ---------------------------------------------------------------------
+
+constexpr int PITCH_H = TILE + 8;         // bf16 per plane row (144 bytes)
+constexpr int PLANE = TILE * PITCH_H;     // bf16 per plane: 64 depth rows
+constexpr int SPLIT_ELEMS = 4 * PLANE;    // planes re hi, im hi, re lo, im lo
+constexpr size_t SPLIT_BYTES = SPLIT_ELEMS * sizeof(__nv_bfloat16);
+constexpr size_t SMEM_MODE_3X = 2 * SPLIT_BYTES;   // the message, one column block
+constexpr size_t SMEM_PASS2_3X = 3 * SPLIT_BYTES;  // M_v, K then W, V
+constexpr unsigned NEG2 = 0x80008000u;    // flips the sign of both bf16 halves
+
+__device__ __forceinline__ int pad16(int n) { return (n + 15) & ~15; }
+
+// row r, column c of a split tile <- x: hi = bf16(x), lo = bf16(x - hi),
+// each rounded to nearest even (x - hi is exact in float32)
+__device__ __forceinline__ void put_split(__nv_bfloat16* tile, int r, int c, float2 x) {
+  const int at = r * PITCH_H + c;
+  const __nv_bfloat16 hr = __float2bfloat16_rn(x.x), hi = __float2bfloat16_rn(x.y);
+  tile[at] = hr;
+  tile[PLANE + at] = hi;
+  tile[2 * PLANE + at] = __float2bfloat16_rn(x.x - __bfloat162float(hr));
+  tile[3 * PLANE + at] = __float2bfloat16_rn(x.y - __bfloat162float(hi));
+}
+
+// rows [r0, r1) of every plane to zero: the depth padding up to a multiple of
+// 16, so the padded products add nothing (both operands are zeroed, never
+// left as whatever the shared memory held)
+__device__ __forceinline__ void zero_split_rows(__nv_bfloat16* tile, int r0, int r1) {
+  const int per = (r1 - r0) * PITCH_H;
+  for (int e = threadIdx.x; e < 4 * per; e += THREADS)
+    tile[(e / per) * PLANE + r0 * PITCH_H + e % per] = __float2bfloat16_rn(0.0f);
+}
+
+// the split of load_tile: dst[r][c] (dst[c][r] with TRANS) = src[r * sr +
+// c * sc] (conjugated with CONJ), then the depth rows up to a multiple of 16
+// zeroed
+template <bool TRANS, bool CONJ>
+__device__ __forceinline__ void load_split_tile(__nv_bfloat16* dst, const float2* __restrict__ src, long long sr,
+                                                long long sc, int nr, int nc) {
+  const bool along_r = sr == 1 && sc != 1;
+  for (int e = threadIdx.x; e < nr * nc; e += THREADS) {
+    const int r = along_r ? e % nr : e / nc;
+    const int c = along_r ? e / nr : e % nc;
+    float2 x = __ldg(src + r * sr + c * sc);
+    if (CONJ) x.y = -x.y;
+    if (TRANS)
+      put_split(dst, c, r, x);
+    else
+      put_split(dst, r, c, x);
+  }
+  const int depth = TRANS ? nc : nr;
+  zero_split_rows(dst, depth, pad16(depth));
+}
+
+// the split of copy_columns_async: Bs[p][c] = in[p@slot, r0 + c], p < chi,
+// c < 64, and the depth rows up to a multiple of 16 zeroed
+__device__ __forceinline__ void load_split_columns(__nv_bfloat16* Bs, const float2* __restrict__ src, int chi, int st,
+                                                   int r0) {
+  const bool along_p = st == 1;
+  for (int e = threadIdx.x; e < chi * TILE; e += THREADS) {
+    const int p = along_p ? e % chi : e / TILE;
+    const int c = along_p ? e / chi : e % TILE;
+    const int r = r0 + c;
+    put_split(Bs, p, c, __ldg(src + p * st + (r / st) * st * chi + r % st));
+  }
+  zero_split_rows(Bs, chi, pad16(chi));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const __nv_bfloat16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// c += a b over one 16 x 8 x 16 block, bf16 in, float32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], unsigned a0, unsigned a1, unsigned a2, unsigned a3,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// c += x y by the three bf16 products, the small ones first:
+// xl yh + xh yl + xh yh; `flip` negates x (a sign flip is exact)
+__device__ __forceinline__ void mma3(float (&c)[4], const unsigned (&xh)[4], const unsigned (&xl)[4], unsigned flip,
+                                     unsigned yh0, unsigned yh1, unsigned yl0, unsigned yl1) {
+  mma_bf16(c, xl[0] ^ flip, xl[1] ^ flip, xl[2] ^ flip, xl[3] ^ flip, yh0, yh1);
+  mma_bf16(c, xh[0] ^ flip, xh[1] ^ flip, xh[2] ^ flip, xh[3] ^ flip, yl0, yl1);
+  mma_bf16(c, xh[0] ^ flip, xh[1] ^ flip, xh[2] ^ flip, xh[3] ^ flip, yh0, yh1);
+}
+
+// a warp's share of a 64 x 64 complex output: rows 32 (warp / 4) + 16 mt +
+// {g, g + 8}, columns 16 (warp % 4) + 8 nt + 2 t + {0, 1} (g = lane / 4,
+// t = lane % 4), the mma.sync accumulator layout
+struct Acc3 {
+  float re[2][2][4];
+  float im[2][2][4];
+};
+
+__device__ __forceinline__ void zero3(Acc3& acc) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc.re[mt][nt][e] = acc.im[mt][nt][e] = 0.0f;
+}
+
+// f(row, column, value) for each of this thread's outputs
+template <class F>
+__device__ __forceinline__ void visit3(const Acc3& acc, F f) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = 32 * (warp >> 2) + (lane >> 2), c0 = 16 * (warp & 3) + 2 * (lane & 3);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        f(r0 + 16 * mt + 8 * (e >> 1), c0 + 8 * nt + (e & 1), make_float2(acc.re[mt][nt][e], acc.im[mt][nt][e]));
+}
+
+// acc[m][n] += sum_{kk < depth} A[kk][m] op(B[kk][n]) over k-major split
+// tiles (op = conj with CONJ_B); depth a multiple of 16 with zeroed padding
+template <bool CONJ_B>
+__device__ __forceinline__ void tile_gemm3(const __nv_bfloat16* __restrict__ As, const __nv_bfloat16* __restrict__ Bs,
+                                           int depth, Acc3& acc) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m0 = 32 * (warp >> 2), n0 = 16 * (warp & 3);
+  // ldmatrix: lane supplies row (lane % 8) of matrix (lane / 8); A's four
+  // matrices are (k, m) blocks (0, 0), (0, 8), (8, 0), (8, 8), B's (k, n)
+  // blocks (0, 0), (8, 0), (0, 8), (8, 8): the a0..a3 and b0, b1 registers
+  const int q = lane >> 3, r = lane & 7;
+  const int a_off = (r + ((q >> 1) << 3)) * PITCH_H + m0 + ((q & 1) << 3);
+  const int b_off = (r + ((q & 1) << 3)) * PITCH_H + n0 + ((q >> 1) << 3);
+  for (int k0 = 0; k0 < depth; k0 += 16) {
+    unsigned b[4][4];  // planes re hi, im hi, re lo, im lo; {b0, b1} of n block 0, then of n block 1
+#pragma unroll
+    for (int p = 0; p < 4; ++p) ldsm_x4_trans(b[p], Bs + p * PLANE + k0 * PITCH_H + b_off);
+    if (CONJ_B) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        b[1][e] ^= NEG2;
+        b[3][e] ^= NEG2;
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      unsigned a[4][4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p) ldsm_x4_trans(a[p], As + p * PLANE + k0 * PITCH_H + 16 * mt + a_off);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int j = 2 * nt;
+        // re += Ar Br - Ai Bi, im += Ar Bi + Ai Br
+        mma3(acc.re[mt][nt], a[0], a[2], 0u, b[0][j], b[0][j + 1], b[2][j], b[2][j + 1]);
+        mma3(acc.re[mt][nt], a[1], a[3], NEG2, b[1][j], b[1][j + 1], b[3][j], b[3][j + 1]);
+        mma3(acc.im[mt][nt], a[0], a[2], 0u, b[1][j], b[1][j + 1], b[3][j], b[3][j + 1]);
+        mma3(acc.im[mt][nt], a[1], a[3], 0u, b[0][j], b[0][j + 1], b[2][j], b[2][j + 1]);
+      }
+    }
+  }
+}
+
+// bp_mode_product in bf16_3x: the same product per (b, s) and column block,
+// the message split once a CTA, each column block split as it is stored
+__global__ void __launch_bounds__(THREADS, 2)
+    bp_mode_product_3x(const float2* __restrict__ in, const long long* __restrict__ in_rows,
+                       const float2* __restrict__ Min, float2* __restrict__ out, int n_k, int k, int chi, int d,
+                       int slot, int col, int conj_t, int per_cta) {
+  extern __shared__ float4 smem_f4[];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_f4);
+  __nv_bfloat16* Bs = As + SPLIT_ELEMS;
+  const int b = blockIdx.z, s = blockIdx.y;
+  const int site = (int)ipow(chi, k);
+  const int st = (int)ipow(chi, k - 1 - slot);
+  const int nrb = site / chi / TILE;
+  const float2* src = in + ((size_t)source_row(in_rows, b, n_k) * d + s) * site;
+  float2* dst = out + ((size_t)b * d + s) * site;
+  const float2* M = Min + ((size_t)b * (k - 1) + col) * chi * chi;
+  const int rb0 = blockIdx.x * per_cta, rb1 = min(nrb, rb0 + per_cta);
+  if (conj_t)
+    load_split_tile<true, true>(As, M, chi, 1, chi, chi);  // As[p][x] = conj(M[x][p])
+  else
+    load_split_tile<false, false>(As, M, chi, 1, chi, chi);  // As[x][y] = M[x][y]
+  for (int rb = rb0; rb < rb1; ++rb) {
+    __syncthreads();  // the last block's product is done with Bs
+    load_split_columns(Bs, src, chi, st, rb * TILE);
+    __syncthreads();
+    Acc3 acc;
+    zero3(acc);
+    tile_gemm3<false>(As, Bs, pad16(chi), acc);
+    visit3(acc, [&](int x, int c, float2 v) {
+      if (x < chi) {
+        const int r = rb * TILE + c;
+        dst[x * st + (r / st) * st * chi + r % st] = v;
+      }
+    });
+  }
+}
+
+// bp_pass2 in bf16_3x: the same items, blocks and chunks; M_v, K and V split
+// as they are stored, W split as it is written back transposed
+template <bool WIDE>
+__global__ void __launch_bounds__(THREADS, WIDE ? 1 : 2)
+    bp_pass2_3x(const float2* __restrict__ ket, const long long* __restrict__ ket_rows,
+                const float2* __restrict__ vt, const long long* __restrict__ v_rows, const float2* __restrict__ Min,
+                float2* __restrict__ dst, int n_k, int k, int chi, int d, int t, int v, int per_cta, int chunks) {
+  extern __shared__ float4 smem_f4[];
+  __nv_bfloat16* Ms = reinterpret_cast<__nv_bfloat16*>(smem_f4);
+  __nv_bfloat16* KW = Ms + SPLIT_ELEMS;  // K's tile, then W's
+  __nv_bfloat16* Vs = KW + SPLIT_ELEMS;
+  const int nblk = WIDE ? (chi + TILE - 1) / TILE : 1;
+  const int b = blockIdx.y;
+  const int chunk = blockIdx.x / (nblk * nblk);
+  const int i0 = WIDE ? (blockIdx.x / nblk) % nblk * TILE : 0, j0 = WIDE ? blockIdx.x % nblk * TILE : 0;
+  const int ni = min(TILE, chi - i0), nj = min(TILE, chi - j0);
+  const int site = (int)ipow(chi, k);
+  const int st_t = (int)ipow(chi, k - 1 - t), st_v = (int)ipow(chi, k - 1 - v);
+  const int O = (int)ipow(chi, k - 2);
+  const float2* ket_b = ket + (size_t)source_row(ket_rows, b, n_k) * d * site;
+  const float2* vt_b = vt + (size_t)source_row(v_rows, b, n_k) * d * site;
+  const float2* Mv = Min + ((size_t)b * (k - 1) + (v < t ? v : v - 1)) * chi * chi;
+  if (!WIDE) load_split_tile<false, false>(Ms, Mv, chi, 1, chi, chi);  // Ms[y][q] = M_v[y][q]
+
+  Acc3 P;
+  zero3(P);
+  const int it1 = min(d * O, (chunk + 1) * per_cta);
+  for (int it = chunk * per_cta; it < it1; ++it) {
+    int o = it % O, off = (it / O) * site;
+    for (int j = k - 1; j >= 0; --j) {
+      if (j == t || j == v) continue;
+      off += (o % chi) * (int)ipow(chi, k - 1 - j);
+      o /= chi;
+    }
+    const int span = WIDE ? chi : 1;
+    for (int q0 = 0; q0 < span; q0 += TILE) {
+      const int nq = WIDE ? min(TILE, chi - q0) : chi;
+      Acc3 W;
+      zero3(W);
+      for (int y0 = 0; y0 < span; y0 += TILE) {
+        const int ny = WIDE ? min(TILE, chi - y0) : chi;
+        __syncthreads();  // KW (and Ms when WIDE) are free
+        if (WIDE) load_split_tile<false, false>(Ms, Mv + (size_t)y0 * chi + q0, chi, 1, ny, nq);
+        load_split_tile<true, false>(KW, ket_b + off + i0 * st_t + y0 * st_v, st_t, st_v, ni, ny);  // KW[y][i]
+        __syncthreads();
+        tile_gemm3<false>(KW, Ms, pad16(ny), W);
+      }
+      __syncthreads();  // KW and Vs are free
+      visit3(W, [&](int i, int q, float2 w) {  // KW[q][i] = W[i][q]
+        if (q < nq) put_split(KW, q, i, w);
+      });
+      zero_split_rows(KW, nq, pad16(nq));
+      load_split_tile<true, false>(Vs, vt_b + off + j0 * st_t + q0 * st_v, st_t, st_v, nj, nq);  // Vs[q][j]
+      __syncthreads();
+      tile_gemm3<true>(KW, Vs, pad16(nq), P);
+    }
+  }
+  float2* out = dst + ((size_t)b * chunks + chunk) * chi * chi;
+  visit3(P, [&](int i, int j, float2 p) {
+    if (i < ni && j < nj) out[(size_t)(i0 + i) * chi + j0 + j] = p;
+  });
+}
+
 }  // namespace
 
 // Once per device: raise the kernels' dynamic shared memory limits and
@@ -379,9 +665,34 @@ extern "C" int tnqs_bp_sweep_setup(int* smem_mode, int* smem_pass2, int* ctas_mo
   return (int)err;
 }
 
+// The same for the bf16_3x kernels.
+extern "C" int tnqs_bp_sweep_setup_3x(int* smem_mode, int* smem_pass2, int* ctas_mode, int* ctas_pass2,
+                                      int* ctas_wide, int* sms) {
+  cudaError_t err =
+      cudaFuncSetAttribute(bp_mode_product_3x, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MODE_3X);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(bp_pass2_3x<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_PASS2_3X);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(bp_pass2_3x<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_PASS2_3X);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_mode, bp_mode_product_3x, THREADS, SMEM_MODE_3X);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_pass2, bp_pass2_3x<false>, THREADS, SMEM_PASS2_3X);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_wide, bp_pass2_3x<true>, THREADS, SMEM_PASS2_3X);
+  int dev = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  *smem_mode = (int)SMEM_MODE_3X;
+  *smem_pass2 = (int)SMEM_PASS2_3X;
+  return (int)err;
+}
+
 namespace {
 
-// the group's launches, in order, on `st`
+// the group's launches, in order, on `st`: the FP32 kernels, or with SPLIT3
+// the bf16_3x ones
+template <bool SPLIT3>
 cudaError_t launch_group(const float2* T, const long long* rows, const float2* M, float2* out, float2* scratch,
                          const long long* plan, int n_k, cudaStream_t st) {
   const int batch = (int)plan[0], k = (int)plan[1], chi = (int)plan[2], d = (int)plan[3], t = (int)plan[4];
@@ -400,8 +711,12 @@ cudaError_t launch_group(const float2* T, const long long* rows, const float2* M
   const float2* vt = T;
   const long long* v_rows = rows;
   if (k >= 3) {  // the bra side: V = K x_u conj(M_u)
-    bp_mode_product<<<mode_grid, THREADS, SMEM_MODE, st>>>(T, rows, M, vbuf, n_k, k, chi, d, u, u < t ? u : u - 1, 1,
-                                                           mode_per_cta);
+    if (SPLIT3)
+      bp_mode_product_3x<<<mode_grid, THREADS, SMEM_MODE_3X, st>>>(T, rows, M, vbuf, n_k, k, chi, d, u,
+                                                                   u < t ? u : u - 1, 1, mode_per_cta);
+    else
+      bp_mode_product<<<mode_grid, THREADS, SMEM_MODE, st>>>(T, rows, M, vbuf, n_k, k, chi, d, u, u < t ? u : u - 1,
+                                                             1, mode_per_cta);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     vt = vbuf;
@@ -412,8 +727,12 @@ cudaError_t launch_group(const float2* T, const long long* rows, const float2* M
   int w = 0;
   for (int j = 0; j < k; ++j) {  // the ket absorbs before pass 2
     if (j == t || j == u || j == v) continue;
-    bp_mode_product<<<mode_grid, THREADS, SMEM_MODE, st>>>(ket, ket_rows, M, wbuf[w], n_k, k, chi, d, j,
-                                                           j < t ? j : j - 1, 0, mode_per_cta);
+    if (SPLIT3)
+      bp_mode_product_3x<<<mode_grid, THREADS, SMEM_MODE_3X, st>>>(ket, ket_rows, M, wbuf[w], n_k, k, chi, d, j,
+                                                                   j < t ? j : j - 1, 0, mode_per_cta);
+    else
+      bp_mode_product<<<mode_grid, THREADS, SMEM_MODE, st>>>(ket, ket_rows, M, wbuf[w], n_k, k, chi, d, j,
+                                                             j < t ? j : j - 1, 0, mode_per_cta);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     ket = wbuf[w];
@@ -423,7 +742,13 @@ cudaError_t launch_group(const float2* T, const long long* rows, const float2* M
   const int nblk = (chi + TILE - 1) / TILE;
   float2* dst = chunks == 1 ? out : part;
   const dim3 grid(chunks * nblk * nblk, batch);
-  if (nblk > 1)
+  if (SPLIT3 && nblk > 1)
+    bp_pass2_3x<true><<<grid, THREADS, SMEM_PASS2_3X, st>>>(ket, ket_rows, vt, v_rows, M, dst, n_k, k, chi, d, t, v,
+                                                            per_cta, chunks);
+  else if (SPLIT3)
+    bp_pass2_3x<false><<<grid, THREADS, SMEM_PASS2_3X, st>>>(ket, ket_rows, vt, v_rows, M, dst, n_k, k, chi, d, t, v,
+                                                             per_cta, chunks);
+  else if (nblk > 1)
     bp_pass2<true><<<grid, THREADS, SMEM_PASS2, st>>>(ket, ket_rows, vt, v_rows, M, dst, n_k, k, chi, d, t, v, per_cta,
                                                       chunks);
   else
@@ -434,6 +759,22 @@ cudaError_t launch_group(const float2* T, const long long* rows, const float2* M
   const long long total = (long long)batch * chi * chi;
   bp_reduce<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(part, out, chunks, chi * chi, total);
   return cudaGetLastError();
+}
+
+template <bool SPLIT3>
+int sweep_on(const void* T, const void* rows, const void* Min, void* out, void* scratch, const long long* plan,
+             int n_k, int device, void* stream) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_group<SPLIT3>((const float2*)T, (const long long*)rows, (const float2*)Min, (float2*)out,
+                             (float2*)scratch, plan, n_k, (cudaStream_t)stream);
+  if (prev != device) {
+    const cudaError_t back = cudaSetDevice(prev);
+    if (err == cudaSuccess) err = back;
+  }
+  return (int)err;
 }
 
 }  // namespace
@@ -451,15 +792,12 @@ cudaError_t launch_group(const float2* T, const long long* rows, const float2* M
 // `stream`; the caller's current device is restored.
 extern "C" int tnqs_bp_sweep(const void* T, const void* rows, const void* Min, void* out, void* scratch,
                              const long long* plan, int n_k, int device, void* stream) {
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_group((const float2*)T, (const long long*)rows, (const float2*)Min, (float2*)out, (float2*)scratch,
-                     plan, n_k, (cudaStream_t)stream);
-  if (prev != device) {
-    const cudaError_t back = cudaSetDevice(prev);
-    if (err == cudaSuccess) err = back;
-  }
-  return (int)err;
+  return sweep_on<false>(T, rows, Min, out, scratch, plan, n_k, device, stream);
+}
+
+// The same group in the bf16_3x mode; `plan` is made for the bf16_3x
+// kernels' occupancy (`tnqs_bp_sweep_setup_3x`).
+extern "C" int tnqs_bp_sweep_3x(const void* T, const void* rows, const void* Min, void* out, void* scratch,
+                                const long long* plan, int n_k, int device, void* stream) {
+  return sweep_on<true>(T, rows, Min, out, scratch, plan, n_k, device, stream);
 }

@@ -31,6 +31,8 @@ immutable arrays.
 
 from __future__ import annotations
 
+import copy
+import string
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -39,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from .gates import gate_matrix, op_matrix
-from .graphs import NamedGraph, center
+from .graphs import NamedGraph, center, leafless_edge_induced_subgraphs
 from .ops.bp_sweep import absorb_message, bp_sweep_group, group_messages, supports_group
 from .ops.factorizations import (
     apply_rinv,
@@ -54,6 +56,7 @@ from .ops.factorizations import (
     svd_from_eigh,
 )
 from .ops.osj import pjsvd, pjsvd_fits
+from .utils.einsum_cache import ceinsum
 
 
 # ----------------------------------------------------------------------
@@ -530,7 +533,24 @@ class LatticeEngine:
       chain, and "auto" means "kernel" for complex64 on a CUDA device and
       "einsum" otherwise.  Unlike the JAX engine, the step follows it too:
       the JAX kernel's plane copies, which kept its step on einsum, do not
-      exist here."""
+      exist here.
+    - `bp_precision` (`tnqs/engine.py:672-677`, an attribute there): None or
+      "highest" (full float32 BP sweeps) or "high", under which every group
+      the kernel route takes runs K3 in its "bf16_3x" mode (three bf16
+      products a real product, float32 accumulation), in the step's
+      refreshes and final run, `bp_update` and `normalize`.  The groups on
+      the einsum route (the ones K3 does not take, every group under
+      ``bp_kernel="einsum"`` and at complex128) stay full precision: the
+      port has no per-op precision (ROADMAP Queue 3).
+
+    Sites: `site_legs` legs of dimension `d0` fold into one site axis of
+    d = d0 ** site_legs (`tnqs/engine.py:680-692`): ``site_legs=2`` is an
+    operator state, (ket, bra) interleaved as the JAX engine folds them.
+    The start is a product state at bond index 0 (`tnqs/engine.py:704`):
+    `state` is None ("↑", the first basis vector, on every site), one
+    vector of length d for every vertex, or {vertex: vector};
+    `identity_operator_vector(d0)` is vec(I), the identity operator state's
+    site."""
 
     def __init__(
         self,
@@ -545,6 +565,10 @@ class LatticeEngine:
         trunc_method: str = "svd",
         svd_impl: str = "auto",
         bp_kernel: str = "auto",
+        bp_precision: str | None = None,
+        site_legs: int = 1,
+        d0: int = 2,
+        state=None,
     ):
         if dtype not in (torch.complex64, torch.complex128):
             raise NotImplementedError(f"dtype={dtype!r} is not ported; complex64 or complex128")
@@ -567,6 +591,10 @@ class LatticeEngine:
             raise NotImplementedError("svd_impl='pjsvd' runs the float32 Jacobi kernels; complex128 takes 'xla'")
         if bp_kernel == "kernel" and not single:
             raise ValueError("bp_kernel='kernel' is the float32 BP kernel; complex128 takes 'einsum'")
+        if bp_precision not in (None, "highest", "high"):
+            raise ValueError(f"unknown bp_precision {bp_precision!r}; None, 'highest' or 'high'")
+        if int(site_legs) < 1 or int(d0) < 2:
+            raise ValueError(f"site_legs={site_legs}, d0={d0}: need site_legs >= 1 and d0 >= 2")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError("LatticeEngine runs on the CUDA device and none is available; "
@@ -576,6 +604,7 @@ class LatticeEngine:
         if bp_kernel == "auto":
             bp_kernel = "kernel" if self.device.type == "cuda" and single else "einsum"
         self.bp_kernel = bp_kernel
+        self.bp_precision = bp_precision
         self.factor_method, self.env_gauge = factor_method, env_gauge
         self.reduce_method, self.trunc_method = reduce_method, trunc_method
         self.svd_impl = ("pjsvd" if single else "xla") if svd_impl == "auto" else svd_impl
@@ -583,7 +612,8 @@ class LatticeEngine:
             bp_schedule = "color" if self.device.type == "cuda" else "wavefront"
         self.plan = LatticePlan.build(graph, bp_schedule=bp_schedule)
         self.chi = int(chi)
-        self.d = 2
+        self.site_legs, self.d0 = int(site_legs), int(d0)
+        self.d = self.d0**self.site_legs
         self.dtype = dtype
         self.real_dtype = dtype.to_real()
         self.sqrt_cutoff = 10 * eps_of(self.real_dtype)  # `tnqs/engine.py:701`
@@ -596,20 +626,28 @@ class LatticeEngine:
             ins = [_index(in_eids[:, col], self.device) for col in range(len(other_slots))]
             rows = _index(src_pos, self.device)
             self._bp_groups.append((stage, k, t, src, out, ins, rows, _index(in_eids, self.device)))
-        self.T = self._product_state()
+        self.T = self._product_state(state)
         self.M = self._initial_messages()
         self.bp_iterations, self.bp_eps = 0, float("nan")
         self._edge_cls_cache = None
+        self._loopcorr_cache: dict = {}
 
     # -- state ----------------------------------------------------------
-    def _product_state(self) -> dict:
-        """Every site in "↑" = (1, 0) on bond index 0 of every bond: the
-        packed `tensornetworkstate(lambda v: "↑", ...)` of the JAX engine
-        (`tnqs/engine.py:704`)."""
+    def _product_state(self, state=None) -> dict:
+        """The product state `state` on bond index 0 of every bond (the
+        packed bond-dimension-1 state of the JAX engine, `tnqs/engine.py:704`):
+        None puts "↑" (the first basis vector) on every site, a vector of
+        length d goes on every vertex, a dict maps vertex -> vector."""
         T = {}
         for k, verts in self.plan.buckets.items():
             arr = torch.zeros((len(verts), self.d) + (self.chi,) * k, dtype=self.dtype, device=self.device)
-            arr[(slice(None), 0) + (0,) * k] = 1.0
+            if state is None:
+                arr[(slice(None), 0) + (0,) * k] = 1.0
+            else:
+                vecs = np.stack([np.asarray(state[v] if isinstance(state, dict) else state) for v in verts])
+                if vecs.shape != (len(verts), self.d):
+                    raise ValueError(f"a site vector has shape {vecs.shape[1:]}, the sites have d = {self.d}")
+                arr[(slice(None), slice(None)) + (0,) * k] = torch.as_tensor(vecs, device=self.device).to(self.dtype)
             T[k] = arr
         return T
 
@@ -654,6 +692,7 @@ class LatticeEngine:
         through `bp_sweep_group`, gathered source rows included; the rest
         stay on the einsum chain, as at `tnqs/engine.py:798-831`."""
         kernel = use_kernel and self.bp_kernel == "kernel"
+        mode = "bf16_3x" if self.bp_precision == "high" else "highest"
         stage = None
         out = M
         for (g_stage, k, t, src, dst, ins, rows, in_all) in self._bp_groups:
@@ -662,7 +701,7 @@ class LatticeEngine:
                 out = M.clone()
                 stage = g_stage
             if kernel and supports_group(k, self.chi, self.dtype):
-                m_new = bp_sweep_group(T[k], M[in_all], rows, t)
+                m_new = bp_sweep_group(T[k], M[in_all], rows, t, mode)
             else:
                 m_new = group_messages(T[k][src], [M[eids] for eids in ins], t)
             # sum-normalize (`tnqs/engine.py:834-836`)
@@ -1059,6 +1098,67 @@ class LatticeEngine:
             all_errors.append(errors)
         return torch.stack(all_errors).cpu().numpy()
 
+    # -- rank ladder (`tnqs/engine.py:1486-1566`) -------------------------
+    def resize_chi(self, chi_new: int) -> "LatticeEngine":
+        """A new engine at bond cap `chi_new` carrying this state: every bond
+        axis of T and M zero-padded (grow, lossless) or sliced (shrink, safe
+        while the bonds' rank stays below the new cap) on the device.  The
+        plan and the options are shared; the caches kept per chi are not."""
+        chi_new = int(chi_new)
+        if chi_new == self.chi:
+            return self
+        eng = copy.copy(self)
+        eng.chi = chi_new
+        eng._edge_cls_cache = None
+        eng._loopcorr_cache = {}
+        delta = chi_new - self.chi
+
+        def fix(arr, first, n):
+            if delta > 0:
+                return F.pad(arr, (0, delta) * n)  # the last n axes are the bonds
+            return arr[(slice(None),) * first + (slice(0, chi_new),) * n].clone(memory_format=torch.contiguous_format)
+
+        eng.T = {k: fix(arr, 2, k) for k, arr in self.T.items()}
+        eng.M = fix(self.M, 1, 2)
+        return eng
+
+    def evolve_ladder(self, circuit: Sequence, num_layers: int, rungs: Sequence = (8, 16, 32, 64), observe=None,
+                      **kwargs):
+        """Rank-adaptive evolution (`tnqs/engine.py:1518`): from a product
+        state a bond's rank after L layers is at most growth^L, growth = d to
+        the most two-site gates on one edge of a layer, so each layer runs at
+        the smallest rung at or above that bound (the rungs below this
+        engine's chi, then chi).  Returns ``(engine at the last rung, errors
+        [num_layers, n_gates])``; `self` is left as it was.  `observe`, if
+        given, is called as ``observe(layer, engine)`` after each layer
+        (layer from 1), on the rung's engine; the rest of `kwargs` go to
+        `make_step`."""
+        rung_list = sorted({int(r) for r in rungs if int(r) < self.chi} | {self.chi})
+        per_edge: dict = {}
+        for gate in circuit:
+            verts = list(gate[1])
+            if len(verts) == 2:
+                key = frozenset(verts)
+                per_edge[key] = per_edge.get(key, 0) + 1
+        growth = self.d ** max(per_edge.values()) if per_edge else 1
+        # the step writes into the state it is given: run on a copy of self's
+        eng = copy.copy(self)
+        eng.T, eng.M = {k: v.clone() for k, v in self.T.items()}, self.M.clone()
+        eng._loopcorr_cache = {}
+        rank, step, all_errors = 1, None, []
+        for _ in range(num_layers):
+            rank = min(rank * growth, self.chi)
+            target = next(r for r in rung_list if r >= rank)
+            if target != eng.chi:
+                eng, step = eng.resize_chi(target), None
+            if step is None:
+                step = eng.make_step(circuit, **kwargs)
+            eng.T, eng.M, errors = step(eng.T, eng.M)
+            all_errors.append(errors)
+            if observe is not None:
+                observe(len(all_errors), eng)
+        return eng, torch.stack(all_errors).cpu().numpy()
+
     # -- measurement (`tnqs/engine.py:1566-1961`) -------------------------
     def _closed(self, T: dict, M: torch.Tensor, k: int) -> torch.Tensor:
         """Bucket-k tensors with the incoming message of every bond absorbed."""
@@ -1199,6 +1299,115 @@ class LatticeEngine:
         """exp(freenergy) (`tnqs/engine.py:1727`)."""
         return _z_from_freenergy(self.freenergy())
 
+    # -- loop corrections (`tnqs/engine.py:1733-1862`) ----------------------
+    def _doubled_vertex(self, v, open_slots: list, Ts: dict, Ms: torch.Tensor) -> torch.Tensor:
+        """Ket and bra of vertex v contracted over the site axis, with the
+        message into v absorbed on every bond but `open_slots`, which stay
+        open as (ket, bra) axis pairs in the order given."""
+        plan = self.plan
+        k, pos = plan.bucket_pos[v]
+        A = Ts[k][pos : pos + 1]
+        X = A
+        for j, u in enumerate(plan.neighbor_order[v]):
+            if j not in open_slots:
+                X = absorb_message(X, Ms[plan.edge_ids[(u, v)]][None], 2 + j)
+        ket = "s" + "".join(chr(ord("a") + j) for j in range(k))
+        bra = "s" + "".join(chr(ord("A") + j) if j in open_slots else chr(ord("a") + j) for j in range(k))
+        out = "".join(chr(ord("a") + j) + chr(ord("A") + j) for j in open_slots)
+        return torch.einsum(f"{ket},{bra}->{out}", X[0], A[0].conj())
+
+    def _cycle_vertex_transfer(self, v, prev_v, next_v, Ts: dict, Ms: torch.Tensor) -> torch.Tensor:
+        """Doubled transfer matrix [chi^2, chi^2] of a cycle vertex
+        (`tnqs/engine.py:1734`): rows the (ket, bra) pair of the bond from
+        prev_v, columns that of the bond to next_v, the messages into v
+        absorbed on its off-cycle bonds."""
+        order = self.plan.neighbor_order[v]
+        D = self._doubled_vertex(v, [order.index(prev_v), order.index(next_v)], Ts, Ms)
+        return D.reshape(self.chi * self.chi, self.chi * self.chi)
+
+    def _cycle_weights(self, group: list, Ts: dict, Ms: torch.Tensor) -> torch.Tensor:
+        """Sum of the weights of same-length simple cycles (vertex walks):
+        trace of the ring product of T_i (1 - m_in m_out^T) per cycle, where
+        m_in is the message into cycle vertex i from i+1 and m_out the one
+        into i+1 (`_cycle_bond_op`, `tnqs/engine.py:1760`; the antiprojector
+        is applied as its rank-one update rather than as a matrix), batched
+        over the cycles as [G, chi^2, chi^2] products."""
+        ids, chi = self.plan.edge_ids, self.chi
+        L, W = len(group[0]), None
+        for i in range(L):
+            step = torch.empty((len(group), chi * chi, chi * chi), dtype=self.dtype, device=self.device)
+            for c, cyc in enumerate(group):
+                step[c] = self._cycle_vertex_transfer(cyc[i], cyc[i - 1], cyc[(i + 1) % L], Ts, Ms)
+            m_in = Ms[_index([ids[(cyc[(i + 1) % L], cyc[i])] for cyc in group], self.device)].reshape(-1, chi * chi)
+            m_out = Ms[_index([ids[(cyc[i], cyc[(i + 1) % L])] for cyc in group], self.device)].reshape(-1, chi * chi)
+            step -= (step @ m_in[:, :, None]) @ m_out[:, None, :]
+            W = step if W is None else W @ step
+            del step
+        return torch.diagonal(W, dim1=1, dim2=2).sum()
+
+    def _configuration_weight(self, eg: list, Ts: dict, Ms: torch.Tensor) -> torch.Tensor:
+        """Weight of any configuration (edge list) on the rescaled fixed
+        point, with the flex tier's semantics (`tnqs/loopcorrections.py:
+        32-95`): each of its vertices' doubled tensor with the message into
+        it on every bond outside the configuration (chords included), and
+        on each configuration edge (u, v) the antiprojector 1 - m_{v->u}
+        m_{u->v}, each endpoint taking the message into it.  One contraction
+        by `ceinsum`'s pairwise path; up to 13 edges (4 index letters each)."""
+        plan = self.plan
+        if len(eg) > 13:
+            raise NotImplementedError(f"a non-cycle configuration of {len(eg)} edges (at most 13)")
+        vs = list(dict.fromkeys(v for e in eg for v in e))
+        in_config = {frozenset(e) for e in eg}
+        letters = iter(string.ascii_letters)
+        end = {}  # (v, u) -> (ket, bra) labels of bond (v, u) at v's end
+        for (u, v) in eg:
+            end[(u, v)] = next(letters) + next(letters)
+            end[(v, u)] = next(letters) + next(letters)
+        terms, ops = [], []
+        for v in vs:
+            order = plan.neighbor_order[v]
+            cfg = [j for j, u in enumerate(order) if frozenset((v, u)) in in_config]
+            ops.append(self._doubled_vertex(v, cfg, Ts, Ms))
+            terms.append("".join(end[(v, order[j])] for j in cfg))
+        chi = self.chi
+        eye = torch.eye(chi, dtype=self.dtype, device=self.device)
+        for (u, v) in eg:
+            m_u, m_v = Ms[plan.edge_ids[(v, u)]], Ms[plan.edge_ids[(u, v)]]  # into u, into v
+            ops.append(torch.einsum("ac,bd->abcd", eye, eye) - torch.einsum("ab,cd->abcd", m_u, m_v))
+            terms.append(end[(u, v)] + end[(v, u)])
+        return ceinsum(",".join(terms) + "->", *ops)
+
+    def loopcorrected_partitionfunction(self, max_configuration_size: int):
+        """Z_BP (1 + sum of the loop-series weights) over every leafless
+        configuration of at most `max_configuration_size` edges
+        (`tnqs/engine.py:1771`), on the rescaled fixed point (`_rescaled`;
+        the engine's own state is not changed).  Simple cycles go through
+        batched ring products of doubled transfer matrices (`_cycle_weights`),
+        the rest through one contraction each (`_configuration_weight`, the
+        flex weight, which the JAX engine takes from its flex tier).  The
+        configurations are enumerated once per size and kept."""
+        zbp = self.partitionfunction()
+        size = int(max_configuration_size)
+        if size not in self._loopcorr_cache:
+            by_len, others = {}, []
+            for eg in leafless_edge_induced_subgraphs(self.plan.graph, size):
+                cyc = _cycle_order(eg)
+                if cyc is None:
+                    others.append(eg)
+                else:
+                    by_len.setdefault(len(cyc), []).append(cyc)
+            self._loopcorr_cache[size] = (by_len, others)
+        by_len, others = self._loopcorr_cache[size]
+        if not by_len and not others:
+            return zbp
+        Ts, Ms = self._rescaled(self.T, self.M)
+        total = torch.zeros((), dtype=self.dtype, device=self.device)
+        for L in sorted(by_len):
+            total = total + self._cycle_weights(by_len[L], Ts, Ms)
+        for eg in others:
+            total = total + self._configuration_weight(eg, Ts, Ms)
+        return zbp * (1 + complex(total.item()))
+
     def _rescaled(self, T: dict, M: torch.Tensor) -> tuple[dict, torch.Tensor]:
         """Every message pair to unit overlap, then every vertex tensor by
         1/sqrt(its vertex scalar): afterwards all local BP scalars, and so
@@ -1267,6 +1476,36 @@ class LatticeEngine:
             else:
                 out[tuple(e)] = float(np.log(np.sum(lams**alpha)) / (1 - alpha))
         return out
+
+
+def _cycle_order(eg) -> list | None:
+    """The vertex walk of an edge set that is one simple cycle, or None
+    (`tnqs/engine.py:1973`)."""
+    adj: dict = {}
+    for (u, v) in eg:
+        adj.setdefault(u, []).append(v)
+        adj.setdefault(v, []).append(u)
+    if any(len(ns) != 2 for ns in adj.values()):
+        return None
+    start = next(iter(adj))
+    cyc, prev, cur = [start], None, start
+    while True:
+        a, b = adj[cur]
+        nxt = b if a == prev else a
+        if nxt == start:
+            break
+        cyc.append(nxt)
+        prev, cur = cur, nxt
+        if len(cyc) > len(adj):
+            return None
+    return cyc if len(cyc) == len(adj) else None
+
+
+def identity_operator_vector(d0: int = 2) -> np.ndarray:
+    """vec(I) of an operator site, (ket, bra) interleaved as the engine
+    folds them (`tnqs/engine.py:686-692`): the identity operator state's
+    site vector for ``site_legs=2``."""
+    return np.eye(d0).reshape(-1)
 
 
 def _log_sum(terms: np.ndarray):

@@ -1,15 +1,26 @@
-"""Named graphs, the Eagle lattice and edge coloring, without networkx.
+"""Named graphs, lattices, edge coloring and loop configurations, without
+networkx.
 
-Port of the parts of `tnqs/graphs.py` the compiled engine's host plan needs:
-`NamedGraph` (`tnqs/graphs.py:39-177`), `center` (`:298`), `edge_color` with
-its helpers (`:412-628`) and `eagle_lattice` (`:890`).  Everything here is
-host-side plan data; no tensor touches a device.
+Port of the parts of `tnqs/graphs.py` the compiled engine needs:
+`NamedGraph` (`tnqs/graphs.py:39-177`), the ring and line queries
+(`:184-234`), `center` (`:298`), `edge_color` with its helpers
+(`:412-628`), the lattice generators (`named_grid`, the path, ring and comb
+graphs, `named_hexagonal_lattice_graph`, `heavy_hexagonal_lattice`,
+`:795-888`), `eagle_lattice` (`:890`) and the loop-series configurations
+(`leafless_edge_induced_subgraphs`, `:677-793`), enumerated by the port's
+build of `tnqs_torch/csrc/host/loop_enum.cpp` with the Python enumerator as
+its plain version.  The hexagonal lattice reproduces
+`networkx.hexagonal_lattice_graph`'s vertex names and edge order without
+networkx: the engine's plan, edge ids and checkpoints follow that order.
+Everything here is host-side plan data; no tensor touches a device.
 """
 
 from __future__ import annotations
 
+import ctypes
+import itertools
 from collections import OrderedDict, deque
-from typing import Hashable, Iterable
+from typing import Hashable, Iterable, Sequence
 
 Vertex = Hashable
 Edge = tuple  # directed edge (src, dst)
@@ -69,14 +80,70 @@ class NamedGraph:
     def neighbors(self, v) -> list:
         return list(self._adj[v].keys())
 
+    def degree(self, v) -> int:
+        return len(self._adj[v])
+
     def nv(self) -> int:
         return len(self._adj)
 
     def ne(self) -> int:
         return len(self._edges)
 
+    def rem_edge(self, u: Vertex, v: Vertex) -> "NamedGraph":
+        if self.has_edge(u, v):
+            del self._adj[u][v]
+            del self._adj[v][u]
+            self._edges.pop((u, v), None)
+            self._edges.pop((v, u), None)
+        return self
+
+    def copy(self) -> "NamedGraph":
+        g = NamedGraph()
+        g._adj = OrderedDict((v, OrderedDict(nbrs)) for v, nbrs in self._adj.items())
+        g._edges = OrderedDict(self._edges)
+        return g
+
+    def rename_vertices(self, f) -> "NamedGraph":
+        return NamedGraph.from_edges((f(v) for v in self.vertices()), ((f(u), f(v)) for u, v in self.edges()))
+
     def __repr__(self):
         return f"NamedGraph({self.nv()} vertices, {self.ne()} edges)"
+
+
+def is_connected(g: NamedGraph) -> bool:
+    if g.nv() == 0:
+        return True
+    start = g.vertices()[0]
+    seen, stack = {start}, [start]
+    while stack:
+        for u in g.neighbors(stack.pop()):
+            if u not in seen:
+                seen.add(u)
+                stack.append(u)
+    return len(seen) == g.nv()
+
+
+def is_tree(g: NamedGraph) -> bool:
+    return g.nv() >= 1 and g.ne() == g.nv() - 1 and is_connected(g)
+
+
+def is_line_graph(g: NamedGraph) -> bool:
+    """True if `g` is a path (`tnqs/graphs.py:215`)."""
+    n = g.nv()
+    if n == 1:
+        return True
+    if not is_tree(g):
+        return False
+    return sorted(g.degree(v) for v in g.vertices()) == [1, 1] + [2] * (n - 2)
+
+
+def is_ring_graph(g: NamedGraph) -> bool:
+    """True if `g` is a single cycle (`tnqs/graphs.py:226`)."""
+    if g.ne() == 0:
+        return False
+    h = g.copy()
+    h.rem_edge(*h.edges()[0])
+    return is_line_graph(h)
 
 
 def center(g: NamedGraph) -> list:
@@ -304,3 +371,287 @@ def eagle_lattice() -> NamedGraph:
     if g.nv() != 127 or g.ne() != 144:  # pragma: no cover
         raise AssertionError("eagle_lattice: expected 127 vertices and 144 edges")
     return g
+
+
+# ----------------------------------------------------------------------
+# lattice generators (`tnqs/graphs.py:795-888`)
+# ----------------------------------------------------------------------
+
+def named_grid(dims: Sequence[int], periodic=False) -> NamedGraph:
+    """Hypercubic lattice with 1-based tuple vertex names (1-based integers
+    in one dimension), `tnqs.graphs.named_grid` vertex for vertex and edge
+    for edge; `periodic` is a bool or one per axis (an axis wraps when it
+    has more than 2 sites)."""
+    dims = tuple(int(d) for d in dims)
+    if isinstance(periodic, str):
+        raise TypeError(f"periodic must be a bool or sequence of bools, got {periodic!r}")
+    try:
+        per = tuple(bool(p) for p in periodic)
+    except TypeError:
+        per = (bool(periodic),) * len(dims)
+    if len(per) != len(dims):
+        raise ValueError(f"periodic {periodic} does not match dims {dims}")
+    if len(dims) == 1:
+        g = NamedGraph(range(1, dims[0] + 1))
+        for i in range(1, dims[0]):
+            g.add_edge(i, i + 1)
+        if per[0] and dims[0] > 2:
+            g.add_edge(dims[0], 1)
+        return g
+    vs = list(itertools.product(*[range(1, d + 1) for d in dims]))
+    g = NamedGraph(vs)
+    for v in vs:
+        for k, d in enumerate(dims):
+            if v[k] < d:
+                g.add_edge(v, v[:k] + (v[k] + 1,) + v[k + 1:])
+            elif per[k] and d > 2:
+                g.add_edge(v, v[:k] + (1,) + v[k + 1:])
+    return g
+
+
+def named_path_graph(n: int) -> NamedGraph:
+    return named_grid((n,))
+
+
+def named_ring_graph(n: int) -> NamedGraph:
+    return named_grid((n,), periodic=True)
+
+
+def named_comb_tree(dims: Sequence[int]) -> NamedGraph:
+    """A backbone path along (i, 1) with teeth along j (`tnqs/graphs.py:835`)."""
+    nx_, ny_ = dims
+    g = NamedGraph(itertools.product(range(1, nx_ + 1), range(1, ny_ + 1)))
+    for i in range(1, nx_):
+        g.add_edge((i, 1), (i + 1, 1))
+    for i in range(1, nx_ + 1):
+        for j in range(1, ny_):
+            g.add_edge((i, j), (i, j + 1))
+    return g
+
+
+class _NxGraph:
+    """The dict-of-dicts bookkeeping of a `networkx.Graph`, for the
+    operations `networkx.hexagonal_lattice_graph` performs (`add_edge`,
+    `remove_node`, `copy`, `contracted_nodes`), so that its vertex and edge
+    order come out as networkx's: a node's neighbors in insertion order, the
+    edges in node order, each reported from the first endpoint reached."""
+
+    def __init__(self):
+        self.adj: dict = {}
+
+    def add_edge(self, u, v) -> None:
+        self.adj.setdefault(u, {})
+        self.adj.setdefault(v, {})
+        self.adj[u][v] = None
+        self.adj[v][u] = None
+
+    def remove_node(self, n) -> None:
+        for u in self.adj[n]:
+            del self.adj[u][n]
+        del self.adj[n]
+
+    def copy(self) -> "_NxGraph":
+        # `Graph.copy`: the nodes in order, then every adjacency entry in
+        # node order through `add_edges_from`, which reorders neighbors
+        out = _NxGraph()
+        out.adj = {n: {} for n in self.adj}
+        for u, nbrs in self.adj.items():
+            for v in nbrs:
+                out.adj[u][v] = None
+                out.adj[v][u] = None
+        return out
+
+    def contracted_nodes(self, u, v) -> "_NxGraph":
+        """`networkx.contracted_nodes(G, u, v)` (copy=True, self_loops=True):
+        v's edges, in v's neighbor order, re-attached to u."""
+        h = self.copy()
+        remap = list(self.adj[v])
+        h.remove_node(v)
+        for x in remap:
+            x = u if x == v else x
+            if x not in h.adj.get(u, {}):
+                h.add_edge(u, x)
+        return h
+
+    def edges(self) -> list:
+        seen, out = set(), []
+        for n, nbrs in self.adj.items():
+            out.extend((n, nbr) for nbr in nbrs if nbr not in seen)
+            seen.add(n)
+        return out
+
+
+def named_hexagonal_lattice_graph(m: int, n: int, periodic: bool = False) -> NamedGraph:
+    """Hexagonal (honeycomb) lattice of m x n hexagons with 1-based
+    ``(row, col)`` names: `tnqs.graphs.named_hexagonal_lattice_graph`, whose
+    vertices are `networkx.hexagonal_lattice_graph`'s (col, row) nodes
+    renamed and sorted, and whose edges come in networkx's order.  The
+    construction is networkx's, step for step, on `_NxGraph`."""
+    if m == 0 or n == 0:
+        return NamedGraph()
+    if periodic and (n % 2 == 1 or m < 2 or n < 2):
+        raise ValueError("periodic hexagonal lattice needs m > 1, n > 1 and even n")
+    M = 2 * m
+    rows, cols = range(M + 2), range(n + 1)
+    G = _NxGraph()
+    for i in cols:
+        for j in rows[: M + 1]:
+            G.add_edge((i, j), (i, j + 1))
+    for i in cols[:n]:
+        for j in rows:
+            if i % 2 == j % 2:
+                G.add_edge((i, j), (i + 1, j))
+    G.remove_node((0, M + 1))
+    G.remove_node((n, (M + 1) * (n % 2)))
+    if periodic:
+        for i in cols[:n]:
+            G = G.contracted_nodes((i, 0), (i, M))
+        for i in cols[1:]:
+            G = G.contracted_nodes((i, 1), (i, M + 1))
+        for j in rows[1:M]:
+            G = G.contracted_nodes((0, j), (n, j))
+        G.remove_node((n, M))
+    name = {v: (v[1] + 1, v[0] + 1) for v in G.adj}
+    return NamedGraph.from_edges(sorted(name.values()), ((name[u], name[v]) for u, v in G.edges()))
+
+
+def heavy_hexagonal_lattice(nx_: int, ny_: int) -> NamedGraph:
+    """The hexagonal lattice with a vertex on every edge (IBM's heavy-hex
+    topology), `tnqs.graphs.heavy_hexagonal_lattice` (`tnqs/graphs.py:875`)."""
+    g = named_hexagonal_lattice_graph(nx_, ny_).rename_vertices(lambda v: (2 * v[0] - 1, 2 * v[1] - 1))
+    out = NamedGraph(g.vertices())
+    for u, v in g.edges():
+        mid = ((u[0] + v[0]) / 2, (u[1] + v[1]) / 2)
+        mid = tuple(int(x) if float(x).is_integer() else x for x in mid)
+        out.add_vertex(mid)
+        out.add_edge(u, mid)
+        out.add_edge(mid, v)
+    return out
+
+
+# ----------------------------------------------------------------------
+# loop-series configurations (`tnqs/graphs.py:677-793`)
+# ----------------------------------------------------------------------
+
+def _connected_leafless_subgraphs(g: NamedGraph, max_edges: int) -> list[frozenset]:
+    """Every connected edge-induced subgraph of `g` with 3 to `max_edges`
+    edges and no vertex of degree 1, grown from each seed edge with edges of
+    higher index only and pruned when its leaves cannot all be repaired
+    within the budget (`tnqs/graphs.py:690`)."""
+    edge_list = [frozenset(e) for e in g.edges()]
+    edge_index = {e: i for i, e in enumerate(edge_list)}
+    incident: dict = {}
+    for e in edge_list:
+        for v in e:
+            incident.setdefault(v, []).append(e)
+    results: set = set()
+    seen_states: set = set()
+
+    def degrees(es) -> dict:
+        deg: dict = {}
+        for e in es:
+            for v in e:
+                deg[v] = deg.get(v, 0) + 1
+        return deg
+
+    def grow(current: set, frontier: set):
+        key = frozenset(current)
+        if key in seen_states:
+            return
+        seen_states.add(key)
+        deg = degrees(current)
+        leaves = sum(1 for d in deg.values() if d == 1)
+        if len(current) >= 3 and leaves == 0:
+            results.add(key)
+        if len(current) >= max_edges or len(current) + (leaves + 1) // 2 > max_edges:
+            return
+        min_idx = min(edge_index[e] for e in current)
+        for e in list(frontier):
+            if e in current or edge_index[e] < min_idx:
+                continue
+            new_frontier = set(frontier)
+            for v in e:
+                new_frontier.update(incident[v])
+            grow(current | {e}, new_frontier)
+
+    for seed in edge_list:
+        frontier: set = set()
+        for v in seed:
+            frontier.update(incident[v])
+        grow({seed}, frontier)
+    return sorted(results, key=lambda s: (len(s), sorted(map(sorted, map(list, s)))))
+
+
+def _leafless_subgraphs_plain(g: NamedGraph, max_edges: int) -> list[frozenset]:
+    """The configurations as sets of undirected edges, by Python: the
+    connected ones, then every vertex-disjoint union of them within the
+    budget (`tnqs/graphs.py:755-789`)."""
+    connected = _connected_leafless_subgraphs(g, max_edges)
+    results = set(connected)
+
+    def verts(es) -> frozenset:
+        return frozenset(v for e in es for v in e)
+
+    level = [(c, verts(c)) for c in connected]
+    while level:
+        nxt = []
+        for es, vs in level:
+            for c in connected:
+                cvs = verts(c)
+                if len(es) + len(c) > max_edges or vs & cvs:
+                    continue
+                u = es | c
+                if u not in results:
+                    results.add(u)
+                    nxt.append((u, vs | cvs))
+        level = nxt
+    return sorted(results, key=len)
+
+
+def _leafless_subgraphs_native(g: NamedGraph, max_edges: int) -> list[list[int]] | None:
+    """The configurations as lists of edge indices into `g.edges()`, by the
+    port's build of `csrc/host/loop_enum.cpp`; None past its 1024 edges."""
+    from .ops import _build
+
+    edge_list = g.edges()
+    ne = len(edge_list)
+    if ne == 0 or ne > 1024:
+        return None
+    import numpy as np
+
+    vidx = {v: i for i, v in enumerate(g.vertices())}
+    edges = np.array([(vidx[u], vidx[v]) for u, v in edge_list], dtype=np.int32)
+    lib = _build.host_library()
+    cap = 1 << 20
+    while True:
+        out = np.zeros(cap, dtype=np.int32)
+        written = ctypes.c_int64(0)
+        count = lib.tnqs_leafless_subgraphs(g.nv(), ne, edges.ctypes.data, int(max_edges), out.ctypes.data, cap,
+                                            ctypes.byref(written))
+        if count == -2 and cap < 1 << 28:
+            cap *= 8
+            continue
+        if count < 0:
+            raise RuntimeError(f"tnqs_leafless_subgraphs failed ({count}) on {g}, max_edges={max_edges}")
+        break
+    result, pos = [], 0
+    for _ in range(count):
+        n = int(out[pos])
+        result.append([int(x) for x in out[pos + 1 : pos + 1 + n]])
+        pos += 1 + n
+    return result
+
+
+def leafless_edge_induced_subgraphs(g: NamedGraph, max_edges: int, native: bool = True) -> list[list[Edge]]:
+    """Every leafless edge-induced subgraph of `g` with at most `max_edges`
+    edges (the BP loop series' configurations, `tnqs/graphs.py:743`), as
+    lists of edges of `g`.  `native` enumerates with the port's build of
+    `loop_enum.cpp` (compiled by g++ at first use; a failed build raises),
+    else in Python, which is the plain version the tests hold it against;
+    a graph of more than 1024 edges takes Python either way."""
+    subs = _leafless_subgraphs_native(g, max_edges) if native else None
+    edge_list = g.edges()
+    if subs is not None:
+        return [[edge_list[i] for i in es] for es in subs]
+    index = {frozenset(e): e for e in edge_list}
+    return [[index[e] for e in es] for es in _leafless_subgraphs_plain(g, max_edges)]

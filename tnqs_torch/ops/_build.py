@@ -1,4 +1,5 @@
-"""Build the CUDA kernels of `tnqs_torch/csrc` with nvcc and load them.
+"""Build the CUDA kernels of `tnqs_torch/csrc` with nvcc, and the host
+library of `tnqs_torch/csrc/host` with g++, and load them.
 
 The sources have a plain C interface, so nvcc compiles each in seconds into
 a shared library of its own that `ctypes` loads; nothing includes PyTorch's
@@ -7,7 +8,8 @@ libraries go to ``build/tnqs_torch/`` at the repository root, named by a
 hash of the source and the flags, and are built at first use; ptxas's
 register and spill report is kept beside each (`build_log`).  No
 ``--use_fast_math``: the Jacobi rotation formulas need IEEE division and
-square roots.
+square roots.  The host library (`host_library`: the loop-series
+enumerator) is plain C++ and builds the same way with g++ on any machine.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import subprocess
 import types
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+HOST_SOURCES = (CSRC / "host" / "loop_enum.cpp",)
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "tnqs_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -44,6 +48,9 @@ _SIGNATURES = {
     "tnqs_bp_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     # (smem_mode, smem_pass2, ctas_mode, ctas_pass2, ctas_wide, sms), all out
     "tnqs_bp_sweep_setup": [ctypes.POINTER(_I)] * 6,
+    # the bf16_3x mode's, with the same arguments
+    "tnqs_bp_sweep_3x": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "tnqs_bp_sweep_setup_3x": [ctypes.POINTER(_I)] * 6,
 }
 
 
@@ -96,6 +103,39 @@ def kernels() -> types.SimpleNamespace:
         fn.restype = ctypes.c_int
         fns[name] = fn
     return types.SimpleNamespace(**fns)
+
+
+def host_library_path() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    for src in HOST_SOURCES:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libtnqs_host_{h.hexdigest()[:16]}.so"
+
+
+@functools.cache
+def host_library() -> ctypes.CDLL:
+    """The host library, compiled by g++ on first call in this process
+    unless it is already in the build directory; a failed build raises."""
+    path = host_library_path()
+    if not path.exists():
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError("g++ not found: tnqs_torch's host library needs a C++ compiler")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), *map(str, HOST_SOURCES)], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed on {[s.name for s in HOST_SOURCES]} ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(str(path))
+    # (nv, ne, edges int32[2 ne], max_edges, out int32[cap], cap, written int64 out) -> count, -1 bad input,
+    # -2 out too small
+    lib.tnqs_leafless_subgraphs.argtypes = [ctypes.c_int32, ctypes.c_int32, _P, ctypes.c_int32, _P,
+                                            ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
+    lib.tnqs_leafless_subgraphs.restype = ctypes.c_int64
+    return lib
 
 
 def build_log() -> str:

@@ -16,6 +16,15 @@ not ported.  `bp_plan` makes the kernel's launch plan (slots, chunks,
 scratch); the wrapper caches it per shape and device as the int64 array the
 kernel reads and sets the kernels' attributes once per device, so a launch
 is one ctypes call and makes no host sync.
+
+Two arithmetic modes, as the TPU kernel has (`tnqs/ops/bp_sweep.py:129-166`):
+"highest", every product in full float32, and "bf16_3x", every real
+product hi.hi + hi.lo + lo.hi of its operands' bfloat16 split with float32
+accumulation (the JAX engine's ``bp_precision="high"``).  In "bf16_3x" the
+plain version splits at the kernel's points (each operand of each of the
+three products, V and W rounded to float32 before their split) and takes
+float32 products of the splits, which are exact, so it differs from the
+kernel's tensor-core products only in the order of the sums.
 """
 
 from __future__ import annotations
@@ -35,6 +44,13 @@ TILE = 64
 PITCH = TILE + 2
 SMEM_MODE = 3 * TILE * PITCH * 8
 SMEM_PASS2 = 3 * TILE * PITCH * 8
+# the bf16_3x kernels' split tiles: hi and lo planes of the real and
+# imaginary parts, 64 rows of 72 bf16 each; pass 1 holds two, pass 2 three
+PITCH_H = TILE + 8
+SPLIT_BYTES = 4 * TILE * PITCH_H * 2
+SMEM_MODE_3X = 2 * SPLIT_BYTES
+SMEM_PASS2_3X = 3 * SPLIT_BYTES
+MODES = ("highest", "bf16_3x")
 # cost of the reduce pass in pass-2 items, for choosing the chunks
 _REDUCE_COST = 0.25
 
@@ -145,21 +161,43 @@ def bp_plan(k: int, chi: int, batch: int, t: int, d: int, mode_slots: int, pass2
                   mode_per_cta)
 
 
-def absorb_message(A: torch.Tensor, M: torch.Tensor, axis: int) -> torch.Tensor:
+def _split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of a float32 tensor as float32 values: hi = bf16(x), lo =
+    bf16(x - hi), both rounded to nearest even (x - hi is exact)."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _einsum3(expr: str, A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """The complex64 einsum of two operands in bf16_3x: four real
+    products, each hi.hi + hi.lo + lo.hi of the operands' splits."""
+    (ar, ai), (br, bi) = ((_split(X.real), _split(X.imag)) for X in (A.resolve_conj(), B.resolve_conj()))
+
+    def prod(x, y):
+        return torch.einsum(expr, x[1], y[0]) + torch.einsum(expr, x[0], y[1]) + torch.einsum(expr, x[0], y[0])
+
+    return torch.complex(prod(ar, br) - prod(ai, bi), prod(ar, bi) + prod(ai, br))
+
+
+def _einsum(expr: str, A: torch.Tensor, B: torch.Tensor, mode: str) -> torch.Tensor:
+    return torch.einsum(expr, A, B) if mode == "highest" else _einsum3(expr, A, B)
+
+
+def absorb_message(A: torch.Tensor, M: torch.Tensor, axis: int, mode: str = "highest") -> torch.Tensor:
     """Contract bond `axis` of the batched tensor A [B, ..., chi@axis, ...]
     with the batched message M [B, chi, chi] as (ket, out)."""
-    A = torch.einsum("B...i,Bij->B...j", A.movedim(axis, -1), M)
+    A = _einsum("B...i,Bij->B...j", A.movedim(axis, -1), M, mode)
     return A.movedim(-1, axis)
 
 
-def _bra_product(A: torch.Tensor, Bra: torch.Tensor, t: int) -> torch.Tensor:
+def _bra_product(A: torch.Tensor, Bra: torch.Tensor, t: int, mode: str = "highest") -> torch.Tensor:
     """m[B, i, j] = sum over the site axis and every bond but slot t of
     A[.., i@t, ..] conj(Bra[.., j@t, ..])."""
     k = A.dim() - 2
     a_sub = ["B", "s"] + [chr(ord("a") + j) for j in range(k)]
     b_sub = list(a_sub)
     a_sub[2 + t], b_sub[2 + t] = "i", "j"
-    return torch.einsum(f"{''.join(a_sub)},{''.join(b_sub)}->Bij", A, Bra.conj())
+    return _einsum(f"{''.join(a_sub)},{''.join(b_sub)}->Bij", A, Bra.conj(), mode)
 
 
 def group_messages(A: torch.Tensor, Ms: Sequence[torch.Tensor], t: int) -> torch.Tensor:
@@ -174,7 +212,10 @@ def group_messages(A: torch.Tensor, Ms: Sequence[torch.Tensor], t: int) -> torch
     return _bra_product(A, Asrc, t)
 
 
-def _check_group(Tk: torch.Tensor, Min: torch.Tensor, rows: torch.Tensor, t: int) -> tuple[int, int, int]:
+def _check_group(Tk: torch.Tensor, Min: torch.Tensor, rows: torch.Tensor, t: int,
+                 mode: str = "highest") -> tuple[int, int, int]:
+    if mode not in MODES:
+        raise ValueError(f"bp_sweep_group: unknown mode {mode!r}; one of {MODES}")
     k = Tk.dim() - 2
     B = Min.shape[0]
     chi = Tk.shape[-1]
@@ -190,49 +231,60 @@ def _check_group(Tk: torch.Tensor, Min: torch.Tensor, rows: torch.Tensor, t: int
     return k, B, chi
 
 
-def _bp_sweep_group_plain(Tk: torch.Tensor, Min: torch.Tensor, rows: torch.Tensor, t: int) -> torch.Tensor:
+def _bp_sweep_group_plain(Tk: torch.Tensor, Min: torch.Tensor, rows: torch.Tensor, t: int,
+                          mode: str = "highest") -> torch.Tensor:
     """The kernel's messages by its formulation in PyTorch: the ket side W
-    takes every message but slot u's, the bra side V = K x_u conj(M_u)
-    (K itself at k = 2), then the sum of W conj(V) over s and every slot but
-    t (`split_slots`)."""
+    takes every message but slot u's, ascending, the bra side V = K x_u
+    conj(M_u) (K itself at k = 2), then the sum of W conj(V) over s and
+    every slot but t (`split_slots`), each product in `mode`."""
     _bp_sweep_group_plain.calls += 1
-    k, _, _ = _check_group(Tk, Min, rows, t)
+    k, _, _ = _check_group(Tk, Min, rows, t, mode)
     u, _ = split_slots(k, t)
     W = V = Tk[rows]
     for col, j in enumerate(j for j in range(k) if j != t):
         if j == u:  # V[.., x@u, ..] = sum_p conj(M_u[x, p]) K[.., p@u, ..]
-            V = absorb_message(V, Min[:, col].mH, 2 + j)
+            V = absorb_message(V, Min[:, col].mH, 2 + j, mode)
         else:
-            W = absorb_message(W, Min[:, col], 2 + j)
-    return _bra_product(W, V, t)
+            W = absorb_message(W, Min[:, col], 2 + j, mode)
+    return _bra_product(W, V, t, mode)
 
 
 _bp_sweep_group_plain.calls = 0
 
 
-@functools.cache
-def _slots(device_index: int) -> tuple[int, int, int]:
-    """Once per device: set the kernels' shared-memory limits and return how
-    many pass-1, pass-2 and wide pass-2 (chi > 64) CTAs the card holds at
-    once."""
-    lib = _build.kernels()
+def _query_slots(setup: str, smem: tuple[int, int], device_index: int) -> tuple[int, int, int]:
+    """Set one mode's kernels' shared-memory limits on a device (`setup`,
+    the C entry) and return how many pass-1, pass-2 and wide pass-2
+    (chi > 64) CTAs the card holds at once."""
     vals = [ctypes.c_int() for _ in range(6)]
     with torch.cuda.device(device_index):
-        _build.check(lib.tnqs_bp_sweep_setup(*(ctypes.byref(x) for x in vals)), "tnqs_bp_sweep_setup")
+        _build.check(getattr(_build.kernels(), setup)(*(ctypes.byref(x) for x in vals)), setup)
     smem_mode, smem_pass2, *ctas, sms = (x.value for x in vals)
-    if (smem_mode, smem_pass2) != (SMEM_MODE, SMEM_PASS2):
-        raise RuntimeError(f"bp_sweep.cu's shared memory {smem_mode}, {smem_pass2} B is not the plan's "
-                           f"{SMEM_MODE}, {SMEM_PASS2} B")
+    if (smem_mode, smem_pass2) != smem:
+        raise RuntimeError(f"bp_sweep.cu's shared memory {smem_mode}, {smem_pass2} B is not the plan's {smem} B")
     if min(ctas) < 1:
-        raise RuntimeError(f"no BP kernel CTA fits an SM {ctas}")
+        raise RuntimeError(f"no BP kernel CTA of {setup} fits an SM {ctas}")
     return tuple(n * sms for n in ctas)
 
 
+@functools.cache
+def _slots(device_index: int) -> tuple[int, int, int]:
+    """Once per device: the FP32 ("highest") kernels' CTA slots."""
+    return _query_slots("tnqs_bp_sweep_setup", (SMEM_MODE, SMEM_PASS2), device_index)
+
+
+@functools.cache
+def _slots_3x(device_index: int) -> tuple[int, int, int]:
+    """Once per device: the bf16_3x kernels' CTA slots."""
+    return _query_slots("tnqs_bp_sweep_setup_3x", (SMEM_MODE_3X, SMEM_PASS2_3X), device_index)
+
+
 @functools.lru_cache(maxsize=None)
-def _launch_args(k: int, chi: int, batch: int, t: int, d: int, device_index: int):
+def _launch_args(k: int, chi: int, batch: int, t: int, d: int, device_index: int, mode: str = "highest"):
     """(scratch elements, the plan as the int64[14] `tnqs_bp_sweep` reads)
-    of a group shape on a device, made once."""
-    mode_slots, pass2_slots, wide_slots = _slots(device_index)
+    of a group shape on a device in `mode`, made once; the plan follows the
+    occupancy of that mode's kernels."""
+    mode_slots, pass2_slots, wide_slots = (_slots if mode == "highest" else _slots_3x)(device_index)
     plan = bp_plan(k, chi, batch, t, d, mode_slots, pass2_slots if chi <= TILE else wide_slots)
     buf = batch * d * plan.site
     offsets = (0, plan.v_elems, plan.v_elems + buf, plan.v_elems + plan.w_elems)  # V, W0, W1, partials
@@ -241,33 +293,42 @@ def _launch_args(k: int, chi: int, batch: int, t: int, d: int, device_index: int
     return plan.scratch_elems, args
 
 
-def _bp_sweep_group_cuda(Tk: torch.Tensor, Min: torch.Tensor, rows: torch.Tensor, t: int) -> torch.Tensor:
-    """Launch `tnqs_bp_sweep` on contiguous complex64 CUDA tensors."""
+def _bp_sweep_group_cuda(Tk: torch.Tensor, Min: torch.Tensor, rows: torch.Tensor, t: int,
+                         mode: str = "highest") -> torch.Tensor:
+    """Launch `tnqs_bp_sweep` (`tnqs_bp_sweep_3x` in bf16_3x) on contiguous
+    complex64 CUDA tensors."""
     if not (Tk.is_cuda and Min.device == Tk.device and Tk.dtype == Min.dtype == torch.complex64):
         raise ValueError("bp_sweep_group kernel takes complex64 CUDA tensors on one device")
     if not (Tk.is_contiguous() and Min.is_contiguous() and rows.is_contiguous()):
         raise ValueError("bp_sweep_group kernel takes contiguous T, rows and messages")
-    k, B, chi = _check_group(Tk, Min, rows, t)
+    k, B, chi = _check_group(Tk, Min, rows, t, mode)
     if not supports_group(k, chi, Tk.dtype):
         raise ValueError(f"bp_sweep_group kernel does not take k={k}, chi={chi}")
     out = torch.empty((B, chi, chi), dtype=Tk.dtype, device=Tk.device)
     if B == 0:
         return out
     dev = Tk.device.index
-    elems, args = _launch_args(k, chi, B, t, Tk.shape[1], dev)
+    elems, args = _launch_args(k, chi, B, t, Tk.shape[1], dev, mode)
     # V, the ket absorbs before pass 2 and the partials, in one allocation
     scratch = torch.empty(elems, dtype=Tk.dtype, device=Tk.device) if elems else None
-    err = _build.kernels().tnqs_bp_sweep(
+    lib = _build.kernels()
+    launch = lib.tnqs_bp_sweep if mode == "highest" else lib.tnqs_bp_sweep_3x
+    err = launch(
         Tk.data_ptr(), rows.data_ptr(), Min.data_ptr(), out.data_ptr(), scratch.data_ptr() if elems else None,
         args, Tk.shape[0], dev, torch.cuda.current_stream(Tk.device).cuda_stream,
     )
-    _build.check(err, "tnqs_bp_sweep")
+    _build.check(err, launch.__name__)
     bp_sweep_group.launches += 1
+    bp_sweep_group.launches_by_mode[mode] += 1
+    key = (mode, k, chi, B)
+    bp_sweep_group.launches_by_shape[key] = bp_sweep_group.launches_by_shape.get(key, 0) + 1
     return out
 
 
-def bp_sweep_group(Tk: torch.Tensor, Min: torch.Tensor, rows: torch.Tensor, t: int) -> torch.Tensor:
-    """Un-normalized outgoing BP messages of one group.
+def bp_sweep_group(Tk: torch.Tensor, Min: torch.Tensor, rows: torch.Tensor, t: int,
+                   mode: str = "highest") -> torch.Tensor:
+    """Un-normalized outgoing BP messages of one group, in the arithmetic of
+    `mode` ("highest" or "bf16_3x", the TPU kernel's modes).
 
     `Tk` is the whole degree-k bucket [n_k, d, chi x k]; the bucket rows
     `rows` (int64 [B], on Tk's device) emit one message each through bond
@@ -277,11 +338,13 @@ def bp_sweep_group(Tk: torch.Tensor, Min: torch.Tensor, rows: torch.Tensor, t: i
     plain version; any other device goes to the kernel launcher, which
     raises off a CUDA device."""
     if Tk.device.type != "cpu":
-        return _bp_sweep_group_cuda(Tk, Min, rows, t)
-    _, B, chi = _check_group(Tk, Min, rows, t)
+        return _bp_sweep_group_cuda(Tk, Min, rows, t, mode)
+    _, B, chi = _check_group(Tk, Min, rows, t, mode)
     if B == 0:
         return Tk.new_empty((0, chi, chi))
-    return _bp_sweep_group_plain(Tk, Min, rows, t)
+    return _bp_sweep_group_plain(Tk, Min, rows, t, mode)
 
 
-bp_sweep_group.launches = 0
+bp_sweep_group.launches = 0  # every launch, in either mode
+bp_sweep_group.launches_by_mode = dict.fromkeys(MODES, 0)
+bp_sweep_group.launches_by_shape = {}  # (mode, k, chi, B) -> launches

@@ -10,7 +10,11 @@ searches every pairwise order itself: the boundary-MPS expressions have at
 most five operands, 180 orders.  It minimizes opt_einsum's FLOP count (the
 product of the sizes of every index a pairwise step touches, doubled when
 the step sums an index away) and breaks ties by the largest intermediate.
-`ceinsum` runs the memoized path as pairwise `torch.einsum` calls.
+Past `EXHAUSTIVE_MAX` operands (the loop-series weights of non-cycle
+configurations, one operand per vertex and per edge) it builds the path
+greedily instead: each step contracts the pair whose product is smallest,
+then the cheapest.  `ceinsum` runs the memoized path as pairwise
+`torch.einsum` calls.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import math
 import torch
 
 _PATH_CACHE: dict = {}
+EXHAUSTIVE_MAX = 6  # operands; 2700 pairwise orders at 6
 
 
 def _parse(expr: str) -> tuple[list[str], str]:
@@ -42,6 +47,27 @@ def contract_path(expr: str, shapes) -> tuple[list, int, int]:
                 raise ValueError(f"{expr}: index {c!r} has sizes {sizes[c]} and {int(x)}")
     best = [None]  # (flops, peak, path)
 
+    def step_cost(terms, i, j):
+        rest = [t for k, t in enumerate(terms) if k not in (i, j)]
+        keep = set(output).union(*rest)
+        union = "".join(dict.fromkeys(terms[i] + terms[j]))
+        new = "".join(c for c in union if c in keep)
+        cost = math.prod(sizes[c] for c in union) * (2 if len(new) < len(union) else 1)
+        return rest, new, cost
+
+    if len(inputs) > EXHAUSTIVE_MAX:
+        terms, flops, peak, path = list(inputs), 0, 0, []
+        while len(terms) > 1:
+            pairs = [(i, j) for i in range(len(terms)) for j in range(i + 1, len(terms))]
+            shared = [(i, j) for i, j in pairs if set(terms[i]) & set(terms[j])] or pairs
+            scored = []
+            for i, j in shared:
+                rest, new, cost = step_cost(terms, i, j)
+                scored.append((math.prod(sizes[c] for c in new), cost, (i, j), rest, new))
+            size, cost, ij, rest, new = min(scored, key=lambda x: x[:3])
+            terms, flops, peak, path = rest + [new], flops + cost, max(peak, size), path + [ij]
+        return path, flops, peak
+
     def search(terms, flops, peak, path):
         if best[0] is not None and flops > best[0][0]:
             return
@@ -51,11 +77,7 @@ def contract_path(expr: str, shapes) -> tuple[list, int, int]:
             return
         for i in range(len(terms)):
             for j in range(i + 1, len(terms)):
-                rest = [t for k, t in enumerate(terms) if k not in (i, j)]
-                keep = set(output).union(*rest)
-                union = "".join(dict.fromkeys(terms[i] + terms[j]))
-                new = "".join(c for c in union if c in keep)
-                cost = math.prod(sizes[c] for c in union) * (2 if len(new) < len(union) else 1)
+                rest, new, cost = step_cost(terms, i, j)
                 search(rest + [new], flops + cost, max(peak, math.prod(sizes[c] for c in new)), path + [(i, j)])
 
     search(list(inputs), 0, 0, [])
