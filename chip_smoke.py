@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of tnqs_torch on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--layers N] [--bp-kernel-only | --switches-only | --measure-only]
+    python3 chip_smoke.py [--layers N] [--bp-kernel-only | --switches-only | --measure-only | --flex-only]
 
 Run from the repository root.  Phases, each of which fails the run:
 
@@ -135,7 +135,25 @@ Run from the repository root.  Phases, each of which fails the run:
    dbeta=0.01, 25 steps, operator sites) at complex128 on the card and the
    CPU (1e-10 apart; within the JAX engine's own distance from the golden,
    plus that) and at complex64 in both BP precisions (K3 at d = 4, k = 3,
-   chi=32), every recorded step within 2e-3 of the 4th-order HTSE.
+   chi=32), every recorded step within 2e-3 of the 4th-order HTSE;
+11. the flex tier on the card (`tnqs_torch.apply_gates`, `expect`,
+   `sample_directly_certified`): (a) `golden_eagle127.json`'s
+   configuration (Eagle-127, 20 kicked-Ising layers, J = pi/4, theta_h =
+   0.4, maxdim 8, cutoff 1e-12, complex128) from "↑", every layer's
+   fidelity and BP <Z>(7,8) within 1e-5 of the golden, ms and host syncs
+   (`torch.cuda.set_sync_debug_mode`) a layer, then BMPS rank 10 <Z>(7,8)
+   within 1e-5, its seconds and syncs; (b) `sample_directly_certified`
+   with `default_rng(0)` at rank 10, 4 samples (2 if (a)'s evolution took
+   over 120 s): each sample's bit at (7,8) and its count of ones those of
+   `first4_samples`, p/q within FLEX_PQ_TOL of the golden's, seconds a
+   sample; (c) 3 layers on the card and on the CPU port, truncation errors
+   and BP <Z> on every vertex within 1e-10; (d) `golden_loopcorrections.json`
+   (BP, loop-corrected and exact norms within 1e-5, the loop correction
+   closer to exact); (e) the main path's chi=64 state after phase 6 as an
+   engine (`from_arrays`), `to_bp_cache()`, flex BP <Z> at (7,8) and (11,5)
+   within 1e-5 of `expect_1site`, its time and peak memory, and
+   `to_state()` through `save_state` / `load_state` bit for bit.  No
+   kernel launches and no plain run on the flex tier.
 
 The line before the last is {"kernels": [...]}: `launches` counts the
 launches on each row's own path (phase 5 for K1-K3, 10c for K3's bf16_3x
@@ -143,6 +161,8 @@ mode), `launches_by_path` each run's of phases 5-10 ("6" the BP path, "8a"
 the w2 evolution, "8a bmps" and "8c bmps" the BMPS calls, "9a", "9c" and
 "9d" the sampler calls, "10e" and "10e high" the complex64 thermal runs);
 the last line is {"ok": true, "device": {...}}.
+`--flex-only` runs phases 1, 2, the main path's evolution and `bp_update`
+and 11 (no result lines).
 `--bp-kernel-only` runs phases 1, 2 and 4 and prints K3's row alone (no
 result lines), e.g. on an older tree; `--switches-only` runs phases 1, 2,
 K2 at the switches' shapes and 7 (no result lines); `--measure-only` runs
@@ -2034,6 +2054,190 @@ def thermal_phase(dev, chi=32):
     return by_path
 
 
+# ----------------------------------------------------------------------
+# phase 11: the flex tier
+# ----------------------------------------------------------------------
+
+# The flex BMPS sampler's p/q at a truncating rank depends on the basis the
+# fitting's QR gives the null space of its rank-deficient start (JAX's
+# own p/q moves by up to 4.5e-5 when 1e-15 relative noise enters its QR
+# inputs: `python tests/torch_flex_noise_reference.py`), so the golden's
+# p/q is reproducible to 1e-5 only by bit-identical arithmetic; held here
+# to 1e-4, about twice that spread.  Bits and counts are held exactly.
+FLEX_PQ_TOL = 1e-4
+
+
+class SyncCounter:
+    """Counts the host synchronizations of the CUDA work inside it
+    (`torch.cuda.set_sync_debug_mode("warn")`, one warning each)."""
+
+    def __enter__(self):
+        import warnings
+
+        self._ctx = warnings.catch_warnings(record=True)
+        self._log = self._ctx.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        self._ctx.__exit__(*exc)
+        self.count = sum("synchroniz" in str(w.message) for w in self._log)
+        return False
+
+
+def flex_evolve(dev, g, layer, c, layers, gold=None):
+    """`layers` kicked-Ising layers of the golden configuration by
+    `apply_gates` on the flex tier from "↑" on `dev`: the cache, each
+    layer's truncation errors and <Z> on every vertex (BP), ms and host
+    syncs a layer."""
+    import tnqs_torch as tt
+
+    from tnqs_torch.core import linalg
+
+    psi = tt.tensornetworkstate(lambda v: "↑", g, "S=1/2", dtype=np.complex128, device=dev)
+    bpc = tt.BeliefPropagationCache(psi)
+    ak = dict(maxdim=c["maxdim"], cutoff=c["cutoff"], normalize_tensors=True)
+    central = tuple(c["central"])
+    errs, zs, ms, syncs = [], [], [], []
+    for i in range(layers):
+        t0 = time.perf_counter()
+        if torch.device(dev).type == "cuda":
+            reads = linalg.host_reads.count
+            with SyncCounter() as sc:
+                bpc, e = tt.apply_gates(layer, bpc, apply_kwargs=ak)
+                sync(dev)
+            syncs.append((sc.count, linalg.host_reads.count - reads))
+        else:
+            bpc, e = tt.apply_gates(layer, bpc, apply_kwargs=ak)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        z = {v: tt.expect(bpc, ("Z", [v])) for v in ([central] if gold is not None else g.vertices())}
+        errs.append(e)
+        zs.append(z)
+        if gold is not None:
+            dfid = abs(float(np.prod(1.0 - e)) - gold["layer_fidelity"][i])
+            dz = abs(float(np.real(z[central])) - gold["z_central"][i])
+            require(dfid < 1e-5 and dz < 1e-5, f"11a: layer {i + 1} off the golden (fidelity {dfid:.3e}, <Z> "
+                                               f"{dz:.3e})")
+    return bpc, errs, zs, ms, syncs
+
+
+def flex_phase(dev, state_main):
+    """Phase 11: the flex tier on the card.  (a) the Eagle golden, 20 layers,
+    then BMPS rank 10; (b) certified samples; (c) 3 layers card vs CPU at
+    complex128; (d) golden_loopcorrections.json; (e) `to_state` /
+    `to_bp_cache` of the main path's chi=64 engine and the state
+    checkpoints."""
+    import tnqs_torch as tt
+    from tnqs_torch.engine import LatticeEngine
+
+    plain_before = reset_counts()
+    gold = json.loads((ROOT / "tests" / "golden" / "golden_eagle127.json").read_text())
+    c = gold["config"]
+    g = tt.eagle_lattice()
+    layer = tt.heavy_hex_kicked_ising_layer(g, c["J"], c["theta_h"])
+    central = tuple(c["central"])
+
+    # 11a: the golden, every layer within 1e-5, then BMPS rank 10
+    t0 = time.perf_counter()
+    bpc, _, _, ms, syncs = flex_evolve(dev, g, layer, c, c["layers"], gold)
+    evolve_s = time.perf_counter() - t0
+    print(f"11a: Eagle golden on the flex tier, {c['layers']} layers at chi={c['maxdim']}, complex128: every "
+          f"layer_fidelity and z_central within 1e-5; {evolve_s:.3f} s with the per-layer <Z>; ms a layer "
+          f"{[round(x, 1) for x in ms]} (mean {np.mean(ms[1:]):.1f} after the first); host syncs a layer, of "
+          f"them singular-value reads of the truncation rule, {syncs} (mean {np.mean([x[0] for x in syncs]):.1f})",
+          flush=True)
+    psi_t = bpc.network
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with SyncCounter() as sc:
+        zb = tt.expect(psi_t, [("Z", [central])], alg="boundarymps", mps_bond_dimension=c["mps_bond_dimension"])[0]
+    bmps_s = time.perf_counter() - t0
+    dzb = abs(float(np.real(zb)) - gold["z_bmps_central"])
+    print(f"11a: BMPS rank {c['mps_bond_dimension']} <Z>{central} = {zb:.12f}, |dz| from the golden {dzb:.3e} "
+          f"(bound 1e-5); {bmps_s:.3f} s, {sc.count} host syncs, peak {torch.cuda.max_memory_allocated() / 2**20:.1f} "
+          f"MiB", flush=True)
+    require(dzb < 1e-5, "11a: BMPS <Z> off the golden")
+
+    # 11b: certified samples, the golden's seed and rank
+    n = 4 if evolve_s <= 120 else 2
+    t0 = time.perf_counter()
+    cert = tt.sample_directly_certified(psi_t, n, alg="boundarymps", norm_mps_bond_dimension=c["mps_bond_dimension"],
+                                        rng=np.random.default_rng(c["sample_seed"]))
+    sample_s = time.perf_counter() - t0
+    rows = []
+    for got, want in zip(cert, gold["first4_samples"]):
+        pq = float(np.real(got["poverq"]))
+        rows.append((int(got["bitstring"][central]), int(sum(got["bitstring"].values())), pq, pq - want["poverq"]))
+        require(rows[-1][0] == want["bits_central"] and rows[-1][1] == want["n_ones"],
+                f"11b: sample {len(rows)} bits {rows[-1][:2]}, the golden's {want['bits_central'], want['n_ones']}")
+        require(abs(rows[-1][3]) < FLEX_PQ_TOL, f"11b: sample {len(rows)} p/q off the golden by {rows[-1][3]:.3e}")
+    print(f"11b: {n} samples ({'4' if n == 4 else '2: the evolution took over 120 s'}), (bit at {central}, ones, "
+          f"p/q, p/q - golden) {rows} (bits exact, p/q bound {FLEX_PQ_TOL}); {sample_s:.3f} s, "
+          f"{sample_s / n:.3f} s a sample", flush=True)
+    del bpc, psi_t, cert
+
+    # 11c: 3 layers on the card and on the CPU port, complex128
+    layers = 3
+    _, e_card, z_card, _, _ = flex_evolve(dev, g, layer, c, layers)
+    t0 = time.perf_counter()
+    _, e_cpu, z_cpu, _, _ = flex_evolve("cpu", g, layer, c, layers)
+    cpu_s = time.perf_counter() - t0
+    de = max(float(np.abs(a - b).max()) for a, b in zip(e_card, e_cpu))
+    dz = max(abs(a[v] - b[v]) for a, b in zip(z_card, z_cpu) for v in a)
+    print(f"11c: {layers} layers, card vs CPU port (complex128): truncation errors {de:.3e}, BP <Z> on all 127 "
+          f"vertices {dz:.3e} (bound 1e-10); CPU {cpu_s:.3f} s", flush=True)
+    require(de < 1e-10 and dz < 1e-10, "11c: card and CPU port differ")
+
+    # 11d: golden_loopcorrections.json on the card
+    lgold = json.loads((ROOT / "tests" / "golden" / "golden_loopcorrections.json").read_text())
+    rng = np.random.default_rng(lgold["config"]["seed"])
+    for lg, name in [(tt.named_hexagonal_lattice_graph(2, 2), "hexagonal"), (tt.named_grid((4, 4)), "square")]:
+        entry = lgold["lattices"][name]
+        psi = tt.random_tensornetworkstate(lg, bond_dimension=lgold["config"]["chi"], rng=rng, dtype=np.float64,
+                                           device=dev)
+        psi = tt.normalize(psi, alg="bp")
+        bp = complex(tt.norm_sqr(psi, alg="bp"))
+        loop = complex(tt.norm_sqr(psi, alg="loopcorrections",
+                                   max_configuration_size=entry["max_configuration_size"]))
+        exact = complex(tt.norm_sqr(psi, alg="exact"))
+        d = [abs(bp - complex(*entry["norm_bp"])), abs(loop - complex(*entry["norm_loop_corrected"])),
+             abs(exact - complex(*entry["norm_exact"]))]
+        print(f"11d: {name}: |bp|, |loop-corrected|, |exact| - golden {[f'{x:.3e}' for x in d]} (bound 1e-5); "
+              f"|loop - exact| {abs(loop - exact):.3e} < |bp - exact| {abs(bp - exact):.3e}", flush=True)
+        require(max(d) < 1e-5 and abs(loop - exact) < abs(bp - exact), f"11d: {name} off the golden")
+
+    # 11e: the main path's chi=64 engine into the flex tier
+    T, M = state_main
+    eng = LatticeEngine.from_arrays(tt.eagle_lattice(), T, M, 64, device=dev)
+    z_eng = eng.expect_1site("Z")
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fbpc = eng.to_bp_cache()
+    z_flex = {v: tt.expect(fbpc, ("Z", [v])) for v in [(7, 8), (11, 5)]}
+    flex_s = time.perf_counter() - t0
+    dz = max(abs(z_flex[v] - z_eng[v]) for v in z_flex)
+    print(f"11e: to_bp_cache of the chi=64 engine and flex BP <Z> at (7,8), (11,5) {[f'{z_flex[v].real:.8f}' for v in z_flex]}"
+          f", engine {[f'{z_eng[v].real:.8f}' for v in z_flex]}, |dz| {dz:.3e} (bound 1e-5); {flex_s:.3f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+    require(dz < 1e-5, "11e: flex BP <Z> off the engine's")
+    path = ROOT / "build" / "chip_smoke" / "flex_state.npz"
+    psi = eng.to_state()
+    tt.save_state(psi, path)
+    back = tt.load_state(path, device=dev)
+    same = all(torch.equal(psi[v].data, back[v].data) and [i.dim for i in psi[v].inds] == [i.dim for i in back[v].inds]
+               for v in psi.vertices())
+    path.unlink()
+    print(f"11e: save_state / load_state of the chi=64 state bit for bit: {same}", flush=True)
+    require(same, "11e: the state checkpoint changed the state")
+    counts = read_counts(plain_before)
+    print(f"11: kernel launches {counts[0]}, plain runs {counts[3]} (the flex tier reaches no kernel)", flush=True)
+    require(not any(counts[0].values()) and not counts[3], "11: a kernel ran on the flex tier")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=10, help="main-path layers (default 10)")
@@ -2041,6 +2245,9 @@ def main():
                     help="only the environment, the build and the BP kernel phase (no result lines)")
     ap.add_argument("--switches-only", action="store_true",
                     help="only the environment, the build and the switches phase (no result lines)")
+    ap.add_argument("--flex-only", action="store_true",
+                    help="only the environment, the build, the main path's evolution and `bp_update` and the flex "
+                         "tier's phase 11 (no result lines)")
     ap.add_argument("--measure-only", action="store_true",
                     help="only the environment, the build, the main path's evolution and the measurement phase "
                          "(no result lines)")
@@ -2081,6 +2288,13 @@ def main():
         if args.switches_only:
             k2_switch_shapes(dev)
             switches_phase(dev, args.layers)
+            return 0
+        if args.flex_only:
+            _, eng, _, _, _, _, _ = main_path(dev, args.layers)
+            eng.bp_update(maxiter=30)
+            state_main = eng.to_arrays()
+            del eng
+            flex_phase(dev, state_main)
             return 0
         if args.measure_only:
             launches, eng, _, probe, _, discarded, _ = main_path(dev, args.layers)
@@ -2125,6 +2339,7 @@ def main():
         by_path.update(loop_corrections(dev, state_main, state_w2))
         by_path.update(thermal_phase(dev))
         print(f"kernel launches by path (phases 5-10): {by_path}")
+        flex_phase(dev, state_main)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from .engine import LatticeEngine
-from .gates import op_matrix
+from .sitetypes import op_matrix
 from .ops.factorizations import library_eigh, library_svd
 from .utils.einsum_cache import ceinsum
 

@@ -1,7 +1,13 @@
-"""Engine checkpoints in the JAX package's npz layout.
+"""Checkpoints of states, BP caches and engines in the JAX package's npz
+layout (port of `tnqs/checkpoint.py`), read and written both ways.
 
-Port of `tnqs/checkpoint.py:29-108` and `:210-266` (`save_engine`,
-`load_engine`).  A checkpoint is one ``.npz``: a JSON header in the uint8
+`save_state` / `load_state` and `save_bp_cache` / `load_bp_cache`
+(`tnqs/checkpoint.py:110-207`): the JSON header holds the graph, each
+tensor's index descriptors ``[id, dim, tag, plev]`` (and the site indices,
+and the message edges and their indices), the arrays ``t{n}`` (vertex
+order) and ``m{n}``; indices with one saved id come back as one `Index`,
+so a restored cache contracts like the original.  The engine's
+(`:210-266`, `save_engine`, `load_engine`):  A checkpoint is one ``.npz``: a JSON header in the uint8
 array ``__meta__`` (version, the graph's vertices and edges in insertion
 order, chi, d, dtype, the degree buckets, the BP schedule and the factor
 method), the packed buckets ``b{k}`` [n_k, d, chi^k] and the messages ``M``
@@ -13,8 +19,7 @@ here with the options the JAX engine resolves (``env_gauge="eigh"`` on the
 direct path, `tnqs/engine.py:609`; the port's defaults otherwise).  The
 plan is rebuilt from the saved graph under the saved schedule, since
 another schedule orders the buckets and edge ids otherwise (the shapes
-would still match), and the arrays are loaded verbatim.  The flex tier's
-`save_state` / `save_bp_cache` wait for the flex tier.
+would still match), and the arrays are loaded verbatim.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 
 from .graphs import NamedGraph
+from .networks import IndexTable, index_desc
 
 _VERSION = 1
 _DTYPES = {"complex64": torch.complex64, "complex128": torch.complex128}
@@ -73,6 +79,85 @@ def _read_npz(path):
     if header.get("version", 0) > _VERSION:
         raise ValueError(f"checkpoint version {header['version']} is newer than supported {_VERSION}")
     return header, data
+
+
+def save_state(psi, path) -> None:
+    """Save a TensorNetwork / TensorNetworkState (arrays copied to the host)."""
+    verts = psi.vertices()
+    header = {
+        "version": _VERSION,
+        "kind": type(psi).__name__,
+        "graph": _enc_graph(psi.graph),
+        "tensor_inds": [[index_desc(i) for i in psi[v].inds] for v in verts],
+    }
+    site_inds = getattr(psi, "site_inds", None)
+    if site_inds is not None:
+        header["site_inds"] = [[index_desc(i) for i in site_inds[v]] for v in verts]
+    _write_npz(path, header, {f"t{n}": psi[v].to_numpy() for n, v in enumerate(verts)})
+
+
+def _load_network(header, data, table, device):
+    from .core.tensor import Tensor, resolve_device
+    from .networks import TensorNetwork, TensorNetworkState
+
+    device = resolve_device(device)
+    g = _dec_graph(header["graph"])
+    verts = g.vertices()
+    tensors = {v: Tensor(data[f"t{n}"], [table.resolve(d) for d in header["tensor_inds"][n]], device=device)
+               for n, v in enumerate(verts)}
+    if header.get("network_kind", header["kind"]) == "TensorNetwork":
+        return TensorNetwork(tensors, g)
+    site_inds = None
+    if "site_inds" in header:
+        site_inds = {v: [table.resolve(d) for d in header["site_inds"][n]] for n, v in enumerate(verts)}
+    return TensorNetworkState(tensors, g, site_inds)
+
+
+def load_state(path, device=None):
+    """A state saved by `save_state` here or in the JAX package, on the
+    CUDA device unless `device` names another."""
+    header, data = _read_npz(path)
+    return _load_network(header, data, IndexTable(), device)
+
+
+def save_bp_cache(bpc, path) -> None:
+    """Save a BeliefPropagationCache: its network and every stored message,
+    bond identity shared between the two."""
+    psi = bpc.network
+    verts = psi.vertices()
+    msg_edges = list(bpc.messages.keys())
+    header = {
+        "version": _VERSION,
+        "kind": "BeliefPropagationCache",
+        "network_kind": type(psi).__name__,
+        "graph": _enc_graph(psi.graph),
+        "tensor_inds": [[index_desc(i) for i in psi[v].inds] for v in verts],
+        "message_edges": [[_enc_vertex(u), _enc_vertex(v)] for (u, v) in msg_edges],
+        "message_inds": [[index_desc(i) for i in bpc.messages[e].inds] for e in msg_edges],
+    }
+    site_inds = getattr(psi, "site_inds", None)
+    if site_inds is not None:
+        header["site_inds"] = [[index_desc(i) for i in site_inds[v]] for v in verts]
+    arrays = {f"t{n}": psi[v].to_numpy() for n, v in enumerate(verts)}
+    for n, e in enumerate(msg_edges):
+        arrays[f"m{n}"] = bpc.messages[e].to_numpy()
+    _write_npz(path, header, arrays)
+
+
+def load_bp_cache(path, device=None):
+    """A cache saved by `save_bp_cache` here or in the JAX package, on the
+    CUDA device unless `device` names another."""
+    from .bp import BeliefPropagationCache
+    from .core.tensor import Tensor
+
+    header, data = _read_npz(path)
+    table = IndexTable()
+    psi = _load_network(header, data, table, device)
+    messages = {}
+    for n, (eu, ev) in enumerate(header["message_edges"]):
+        inds = [table.resolve(d) for d in header["message_inds"][n]]
+        messages[(_dec_vertex(eu), _dec_vertex(ev))] = Tensor(data[f"m{n}"], inds, device=psi.device)
+    return BeliefPropagationCache(psi, messages)
 
 
 def save_engine(eng, path) -> None:

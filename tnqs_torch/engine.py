@@ -40,7 +40,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .gates import gate_matrix, op_matrix
+from .gates import gate_matrix
+from .sitetypes import op_matrix
 from .graphs import NamedGraph, center, leafless_edge_induced_subgraphs
 from .ops.bp_sweep import absorb_message, bp_sweep_group, group_messages, supports_group
 from .ops.factorizations import (
@@ -682,6 +683,82 @@ class LatticeEngine:
     def to_arrays(self) -> tuple[dict, np.ndarray]:
         """The packed state as host numpy arrays (T by degree, M)."""
         return {k: v.cpu().numpy() for k, v in self.T.items()}, self.M.cpu().numpy()
+
+    # -- the flex tier's types (`tnqs/engine.py:572-763`) ------------------------
+    @classmethod
+    def from_state(cls, psi, chi: int, dtype=torch.complex64, device=None, **options) -> "LatticeEngine":
+        """The counterpart of the JAX package's ``LatticeEngine(psi, chi,
+        ...)``: an engine on `psi`'s graph carrying the flex state `psi`
+        (bonds zero-padded to `chi`, its site indices kept for `to_state`),
+        with the initial messages, on the CUDA device unless `device` names
+        another.  A vertex's site legs (all of one dimension, the same
+        count on every vertex) fold into its site axis in `siteinds` order."""
+        sinds = psi.siteinds()
+        dims = {s.dim for v in psi.vertices() for s in sinds[v]}
+        if len(dims) != 1:
+            raise ValueError("engine requires a uniform site dimension")
+        counts = {len(sinds[v]) for v in psi.vertices()}
+        if len(counts) != 1:
+            raise ValueError("engine requires a uniform site-index count per vertex")
+        eng = cls(psi.graph, chi, dtype=dtype, device=device, site_legs=counts.pop(), d0=dims.pop(), **options)
+        eng._site_indices = {v: list(sinds[v]) for v in psi.vertices()}
+        plan = eng.plan
+        for k, verts in plan.buckets.items():
+            arr = torch.zeros_like(eng.T[k])
+            for p, v in enumerate(verts):
+                order = list(sinds[v]) + [psi.virtualind((v, u)) for u in plan.neighbor_order[v]]
+                data = psi[v].permute(order).data
+                data = data.reshape((eng.d,) + tuple(data.shape[eng.site_legs:]))
+                if any(n > eng.chi for n in data.shape[1:]):
+                    raise ValueError(f"vertex {v} has a bond wider than chi = {eng.chi}")
+                arr[(p, slice(0, eng.d)) + tuple(slice(0, n) for n in data.shape[1:])] = data.to(
+                    device=eng.device, dtype=eng.dtype)
+            eng.T[k] = arr
+        return eng
+
+    def site_indices(self) -> dict:
+        """The flex site indices of each vertex: the state's for an engine
+        from `from_state`, else fresh ones made at the first call."""
+        if getattr(self, "_site_indices", None) is None:
+            from .core.index import Index
+
+            tag = {2: "S=1/2", 3: "S=1"}.get(self.d0, "Site")
+            self._site_indices = {v: [Index(self.d0, tag) for _ in range(self.site_legs)] for v in self.plan.vertices}
+        return self._site_indices
+
+    def to_state(self):
+        """The packed state as a flex `TensorNetworkState` on the engine's
+        device (bonds stay chi-padded; the zero pads are inert), as
+        `tnqs/engine.py:730`."""
+        from .core.index import Index
+        from .core.tensor import Tensor
+        from .networks import TensorNetworkState
+
+        plan = self.plan
+        bond = {frozenset(e): Index(self.chi, "Link") for e in plan.graph.edges()}
+        sinds = self.site_indices()
+        tensors = {}
+        for v in plan.vertices:
+            k, pos = plan.bucket_pos[v]
+            ss = sinds[v]
+            data = self.T[k][pos]
+            data = data.reshape(tuple(i.dim for i in ss) + tuple(data.shape[1:]))
+            tensors[v] = Tensor(data.clone(), list(ss) + [bond[frozenset((v, u))] for u in plan.neighbor_order[v]])
+        return TensorNetworkState(tensors, plan.graph.copy(), {v: list(sinds[v]) for v in plan.vertices})
+
+    def to_bp_cache(self):
+        """A flex `BeliefPropagationCache` on `to_state()` holding the
+        engine's messages, ``M[(u, v)]`` on the bond pair ``(b, b')``
+        (`tnqs/engine.py:753`)."""
+        from .bp import BeliefPropagationCache
+        from .core.tensor import Tensor
+
+        psi = self.to_state()
+        bpc = BeliefPropagationCache(psi)
+        for (u, v), eid in self.plan.edge_ids.items():
+            b = psi.virtualind((u, v))
+            bpc.set_message((u, v), Tensor(self.M[eid].clone(), [b, b.prime()]))
+        return bpc
 
     # -- BP sweep (`tnqs/engine.py:784-884`) -------------------------------
     def _bp_new_messages(self, T: dict, M: torch.Tensor, use_kernel: bool = True) -> torch.Tensor:

@@ -1,24 +1,28 @@
-"""Gate registry, gate matrices and the qubit operator table.
+"""Gate registry, gate matrices and gate tensors.
 
-Port of the gate registry of `tnqs/gates.py:30-303` (`GateSpec`, the
-built-in gates, `register_gate` / `register_alias` / `unregister_gate`,
-lower-case aliases, Pauli strings and `gate_matrix`) and the qubit operator
-table of `tnqs/sitetypes.py:51-66`.  Parameter conventions are qiskit's,
-``Rzz(θ) = exp(-i θ ZZ / 2)``; a parameter may be complex (imaginary-time
-gates, e.g. ``Rxxyyzz`` at ``-0.5j J dbeta``).  The matrices are host numpy
-in complex128, built by the same arithmetic as the JAX package, so both
-compile bit-identical gate tables.  The flex tier's `to_tensor` has no
-counterpart: the engine takes names or raw matrices.
+Port of `tnqs/gates.py`: `GateSpec`, the built-in gates, `register_gate` /
+`register_alias` / `unregister_gate`, lower-case aliases, Pauli strings and
+`gate_matrix`, and the flex tier's `to_tensor` / `circuit_to_tensors` /
+`op`, which lift a matrix onto site indices as ``(s1', s2', s1, s2)``
+tensors on a device.  Parameter conventions are qiskit's, ``Rzz(θ) =
+exp(-i θ ZZ / 2)``; a parameter may be complex (imaginary-time gates, e.g.
+``Rxxyyzz`` at ``-0.5j J dbeta``).  The matrices are host numpy in
+complex128, built by the same arithmetic as the JAX package, so both
+compile bit-identical gate tables; the engine takes names or raw matrices.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Sequence
 
 import numpy as np
 
-_SQ2 = 1.0 / np.sqrt(2.0)
+from .core.index import Index
+from .core.tensor import Tensor, from_matrix
+from .graphs import NamedGraph
+from .sitetypes import op_matrix
+
 _I2 = np.eye(2)
 _X = np.array([[0.0, 1.0], [1.0, 0.0]])
 _Y = np.array([[0.0, -1j], [1j, 0.0]])
@@ -26,23 +30,6 @@ _Z = np.array([[1.0, 0.0], [0.0, -1.0]])
 _H = np.array([[1.0, 1.0], [1.0, -1.0]]) / np.sqrt(2.0)
 _P0 = np.array([[1.0, 0.0], [0.0, 0.0]])
 _P1 = np.array([[0.0, 0.0], [0.0, 1.0]])
-
-OPERATORS = {
-    "I": np.eye(2),
-    "X": _X,
-    "Y": np.array([[0.0, -1j], [1j, 0.0]]),
-    "Z": _Z,
-    "H": np.array([[_SQ2, _SQ2], [_SQ2, -_SQ2]]),
-    "S": np.array([[1.0, 0.0], [0.0, 1j]]),
-    "T": np.array([[1.0, 0.0], [0.0, np.exp(1j * np.pi / 4)]]),
-    "Sx": 0.5 * _X,
-    "Sy": 0.5 * np.array([[0.0, -1j], [1j, 0.0]]),
-    "Sz": 0.5 * _Z,
-    "S+": np.array([[0.0, 1.0], [0.0, 0.0]]),
-    "S-": np.array([[0.0, 0.0], [1.0, 0.0]]),
-    "ProjUp": np.array([[1.0, 0.0], [0.0, 0.0]]),
-    "ProjDn": np.array([[0.0, 0.0], [0.0, 1.0]]),
-}
 
 
 def _expm_gen(h: np.ndarray, scale) -> np.ndarray:
@@ -206,8 +193,62 @@ def gate_matrix(name: str, params=None) -> np.ndarray:
     return spec.matrix(*pvals)
 
 
-def op_matrix(name: str) -> np.ndarray:
-    """Single-site operator matrix on a qubit."""
-    if name not in OPERATORS:
-        raise ValueError(f"unknown operator {name!r}; supported: {sorted(OPERATORS)}")
-    return OPERATORS[name]
+def _collect_vertices(verts, g: NamedGraph) -> list:
+    """A gate's vertex spec as a list of graph vertices."""
+    if g.has_vertex(verts):
+        return [verts]
+    if isinstance(verts, (list, tuple)):
+        out = list(verts)
+        for v in out:
+            if not g.has_vertex(v):
+                raise ValueError(f"vertex {v!r} not in the tensor-network graph")
+        if len(set(map(repr, out))) != len(out):
+            raise ValueError("repeated vertex in gate support")
+        return out
+    raise ValueError(f"cannot interpret gate vertices {verts!r}")
+
+
+def to_tensor(gate, g: NamedGraph, site_inds: dict, device=None):
+    """A circuit entry as ``(Tensor, vertices)`` (`tnqs/gates.py:306`):
+    ``(name, vertices[, param])`` tuples become tensors on `device` (the
+    CUDA device when None); a ``(Tensor, vertices)`` pair passes through;
+    a bare gate Tensor's support is the vertices whose site indices it
+    carries."""
+    if isinstance(gate, Tensor):
+        verts = [v for v, sinds in site_inds.items() if any(gate.hasind(s) for s in sinds)]
+        if not verts:
+            raise ValueError("gate tensor touches no site index of the network")
+        return gate, verts
+    if isinstance(gate, tuple) and len(gate) >= 2 and isinstance(gate[0], Tensor):
+        return gate[0], list(gate[1])
+    name = gate[0]
+    verts = _collect_vertices(gate[1], g)
+    mat = gate_matrix(name, gate[2] if len(gate) > 2 else None)
+    sinds = []
+    for v in verts:
+        s = site_inds[v]
+        if len(s) != 1:
+            raise ValueError("circuit gates require exactly one site index per vertex")
+        sinds.append(s[0])
+    expected = int(np.prod([s.dim for s in sinds]))
+    if mat.shape != (expected, expected):
+        raise ValueError(f"gate {name!r} has dimension {mat.shape} but acts on sites of total dimension {expected}")
+    return from_matrix(mat, [s.prime() for s in sinds], sinds, device=device), verts
+
+
+def circuit_to_tensors(circuit: Sequence, g: NamedGraph, site_inds: dict, device=None) -> list:
+    return [to_tensor(gate, g, site_inds, device=device) for gate in circuit]
+
+
+def op(name: str, inds, param=None, device=None) -> Tensor:
+    """A gate/operator tensor on given site indices (`tnqs/gates.py:353`):
+    rows ``[i' for i in inds]``, columns `inds`, on `device` (the CUDA
+    device when None)."""
+    if isinstance(inds, Index):
+        inds = [inds]
+    inds = list(inds)
+    if name == "I" or (len(name) == len(inds) and _is_pauli_string(name) and len(name) > 1):
+        mat = gate_matrix(name) if name != "I" else np.eye(int(np.prod([i.dim for i in inds])))
+    else:
+        mat = gate_matrix(name, param)
+    return from_matrix(mat, [i.prime() for i in inds], inds, device=device)

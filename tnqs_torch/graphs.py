@@ -1,15 +1,20 @@
-"""Named graphs, lattices, edge coloring and loop configurations, without
-networkx.
+"""Named graphs, lattices, graph algorithms, edge coloring and loop
+configurations, without networkx.
 
-Port of the parts of `tnqs/graphs.py` the compiled engine needs:
-`NamedGraph` (`tnqs/graphs.py:39-177`), the ring and line queries
-(`:184-234`), `center` (`:298`), `edge_color` with its helpers
-(`:412-628`), the lattice generators (`named_grid`, the path, ring and comb
-graphs, `named_hexagonal_lattice_graph`, `heavy_hexagonal_lattice`,
-`:795-888`), `eagle_lattice` (`:890`) and the loop-series configurations
+Port of `tnqs/graphs.py`: `NamedGraph` (`tnqs/graphs.py:39-177`), the
+connectivity, ring and line queries, traversals, paths, `center`, the
+Steiner tree and the forest covers that order BP sweeps (`:184-410`),
+`edge_color` with its helpers (`:412-628`), `PartitionedGraph` (`:629`),
+`unique_simple_cycles` (`:666`), the lattice generators (`named_grid`, the
+path, ring and comb graphs, `named_hexagonal_lattice_graph`,
+`heavy_hexagonal_lattice`, `:795-888`), `eagle_lattice` (`:890`),
+`lieb_lattice`, `topology_to_graph` and `build_graph_from_gates`
+(`:928-977`) and the loop-series configurations
 (`leafless_edge_induced_subgraphs`, `:677-793`), enumerated by the port's
 build of `tnqs_torch/csrc/host/loop_enum.cpp` with the Python enumerator as
-its plain version.  The hexagonal lattice reproduces
+its plain version.  Where the JAX package calls networkx (`center`, the
+eccentricities, the Steiner tree), the port reproduces networkx's result
+and order.  The hexagonal lattice reproduces
 `networkx.hexagonal_lattice_graph`'s vertex names and edge order without
 networkx: the engine's plan, edge ids and checkpoints follow that order.
 Everything here is host-side plan data; no tensor touches a device.
@@ -18,12 +23,17 @@ Everything here is host-side plan data; no tensor touches a device.
 from __future__ import annotations
 
 import ctypes
+import heapq
 import itertools
 from collections import OrderedDict, deque
 from typing import Hashable, Iterable, Sequence
 
 Vertex = Hashable
 Edge = tuple  # directed edge (src, dst)
+
+
+def reverse_edge(e: Edge) -> Edge:
+    return (e[1], e[0])
 
 
 class NamedGraph:
@@ -74,8 +84,38 @@ class NamedGraph:
     def edges(self) -> list[Edge]:
         return list(self._edges.keys())
 
+    def all_edges(self) -> list[Edge]:
+        """Both orientations of every edge."""
+        es = self.edges()
+        return es + [reverse_edge(e) for e in es]
+
+    def has_vertex(self, v) -> bool:
+        try:
+            return v in self._adj
+        except TypeError:  # unhashable candidate (e.g. a list of vertices)
+            return False
+
     def has_edge(self, u, v) -> bool:
         return v in self._adj.get(u, ())
+
+    def incident_edges(self, v, dir: str = "out") -> list[Edge]:
+        """Edges touching `v`, oriented out of (`dir="out"`) or into `v`."""
+        if dir == "out":
+            return [(v, u) for u in self.neighbors(v)]
+        return [(u, v) for u in self.neighbors(v)]
+
+    def __contains__(self, v):
+        return self.has_vertex(v)
+
+    def __eq__(self, other):
+        if not isinstance(other, NamedGraph):
+            return NotImplemented
+        if set(self._adj) != set(other._adj):
+            return False
+        return {frozenset(e) for e in self._edges} == {frozenset(e) for e in other._edges}
+
+    def __hash__(self):
+        return hash((frozenset(self._adj), frozenset(frozenset(e) for e in self._edges)))
 
     def neighbors(self, v) -> list:
         return list(self._adj[v].keys())
@@ -96,6 +136,20 @@ class NamedGraph:
             self._edges.pop((u, v), None)
             self._edges.pop((v, u), None)
         return self
+
+    def rem_vertex(self, v: Vertex) -> "NamedGraph":
+        for u in list(self._adj.get(v, ())):
+            self.rem_edge(u, v)
+        self._adj.pop(v, None)
+        return self
+
+    def subgraph(self, vertices: Iterable[Vertex]) -> "NamedGraph":
+        vs = set(vertices)
+        out = NamedGraph([v for v in self.vertices() if v in vs])
+        for u, v in self.edges():
+            if u in vs and v in vs:
+                out.add_edge(u, v)
+        return out
 
     def copy(self) -> "NamedGraph":
         g = NamedGraph()
@@ -146,11 +200,7 @@ def is_ring_graph(g: NamedGraph) -> bool:
     return is_line_graph(h)
 
 
-def center(g: NamedGraph) -> list:
-    """Vertices of minimum eccentricity, in `vertices()` order (what
-    `networkx.center` returns for `tnqs.graphs.center`, `tnqs/graphs.py:298`).
-    Raises ValueError on a disconnected graph, whose eccentricities are
-    infinite."""
+def _eccentricities(g: NamedGraph) -> dict:
     ecc = {}
     for s in g.vertices():
         dist = {s: 0}
@@ -162,10 +212,538 @@ def center(g: NamedGraph) -> list:
                     dist[u] = dist[v] + 1
                     q.append(u)
         if len(dist) != g.nv():
-            raise ValueError("center of a disconnected graph")
+            raise ValueError("eccentricity of a disconnected graph")
         ecc[s] = max(dist.values())
+    return ecc
+
+
+def center(g: NamedGraph) -> list:
+    """Vertices of minimum eccentricity, in `vertices()` order (what
+    `networkx.center` returns for `tnqs.graphs.center`, `tnqs/graphs.py:298`).
+    Raises ValueError on a disconnected graph, whose eccentricities are
+    infinite."""
+    ecc = _eccentricities(g)
     radius = min(ecc.values())
     return [v for v in g.vertices() if ecc[v] == radius]
+
+
+# ----------------------------------------------------------------------
+# traversals, paths and forest covers (`tnqs/graphs.py:190-410`)
+# ----------------------------------------------------------------------
+
+def connected_components(g: NamedGraph) -> list[list]:
+    """Components by depth-first search, each in discovery order, largest
+    first (a stable sort)."""
+    seen: set = set()
+    comps = []
+    for s in g.vertices():
+        if s in seen:
+            continue
+        comp = []
+        stack = [s]
+        seen.add(s)
+        while stack:
+            v = stack.pop()
+            comp.append(v)
+            for u in g.neighbors(v):
+                if u not in seen:
+                    seen.add(u)
+                    stack.append(u)
+        comps.append(comp)
+    comps.sort(key=len, reverse=True)
+    return comps
+
+
+def bfs_parents(g: NamedGraph, root) -> dict:
+    parents = {root: None}
+    q = deque([root])
+    while q:
+        v = q.popleft()
+        for u in g.neighbors(v):
+            if u not in parents:
+                parents[u] = v
+                q.append(u)
+    return parents
+
+
+def post_order_dfs_edges(g: NamedGraph, root) -> list[Edge]:
+    """Edges of the tree containing `root`, child -> parent in post-order
+    (the exact BP schedule toward `root` on a tree)."""
+    edges = []
+    visited = {root}
+
+    def visit(v, parent):
+        for u in g.neighbors(v):
+            if u not in visited:
+                visited.add(u)
+                visit(u, v)
+        if parent is not None:
+            edges.append((v, parent))
+
+    visit(root, None)
+    return edges
+
+
+def a_star(g: NamedGraph, start, goal) -> list[Edge]:
+    """A shortest path from start to goal as directed edges (breadth-first,
+    neighbors in insertion order)."""
+    if start == goal:
+        return []
+    parents = {start: None}
+    q = deque([start])
+    while q:
+        v = q.popleft()
+        if v == goal:
+            break
+        for u in g.neighbors(v):
+            if u not in parents:
+                parents[u] = v
+                q.append(u)
+    if goal not in parents:
+        raise ValueError("no path between vertices")
+    path = []
+    v = goal
+    while parents[v] is not None:
+        path.append((parents[v], v))
+        v = parents[v]
+    return list(reversed(path))
+
+
+def leaf_vertices(g: NamedGraph) -> list:
+    return [v for v in g.vertices() if g.degree(v) == 1]
+
+
+def eccentricity_ordered_vertices(g: NamedGraph) -> list:
+    """Vertices by eccentricity, ties in `vertices()` order."""
+    ecc = _eccentricities(g)
+    return sorted(g.vertices(), key=lambda v: ecc[v])
+
+
+def boundary_edges(g: NamedGraph, vertices: Sequence, dir: str = "in") -> list[Edge]:
+    """Edges crossing the boundary of `vertices`: (outside -> inside) for
+    ``dir="in"``, (inside -> outside) for "out"."""
+    inside = set(vertices)
+    out = []
+    for v in g.vertices():
+        if v not in inside:
+            continue
+        for u in g.neighbors(v):
+            if u not in inside:
+                out.append((u, v) if dir == "in" else (v, u))
+    return out
+
+
+def _nx_edges(adj: dict) -> list:
+    """A dict-of-dicts graph's edges in networkx's order: nodes in order,
+    each edge reported from the first endpoint reached (self-loops once)."""
+    seen, out = set(), []
+    for n, nbrs in adj.items():
+        out.extend((n, nbr) for nbr in nbrs if nbr not in seen)
+        seen.add(n)
+    return out
+
+
+def _kruskal(adj: dict) -> list:
+    """`networkx.minimum_spanning_edges` (Kruskal) on a weighted
+    dict-of-dicts graph: edges in networkx order, stably sorted by weight,
+    kept when they join two trees."""
+    parent: dict = {}
+
+    def find(x):
+        parent.setdefault(x, x)
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    out = []
+    for u, v in sorted(_nx_edges(adj), key=lambda e: adj[e[0]][e[1]]):
+        ru, rv = find(u), find(v)
+        if ru != rv:
+            out.append((u, v))
+            parent[rv] = ru
+    return out
+
+
+def _add_weighted(adj: dict, u, v, w) -> None:
+    adj.setdefault(u, {})
+    adj.setdefault(v, {})
+    adj[u][v] = w
+    adj[v][u] = w
+
+
+def _multisource_paths(g: NamedGraph, sources: list) -> dict:
+    """Shortest paths from the nearest source to every vertex, as
+    `networkx.multi_source_dijkstra` breaks ties (unit weights)."""
+    dist, seen, pred, fringe = {}, {}, {}, []
+    c = itertools.count()
+    for s in sources:
+        seen[s] = 0
+        heapq.heappush(fringe, (0, next(c), s))
+    nsources = len(seen)
+    while fringe:
+        d, _, v = heapq.heappop(fringe)
+        if v in dist:
+            continue
+        dist[v] = d
+        for u in g.neighbors(v):
+            if u not in dist and (u not in seen or d + 1 < seen[u]):
+                seen[u] = d + 1
+                heapq.heappush(fringe, (d + 1, next(c), u))
+                pred[u] = v
+    paths = {s: [s] for s in sources}
+    for v in itertools.islice(dist, nsources, None):
+        paths[v] = paths[pred[v]] + [v]
+    return paths
+
+
+def _bidirectional_path(g: NamedGraph, source, target) -> list:
+    """`networkx.bidirectional_dijkstra`'s path at unit weights."""
+    if source == target:
+        return [source]
+    dists = [{}, {}]
+    preds = [{source: None}, {target: None}]
+    fringe = [[], []]
+    seen = [{source: 0}, {target: 0}]
+    c = itertools.count()
+    heapq.heappush(fringe[0], (0, next(c), source))
+    heapq.heappush(fringe[1], (0, next(c), target))
+    finaldist, meetnode, direction = None, None, 1
+
+    def path(curr, d):
+        ret = []
+        while curr is not None:
+            ret.append(curr)
+            curr = preds[d][curr]
+        return list(reversed(ret)) if d == 0 else ret
+
+    while fringe[0] and fringe[1]:
+        direction = 1 - direction
+        dist, _, v = heapq.heappop(fringe[direction])
+        if v in dists[direction]:
+            continue
+        dists[direction][v] = dist
+        if v in dists[1 - direction]:
+            return path(meetnode, 0) + path(preds[1][meetnode], 1)
+        for w in g.neighbors(v):
+            length = dist + 1
+            if w in dists[direction]:
+                continue
+            if w not in seen[direction] or length < seen[direction][w]:
+                seen[direction][w] = length
+                heapq.heappush(fringe[direction], (length, next(c), w))
+                preds[direction][w] = v
+                if w in seen[1 - direction]:
+                    total = length + seen[1 - direction][w]
+                    if finaldist is None or finaldist > total:
+                        finaldist, meetnode = total, w
+    raise ValueError(f"no path between {source} and {target}")
+
+
+def steiner_tree(g: NamedGraph, terminals: Sequence) -> NamedGraph:
+    """Approximate Steiner tree spanning `terminals` (exact on trees): the
+    tree `networkx.algorithms.approximation.steiner_tree` returns for
+    `tnqs.graphs.steiner_tree` (Mehlhorn's method at unit weights, its
+    tie-breaking step for step), vertices in `g`'s order."""
+    terminals = list(terminals)
+    paths = _multisource_paths(g, terminals)
+    dist = {v: len(p) - 1 for v, p in paths.items()}
+    nearest = {v: paths[v][0] for v in g.vertices()}
+    g1: dict = {}
+    for u, v in _nx_edges(g._adj):
+        su, sv = nearest[u], nearest[v]
+        w = dist[u] + 1 + dist[v]
+        _add_weighted(g1, su, sv, min(w, g1[su][sv]) if su in g1 and sv in g1[su] else w)
+    g3: dict = {}
+    for u, v in _kruskal(g1):
+        p = _bidirectional_path(g, u, v)
+        for n1, n2 in zip(p, p[1:]):
+            _add_weighted(g3, n1, n2, 1)
+    # G.edge_subgraph(mst).copy(), its non-terminal leaves stripped
+    adj = _edge_subgraph_copy(g, _kruskal(g3))
+    keep = set(terminals)
+    leaves = {v for v in adj if len(set(adj[v]) - {v}) == 1} - keep
+    while leaves:
+        for v in leaves:
+            for u in list(adj[v]):
+                del adj[u][v]
+            del adj[v]
+        leaves = {v for v in adj if len(set(adj[v]) - {v}) == 1} - keep
+    tree = _nx_edges(adj)
+    out = NamedGraph(_edge_subgraph_nodes(g, tree)[0])
+    out.add_edges(tree)
+    for v in terminals:
+        out.add_vertex(v)
+    return out
+
+
+def _edge_subgraph_nodes(g: NamedGraph, edges) -> tuple[list, set]:
+    """The node order of `networkx.Graph.edge_subgraph(edges)` on `g`'s
+    networkx twin: the set of the edges' nodes, in that set's iteration
+    order when it is under half the graph, else in `g`'s order; and the
+    view's edge set."""
+    edges = set(edges)
+    nodes = set()
+    for e in edges:
+        nodes.update(e[:2])
+    nodes = set(nodes)
+    if 2 * len(nodes) < g.nv():
+        return [n for n in nodes if n in g._adj], edges
+    return [n for n in g.vertices() if n in nodes], edges
+
+
+def _edge_subgraph_copy(g: NamedGraph, edges) -> dict:
+    """`networkx.Graph.edge_subgraph(edges).copy()` as a dict-of-dicts."""
+    order, edge_set = _edge_subgraph_nodes(g, edges)
+    inside = set(order)
+    adj: dict = {n: {} for n in order}
+    for u in order:
+        for v in g.neighbors(u):
+            if v in inside and ((u, v) in edge_set or (v, u) in edge_set):
+                _add_weighted(adj, u, v, 1)
+    return adj
+
+
+def spanning_forest(g: NamedGraph) -> NamedGraph:
+    """A spanning forest (a BFS tree per connected component)."""
+    f = NamedGraph(g.vertices())
+    for comp in connected_components(g):
+        for v, p in bfs_parents(g, comp[0]).items():
+            if p is not None:
+                f.add_edge(p, v)
+    return f
+
+
+def forest_cover(g: NamedGraph) -> list[NamedGraph]:
+    """Spanning forests that together cover every edge of `g`: uncovered
+    edges first, then covered ones to span as much as possible."""
+    remaining = set(map(frozenset, g.edges()))
+    forests = []
+    while remaining:
+        f = NamedGraph(g.vertices())
+        parent = {v: v for v in g.vertices()}
+
+        def find(v):
+            while parent[v] != v:
+                parent[v] = parent[parent[v]]
+                v = parent[v]
+            return v
+
+        def union(u, v):
+            ru, rv = find(u), find(v)
+            if ru == rv:
+                return False
+            parent[rv] = ru
+            return True
+
+        for e in g.edges():
+            if frozenset(e) in remaining and union(*e):
+                f.add_edge(*e)
+                remaining.discard(frozenset(e))
+        for e in g.edges():
+            if union(*e):
+                f.add_edge(*e)
+        forests.append(f)
+    if not forests:
+        forests.append(NamedGraph(g.vertices()))
+    return forests
+
+
+def forest_cover_edge_sequence(g: NamedGraph) -> list[Edge]:
+    """The BP sweep schedule: for each forest of `forest_cover` and each of
+    its trees, the leaf-to-root post-order pass toward the middle vertex of
+    the component, then the reversed root-to-leaf pass."""
+    seq: list[Edge] = []
+    for forest in forest_cover(g):
+        for comp in connected_components(forest):
+            if len(comp) == 1:
+                continue
+            tree = forest.subgraph(comp)
+            up = post_order_dfs_edges(tree, comp[len(comp) // 2])
+            seq.extend(up)
+            seq.extend(reverse_edge(e) for e in reversed(up))
+    return seq
+
+
+class PartitionedGraph:
+    """A graph plus a partition of its vertices into named groups; the
+    quotient has one vertex per group and an edge wherever a member edge
+    crosses two groups (`tnqs/graphs.py:629`)."""
+
+    def __init__(self, graph: NamedGraph, groups: dict):
+        self.graph = graph
+        self.groups = {k: list(vs) for k, vs in groups.items()}
+        self.group_of = {v: k for k, vs in self.groups.items() for v in vs}
+        q = NamedGraph(self.groups.keys())
+        for u, v in graph.edges():
+            gu, gv = self.group_of[u], self.group_of[v]
+            if gu != gv:
+                q.add_edge(gu, gv)
+        self.quotient = q
+
+    def copy(self) -> "PartitionedGraph":
+        return PartitionedGraph(self.graph.copy(), {k: list(v) for k, v in self.groups.items()})
+
+    def vertices_of(self, group_key) -> list:
+        return list(self.groups[group_key])
+
+    def quotient_edge_of(self, e: Edge) -> Edge:
+        return (self.group_of[e[0]], self.group_of[e[1]])
+
+
+class _NxView:
+    """A networkx graph or its node-induced subgraph view, for the walks of
+    `unique_simple_cycles`: `adj` the underlying dict-of-dicts (edges are
+    removed from it in place), `nodes` the view's node set or None.  Nodes
+    iterate as networkx's filtered views iterate them: the node set itself
+    when it holds under half the graph's nodes, else the graph's order."""
+
+    def __init__(self, adj: dict, nodes: set | None = None):
+        self.adj, self.nodes = adj, nodes
+
+    def __iter__(self):
+        if self.nodes is None:
+            return iter(list(self.adj))
+        if 2 * len(self.nodes) < len(self.adj):
+            return iter([n for n in self.nodes if n in self.adj])
+        return iter([n for n in self.adj if n in self.nodes])
+
+    def nbrs(self, v) -> list:
+        return list(self.adj[v]) if self.nodes is None else [u for u in self.adj[v] if u in self.nodes]
+
+    def first_edge(self):
+        seen = set()
+        for n in self:
+            for nbr in self.nbrs(n):
+                if nbr not in seen:
+                    return [n, nbr]
+            seen.add(n)
+        raise StopIteration
+
+    def subgraph(self, nodes) -> "_NxView":
+        ok = set()
+        for n in nodes:
+            if n in self.adj:
+                ok.add(n)
+        return _NxView(self.adj, ok)
+
+
+def _biconnected_components(g: _NxView) -> list[set]:
+    """`networkx.biconnected_components`: Hopcroft-Tarjan by an explicit
+    depth-first stack, each component the set of its edges' endpoints."""
+    out = []
+    visited: set = set()
+    for start in g:
+        if start in visited:
+            continue
+        discovery, low = {start: 0}, {start: 0}
+        visited.add(start)
+        edge_stack: list = []
+        edge_index: dict = {}
+        stack = [(start, start, iter(g.nbrs(start)))]
+        while stack:
+            grandparent, parent, children = stack[-1]
+            child = next(children, _NxView)
+            if child is not _NxView:
+                if grandparent == child:
+                    continue
+                if child in visited:
+                    if discovery[child] <= discovery[parent]:  # back edge
+                        low[parent] = min(low[parent], discovery[child])
+                        edge_index[parent, child] = len(edge_stack)
+                        edge_stack.append((parent, child))
+                else:
+                    low[child] = discovery[child] = len(discovery)
+                    visited.add(child)
+                    stack.append((parent, child, iter(g.nbrs(child))))
+                    edge_index[parent, child] = len(edge_stack)
+                    edge_stack.append((parent, child))
+                continue
+            stack.pop()
+            if len(stack) > 1:
+                if low[parent] >= discovery[grandparent]:
+                    ind = edge_index[grandparent, parent]
+                    out.append(set(itertools.chain.from_iterable(edge_stack[ind:])))
+                    del edge_stack[ind:]
+                low[grandparent] = min(low[parent], low[grandparent])
+            elif stack:  # the root's child
+                ind = edge_index[grandparent, parent]
+                out.append(set(itertools.chain.from_iterable(edge_stack[ind:])))
+                del edge_stack[ind:]
+    return out
+
+
+def _bounded_cycle_search(g: _NxView, path: list, length_bound: int):
+    """Gupta and Suzumura's bounded-length cycle search from the prefix
+    `path`, as networkx's `_bounded_cycle_search`."""
+    nbrs: dict = {}
+
+    def of(v):
+        if v not in nbrs:
+            nbrs[v] = g.nbrs(v)
+        return nbrs[v]
+
+    lock = {v: 0 for v in path}
+    B: dict = {}
+    start = path[0]
+    stack = [iter(of(path[-1]))]
+    blen = [length_bound]
+    while stack:
+        for w in stack[-1]:
+            if w == start:
+                yield path[:]
+                blen[-1] = 1
+            elif len(path) < lock.get(w, length_bound):
+                path.append(w)
+                blen.append(length_bound)
+                lock[w] = len(path)
+                stack.append(iter(of(w)))
+                break
+        else:
+            stack.pop()
+            v = path.pop()
+            bl = blen.pop()
+            if blen:
+                blen[-1] = min(blen[-1], bl)
+            if bl < length_bound:
+                relax_stack = [(bl, v)]
+                while relax_stack:
+                    bl, u = relax_stack.pop()
+                    if lock.get(u, length_bound) < length_bound - bl + 1:
+                        lock[u] = length_bound - bl + 1
+                        relax_stack.extend((bl + 1, w) for w in B.get(u, set()).difference(path))
+            else:
+                for w in of(v):
+                    B.setdefault(w, set()).add(v)
+
+
+def unique_simple_cycles(g: NamedGraph, max_length: int) -> list[list[Edge]]:
+    """Every simple cycle of 3 to `max_length` edges, as edge lists
+    ``[(c0, c1), ..., (ck, c0)]``: the cycles, starts, orientations and
+    order of `networkx.simple_cycles(g, length_bound=max_length)`, which
+    `tnqs.graphs.unique_simple_cycles` takes (binary partition over
+    biconnected components, then the bounded search), step for step."""
+    if max_length < 3:
+        return []
+    adj: dict = {}
+    for u in g.vertices():
+        for v in g.neighbors(u):
+            if v != u:
+                adj.setdefault(u, {})
+                adj.setdefault(v, {})
+                adj[u][v] = adj[v][u] = None
+    full = _NxView(adj)
+    out = []
+    components = [c for c in _biconnected_components(full) if len(c) >= 3]
+    while components:
+        gc = full.subgraph(components.pop())
+        uv = gc.first_edge()
+        del adj[uv[0]][uv[1]], adj[uv[1]][uv[0]]
+        for cyc in _bounded_cycle_search(gc, uv, max_length):
+            if len(cyc) >= 3:
+                out.append([(cyc[i], cyc[(i + 1) % len(cyc)]) for i in range(len(cyc))])
+        components.extend(c for c in _biconnected_components(gc) if len(c) >= 3)
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -655,3 +1233,52 @@ def leafless_edge_induced_subgraphs(g: NamedGraph, max_edges: int, native: bool 
         return [[edge_list[i] for i in es] for es in subs]
     index = {frozenset(e): e for e in edge_list}
     return [[index[e] for e in es] for es in _leafless_subgraphs_plain(g, max_edges)]
+
+
+# ----------------------------------------------------------------------
+# graphs from lattices and circuits (`tnqs/graphs.py:928-977`)
+# ----------------------------------------------------------------------
+
+def lieb_lattice(nx_: int, ny_: int, periodic: bool = False) -> NamedGraph:
+    """Lieb lattice: a square lattice with decorated edges (odd dims open,
+    even dims periodic)."""
+    ok = (not periodic and nx_ % 2 == 1 and ny_ % 2 == 1) or (periodic and nx_ % 2 == 0 and ny_ % 2 == 0)
+    if not ok:
+        raise ValueError("lieb_lattice: need odd dims (open) or even dims (periodic)")
+    g = named_grid((nx_, ny_), periodic=periodic)
+    for v in list(g.vertices()):
+        if v[0] % 2 == 0 and v[1] % 2 == 0:
+            g.rem_vertex(v)
+    return g
+
+
+def topology_to_graph(topology: Sequence[Sequence[int]]) -> NamedGraph:
+    """Graph on 1..n from a list of integer edge pairs."""
+    nq = max(max(pair) for pair in topology)
+    g = NamedGraph(range(1, nq + 1))
+    for i, j in topology:
+        g.add_edge(i, j)
+    return g
+
+
+def build_graph_from_gates(circuit: Sequence) -> NamedGraph:
+    """Graph induced by the 2-site gates of a circuit; a disconnected one
+    raises."""
+    vs, seen = [], set()
+    for gate in circuit:
+        for v in gate[1]:
+            if v not in seen:
+                seen.add(v)
+                vs.append(v)
+    g = NamedGraph(vs)
+    for gate in circuit:
+        qubits = list(gate[1])
+        if len(qubits) == 2:
+            g.add_edge(qubits[0], qubits[1])
+    if not is_connected(g):
+        raise ValueError("The circuit graph is not connected; the resulting tensor network would be disconnected, "
+                         "which is not supported. Simulate the connected components separately.")
+    return g
+
+
+build_graph_from_circuit = build_graph_from_gates

@@ -9,7 +9,7 @@ hash of the source and the flags, and are built at first use; ptxas's
 register and spill report is kept beside each (`build_log`).  No
 ``--use_fast_math``: the Jacobi rotation formulas need IEEE division and
 square roots.  The host library (`host_library`: the loop-series
-enumerator) is plain C++ and builds the same way with g++ on any machine.
+enumerator and the flex tier's contraction-order planner) is plain C++ and builds the same way with g++ on any machine.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import subprocess
 import types
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-HOST_SOURCES = (CSRC / "host" / "loop_enum.cpp",)
+HOST_SOURCES = (CSRC / "host" / "loop_enum.cpp", CSRC / "host" / "contract_opt.cpp")
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "tnqs_torch"
 NVCC_FLAGS = (
@@ -135,6 +135,14 @@ def host_library() -> ctypes.CDLL:
     lib.tnqs_leafless_subgraphs.argtypes = [ctypes.c_int32, ctypes.c_int32, _P, ctypes.c_int32, _P,
                                             ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
     lib.tnqs_leafless_subgraphs.restype = ctypes.c_int64
+    # (n, w, masks uint64[n w], logdims double[64 w], m, out int32) -> 0 ok, -1 bad input
+    plan = [_I, _I, _P, _P, _I, _P]
+    for name in ("tnqs_optimal_order", "tnqs_greedy_order"):
+        getattr(lib, name).argtypes = plan
+        getattr(lib, name).restype = _I
+    # the same, then (n_restarts, temperature, seed)
+    lib.tnqs_sa_order.argtypes = plan + [ctypes.c_int32, ctypes.c_double, ctypes.c_uint64]
+    lib.tnqs_sa_order.restype = _I
     return lib
 
 
