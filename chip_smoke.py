@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of tnqs_torch on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--layers N] [--bp-kernel-only | --switches-only | --measure-only | --flex-only]
+    python3 chip_smoke.py [--layers N] [--bp-kernel-only | --switches-only | --measure-only | --flex-only |
+                           --wide-only]
 
 Run from the repository root.  Phases, each of which fails the run:
 
@@ -23,7 +24,15 @@ Run from the repository root.  Phases, each of which fails the run:
    a layer; K2 also at the switches' shapes (phase 7), the eigh gauge's
    environment bank [144, 64, 64], the subspace solve [54, 72, 72] and full
    truncation's Grams [54, 128, 128], at `default_eigh`'s 12 sweeps and
-   relative skip, each beside `torch.linalg.eigh` and its bound;
+   relative skip, each beside `torch.linalg.eigh` and its bound; then K1 and
+   K2 past n = 128 (`wide_kernel_phase`): K2's wide variant on [26, n, n]
+   Grams at n = 192 and 256 in both skips (checked at 12 sweeps, timed at
+   pjsvd's 8 with the absolute skip and `default_eigh`'s 12 with the
+   relative one), K1 as pjsvd's polish at the chi = 96 and chi = 128
+   thetas [26, 384, 192], [18, 192, 192], [26, 512, 256] and
+   [18, 256, 256], each against its plain version and LAPACK on the
+   spectrum families scaled to n, beside the library call and its bound,
+   with the clusters the card holds at once;
 4. BP kernel: `bp_sweep_group` against its plain version on every degree
    >= 2 group of the Eagle chi=64 color plan, on random site tensors and
    positive messages, plus groups of gathered rows at degree 2-6 that
@@ -94,11 +103,17 @@ Run from the repository root.  Phases, each of which fails the run:
    (`bench.py:315-343`) beside BP: finite, |Im| <= 1e-3 |Re| (the sketched
    zip's truncation class), |z16 - z24| <= 1e-2; wall times, peak memory, library eigh/SVD calls, host-to-device
    sketch bytes and one torch.profiler window of a rank-16 call; (d)
-   chi=96 from "↑", 8 layers or fewer past 150 s (CHI96_CAP_S): every
-   theta 192 wide or more takes the library SVD (counted by shape), no K1
-   or K2 launch past n = 128, every layer finite, and on the layers where
-   the main path discarded nothing past the cutoff <Z> within the main
-   path's bound of flex-f64;
+   chi=96 from "↑", 8 layers or fewer past 60 s (CHI96_CAP_S): every
+   theta the kernels hold (up to 256 wide) takes K2 and K1 and none the
+   library SVD (`_svd_fallback`, counted by shape), K1 and K2 launched at
+   n = 192, no plain run, every layer finite, and on the layers where the
+   main path discarded nothing past the cutoff <Z> within the main path's
+   bound of flex-f64; then the same layers on `svd_impl="xla"` (as many as
+   fit the cap), each within the main bound of the kernels' run; ms a
+   layer, peak memory, one more layer under torch.profiler; (e) the same
+   at chi=128 (CHI128_CAP_S 90 s; K1 and K2 at n = 256), then two more
+   layers under `trunc_method="full"` from its last state, K2 at n = 256
+   on their Grams, within the 1e-2 envelope;
 9. certified sampling, `BMPSSampler` on the card, on the states phases 5-6
    and 8a made (K1, K2 and K3 must have run in those evolutions, none inside
    the sampler): (a) bench's w2 sampler (`bench.py:446-452`: rank 10,
@@ -201,10 +216,20 @@ def require(cond, what):
         raise SmokeFailure(what)
 
 
-def spectrum_batch(rng, B, R, n):
-    """B matrices [R, n] with the families' singular values, in turn."""
+def scaled_families(n):
+    """The families with n singular values (the cut families cut at n/2), as
+    `tests/test_torch_ops.py::_families` scales them."""
+    h = n // 2
+    return {"gentle": np.geomspace(1.0, 1e-2, n), "wide": np.geomspace(1.0, 1e-4, n),
+            "rank16": np.geomspace(1.0, 1e-2, 16), "rankcut": np.concatenate([np.geomspace(1.0, 1e-6, h), np.zeros(h)]),
+            "clusters": np.concatenate([np.ones(h), np.full(h, 1e-6)])}
+
+
+def spectrum_batch(rng, B, R, n, families=FAMILIES):
+    """B matrices [R, n] with the families' singular values, in turn (zero
+    past a family's length)."""
     out = []
-    families = list(FAMILIES.values())
+    families = list(families.values())
     for b in range(B):
         spec = families[b % len(families)]
         s = np.zeros(n)
@@ -233,9 +258,11 @@ def rand_c(rng, shape):
     return (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(np.complex64)
 
 
-def cuda_ms(fn, reps):
-    """Mean milliseconds per call of `fn` on the current stream."""
-    fn()
+def cuda_ms(fn, reps, warmup=True):
+    """Mean milliseconds per call of `fn` on the current stream, after one
+    call unless `warmup` is False (a plain version has nothing to warm)."""
+    if warmup:
+        fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
@@ -406,6 +433,130 @@ def kernel_phase(dev):
         print(f"  K2 [{B},128,128] 8 sweeps: {k2_ms:.3f} ms, bound {k2_bound[0]:.3f} ms ({k2_bound[1]}); "
               f"K1 [{B},{R},128] {polish} sweeps, C={C}: {k1_ms:.3f} ms, bound {k1_bound[0]:.3f} ms ({k1_bound[1]})")
     return results
+
+
+# K1 and K2 past n = 128: the saturated thetas of the chi = 96 (n = 192) and
+# chi = 128 (n = 256) Eagle layers, at the largest batches of a layer's
+# groups (`REAL_PATH`'s, whose classes are the same at every chi): (batch,
+# theta rows, width, polish sweeps).  K2 takes the tall ones' Grams.
+WIDE_N = (192, 256)
+WIDE_PATH = ((26, 384, 192, 6), (18, 192, 192, 4), (26, 512, 256, 6), (18, 256, 256, 4))
+
+
+def wide_kernel_phase(dev):
+    """K1 and K2 past n = 128 against their plain versions on the card: the
+    wide variant of K2 on [26, n, n] Grams in both skips (checked at 12
+    sweeps; timed at pjsvd's 8 with the absolute skip and at
+    `default_eigh`'s 12 with the relative one), K1 as pjsvd's polish on
+    every shape of `WIDE_PATH`, each beside the library call and its bound.
+    Returns the rows of the `kernels` line, one per kernel and width."""
+    from tnqs_torch.ops import jacobi, osj
+
+    rng = np.random.default_rng(10)
+    for n in WIDE_N:
+        C, pairs, smem = jacobi.eigh_wide_plan(n)
+        print(f"K2 wide n={n}: clusters of {C} CTAs, {min(pairs)}-{max(pairs)} pairs a CTA, {smem} B a CTA, "
+              f"{jacobi.active_clusters(dev, n)} clusters at once")
+    for B, R, n, _ in WIDE_PATH:
+        (C,) = osj.osj_fits(R, n)
+        cpc, vpc, smem = osj.osj_plan(R, n, C)
+        active = osj.active_clusters(dev, C, smem)
+        print(f"K1 [B,{R},{n}]: C={C}, {cpc}+{vpc} chunks of A+V a CTA, {smem} B, {active} clusters at once; "
+              f"B={B} takes {-(-B // max(active, 1))} waves")
+    rows = {}
+    for n in WIDE_N:
+        B = 26
+        A = torch.as_tensor(spectrum_batch(rng, B, 2 * n, n, scaled_families(n)), device=dev)
+        G = A.mH @ A
+        Hb = (0.5 * (G + G.mH)).contiguous()
+        errs, timed = [], {}
+        for relative, sweeps in ((False, 8), (True, 12)):
+            skip = "relative" if relative else "absolute"
+            w_k, V_k = jacobi.jacobi_eigh(G, sweeps=12, relative=relative)
+            w_p, V_p = jacobi.eigh_from_rounds(Hb, *jacobi._jacobi_eigh_plain(Hb, 12, relative))
+            torch.cuda.synchronize()
+            check_eigh(f"wide kernel [{B},{n},{n}] {skip}", Hb, w_k, V_k)
+            check_eigh(f"plain [{B},{n},{n}] {skip}", Hb, w_p, V_p)
+            rel = ((w_k - w_p).abs().amax(1) / w_p.abs().amax(1)).max().item()
+            errs.append((w_k - w_p).abs().max().item())
+            print(f"jacobi_eigh wide [{B},{n},{n}] {skip} kernel vs plain: max |dw| {errs[-1]:.3e}, relative to "
+                  f"largest {rel:.3e}")
+            require(rel < 1e-4, f"jacobi_eigh wide [{B},{n},{n}] {skip}: kernel and plain differ by more than 1e-4")
+            ms = cuda_ms(lambda: jacobi.jacobi_eigh(G, sweeps=sweeps, relative=relative), 5)
+            plain_ms = cuda_ms(lambda: jacobi.eigh_from_rounds(Hb, *jacobi._jacobi_eigh_plain(Hb, sweeps, relative)),
+                               1, warmup=False)
+            taken = jacobi._jacobi_eigh_plain.rotations.item()
+            library_ms = cuda_ms(lambda: torch.linalg.eigh(Hb), 5)
+            bound_ms, bound_by = eigh_bound(B, n, taken)
+            timed[skip] = (ms, plain_ms, bound_ms, bound_by, library_ms)
+            print(f"jacobi_eigh wide [{B},{n},{n}] sweeps={sweeps} {skip}: kernel {ms:.3f} ms (wrapper, refinement "
+                  f"included), plain {plain_ms:.3f} ms, torch.linalg.eigh {library_ms:.3f} ms, bound {bound_ms:.3f} "
+                  f"ms ({bound_by}; {taken} of {B * sweeps * (n - 1) * (n // 2)} rotations taken; kernel at "
+                  f"{100 * bound_ms / ms:.1f}%)", flush=True)
+        ms, plain_ms, bound_ms, bound_by, library_ms = timed["absolute"]
+        rows[f"jacobi_eigh_wide n={n}"] = dict(
+            name=f"jacobi_eigh_wide n={n}", route="cuda", source="tnqs_torch/csrc/jacobi_eigh.cu",
+            replaces="tnqs/ops/jacobi.py:279", max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=library_ms, shape=[B, n, n], sweeps=8,
+            relative_12=dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"), timed["relative"])))
+
+    for B, R, n, polish in WIDE_PATH:
+        A = torch.as_tensor(spectrum_batch(rng, B, R, n, scaled_families(n)), device=dev)
+        _, V0 = jacobi.jacobi_eigh(A.mH @ A, sweeps=8, relative=False)
+        B0 = A @ V0
+        U_k, s_k, Vh_k = osj.osj_svd(B0, V0, sweeps=polish)
+        Ab, scale = osj.prescale(B0)
+        Ab = Ab.contiguous()
+        U_p, s_p, Vh_p = osj.svd_from_rounds(*osj._osj_svd_plain(Ab, V0, polish), scale)
+        taken = osj._osj_svd_plain.rotations.item()
+        U_j, s_j, Vh_j = osj.pjsvd(A, polish_sweeps=polish)
+        U0, s0, Vh0 = torch.linalg.svd(A.to(torch.complex128), full_matrices=False)
+        k = n // 2  # the bond: the rank-chi truncation against LAPACK's
+        best = (U0[:, :, :k] * s0[:, None, :k]) @ Vh0[:, :k]
+        for name, U, s, Vh in (("kernel", U_k, s_k, Vh_k), ("plain", U_p, s_p, Vh_p), ("pjsvd", U_j, s_j, Vh_j)):
+            require(all(torch.isfinite(x).all() for x in (U, s, Vh)), f"osj_svd {name} [{B},{R},{n}]: non-finite")
+            rec = ((U[:, :, :k] * s[:, None, :k]) @ Vh[:, :k]).to(torch.complex128)
+            recon = (torch.linalg.vector_norm((rec - best).flatten(1), dim=1) / s0[:, 0]).max().item()
+            s_err = ((s.double() - s0).abs().amax(1) / s0[:, 0]).max().item()
+            print(f"osj_svd {name} [{B},{R},{n}]: rank-{k} reconstruction {recon:.3e}, s error {s_err:.3e}")
+            require(recon < 3e-5, f"osj_svd {name} [{B},{R},{n}]: truncated reconstruction above 3e-5")
+            require(s_err < 1e-4, f"osj_svd {name} [{B},{R},{n}]: singular values off by more than 1e-4")
+        err = (s_k - s_p).abs().max().item()
+        rel = ((s_k - s_p).abs().amax(1) / s_p[:, 0]).max().item()
+        print(f"osj_svd [{B},{R},{n}] kernel vs plain: max |ds| {err:.3e}, relative to largest {rel:.3e}")
+        require(rel < 1e-4, f"osj_svd [{B},{R},{n}]: kernel and plain singular values differ by more than 1e-4")
+        if (R, n) == (384, 192):
+            # recorded, not gated: the 128-value families padded with zeros,
+            # on which the reference's schedule itself (JAX's pjsvd as well)
+            # leaves up to ~1e-4 of s_max on a "wide" member
+            Ap = torch.as_tensor(spectrum_batch(np.random.default_rng(11), B, R, n), device=dev)
+            sp0 = torch.linalg.svdvals(Ap.to(torch.complex128))
+            Hp = Ap.mH @ Ap
+            Hp = (0.5 * (Hp + Hp.mH)).contiguous()
+            _, Vp = jacobi.eigh_from_rounds(Hp, *jacobi._jacobi_eigh_plain(Hp, 8, False))
+            Ab_p, scale_p = osj.prescale(Ap @ Vp)
+            plain_s = osj.svd_from_rounds(*osj._osj_svd_plain(Ab_p, Vp, polish), scale_p)[1]
+            for name, sp in (("kernel", osj.pjsvd(Ap, polish_sweeps=polish)[1]), ("plain", plain_s)):
+                e = ((sp.double() - sp0).abs().amax(1) / sp0[:, 0]).cpu().numpy()
+                print(f"pjsvd {name} [{B},{R},{n}] on the zero-padded 128-value families (recorded): s error "
+                      f"{e.max():.3e} (member {int(e.argmax())}), median {np.median(e):.3e}")
+        k_ms = cuda_ms(lambda: osj.osj_svd(B0, V0, sweeps=polish), 5)
+        p_ms = cuda_ms(lambda: osj.svd_from_rounds(*osj._osj_svd_plain(Ab, V0, polish), scale), 1, warmup=False)
+        l_ms = cuda_ms(lambda: torch.linalg.svd(A, full_matrices=False), 2)
+        bound_ms, bound_by = osj_bound(B, R, n, polish, taken)
+        print(f"osj_svd [{B},{R},{n}] sweeps={polish}, C={osj.osj_fits(R, n)[0]}: kernel {k_ms:.3f} ms (wrapper, "
+              f"prescale and sort included), plain {p_ms:.3f} ms, torch.linalg.svd {l_ms:.3f} ms, bound "
+              f"{bound_ms:.3f} ms ({bound_by}; {taken} of {B * polish * (n - 1) * (n // 2)} rotations taken; kernel "
+              f"at {100 * bound_ms / k_ms:.1f}%)", flush=True)
+        row = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=l_ms, shape=[B, R, n],
+                   sweeps=polish, max_abs_err=err)
+        if R > n:
+            rows[f"osj_svd n={n}"] = dict(name=f"osj_svd n={n}", route="cuda", source="tnqs_torch/csrc/osj_svd.cu",
+                                          replaces="tnqs/ops/osj.py:306", **row)
+        else:
+            rows[f"osj_svd n={n}"]["square"] = row
+            rows[f"osj_svd n={n}"]["max_abs_err"] = max(err, rows[f"osj_svd n={n}"]["max_abs_err"])
+    return list(rows.values())
 
 
 def normalized(m):
@@ -768,6 +919,7 @@ def profile_window(eng, step, layers=2):
     print(f"profile window, {layers} steady layers (torch.profiler): wall {wall_ms:.3f} ms, device busy "
           f"{busy:.3f} ms, idle share {1 - busy / wall_ms:.4f}")
     labels = (("K1 osj_svd", ("osj_svd_kernel",)), ("K2 jacobi_eigh", ("jacobi_eigh_kernel",)),
+              ("K2 wide variant", ("jacobi_eigh_wide_kernel",)),
               ("K3 bp_sweep_group", ("bp_mode_product", "bp_pass2", "bp_reduce")))
     for label, keys in labels:
         sel = [v for k, v in kernels.items() if any(key in k for key in keys)]
@@ -880,7 +1032,7 @@ def bp_path(dev, eng, probe):
     require(launches > 0, "normalize and bp_update did not launch the BP kernel")
     require(bp_sweep._bp_sweep_group_plain.calls == plain_calls, "the BP path ran the plain BP version on the card")
     print(f"BP kernel launches on the BP path: {launches}")
-    by_path = {"jacobi_eigh": 0, "osj_svd": 0, "bp_sweep_group": launches, "bp_sweep_group_bf16_3x": 0}
+    by_path = dict(dict.fromkeys(k3_launches(), 0), bp_sweep_group=launches)
 
     # Tolerances: the two routes round in other orders (~1e-6 relative per
     # sweep) and the BP map contracts those differences, so the fixed points
@@ -945,8 +1097,13 @@ def k3_launches():
     from tnqs_torch.ops import bp_sweep, jacobi, osj
 
     by_mode = bp_sweep.bp_sweep_group.launches_by_mode
-    return {"jacobi_eigh": jacobi.jacobi_eigh.launches, "osj_svd": osj.osj_svd.launches,
-            "bp_sweep_group": by_mode["highest"], "bp_sweep_group_bf16_3x": by_mode["bf16_3x"]}
+    counts = {"jacobi_eigh": jacobi.jacobi_eigh.launches, "osj_svd": osj.osj_svd.launches,
+              "bp_sweep_group": by_mode["highest"], "bp_sweep_group_bf16_3x": by_mode["bf16_3x"]}
+    for n in WIDE_N:  # the rows past n = 128, K2's wide variant and K1 by width
+        counts[f"jacobi_eigh_wide n={n}"] = sum(c for (_, w), c in jacobi.jacobi_eigh.launches_by_shape.items()
+                                                if w == n)
+        counts[f"osj_svd n={n}"] = sum(c for (_, _, w), c in osj.osj_svd.launches_by_shape.items() if w == n)
+    return counts
 
 
 def switch_shapes(eng, circuit):
@@ -1372,7 +1529,8 @@ def switches_phase(dev, layers, main_rate=float("nan"), chi=64):
 # phase 8: the boundary-MPS measurement path
 # ----------------------------------------------------------------------
 
-CHI96_CAP_S = 150.0  # 8d's layers stop once the next would pass this
+CHI96_CAP_S = 60.0  # 8d's layers stop once the next would pass this, and its library run's
+CHI128_CAP_S = 90.0  # 8e's the same
 
 
 def bmps_library_calls():
@@ -1540,15 +1698,24 @@ def measure_chi64(dev, eng, probe):
     return {"8c bmps": counts[0]}
 
 
-def measure_chi96(dev, discarded):
-    """8d: Eagle-127 from "↑" at chi=96, complex64, default switches, up to
-    8 layers within CHI96_CAP_S.  Every theta is 192 wide or more, past the
-    Jacobi kernels' 128, so all take the library SVD (`_svd_fallback`).  On
-    the layers where the chi=64 main path discarded no more than the cutoff
-    (`discarded`, its largest per layer), both runs are the same physics:
-    there <Z> must lie within the main path's bound of flex-f64."""
+def measure_wide(dev, label, chi, discarded, cap_s, xla_cap_s, full_layers=0):
+    """8d (chi=96) and 8e (chi=128): Eagle-127 from "↑" at `chi`, complex64,
+    default switches, up to 8 layers within `cap_s`.  Every theta the
+    kernels hold (smaller side even, 64..256) takes K2 then K1, none the
+    library SVD (`_svd_fallback`, counted by shape), and K1 and K2 launch at
+    n = 2 chi; no plain version runs; every layer is finite.  On the layers
+    where the chi=64 main path discarded no more than the cutoff
+    (`discarded`, its largest per layer) both runs are the same physics:
+    there <Z> must lie within the main path's bound of flex-f64.  Then the
+    same layers on the library route (`svd_impl="xla"`, as many as fit
+    `xla_cap_s`, at least 2), each within the main bound of this run.  With
+    `full_layers`, that many more layers under `trunc_method="full"` from
+    this run's last state, K2 at n = 2 chi on their Grams, within the 1e-2
+    envelope of flex-f64 (`tests/test_f32_floor.py:119-129`).  Between the
+    two, a torch.profiler window over one more layer from a copy of the
+    kernels' run's last state."""
     from tnqs_torch.engine import _svd_fallback
-    from tnqs_torch.ops import jacobi, osj
+    from tnqs_torch.ops.osj import pjsvd_fits
 
     controls = json.loads((ROOT / "tests" / "golden" / "golden_f32_controls.json").read_text())["chi64"]
     cfg = controls["config"]
@@ -1556,31 +1723,73 @@ def measure_chi96(dev, discarded):
     floors = np.max([controls["f32_floor_per_layer"]]
                     + [sd["dev_from_f64_per_layer"] for sd in controls["multiseed_controls"]["seeds"].values()], axis=0)
     bound = np.maximum(3.0 * np.maximum.accumulate(floors), 2e-5)
-    _svd_fallback.calls_by_shape.clear()
     refs = {center: controls["z_center_f64"], bench_v: controls["z_bench_f64"]}
-    _, _, _, devs, times, counts = evolve_eagle(dev, "8d c64 chi=96", 96, torch.complex64, 8, refs, cfg["cutoff"],
-                                                time_cap=CHI96_CAP_S, min_layers=2)
+    n = 2 * chi
+    _svd_fallback.calls_by_shape.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng, step, zs, devs, times, counts = evolve_eagle(dev, f"{label} c64 chi={chi}", chi, torch.complex64, 8, refs,
+                                                      cfg["cutoff"], time_cap=cap_s, min_layers=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
     routed = dict(sorted(_svd_fallback.calls_by_shape.items()))
-    wide = {shape: n for shape, n in routed.items() if min(shape[1:]) >= 192}
-    print(f"8d: thetas to the library SVD by [B, m, n]: {routed}; {1e3 * np.mean(times[1:] or times):.1f} ms a layer")
-    print(f"8d: K2 by [B, n] {counts[1]}, K1 by [B, R, n] {dict(osj.osj_svd.launches_by_shape)}")
-    require(wide, "8d: no theta 192 wide reached the library SVD")
-    require(not any(n > 128 for _, n in jacobi.jacobi_eigh.launches_by_shape)
-            and not any(n > 128 for _, _, n in osj.osj_svd.launches_by_shape), "8d: K1 or K2 launched past n = 128")
-    require(not counts[3], "8d: a plain kernel version ran on the card")
+    held = {shape: c for shape, c in routed.items() if min(shape[1:]) >= 64 and pjsvd_fits(max(shape[1:]),
+                                                                                            min(shape[1:]))}
+    by_path = {label: counts[0]}
+    ms = 1e3 * np.mean(times[1:] or times)
+    print(f"{label}: {ms:.1f} ms a layer over layers 2-{len(times)}, peak {peak:.3f} GiB; K2 by [B, n] {counts[1]}; "
+          f"K1 launches {counts[0]['osj_svd']}, at n={n}: {counts[0][f'osj_svd n={n}']}; thetas to the library SVD "
+          f"by [B, m, n]: {routed}")
+    require(not held, f"{label}: thetas the kernels hold took the library SVD: {held}")
+    require(counts[0][f"jacobi_eigh_wide n={n}"] > 0 and counts[0][f"osj_svd n={n}"] > 0,
+            f"{label}: K1 or K2 not launched at n = {n}: {counts[0]}")
+    require(not counts[3], f"{label}: a plain kernel version ran on the card")
     same = [li for li in range(len(devs)) if li < len(discarded) and discarded[li] <= cfg["cutoff"]]
     for li in same:
-        print(f"8d layer {li + 1}: |dev| {devs[li]:.3e}, bound {bound[li]:.3e} (chi=64 discarded {discarded[li]:.3e})")
-        require(devs[li] <= bound[li], f"8d: layer {li + 1} deviates {devs[li]:.3e} from flex-f64")
-    print(f"8d: {len(times)} layers, all finite; {len(same)} of them gated against flex-f64")
-    return {"8d": counts[0]}
+        print(f"{label} layer {li + 1}: |dev| {devs[li]:.3e}, bound {bound[li]:.3e} (chi=64 discarded "
+              f"{discarded[li]:.3e})")
+        require(devs[li] <= bound[li], f"{label}: layer {li + 1} deviates {devs[li]:.3e} from flex-f64")
+    print(f"{label}: {len(times)} layers, all finite; {len(same)} of them gated against flex-f64")
+    state = ({k: v.cpu().numpy() for k, v in eng.T.items()}, eng.M.cpu().numpy())
+    print(f"{label}: one more layer at chi={chi} under the profiler:")
+    profile_window(eng, step, layers=1)
+    del eng, step
+
+    # the library route on the same layers
+    _, _, zs_x, _, times_x, counts_x = evolve_eagle(dev, f"{label} svd_impl=xla chi={chi}", chi, torch.complex64,
+                                                    len(times), refs, cfg["cutoff"], time_cap=xla_cap_s,
+                                                    min_layers=2, svd_impl="xla")
+    require(counts_x[0]["osj_svd"] == 0 and counts_x[0]["jacobi_eigh"] == 0,
+            f"{label} xla: launches {counts_x[0]}")
+    for li in range(len(zs_x)):
+        d = float(np.max(np.abs(zs[li] - zs_x[li])))
+        print(f"{label} layer {li + 1}: kernels - library SVD {d:.3e} (bound {bound[li]:.3e})")
+        require(d <= bound[li], f"{label}: layer {li + 1}: the kernels' and the library's <Z> differ by {d:.3e}")
+    print(f"{label}: {ms:.1f} ms a layer on K1/K2 against {1e3 * np.mean(times_x[1:] or times_x):.1f} on the "
+          f"library SVD (layers 2-{len(times_x)})", flush=True)
+    by_path[f"{label} xla"] = counts_x[0]
+
+    if full_layers:
+        first = len(times)
+        envelope = np.full(cfg["layers"], 1e-2)
+        fr = {v: vals[first:] for v, vals in refs.items()}
+        *_, fdevs, ftimes, fcounts = evolve_eagle(dev, f"{label} trunc full chi={chi} (layers {first + 1}-"
+                                                  f"{first + full_layers})", chi, torch.complex64, full_layers, fr,
+                                                  cfg["cutoff"], gate=envelope[first:], state=state,
+                                                  trunc_method="full")
+        wide = sorted(shape for shape in fcounts[1] if shape[1] == n)
+        print(f"{label} trunc full: K2 at n={n}: {wide}, library eigh calls {fcounts[2]}, "
+              f"{1e3 * np.mean(ftimes):.1f} ms a layer, max |dev| {max(fdevs):.3e}")
+        require(wide, f"{label} trunc full: K2 not launched at n = {n}")
+        require(not fcounts[3], f"{label} trunc full: a plain version ran on the card")
+        by_path[f"{label} full"] = fcounts[0]
+    return by_path
 
 
 # ----------------------------------------------------------------------
 # phase 9: certified sampling
 # ----------------------------------------------------------------------
 
-SAMPLE_CAP_S = 150.0  # 9d draws the most samples, up to 50, whose groups fit this
+SAMPLE_CAP_S = 60.0  # 9d draws the most samples, up to 50, whose groups fit this
 
 
 def sample_stats(label, out):
@@ -2251,6 +2460,9 @@ def main():
     ap.add_argument("--measure-only", action="store_true",
                     help="only the environment, the build, the main path's evolution and the measurement phase "
                          "(no result lines)")
+    ap.add_argument("--wide-only", action="store_true",
+                    help="only the environment, the build, K1 and K2 past n = 128 against their plain versions, the "
+                         "main path's evolution and the chi=96 and chi=128 runs 8d and 8e (no result lines)")
     args = ap.parse_args()
 
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
@@ -2306,11 +2518,21 @@ def main():
             evolutions_launched({"5": launches, **by_w2})
             sample_w2(dev, eng)
             del eng
-            measure_chi96(dev, discarded)
+            measure_wide(dev, "8d", 96, discarded, CHI96_CAP_S, CHI96_CAP_S)
+            measure_wide(dev, "8e", 128, discarded, CHI128_CAP_S, CHI128_CAP_S, full_layers=2)
+            return 0
+        if args.wide_only:
+            wide_kernel_phase(dev)
+            _, eng, _, _, _, discarded, _ = main_path(dev, args.layers)
+            del eng
+            by_path = measure_wide(dev, "8d", 96, discarded, CHI96_CAP_S, CHI96_CAP_S)
+            by_path.update(measure_wide(dev, "8e", 128, discarded, CHI128_CAP_S, CHI128_CAP_S, full_layers=2))
+            print(f"kernel launches by path (8d, 8e): {by_path}")
             return 0
         kernels = kernel_phase(dev)
         k2_err = k2_switch_shapes(dev)
         kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], k2_err)
+        kernels += wide_kernel_phase(dev)
         kernels.append(bp_kernel_phase(dev))
         kernels.append(bp_kernel_3x_phase(dev))
         ckpt_path = ROOT / "build" / "chip_smoke" / f"main_layer{CKPT_LAYER}.npz"
@@ -2330,7 +2552,8 @@ def main():
         by_path.update(sample_w2(dev, eng))
         state_w2 = eng.to_arrays()
         del eng
-        by_path.update(measure_chi96(dev, discarded))
+        by_path.update(measure_wide(dev, "8d", 96, discarded, CHI96_CAP_S, CHI96_CAP_S))
+        by_path.update(measure_wide(dev, "8e", 128, discarded, CHI128_CAP_S, CHI128_CAP_S, full_layers=2))
         if args.layers > CKPT_LAYER:
             by_path.update(resume_checkpoint(dev, ckpt_path, trajectory, args.layers))
             ckpt_path.unlink()
@@ -2344,9 +2567,13 @@ def main():
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "launches_by_path", "fp32_ms")
-    # `launches`: each row's own path, phase 5 for K1-K3 and 10c for K3's bf16_3x mode
+            "bound_by", "library_ms", "launches_by_path", "fp32_ms", "shape", "sweeps", "relative_12", "square")
+    # `launches`: each row's own path, phase 5 for K1-K3, 10c for K3's bf16_3x
+    # mode, 8d for K1 and K2 at n = 192 and 8e at n = 256
     own = {"bp_sweep_group_bf16_3x": by_path["10c"]["bp_sweep_group_bf16_3x"]}
+    for name, path in (("192", "8d"), ("256", "8e")):
+        for k in ("jacobi_eigh_wide", "osj_svd"):
+            own[f"{k} n={name}"] = by_path[path][f"{k} n={name}"]
     kernels = [{key: v for key, v in dict(k, launches=own.get(k["name"], launches[k["name"]]),
                                           launches_by_path={p: c[k["name"]] for p, c in by_path.items()}).items()
                 if key in keys} for k in kernels]

@@ -66,17 +66,18 @@ def test_osj_plan_real_path_is_one_wave():
         assert B * C <= 132 and osj.osj_plan(R, 128, C)[2] <= osj.SMEM_LIMIT
 
 
-@pytest.mark.parametrize("R, n", [(993, 128), (2000, 128), (2050, 64), (130, 130), (64, 63), (3, 4), (2, 2)])
+@pytest.mark.parametrize("R, n", [(993, 128), (2000, 128), (2050, 64), (258, 258), (513, 256), (64, 63), (3, 4),
+                                  (2, 2)])
 def test_wrappers_raise_past_the_limit(R, n):
-    with pytest.raises(ValueError, match="osj_svd kernel takes even 4 <= n <= 128"):
+    with pytest.raises(ValueError, match="osj_svd kernel takes even 4 <= n <= 256"):
         osj.osj_fits(R, n)
-    with pytest.raises(ValueError, match="osj_svd kernel takes even 4 <= n <= 128"):
+    with pytest.raises(ValueError, match="osj_svd kernel takes even 4 <= n <= 256"):
         osj.osj_cluster(1, R, n, _fake_active)
     A = torch.zeros((1, R, n), dtype=torch.complex64)
-    with pytest.raises(ValueError, match="osj_svd kernel takes even 4 <= n <= 128"):
+    with pytest.raises(ValueError, match="osj_svd kernel takes even 4 <= n <= 256"):
         osj._osj_svd_cuda(A, torch.zeros((1, n, n), dtype=torch.complex64), 4)
-    if n % 2 == 0 and n > 128:
-        with pytest.raises(ValueError, match="even 4 <= n <= 128"):
+    if n % 2 == 0 and n > 256:
+        with pytest.raises(ValueError, match="even 4 <= n <= 256"):
             jacobi._jacobi_eigh_cuda(torch.zeros((1, n, n), dtype=torch.complex64), 8)
 
 

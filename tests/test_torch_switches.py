@@ -6,7 +6,7 @@ the JAX engine.
 
 Inputs are made with numpy and carried into both packages as arrays.  On
 the CPU the JAX engine's `default_eigh` is LAPACK's, and the port's sends
-complex64 with even 32 <= n <= 128 to the plain version of its Jacobi
+complex64 with even 32 <= n <= 256 to the plain version of its Jacobi
 kernel, so the K2 route runs here as it runs on the card, in PyTorch."""
 
 import numpy as np
@@ -102,7 +102,7 @@ def test_gram_svd_matches_lapack(mn):
     A[:, :, -n // 4 :] = 0
     calls = jacobi._jacobi_eigh_plain.calls
     U, s, Vh = (x.resolve_conj().numpy() for x in pf.gram_svd(torch.as_tensor(A)))
-    assert jacobi._jacobi_eigh_plain.calls == calls + 1  # the K2 route, min(m, n) in [32, 128]
+    assert jacobi._jacobi_eigh_plain.calls == calls + 1  # the K2 route, min(m, n) in [32, 256]
     s2 = np.linalg.svd(A, compute_uv=False)
     smax = float(np.max(s2))
     assert np.all(np.diff(s, axis=1) <= 1e-4 * smax)
@@ -140,13 +140,15 @@ def test_subspace_eigh_matches_jax(k):
 
 @pytest.mark.parametrize(
     "n, dtypes, route",
-    [(30, C64, "library"), (32, C64, "jacobi"), (72, C64, "jacobi"), (128, C64, "jacobi"), (130, C64, "library"),
-     (32, C128, "library")],
-    ids=["30-complex64", "32-complex64", "72-complex64", "128-complex64", "130-complex64", "32-complex128"],
+    [(30, C64, "library"), (32, C64, "jacobi"), (72, C64, "jacobi"), (128, C64, "jacobi"), (130, C64, "jacobi"),
+     (258, C64, "library"), (32, C128, "library")],
+    ids=["30-complex64", "32-complex64", "72-complex64", "128-complex64", "130-complex64", "258-complex64",
+         "32-complex128"],
 )
 def test_default_eigh_routes(n, dtypes, route):
-    """K2's route for complex64 at even 32 <= n <= 128, the library's for
-    complex128, n < 32, odd n and n > 128; both keep the eigh contract."""
+    """K2's route for complex64 at even 32 <= n <= 256 (the JAX gate; its
+    wide variant past 128), the library's for complex128, n < 32, odd n and
+    n > 256; both keep the eigh contract."""
     np_dtype, _ = dtypes
     rng = np.random.default_rng(n)
     A = _rand_c(rng, (2, n, n), np_dtype)

@@ -11,8 +11,11 @@
 // rotations accumulate into V.  Column norms, the sort, U = A/s and the
 // Frobenius prescale stay in PyTorch (tnqs_torch/ops/osj.py).
 //
-// Layout: one cluster of C CTAs per matrix (C in {1, 2, 4, 8}, picked by
-// the wrapper, `osj_plan`/`osj_cluster` in tnqs_torch/ops/osj.py).  The rows
+// Layout: one cluster of C CTAs per matrix (C in {1, 2, 4, 8, 16}, picked
+// by the wrapper, `osj_plan`/`osj_cluster` in tnqs_torch/ops/osj.py; 16 is
+// a non-portable cluster, all its CTAs on one GPC, taken only past n = 128,
+// where [512, 256] needs it: 270,352 shared bytes a CTA on 8, 204,816 on
+// 16).  n is even, 4 <= n <= 256.  The rows
 // of A and of V are cut into 32-row chunks; CTA c holds chunks
 // [c*cpc, (c+1)*cpc) of A and [c*vpc, (c+1)*vpc) of V in its shared memory
 // for all rounds, column-major with an odd pitch, so that lanes over rows
@@ -25,9 +28,9 @@
 //      into every CTA of the cluster (distributed shared memory) with
 //      `st.async`, which counts its bytes against that CTA's mbarrier for
 //      the round;
-//   2. each of m threads waits on its own CTA's mbarrier for every chunk's
-//      partials (no cluster-wide barrier), then sums one pair's four values
-//      over all chunks in chunk order, from its own shared memory.  The sum
+//   2. each of m (<= 128) threads waits on its own CTA's mbarrier for every
+//      chunk's partials (no cluster-wide barrier), then sums one pair's four
+//      values over all chunks in chunk order, from its own shared memory.  The sum
 //      does not depend on C or on which CTA forms it, so every CTA takes
 //      bitwise the same rotation and skip, and the result is the same for
 //      every C; the rotations go to shared memory, with a table of the next
@@ -40,13 +43,15 @@
 // so a buffer is never overwritten while it is read.  Every CTA waits for
 // everything sent to it, so none leaves while a peer still writes to it.
 //
-// What bounds it on Hopper: the latency of the 508-762 dependent rounds (a
-// DSMEM exchange, a rotation and two block barriers each) and one SM's
-// issue rate for a CTA's rows, not FLOPs or bytes; the iterate never leaves
-// shared memory between its one load and its one store.  256 threads of at
-// most 128 registers let two CTAs share an SM, so the card holds twice the
-// clusters: 30 of 8 at [R, 128] = [256, 128], where a batch of 26 takes one
-// wave.
+// What bounds it on Hopper: the latency of the dependent rounds (508-762 at
+// n = 128, 1146-1530 at n = 192-256; a DSMEM exchange, a rotation and two
+// block barriers each) and one SM's issue rate for a CTA's rows, not FLOPs
+// or bytes; the iterate never leaves shared memory between its one load and
+// its one store.  256 threads of at most 128 registers let two CTAs share
+// an SM, so the card holds twice the clusters: 30 of 8 at [R, 128] =
+// [256, 128], where a batch of 26 takes one wave.  Past n = 128 a CTA needs
+// over half an SM's shared memory, so one CTA an SM, and fewer clusters at
+// once (the smoke run prints how many): a batch takes several waves.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -59,6 +64,7 @@ constexpr int kThreads = 256;
 constexpr int kChunk = 32;  // rows of a chunk: one warp, lane = row
 constexpr int kGroup = 8;   // pairs of a warp's task: 8 x 4 values = 32 lanes
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxN = 256;  // m = n/2 pairs summed by m of the kThreads threads
 
 // `_rot_params_rel` (tnqs/ops/osj.py:117): ([l, r] @ J) has orthogonal
 // columns.  Returns false (identity rotation) when |g|^2 <= eps^2 * a * b.
@@ -235,8 +241,8 @@ osj_svd_kernel(const float2* __restrict__ a_in, const float2* __restrict__ v_in,
     }
 
     // 2. pair t's (a, b, Re g, Im g) summed over all chunks in chunk order,
-    // and its rotation; meanwhile threads m .. m+n-1 write the next round's
-    // index at each position
+    // and its rotation; meanwhile threads m .. kThreads-1 write the next
+    // round's index at each position
     const int t = threadIdx.x;
     if (t < m) {
       wait_phase(bar, (round >> 1) & 1);
@@ -252,8 +258,9 @@ osj_svd_kernel(const float2* __restrict__ a_in, const float2* __restrict__ v_in,
       float c = 1.0f, sr = 0.0f, si = 0.0f;
       const bool live = rot_params_rel(sum.x, sum.y, sum.z, sum.w, eps, c, sr, si);
       rot[t] = make_float4(c, sr, si, live ? 1.0f : 0.0f);
-    } else if (t < m + n) {
-      tab[((round + 1) & 1) * n + t - m] = index_at(t - m, rr + 1 == n - 1 ? 0 : rr + 1, m);
+    } else {
+      for (int j = t - m; j < n; j += kThreads - m)
+        tab[((round + 1) & 1) * n + j] = index_at(j, rr + 1 == n - 1 ? 0 : rr + 1, m);
     }
     __syncthreads();
 
@@ -321,13 +328,19 @@ cudaLaunchConfig_t launch_config(int batch, int cluster, int smem, cudaStream_t 
   return cfg;
 }
 
+// A cluster of 16 is past the portable size of 8: the kernel has to allow it.
+cudaError_t set_attributes(int smem) {
+  cudaError_t err = cudaFuncSetAttribute(osj_svd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(osj_svd_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
 }  // namespace
 
 // The most clusters of `cluster` CTAs with `smem` bytes each that the card
 // holds at once (cudaOccupancyMaxActiveClusters), into *active.
 extern "C" int tnqs_osj_svd_clusters(int cluster, int smem, int* active) {
-  cudaError_t err = cudaFuncSetAttribute(
-      osj_svd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err = set_attributes(smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(1, cluster, smem, 0, &attr);
@@ -341,12 +354,11 @@ extern "C" int tnqs_osj_svd_clusters(int cluster, int smem, int* active) {
 extern "C" int tnqs_osj_svd(const void* a_in, const void* v_in, void* a_out, void* v_out,
                             int batch, int rows, int n, int rounds, float eps, int cluster,
                             int cpc, int vpc, int smem, void* stream) {
-  if (batch <= 0 || n < 4 || n % 2 != 0 || rows < n || rounds < 0 || cluster < 1 ||
-      cluster > 8 || cluster * cpc * kChunk < rows || cluster * vpc * kChunk < n ||
+  if (batch <= 0 || n < 4 || n > kMaxN || n % 2 != 0 || rows < n || rounds < 0 ||
+      cluster < 1 || cluster > 16 || cluster * cpc * kChunk < rows || cluster * vpc * kChunk < n ||
       (size_t)smem < smem_bytes(rows, n, cpc, vpc))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      osj_svd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = set_attributes(smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(batch, cluster, smem, (cudaStream_t)stream, &attr);

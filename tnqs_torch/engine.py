@@ -522,8 +522,8 @@ class LatticeEngine:
       (`default_eigh` of each theta's smaller-side Gram) or "subspace"
       (`subspace_eigh` of Grams wider than chi + 16, `default_eigh` below).
     - `svd_impl`, for ``trunc_method="svd"``: "pjsvd" (the Jacobi kernels,
-      K2 then K1, for thetas whose smaller side is even and 64..128, the
-      library elsewhere: below, and past the kernels' 128 from chi = 65 on),
+      K2 then K1, for thetas whose smaller side is even and 64..256, the
+      library elsewhere: below, and past the kernels' 256 from chi = 129 on),
       "xla" (`torch.linalg.svd` for every theta) or "auto" ("pjsvd" at
       complex64, "xla" at complex128).
     - `bp_kernel` picks the BP sweep of `bp_update`, `normalize` and the
@@ -989,13 +989,13 @@ class LatticeEngine:
         (`tnqs/engine.py:1195-1268`).  Under ``svd_impl="pjsvd"`` an even
         smaller dimension >= 64 takes `pjsvd` (wide thetas through the
         adjoint; rectangular ones polish 6 sweeps, square 4) where its
-        kernels hold the shape (`pjsvd_fits`: even, at most 128); every
+        kernels hold the shape (`pjsvd_fits`: even, at most 256); every
         other theta, and every theta under "xla", takes `_svd_fallback`.
         The JAX gate (`tnqs/engine.py:1231-1235`) has no upper limit, since
-        its kernels take any even width; the port's K1 and K2 stop at 128,
-        so from chi = 65 on (a saturated bond's theta is 2 chi wide at
-        d = 2) the thetas take the library SVD instead.  The route depends
-        on the shape alone, so it is the same on every device."""
+        its kernels take any even width; the port's K1 and K2 stop at 256,
+        so up to chi = 128 (a saturated bond's theta is 2 chi wide at d = 2)
+        the thetas take the kernels, and past it the library SVD.  The route
+        depends on the shape alone, so it is the same on every device."""
         bank: dict = {}
         for ci, theta in enumerate(thetas):
             bank.setdefault(tuple(theta.shape[1:]), []).append(ci)

@@ -40,6 +40,10 @@ _SIGNATURES = {
     "tnqs_jacobi_eigh": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P],
     # (n, active_out)
     "tnqs_jacobi_eigh_clusters": [_I, ctypes.POINTER(_I)],
+    # the wide variant, 128 < n <= 256: (h_in, vt_out, w_out, batch, n, rounds, eps, relative, cluster, stream)
+    "tnqs_jacobi_eigh_wide": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _P],
+    # (n, cluster, active_out)
+    "tnqs_jacobi_eigh_wide_clusters": [_I, _I, ctypes.POINTER(_I)],
     # (a_in, v_in, a_out, v_out, batch, rows, n, rounds, eps, cluster, cpc, vpc, smem, stream)
     "tnqs_osj_svd": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I, _P],
     # (cluster, smem, active_out)

@@ -95,18 +95,17 @@ def default_eigh(H: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     `torch.linalg.eigh` contract.
 
     The route is keyed on the tensor, before any launch: complex64 with
-    even 32 <= n <= 128 takes `jacobi_eigh` at its default 12 sweeps and
-    scale-relative skip (K2 on a CUDA tensor, its plain version on a CPU
-    tensor); everything else takes `torch.linalg.eigh`.  The relative skip
-    departs from the JAX kernel's absolute one, with which the Gram
-    truncation broke down on the chi=64 Eagle run (`jacobi_eigh`).  Two routes depart from the JAX gate
-    (`tnqs/ops/factorizations.py:125`), which sends even n up to 256 to the
-    Jacobi kernel and computes complex128 input in float32 planes there: K2
-    holds n <= 128 (its cluster layout), so 128 < n <= 256 goes to the
-    library; and complex128 goes to the library, which keeps it in double
+    even 32 <= n <= 256, the JAX gate (`tnqs/ops/factorizations.py:125`),
+    takes `jacobi_eigh` at its default 12 sweeps and scale-relative skip
+    (K2 on a CUDA tensor, its wide variant past n = 128; its plain version
+    on a CPU tensor); everything else takes `torch.linalg.eigh`.  The
+    relative skip departs from the JAX kernel's absolute one, with which the
+    Gram truncation broke down on the chi=64 Eagle run (`jacobi_eigh`).
+    Complex128 departs from the JAX gate, which computes it in float32
+    planes on the kernel: it goes to the library, which keeps it in double
     precision.  Library calls are counted in `default_eigh.library_calls`."""
     n = H.shape[-1]
-    if H.dtype == torch.complex64 and n % 2 == 0 and 32 <= n <= 128:
+    if H.dtype == torch.complex64 and n % 2 == 0 and 32 <= n <= 256:
         return jacobi_eigh(H)
     default_eigh.library_calls += 1
     return library_eigh(H)

@@ -2,9 +2,11 @@
 
 Port of `tnqs/ops/jacobi.py::jacobi_eigh` (`tnqs/ops/jacobi.py:208`).  The
 rotation rounds run in the CUDA kernel `tnqs_torch/csrc/jacobi_eigh.cu` on a
-CUDA tensor (a cluster of three CTAs per matrix, H resident in one CTA's
-shared memory and V in the other two's), and in `_jacobi_eigh_plain`, the
-same schedule written in PyTorch, on a CPU tensor.  The Newton–Schulz
+CUDA tensor (up to n = 128 a cluster of three CTAs per matrix, H resident in
+one CTA's shared memory and V in the other two's; for 128 < n <= 256 a
+cluster of 4 or 8, each CTA holding the columns of H and V at its pair
+positions, `eigh_wide_plan`), and in `_jacobi_eigh_plain`, the same schedule
+written in PyTorch, on a CPU tensor.  The Newton–Schulz
 repair of V, the Rayleigh eigenvalues and the ascending sort
 (`tnqs/ops/jacobi.py:300-318`) are PyTorch in both cases.
 """
@@ -20,6 +22,8 @@ import torch
 from . import _build
 
 EPS32 = float(torch.finfo(torch.float32).eps)
+SMEM_LIMIT = 232_448  # bytes of shared memory one CTA of an H100 may use
+WIDE_CLUSTERS = (4, 8)  # cluster sizes of the wide variant, 128 < n <= 256
 
 
 def _rot_params(a, b, gr, gi, eps: float, relative: bool):
@@ -105,26 +109,51 @@ _jacobi_eigh_plain.calls = 0
 _jacobi_eigh_plain.rotations = None
 
 
+def eigh_wide_plan(n: int):
+    """The wide variant's layout for 128 < n <= 256: (cluster size C, pair
+    positions of each CTA, shared bytes a CTA).  CTA k owns the positions
+    [k m / C, (k+1) m / C) of the m = n/2 pairs; C is the smaller of
+    `WIDE_CLUSTERS` whose CTAs each own at least 2 pairs and fit their
+    columns.  The sum is `wide_smem_bytes` in `tnqs_torch/csrc/
+    jacobi_eigh.cu`: the rotations of two rounds, four mbarriers, 2 pmax + 3
+    column slots of H and of V (two rings of pmax + 1, and position 0), the
+    row index at each position and the pairs' slots.  ValueError past the
+    variant's shapes."""
+    m = n // 2
+    if n % 2 or not 128 < n <= 256:
+        raise ValueError(f"the wide jacobi_eigh kernel takes even 128 < n <= 256, got {n}")
+    for C in WIDE_CLUSTERS:
+        pmax = -(-m // C)
+        smem = 16 * n + 32 + 16 * (2 * pmax + 3) * n + 4 * n + 8 * pmax
+        if m // C >= 2 and smem <= SMEM_LIMIT:
+            return C, [(k + 1) * m // C - k * m // C for k in range(C)], smem
+    raise ValueError(f"no cluster of {WIDE_CLUSTERS} holds n={n}")
+
+
 def _jacobi_eigh_cuda(H: torch.Tensor, sweeps: int, relative: bool = True):
-    """Launch `tnqs_jacobi_eigh` on H [B, n, n] hermitian complex64 (CUDA,
-    contiguous), one cluster of three CTAs per matrix.  Returns (w [B, n]
-    unsorted, V [B, n, n])."""
-    if H.dim() != 3 or H.shape[1] != H.shape[2] or H.shape[1] % 2 or not 4 <= H.shape[1] <= 128:
-        raise ValueError(f"jacobi_eigh kernel takes [B, n, n] with even 4 <= n <= 128, got {tuple(H.shape)}")
+    """Launch `tnqs_jacobi_eigh` (n <= 128, one cluster of three CTAs per
+    matrix) or `tnqs_jacobi_eigh_wide` (128 < n <= 256, `eigh_wide_plan`)
+    on H [B, n, n] hermitian complex64 (CUDA, contiguous).  Returns
+    (w [B, n] unsorted, V [B, n, n])."""
+    if H.dim() != 3 or H.shape[1] != H.shape[2] or H.shape[1] % 2 or not 4 <= H.shape[1] <= 256:
+        raise ValueError(f"jacobi_eigh kernel takes [B, n, n] with even 4 <= n <= 256, got {tuple(H.shape)}")
     if not (H.is_cuda and H.dtype == torch.complex64 and H.is_contiguous()):
         raise ValueError("jacobi_eigh kernel takes a contiguous complex64 CUDA tensor [B, n, n]")
     B, n, _ = H.shape
     lib = _build.kernels()
     if active_clusters(H.device, n) == 0:
-        raise RuntimeError(f"jacobi_eigh kernel: no cluster of three CTAs for n={n} fits on {H.device}")
+        raise RuntimeError(f"jacobi_eigh kernel: no cluster for n={n} fits on {H.device}")
     vt = torch.empty_like(H)
     w = torch.empty((B, n), dtype=torch.float32, device=H.device)
     with torch.cuda.device(H.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tnqs_jacobi_eigh(
-            H.data_ptr(), vt.data_ptr(), w.data_ptr(), B, n, sweeps * (n - 1), EPS32, int(relative), stream
-        )
-    _build.check(err, "tnqs_jacobi_eigh")
+        if n <= 128:
+            err = lib.tnqs_jacobi_eigh(H.data_ptr(), vt.data_ptr(), w.data_ptr(), B, n, sweeps * (n - 1), EPS32,
+                                       int(relative), stream)
+        else:
+            err = lib.tnqs_jacobi_eigh_wide(H.data_ptr(), vt.data_ptr(), w.data_ptr(), B, n, sweeps * (n - 1),
+                                            EPS32, int(relative), eigh_wide_plan(n)[0], stream)
+    _build.check(err, "tnqs_jacobi_eigh" if n <= 128 else "tnqs_jacobi_eigh_wide")
     jacobi_eigh.launches += 1
     jacobi_eigh.launches_by_shape[(B, n)] = jacobi_eigh.launches_by_shape.get((B, n), 0) + 1
     return w, vt.mT
@@ -132,12 +161,17 @@ def _jacobi_eigh_cuda(H: torch.Tensor, sweeps: int, relative: bool = True):
 
 @functools.cache
 def active_clusters(device: torch.device, n: int) -> int:
-    """How many of the kernel's three-CTA clusters for size n the card holds
-    at once (`cudaOccupancyMaxActiveClusters`)."""
+    """How many of the kernel's clusters for size n (three CTAs up to
+    n = 128, `eigh_wide_plan`'s past it) the card holds at once
+    (`cudaOccupancyMaxActiveClusters`)."""
     active = ctypes.c_int(0)
+    lib = _build.kernels()
     with torch.cuda.device(device):
-        _build.check(_build.kernels().tnqs_jacobi_eigh_clusters(n, ctypes.byref(active)),
-                     "tnqs_jacobi_eigh_clusters")
+        if n <= 128:
+            _build.check(lib.tnqs_jacobi_eigh_clusters(n, ctypes.byref(active)), "tnqs_jacobi_eigh_clusters")
+        else:
+            _build.check(lib.tnqs_jacobi_eigh_wide_clusters(n, eigh_wide_plan(n)[0], ctypes.byref(active)),
+                         "tnqs_jacobi_eigh_wide_clusters")
     return active.value
 
 

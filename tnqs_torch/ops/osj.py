@@ -19,7 +19,7 @@ import math
 import torch
 
 from . import _build
-from .jacobi import EPS32, jacobi_eigh, round_robin
+from .jacobi import EPS32, SMEM_LIMIT, jacobi_eigh, round_robin
 
 
 def _rot_params_rel(a, b, gr, gi, eps: float):
@@ -72,9 +72,11 @@ _osj_svd_plain.calls = 0
 _osj_svd_plain.rotations = None
 
 
-SMEM_LIMIT = 232_448  # bytes of shared memory one CTA of an H100 may use
-CLUSTERS = (1, 2, 4, 8)  # cluster sizes the kernel is launched with
+# cluster sizes the kernel is launched with; 16, past the portable 8, only
+# for n > 128, where [512, 256] (the chi = 128 thetas) needs it
+CLUSTERS = (1, 2, 4, 8, 16)
 CHUNK = 32  # rows of A or V a warp sums over: the unit the kernel splits rows by
+MAX_N = 256  # the widest A the kernel takes
 
 
 def osj_plan(R: int, n: int, C: int):
@@ -92,31 +94,39 @@ def osj_plan(R: int, n: int, C: int):
 
 
 def _fitting_clusters(R: int, n: int) -> list[int]:
-    """The cluster sizes whose CTAs each hold at least one chunk of A [R, n]
-    and fit their share in shared memory; empty past the kernel's shapes."""
-    if n % 2 or not 4 <= n <= 128 or R < n:
+    """The cluster sizes the kernel takes A [R, n] on; empty past its shapes.
+    Up to n = 128: the sizes up to 8 whose CTAs each hold at least one chunk
+    of A and fit their share in shared memory.  Past n = 128 (up to
+    `MAX_N`): the one smallest size whose CTAs fit, up to 16, even where
+    some CTA then holds no chunk of A ([384, 192] on 8 CTAs: 12 chunks of
+    A, two chunks a CTA)."""
+    if n % 2 or not 4 <= n <= MAX_N or R < n:
         return []
     nch = -(-R // CHUNK)
-    return [C for C in CLUSTERS if (C - 1) * osj_plan(R, n, C)[0] < nch and osj_plan(R, n, C)[2] <= SMEM_LIMIT]
+    if n > 128:
+        return [C for C in CLUSTERS if osj_plan(R, n, C)[2] <= SMEM_LIMIT][:1]
+    return [C for C in CLUSTERS[:4] if (C - 1) * osj_plan(R, n, C)[0] < nch and osj_plan(R, n, C)[2] <= SMEM_LIMIT]
 
 
 def pjsvd_fits(R: int, n: int) -> bool:
     """Whether `pjsvd` takes A [R, n] (R >= n) through its kernels: K2 on
-    the Gram [n, n] (even 4 <= n <= 128) and K1 on [R, n] (`osj_fits`).
+    the Gram [n, n] (even 4 <= n <= 256) and K1 on [R, n] (`osj_fits`).
     Decided from the shape alone, before any launch, and never raises, so a
     caller routes every other shape elsewhere on every device."""
     return bool(_fitting_clusters(R, n))
 
 
 def osj_fits(R: int, n: int) -> list[int]:
-    """The cluster sizes whose CTAs each hold at least one chunk of A and fit
-    their share in shared memory, or ValueError when none does.  This is the
-    kernel's one limit on shape: even 4 <= n <= 128, R >= n, and R at most
-    what a cluster of 8 holds (992 rows at n = 128)."""
+    """The cluster sizes the kernel takes A [R, n] on (`_fitting_clusters`),
+    or ValueError when none does.  This is the kernel's one limit on shape:
+    even 4 <= n <= 256, R >= n, and R at most what a cluster of 8 holds up
+    to n = 128 (992 rows at n = 128), of 16 past it (512 rows at n = 256,
+    800 at n = 192)."""
     fits = _fitting_clusters(R, n)
     if not fits:
-        raise ValueError(f"osj_svd kernel takes even 4 <= n <= 128 and n <= R with R rows fitting the "
-                         f"shared memory of a cluster of 8 ({SMEM_LIMIT} bytes a CTA), got [{R}, {n}]")
+        raise ValueError(f"osj_svd kernel takes even 4 <= n <= {MAX_N} and n <= R with R rows fitting the "
+                         f"shared memory of a cluster of 8 (16 past n = 128; {SMEM_LIMIT} bytes a CTA), "
+                         f"got [{R}, {n}]")
     return fits
 
 
