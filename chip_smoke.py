@@ -2,7 +2,7 @@
 """Smoke run of tnqs_torch on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py [--layers N] [--bp-kernel-only | --switches-only | --measure-only | --flex-only |
-                           --wide-only]
+                           --wide-only | --l2-only | --sanitize]
 
 Run from the repository root.  Phases, each of which fails the run:
 
@@ -32,7 +32,19 @@ Run from the repository root.  Phases, each of which fails the run:
    thetas [26, 384, 192], [18, 192, 192], [26, 512, 256] and
    [18, 256, 256], each against its plain version and LAPACK on the
    spectrum families scaled to n, beside the library call and its bound,
-   with the clusters the card holds at once;
+   with the clusters the card holds at once; F2: pjsvd on the 128-value
+   families padded with zeros at [26, 384, 192], recorded, and the worst
+   member (`F2_MEMBER`) alone, its error after each polish sweep for K2 then
+   K1 on the card, both plain, the plain K2 then the kernel K1, and the
+   plain K2 on the Gram moved by rounding-sized noise; then the L2 variants
+   past n = 256 (`l2_kernel_phase`): their plans, K2 on [26, 320, 320] and
+   [4, 512, 512] Grams in both skips (against the plain version at batch 2
+   at `L2_CHECK_SWEEPS`, timed at 8 absolute and 12 relative sweeps), K1 as
+   pjsvd's polish at [4, 512, 512], [26, 640, 320] and [26, 1024, 512]
+   (against the plain version and LAPACK's graded bounds at
+   `L2_GRADED_SWEEPS`, the engine's sweeps recorded), two calls bitwise
+   equal, beside the library call and the bound from the rotations the
+   kernel counted;
 4. BP kernel: `bp_sweep_group` against its plain version on every degree
    >= 2 group of the Eagle chi=64 color plan, on random site tensors and
    positive messages, plus groups of gathered rows at degree 2-6 that
@@ -85,8 +97,10 @@ Run from the repository root.  Phases, each of which fails the run:
    (well-conditioned sides) against cholqr2, the site tensors compared
    where the bond gauge drops out; (g) `svd_impl="xla"`, complex64, chi=64,
    N layers within the main bound with no K1/K2 launch, layers/s beside
-   phase 5's.  Complex128 runs launch no float32 kernel and run no plain
-   version;
+   phase 5's, and F1's table: phase 5's and 7g's deviations from flex-f64
+   by layer against the two clauses of the reference's `pjsvd_certified`
+   (`certification_table`).  Complex128 runs launch no float32 kernel and
+   run no plain version;
 8. measurement, `BMPSEngine` on the card: (a) the w2 readout, Eagle-127 at
    chi=8, complex64, 20 kicked-Ising layers from "↑", BP <Z>(11,5) within
    5e-4 of flex-f64, then BMPS rank 10 <Z> at (7,8) and (11,5), every emit
@@ -150,7 +164,10 @@ Run from the repository root.  Phases, each of which fails the run:
    dbeta=0.01, 25 steps, operator sites) at complex128 on the card and the
    CPU (1e-10 apart; within the JAX engine's own distance from the golden,
    plus that) and at complex64 in both BP precisions (K3 at d = 4, k = 3,
-   chi=32), every recorded step within 2e-3 of the 4th-order HTSE;
+   chi=32; every [4, 512, 512] theta on the L2 variants of K2 then K1, none
+   on the library SVD, each recorded step within 1e-5 of complex128), then
+   complex64 on `svd_impl="xla"`, its seconds beside the kernels', every
+   recorded step within 2e-3 of the 4th-order HTSE;
 11. the flex tier on the card (`tnqs_torch.apply_gates`, `expect`,
    `sample_directly_certified`): (a) `golden_eagle127.json`'s
    configuration (Eagle-127, 20 kicked-Ising layers, J = pi/4, theta_h =
@@ -174,8 +191,12 @@ The line before the last is {"kernels": [...]}: `launches` counts the
 launches on each row's own path (phase 5 for K1-K3, 10c for K3's bf16_3x
 mode), `launches_by_path` each run's of phases 5-10 ("6" the BP path, "8a"
 the w2 evolution, "8a bmps" and "8c bmps" the BMPS calls, "9a", "9c" and
-"9d" the sampler calls, "10e" and "10e high" the complex64 thermal runs);
+"9d" the sampler calls, "10e" and "10e high" the complex64 thermal runs on
+the kernels; the L2 rows' `launches` are 10e's);
 the last line is {"ok": true, "device": {...}}.
+`--l2-only` runs phases 1, 2, the L2 variants' checks and 10e (no result
+lines); `--sanitize` runs phases 1, 2 and then the cluster kernels at batch
+1-2 under compute-sanitizer's racecheck and synccheck (no result lines).
 `--flex-only` runs phases 1, 2, the main path's evolution and `bp_update`
 and 11 (no result lines).
 `--bp-kernel-only` runs phases 1, 2 and 4 and prints K3's row alone (no
@@ -441,6 +462,7 @@ def kernel_phase(dev):
 # theta rows, width, polish sweeps).  K2 takes the tall ones' Grams.
 WIDE_N = (192, 256)
 WIDE_PATH = ((26, 384, 192, 6), (18, 192, 192, 4), (26, 512, 256, 6), (18, 256, 256, 4))
+F2_MEMBER = 21  # the zero-padded [26, 384, 192] batch's worst member under the kernel (`zero_padded_member`)
 
 
 def wide_kernel_phase(dev):
@@ -526,20 +548,7 @@ def wide_kernel_phase(dev):
         print(f"osj_svd [{B},{R},{n}] kernel vs plain: max |ds| {err:.3e}, relative to largest {rel:.3e}")
         require(rel < 1e-4, f"osj_svd [{B},{R},{n}]: kernel and plain singular values differ by more than 1e-4")
         if (R, n) == (384, 192):
-            # recorded, not gated: the 128-value families padded with zeros,
-            # on which the reference's schedule itself (JAX's pjsvd as well)
-            # leaves up to ~1e-4 of s_max on a "wide" member
-            Ap = torch.as_tensor(spectrum_batch(np.random.default_rng(11), B, R, n), device=dev)
-            sp0 = torch.linalg.svdvals(Ap.to(torch.complex128))
-            Hp = Ap.mH @ Ap
-            Hp = (0.5 * (Hp + Hp.mH)).contiguous()
-            _, Vp = jacobi.eigh_from_rounds(Hp, *jacobi._jacobi_eigh_plain(Hp, 8, False))
-            Ab_p, scale_p = osj.prescale(Ap @ Vp)
-            plain_s = osj.svd_from_rounds(*osj._osj_svd_plain(Ab_p, Vp, polish), scale_p)[1]
-            for name, sp in (("kernel", osj.pjsvd(Ap, polish_sweeps=polish)[1]), ("plain", plain_s)):
-                e = ((sp.double() - sp0).abs().amax(1) / sp0[:, 0]).cpu().numpy()
-                print(f"pjsvd {name} [{B},{R},{n}] on the zero-padded 128-value families (recorded): s error "
-                      f"{e.max():.3e} (member {int(e.argmax())}), median {np.median(e):.3e}")
+            zero_padded_member(dev, B, R, n, polish)
         k_ms = cuda_ms(lambda: osj.osj_svd(B0, V0, sweeps=polish), 5)
         p_ms = cuda_ms(lambda: osj.svd_from_rounds(*osj._osj_svd_plain(Ab, V0, polish), scale), 1, warmup=False)
         l_ms = cuda_ms(lambda: torch.linalg.svd(A, full_matrices=False), 2)
@@ -557,6 +566,235 @@ def wide_kernel_phase(dev):
             rows[f"osj_svd n={n}"]["square"] = row
             rows[f"osj_svd n={n}"]["max_abs_err"] = max(err, rows[f"osj_svd n={n}"]["max_abs_err"])
     return list(rows.values())
+
+
+# K1 and K2 past n = 256, the L2 variants: K2 on [B, n, n] Grams at n = 320
+# (chi = 160) and 512 (the thermal path's thetas, chi = 256); K1 as pjsvd's
+# polish (batch, rows, width, polish sweeps) at the thermal path's saturated
+# thetas ([4, 512, 512] a call, three calls a step in 10e) and the chi = 160
+# and chi = 256 Eagle thetas
+L2_N = (320, 512)
+L2_EIGH = ((26, 320), (4, 512))
+L2_PATH = ((4, 512, 512, 4), (26, 640, 320, 6), (26, 1024, 512, 6))
+L2_PLAIN_BATCH = 2  # the plain comparison's batch; the kernels run and are timed at the full batch
+# sweeps at which K2's L2 variant is held to its plain version: both skips
+# converge every family there (at 12 with the relative skip the plain version
+# itself leaves 1.1e-05 of the spectral norm on the clusters family at n = 320)
+L2_CHECK_SWEEPS = 16
+
+
+def l2_residual(Hb, w, V):
+    """max |H V - V diag(w)| of each member over its spectral norm."""
+    return (Hb @ V - V * w[:, None, :]).abs().amax(dim=(1, 2)) / w.abs().amax(1)
+L2_LAPACK_BATCH = 5  # members held to LAPACK's SVD: one of each spectrum family
+# polish sweeps at which pjsvd is held to LAPACK's graded bounds: the
+# engine's square schedule (4, JAX's) leaves the dense families unconverged
+# at n = 512 in the plain version as in the kernel (recorded beside it)
+L2_GRADED_SWEEPS = 6
+
+
+def l2_kernel_phase(dev):
+    """K1 and K2 past n = 256 (the L2 variants) on the card: each variant's
+    plan (cluster size, clusters at once, waves, scratch); K2 on the Grams of
+    `L2_EIGH` in both skips, checked against its plain version on the first
+    `L2_PLAIN_BATCH` members (eigenvalues within 1e-5 of the spectral norm)
+    and on every member (eigen-residual at most 1e-5 of it) at
+    `L2_CHECK_SWEEPS`, timed at pjsvd's 8 sweeps with the absolute skip and
+    `default_eigh`'s 12 with the relative one, where the residuals of kernel
+    and plain version are recorded beside each other; K1 as pjsvd's polish
+    on `L2_PATH`, against its plain version (s within 1e-5 of s_max, rank-n/2 reconstruction within
+    3e-5 of it) and pjsvd against LAPACK by the graded bounds of
+    `tests/test_torch_wide_pjsvd.py` on one member of each family; two
+    calls of each kernel bitwise equal; each beside the library call and
+    its bound, the rotations taken counted by the kernel in the timed call.
+    Returns the rows of the `kernels` line, one per kernel and width."""
+    from tnqs_torch.ops import jacobi, osj
+
+    rng = np.random.default_rng(12)
+    pb = L2_PLAIN_BATCH
+    rows = {}
+    for B, n in L2_EIGH:
+        plan = jacobi.eigh_l2_plan(B, n, lambda C: jacobi.l2_active_clusters(dev, n, C))
+        print(f"K2 L2 [{B},{n},{n}]: {plan} (clusters of 16 the card holds: "
+              f"{jacobi.l2_active_clusters(dev, n, 16)}, of 8: {jacobi.l2_active_clusters(dev, n, 8)})")
+        A = torch.as_tensor(spectrum_batch(rng, B, 2 * n, n, scaled_families(n)), device=dev)
+        G = A.mH @ A
+        Hb = (0.5 * (G + G.mH)).contiguous()
+        errs, timed = [], {}
+        for relative, sweeps in ((False, 8), (True, 12)):
+            skip = "relative" if relative else "absolute"
+            raw = jacobi._jacobi_eigh_cuda(Hb, L2_CHECK_SWEEPS, relative)
+            again = jacobi._jacobi_eigh_cuda(Hb, L2_CHECK_SWEEPS, relative)
+            same = torch.equal(raw[0], again[0]) and torch.equal(raw[1], again[1])
+            w_k, V_k = jacobi.jacobi_eigh(G, sweeps=L2_CHECK_SWEEPS, relative=relative)
+            w_p, V_p = jacobi.eigh_from_rounds(Hb[:pb], *jacobi._jacobi_eigh_plain(Hb[:pb], L2_CHECK_SWEEPS, relative))
+            torch.cuda.synchronize()
+            check_eigh(f"L2 kernel [{B},{n},{n}] {skip}", Hb, w_k, V_k)
+            check_eigh(f"plain [{pb},{n},{n}] {skip}", Hb[:pb], w_p, V_p)
+            dw = ((w_k[:pb] - w_p).abs().amax(1) / w_k[:pb].abs().amax(1)).max().item()
+            resid = l2_residual(Hb, w_k, V_k).max().item()
+            errs.append((w_k[:pb] - w_p).abs().max().item())
+            print(f"jacobi_eigh L2 [{B},{n},{n}] {skip}, {L2_CHECK_SWEEPS} sweeps: kernel vs plain on {pb} members "
+                  f"max |dw| "
+                  f"{dw:.3e} of the spectral norm (bound 1e-5), kernel eigen-residual {resid:.3e} of it on all {B} "
+                  f"(bound 1e-5); two calls bitwise equal: {same}")
+            require(same, f"jacobi_eigh L2 [{B},{n},{n}] {skip}: two calls differ")
+            require(dw <= 1e-5 and resid <= 1e-5, f"jacobi_eigh L2 [{B},{n},{n}] {skip}: off its plain version")
+            ms = cuda_ms(lambda: jacobi.jacobi_eigh(G, sweeps=sweeps, relative=relative), 3)
+            taken = jacobi.jacobi_eigh.rotations.item()
+            w_t, V_t = jacobi.jacobi_eigh(G, sweeps=sweeps, relative=relative)
+            plain_ms = cuda_ms(lambda: jacobi.eigh_from_rounds(
+                Hb[:pb], *jacobi._jacobi_eigh_plain(Hb[:pb], sweeps, relative)), 1, warmup=False)
+            r_t = l2_residual(Hb, w_t, V_t)
+            b = int(r_t.argmax())  # the kernel's worst member, through the plain version too
+            w_q, V_q = jacobi.eigh_from_rounds(Hb[b:b + 1], *jacobi._jacobi_eigh_plain(Hb[b:b + 1], sweeps, relative))
+            print(f"jacobi_eigh L2 [{B},{n},{n}] {skip} at the timed {sweeps} sweeps (recorded): eigen-residual of the "
+                  f"spectral norm, kernel {r_t.max().item():.3e} on all {B} (member {b}), plain "
+                  f"{l2_residual(Hb[b:b + 1], w_q, V_q).item():.3e} on member {b}")
+            library_ms = cuda_ms(lambda: torch.linalg.eigh(Hb), 3)
+            bound_ms, bound_by = eigh_bound(B, n, taken)
+            timed[skip] = (ms, plain_ms, bound_ms, bound_by, library_ms)
+            print(f"jacobi_eigh L2 [{B},{n},{n}] sweeps={sweeps} {skip}: kernel {ms:.3f} ms (wrapper, copies and "
+                  f"refinement included), plain {plain_ms:.3f} ms at batch {pb}, torch.linalg.eigh {library_ms:.3f} "
+                  f"ms, bound {bound_ms:.3f} ms ({bound_by}; {taken} of {B * sweeps * (n - 1) * (n // 2)} rotations "
+                  f"taken, counted by the kernel; kernel at {100 * bound_ms / ms:.1f}%)", flush=True)
+        ms, plain_ms, bound_ms, bound_by, library_ms = timed["absolute"]
+        rows[f"jacobi_eigh_l2 n={n}"] = dict(
+            name=f"jacobi_eigh_l2 n={n}", route="cuda", source="tnqs_torch/csrc/jacobi_eigh.cu",
+            replaces="tnqs/ops/jacobi.py:279", max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=library_ms, shape=[B, n, n], sweeps=8, plain_shape=[pb, n, n],
+            cluster=plan.cluster, clusters=plan.clusters,
+            relative_12=dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"), timed["relative"])))
+
+    for B, R, n, polish in L2_PATH:
+        plan, nch, vch = osj.osj_l2_plan(B, R, n, lambda C: osj.l2_active_clusters(dev, n, C))
+        print(f"K1 L2 [{B},{R},{n}]: {plan}, {nch} + {vch} chunks of A + V (clusters of 16 the card holds: "
+              f"{osj.l2_active_clusters(dev, n, 16)}, of 8: {osj.l2_active_clusters(dev, n, 8)})")
+        A = torch.as_tensor(spectrum_batch(rng, B, R, n, scaled_families(n)), device=dev)
+        _, V0 = jacobi.jacobi_eigh(A.mH @ A, sweeps=8, relative=False)
+        B0 = A @ V0
+        Ab, scale = osj.prescale(B0)
+        Ab, V0c = Ab.contiguous(), V0.contiguous()
+        raw, again = osj._osj_svd_cuda(Ab, V0c, polish), osj._osj_svd_cuda(Ab, V0c, polish)
+        same = torch.equal(raw[0], again[0]) and torch.equal(raw[1], again[1])
+        lb = L2_LAPACK_BATCH
+        U0, s0, Vh0 = torch.linalg.svd(A[:lb].to(torch.complex128), full_matrices=False)
+        k = n // 2  # the bond: the rank-chi truncation against LAPACK's
+        best = (U0[:, :, :k] * s0[:, None, :k]) @ Vh0[:, :k]
+        fams = list(scaled_families(n))
+        for sweeps in sorted({polish, max(polish, L2_GRADED_SWEEPS)}):
+            # the engine's sweeps, recorded; the graded bounds where the schedule converges
+            gated = sweeps >= L2_GRADED_SWEEPS
+            U_k, s_k, Vh_k = osj.osj_svd(B0, V0, sweeps=sweeps)
+            U_p, s_p, Vh_p = osj.svd_from_rounds(*osj._osj_svd_plain(Ab[:pb], V0c[:pb], sweeps), scale[:pb])
+            U_j, s_j, Vh_j = osj.pjsvd(A, polish_sweeps=sweeps)
+            off = []
+            for name, U, s, Vh, b in (("kernel", U_k, s_k, Vh_k, lb), ("plain", U_p, s_p, Vh_p, pb),
+                                      ("pjsvd", U_j, s_j, Vh_j, lb)):
+                require(all(torch.isfinite(x).all() for x in (U, s, Vh)),
+                        f"osj_svd L2 {name} [{B},{R},{n}]: non-finite")
+                U, s, Vh = U[:b], s[:b], Vh[:b]
+                rec = ((U[:, :, :k] * s[:, None, :k]) @ Vh[:, :k]).to(torch.complex128)
+                recon = torch.linalg.vector_norm((rec - best[:b]).flatten(1), dim=1) / s0[:b, 0]
+                s_err = (s.double() - s0[:b]).abs().amax(1) / s0[:b, 0]
+                sorted_ok = bool((s[:, 1:] - s[:, :-1] <= 1e-6).all())
+                print(f"osj_svd L2 {name} [{B},{R},{n}] {sweeps} sweeps ({'gated' if gated else 'recorded'}): "
+                      f"rank-{k} reconstruction (bound 3e-5) and s error (bound 1e-4) of s_max by member: "
+                      + ", ".join(f"{fams[i % 5]} {r.item():.3e} {e.item():.3e}"
+                                  for i, (r, e) in enumerate(zip(recon, s_err)))
+                      + f"; descending {sorted_ok}")
+                if not (recon.max().item() < 3e-5 and s_err.max().item() < 1e-4 and sorted_ok):
+                    off.append(name)
+            require(not gated or not off, f"osj_svd L2 [{B},{R},{n}]: {off} off LAPACK")
+            # the kernel against its plain version: gated where the schedule
+            # converges; before it the two part by float32 rounding (F2)
+            err = (s_k[:pb] - s_p).abs().max().item()
+            rel = ((s_k[:pb] - s_p).abs().amax(1) / s_p[:, 0]).max().item()
+            print(f"osj_svd L2 [{B},{R},{n}] {sweeps} sweeps ({'gated' if gated else 'recorded'}) kernel vs plain on "
+                  f"{pb} members: max |ds| {err:.3e}, {rel:.3e} of s_max (bound 1e-5); two calls bitwise equal: {same}")
+        require(same, f"osj_svd L2 [{B},{R},{n}]: two calls differ")
+        require(rel <= 1e-5, f"osj_svd L2 [{B},{R},{n}]: kernel and plain singular values differ")
+        k_ms = cuda_ms(lambda: osj.osj_svd(B0, V0, sweeps=polish), 3)
+        taken = osj.osj_svd.rotations.item()
+        p_ms = cuda_ms(lambda: osj.svd_from_rounds(*osj._osj_svd_plain(Ab[:pb], V0c[:pb], polish), scale[:pb]), 1,
+                       warmup=False)
+        l_ms = cuda_ms(lambda: torch.linalg.svd(A, full_matrices=False), 2)
+        bound_ms, bound_by = osj_bound(B, R, n, polish, taken)
+        print(f"osj_svd L2 [{B},{R},{n}] sweeps={polish}, C={plan.cluster}: kernel {k_ms:.3f} ms (wrapper, copies, "
+              f"prescale and sort included), plain {p_ms:.3f} ms at batch {pb}, torch.linalg.svd {l_ms:.3f} ms, bound "
+              f"{bound_ms:.3f} ms ({bound_by}; {taken} of {B * polish * (n - 1) * (n // 2)} rotations taken, counted "
+              f"by the kernel; kernel at {100 * bound_ms / k_ms:.1f}%)", flush=True)
+        row = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=l_ms, shape=[B, R, n],
+                   sweeps=polish, max_abs_err=err, plain_shape=[pb, R, n], cluster=plan.cluster,
+                   clusters=plan.clusters)
+        key = f"osj_svd_l2 n={n}"
+        if key not in rows:
+            rows[key] = dict(name=key, route="cuda", source="tnqs_torch/csrc/osj_svd.cu",
+                             replaces="tnqs/ops/osj.py:306", **row)
+        else:
+            rows[key]["tall"] = row
+            rows[key]["max_abs_err"] = max(err, rows[key]["max_abs_err"])
+    return list(rows.values())
+
+
+def zero_padded_member(dev, B, R, n, polish):
+    """F2 (ROADMAP Queue 3), recorded, not gated: `pjsvd` on the 128-value
+    families padded with zeros, on which the reference's schedule itself
+    leaves up to ~1e-4 of s_max on a "wide" member.  The batch's worst
+    member (`F2_MEMBER`, `tests/test_torch_svd_route.py` holds the plain version to
+    JAX's interpret-mode `pjsvd` on it) is then run alone, kernel and plain,
+    with its s error after the preconditioner (sweep 0) and after each polish
+    sweep: K2 then K1 on the card, both plain, and K1 on the plain K2's
+    basis, which parts K1 from K2."""
+    from tnqs_torch.ops import jacobi, osj
+
+    Ap = torch.as_tensor(spectrum_batch(np.random.default_rng(11), B, R, n), device=dev)
+    sp0 = torch.linalg.svdvals(Ap.to(torch.complex128))
+    Hp = Ap.mH @ Ap
+    Hp = (0.5 * (Hp + Hp.mH)).contiguous()
+    _, Vp = jacobi.eigh_from_rounds(Hp, *jacobi._jacobi_eigh_plain(Hp, 8, False))
+    Ab_p, scale_p = osj.prescale(Ap @ Vp)
+    plain_s = osj.svd_from_rounds(*osj._osj_svd_plain(Ab_p, Vp, polish), scale_p)[1]
+    errs = {}
+    for name, sp in (("kernel", osj.pjsvd(Ap, polish_sweeps=polish)[1]), ("plain", plain_s)):
+        errs[name] = ((sp.double() - sp0).abs().amax(1) / sp0[:, 0]).cpu().numpy()
+        print(f"pjsvd {name} [{B},{R},{n}] on the zero-padded 128-value families (recorded): s error "
+              f"{errs[name].max():.3e} (member {int(errs[name].argmax())}), median {np.median(errs[name]):.3e}")
+    b = F2_MEMBER
+    print(f"F2: member {b} (the kernel's worst: member {int(errs['kernel'].argmax())}): kernel "
+          f"{errs['kernel'][b]:.3e}, plain {errs['plain'][b]:.3e} of s_max in the batch of {B}")
+    A1, s1 = Ap[b:b + 1].contiguous(), sp0[b:b + 1]
+    H1 = Hp[b:b + 1].contiguous()
+    V_k = jacobi.jacobi_eigh(A1.mH @ A1, sweeps=8, relative=False)[1]
+    V_p = jacobi.eigh_from_rounds(H1, *jacobi._jacobi_eigh_plain(H1, 8, False))[1]
+
+    def by_sweep(V0, rounds):
+        X, scale = osj.prescale(A1 @ V0)
+        X, V = X.contiguous(), V0.contiguous()
+        out = []
+        for sweep in range(polish + 1):
+            if sweep:
+                X, V = rounds(X, V, 1)
+            s = osj.svd_from_rounds(X, V, scale)[1]
+            out.append(((s.double() - s1).abs().amax(1) / s1[:, 0]).item())
+        return out
+
+    rows = {"K2+K1 kernel": by_sweep(V_k, osj._osj_svd_cuda), "K2+K1 plain": by_sweep(V_p, osj._osj_svd_plain),
+            "plain K2, kernel K1": by_sweep(V_p, osj._osj_svd_cuda)}
+    # the plain K2 on the Gram moved by a Hermitian perturbation of 1e-7 of
+    # its largest entry (float32 rounding's size), then the kernel K1: how far
+    # rounding alone moves the outcome of the same schedule
+    for seed in (1, 2):
+        E = torch.as_tensor(rand_c(np.random.default_rng(seed), (1, n, n)), device=dev)
+        H_e = (H1 + 1e-7 * H1.abs().max() * 0.5 * (E + E.mH)).contiguous()
+        V_e = jacobi.eigh_from_rounds(H_e, *jacobi._jacobi_eigh_plain(H_e, 8, False))[1]
+        rows[f"plain K2 on the Gram + 1e-7 noise (seed {seed}), kernel K1"] = by_sweep(V_e, osj._osj_svd_cuda)
+    for name, e in rows.items():
+        print(f"F2 member {b} alone, s error / s_max after sweeps 0..{polish} ({name}): "
+              + " ".join(f"{x:.3e}" for x in e))
+    k, p = rows["K2+K1 kernel"][-1], rows["K2+K1 plain"][-1]
+    print(f"F2: kernel {k:.3e} against plain {p:.3e} alone ({k / p:.2f}x; 2x is the line the ROADMAP draws)")
+    return rows
 
 
 def normalized(m):
@@ -871,7 +1109,7 @@ def main_path(dev, layers, checkpoint=None):
     print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     final = ({k: v.cpu().numpy() for k, v in eng.T.items()}, eng.M.cpu().numpy())
     return launches, eng, step, (center, bench_v, controls, bound[-1], layers), rate, discarded, (np.array(zs), final,
-                                                                                                 bound)
+                                                                                                 bound, devs)
 
 
 def device_times(prof):
@@ -1099,10 +1337,11 @@ def k3_launches():
     by_mode = bp_sweep.bp_sweep_group.launches_by_mode
     counts = {"jacobi_eigh": jacobi.jacobi_eigh.launches, "osj_svd": osj.osj_svd.launches,
               "bp_sweep_group": by_mode["highest"], "bp_sweep_group_bf16_3x": by_mode["bf16_3x"]}
-    for n in WIDE_N:  # the rows past n = 128, K2's wide variant and K1 by width
-        counts[f"jacobi_eigh_wide n={n}"] = sum(c for (_, w), c in jacobi.jacobi_eigh.launches_by_shape.items()
-                                                if w == n)
-        counts[f"osj_svd n={n}"] = sum(c for (_, _, w), c in osj.osj_svd.launches_by_shape.items() if w == n)
+    for n, k2, k1 in [(n, "jacobi_eigh_wide", "osj_svd") for n in WIDE_N] + [(n, "jacobi_eigh_l2", "osj_svd_l2")
+                                                                           for n in L2_N]:
+        # the rows past n = 128 (K2's wide variant, K1) and past n = 256 (the L2 variants), by width
+        counts[f"{k2} n={n}"] = sum(c for (_, w), c in jacobi.jacobi_eigh.launches_by_shape.items() if w == n)
+        counts[f"{k1} n={n}"] = sum(c for (_, _, w), c in osj.osj_svd.launches_by_shape.items() if w == n)
     return counts
 
 
@@ -1437,7 +1676,28 @@ def nofactor_group(dev, chi):
             "7f: a gate's two-site tensor differs beyond its truncation bound")
 
 
-def switches_phase(dev, layers, main_rate=float("nan"), chi=64):
+def certification_table(runs):
+    """F1 (ROADMAP Queue 3): each run's per-layer deviation from flex-f64
+    {label: deviations} against both clauses of the reference's
+    `pjsvd_certified` (`tnqs/ops/osj.py:62-106`), on the floor of
+    `tests/golden/tpu_parity_chi64.json`: (1) every layer within max(3 x
+    the running floor, 2e-5); (2) the trajectory's maximum at most the
+    floor's.  Returns {label: (clause 1, clause 2, max deviation)}."""
+    floors = np.asarray(json.loads((ROOT / "tests" / "golden" / "tpu_parity_chi64.json").read_text())
+                        ["f32_floor_per_layer"])
+    gate = np.maximum(3.0 * np.maximum.accumulate(floors), 2e-5)
+    out = {}
+    for label, devs in runs.items():
+        devs = np.asarray(devs)
+        c1, c2 = bool((devs <= gate[:len(devs)]).all()), bool(devs.max() <= floors.max())
+        print(f"F1 {label}: |dev| by layer " + " ".join(f"{d:.3e}" for d in devs)
+              + f"; clause 1 (each layer within max(3 x running floor, 2e-5)) {c1}; clause 2 (max {devs.max():.3e} "
+              f"<= floor max {floors.max():.3e}) {c2}")
+        out[label] = (c1, c2, float(devs.max()))
+    return out
+
+
+def switches_phase(dev, layers, main_rate=float("nan"), chi=64, main_devs=None):
     """Phase 7: every switch of the engine on the card, from "↑" on Eagle-127
     with the main path's layer.  Returns each run's kernel launches by path
     ("7a" .. "7g"), each counted from 0 just before that run."""
@@ -1523,6 +1783,8 @@ def switches_phase(dev, layers, main_rate=float("nan"), chi=64):
     rate = (len(times) - 1) / sum(times[1:]) if len(times) > 1 else float("nan")
     print(f"7g: layers/s over layers 2-{len(times)} {rate:.4f} with torch.linalg.svd, against {main_rate:.4f} on "
           f"the pjsvd route (phase 5)")
+    if main_devs is not None:
+        certification_table({"5 (svd_impl='pjsvd', K2 then K1)": main_devs, "7g (svd_impl='xla', gesvd)": devs})
     return by_path
 
 # ----------------------------------------------------------------------
@@ -2012,7 +2274,7 @@ def resume_checkpoint(dev, path, trajectory, layers):
     the uninterrupted run's; the file loaded on the CPU: the same arrays."""
     from tnqs_torch import checkpoint
 
-    zs, (T_end, M_end), _ = trajectory
+    zs, (T_end, M_end), *_ = trajectory
     plain_before = reset_counts()
     t0 = time.perf_counter()
     eng = checkpoint.load_engine(path, device=dev)
@@ -2197,7 +2459,7 @@ def loop_corrections(dev, state_main, state_w2):
 JAX_THERMAL_DIST = 1.049161e-13
 
 
-def thermal_run(label, chi, dtype, device, bp_precision=None):
+def thermal_run(label, chi, dtype, device, bp_precision=None, svd_impl="auto"):
     import tnqs_torch
     from tnqs_torch.engine import LatticeEngine
 
@@ -2206,7 +2468,7 @@ def thermal_run(label, chi, dtype, device, bp_precision=None):
     g = tnqs_torch.named_hexagonal_lattice_graph(2, 2, periodic=True)
     t0 = time.perf_counter()
     eng = LatticeEngine(g, chi, dtype=dtype, device=device, site_legs=2, state=tnqs_torch.identity_operator_vector(),
-                        bp_precision=bp_precision)
+                        bp_precision=bp_precision, svd_impl=svd_impl)
     eng.bp_update(maxiter=30)
     step = eng.make_step(tnqs_torch.heisenberg_thermal_layer(g, c["J"], c["dbeta"]), cutoff=c["cutoff"],
                          normalize=False, bp_maxiter=30)
@@ -2222,10 +2484,11 @@ def thermal_run(label, chi, dtype, device, bp_precision=None):
     rec = np.array(f[c["record_every"] - 1:: c["record_every"]])
     htse = np.abs(rec - np.array(gold["htse_4th"]))
     flex = np.abs(rec - np.array(gold["free_energy_density"]))
-    print(f"10e {label}: {time.perf_counter() - t0:.3f} s, f at steps 5..25 {[f'{x:.10f}' for x in rec]}; |f - HTSE "
-          f"4th| max {htse.max():.3e} (bound 2e-3); |f - golden free_energy_density| max {flex.max():.3e}", flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"10e {label}: {seconds:.3f} s, f at steps 5..25 {[f'{x:.10f}' for x in rec]}; |f - HTSE 4th| max "
+          f"{htse.max():.3e} (bound 2e-3); |f - golden free_energy_density| max {flex.max():.3e}", flush=True)
     require(np.isfinite(rec).all() and htse.max() < 2e-3, f"10e {label}: off the HTSE anchor")
-    return rec, flex if chi == c["maxdim"] else None
+    return rec, flex if chi == c["maxdim"] else None, seconds
 
 
 def thermal_phase(dev, chi=32):
@@ -2233,15 +2496,19 @@ def thermal_phase(dev, chi=32):
     golden_thermal.json's configuration: chi=32, dbeta=0.01, 25 steps) at
     complex128 on the card (no float32 kernel) and on the CPU, and at
     complex64 on the card (K3 at d = 4, k = 3, chi=32) in both BP
-    precisions."""
-    from tnqs_torch.ops import bp_sweep
+    precisions, every saturated theta [4, 512, 512] through K2 then K1 (the
+    L2 variants) and none through the library SVD, each recorded step within
+    1e-5 of complex128; then complex64 on ``svd_impl="xla"`` (gesvd), its
+    seconds and distance from complex128 beside the kernels'."""
+    from tnqs_torch.engine import _svd_fallback
+    from tnqs_torch.ops import bp_sweep, osj
 
     by_path = {}
     plain_before = reset_counts()
-    f128, dist = thermal_run("complex128, card", chi, torch.complex128, dev)
+    f128, dist, _ = thermal_run("complex128, card", chi, torch.complex128, dev)
     counts = read_counts(plain_before)
     require(not any(counts[0].values()) and not counts[3], f"10e: complex128 launched {counts[0]}")
-    f_cpu, _ = thermal_run("complex128, CPU port", chi, torch.complex128, "cpu")
+    f_cpu, _, _ = thermal_run("complex128, CPU port", chi, torch.complex128, "cpu")
     d_cpu = np.abs(f128 - f_cpu).max()
     print(f"10e: complex128 card - CPU {d_cpu:.3e} (bound 1e-10)")
     require(d_cpu <= 1e-10, "10e: complex128 card and CPU differ")
@@ -2249,17 +2516,34 @@ def thermal_phase(dev, chi=32):
         print(f"10e: complex128 card from the golden {dist.max():.3e}, the JAX engine's own CPU distance "
               f"{JAX_THERMAL_DIST:.3e} (bound that + the card-CPU bound 1e-10)")
         require(dist.max() <= JAX_THERMAL_DIST + 1e-10, "10e: complex128 off the golden")
-    for prec in (None, "high"):
+    wide = 16 * chi  # the saturated thetas' side: (d chi) x d = 512 at d = 4, [4, 512, 512] a call
+    seconds = {}
+    for prec, svd_impl in ((None, "auto"), ("high", "auto"), (None, "xla")):
+        label = f"complex64, card, bp_precision={prec}, svd_impl={svd_impl}"
         plain_before = reset_counts()
-        f64, _ = thermal_run(f"complex64, card, bp_precision={prec}", chi, torch.complex64, dev, prec)
+        fallback = dict(_svd_fallback.calls_by_shape)
+        f64, _, seconds[label] = thermal_run(label, chi, torch.complex64, dev, prec, svd_impl)
         counts = read_counts(plain_before)
+        library = {k: v - fallback.get(k, 0) for k, v in _svd_fallback.calls_by_shape.items() if v > fallback.get(k, 0)}
         shapes = {key[:3] for key in bp_sweep.bp_sweep_group.launches_by_shape}
-        print(f"10e: complex64 (bp_precision={prec}) - complex128 {np.abs(f64 - f128).max():.3e}; K3 launches "
-              f"{counts[0]} at (mode, k, chi) {sorted(shapes)}")
+        d128 = np.abs(f64 - f128)
+        print(f"10e {label}: - complex128 by recorded step {[f'{x:.3e}' for x in d128]}; K3 launches {counts[0]} at "
+              f"(mode, k, chi) {sorted(shapes)}; K2 by [B, n] {counts[1]}; K1 by [B, R, n] "
+              f"{dict(osj.osj_svd.launches_by_shape)}; library SVDs by shape {library}")
         mode = "bp_sweep_group_bf16_3x" if prec == "high" else "bp_sweep_group"
         require(counts[0][mode] > 0 and not counts[3] and all(key[1:] == (3, chi) for key in shapes),
                 f"10e: complex64 launches {counts[0]}")
+        if svd_impl == "xla":
+            require(counts[0]["jacobi_eigh"] == 0 and counts[0]["osj_svd"] == 0, f"10e {label}: launched K1/K2")
+            continue
+        require(any(n == wide for _, n in counts[1]) and any(shape[1:] == (wide, wide)
+                                                              for shape in osj.osj_svd.launches_by_shape)
+                and not any(shape[1:] == (wide, wide) for shape in library),
+                f"10e {label}: the [*, {wide}, {wide}] thetas did not all take K2 then K1")
+        require(d128.max() <= 1e-5, f"10e {label}: {d128.max():.3e} from complex128 (bound 1e-5)")
         by_path["10e" if prec is None else "10e high"] = counts[0]
+    print("10e complex64 seconds (25 steps, BP included): "
+          + "; ".join(f"{label.split('card, ')[1]}: {t:.3f} s" for label, t in seconds.items()))
     return by_path
 
 
@@ -2447,6 +2731,51 @@ def flex_phase(dev, state_main):
     require(not any(counts[0].values()) and not counts[3], "11: a kernel ran on the flex tier")
 
 
+def sanitize_target(dev):
+    """The cluster kernels at batch 1-2 and one sweep, for compute-sanitizer
+    (`--sanitize`): K2's wide variant at n = 256 (8 CTAs), K1 on 16 CTAs at
+    [512, 256], and both L2 variants at n = 320."""
+    from tnqs_torch.ops import jacobi, osj
+
+    rng = np.random.default_rng(13)
+    for B, n in ((2, 256), (1, 320)):
+        X = torch.as_tensor(rand_c(rng, (B, n, n)), device=dev)
+        jacobi._jacobi_eigh_cuda((0.5 * (X + X.mH)).contiguous(), 1, False)
+        torch.cuda.synchronize()
+        print(f"sanitize target: jacobi_eigh [{B},{n},{n}] one sweep done", flush=True)
+    for B, R, n in ((2, 512, 256), (1, 640, 320)):
+        A = torch.as_tensor(rand_c(rng, (B, R, n)), device=dev)
+        osj._osj_svd_cuda(A, torch.eye(n, dtype=A.dtype, device=dev).expand(B, n, n).contiguous(), 1)
+        torch.cuda.synchronize()
+        print(f"sanitize target: osj_svd [{B},{R},{n}] one sweep done ({'L2' if osj.osj_l2(R, n) else 'clusters of '
+              + str(osj.osj_fits(R, n)[0])})", flush=True)
+
+
+def sanitize():
+    """`--sanitize`: `sanitize_target` under compute-sanitizer's racecheck and
+    synccheck, where the toolkit ships it.  Returns 0 when both report no
+    hazard and the target ran to its end."""
+    import shutil
+
+    tool = shutil.which("compute-sanitizer") or "/usr/local/cuda/bin/compute-sanitizer"
+    if not pathlib.Path(tool).exists():
+        print("sanitize: the CUDA toolkit here ships no compute-sanitizer")
+        return 1
+    rc = 0
+    for check in ("racecheck", "synccheck"):
+        t0 = time.perf_counter()
+        proc = subprocess.run([tool, "--tool", check, sys.executable, str(pathlib.Path(__file__).resolve()),
+                               "--sanitize-target"], capture_output=True, text=True, timeout=900)
+        out = (proc.stdout + proc.stderr).strip().splitlines()
+        print(f"sanitize {check}: exit {proc.returncode} after {time.perf_counter() - t0:.1f} s; the sanitizer's "
+              f"lines and the target's last:")
+        for line in [line for line in out if line.startswith("=========")][:12] + out[-4:]:
+            print(f"  {line}")
+        clean = proc.returncode == 0 and any("0 errors" in line or "0 hazards" in line for line in out)
+        rc |= not clean
+    return rc
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=10, help="main-path layers (default 10)")
@@ -2463,6 +2792,13 @@ def main():
     ap.add_argument("--wide-only", action="store_true",
                     help="only the environment, the build, K1 and K2 past n = 128 against their plain versions, the "
                          "main path's evolution and the chi=96 and chi=128 runs 8d and 8e (no result lines)")
+    ap.add_argument("--l2-only", action="store_true",
+                    help="only the environment, the build, K1 and K2 past n = 256 against their plain versions and "
+                         "the thermal phase 10e (no result lines)")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="only the build, then the cluster kernels at batch 1-2 under compute-sanitizer's racecheck "
+                         "and synccheck (no result lines)")
+    ap.add_argument("--sanitize-target", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
@@ -2492,6 +2828,11 @@ def main():
         _build.host_library()
         print(f"host library build (g++, the loop enumerator) {time.perf_counter() - t0:.2f} s -> "
               f"{_build.host_library_path().relative_to(ROOT)}", flush=True)
+        if args.sanitize_target:
+            sanitize_target(dev)
+            return 0
+        if args.sanitize:
+            return sanitize()
         if args.bp_kernel_only:
             print(json.dumps(bp_kernel_phase(dev)))
             print(json.dumps({k: (v.tolist() if hasattr(v, "tolist") else v)
@@ -2521,6 +2862,10 @@ def main():
             measure_wide(dev, "8d", 96, discarded, CHI96_CAP_S, CHI96_CAP_S)
             measure_wide(dev, "8e", 128, discarded, CHI128_CAP_S, CHI128_CAP_S, full_layers=2)
             return 0
+        if args.l2_only:
+            l2_kernel_phase(dev)
+            print(f"kernel launches by path (10e): {thermal_phase(dev)}")
+            return 0
         if args.wide_only:
             wide_kernel_phase(dev)
             _, eng, _, _, _, discarded, _ = main_path(dev, args.layers)
@@ -2533,6 +2878,7 @@ def main():
         k2_err = k2_switch_shapes(dev)
         kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], k2_err)
         kernels += wide_kernel_phase(dev)
+        kernels += l2_kernel_phase(dev)
         kernels.append(bp_kernel_phase(dev))
         kernels.append(bp_kernel_3x_phase(dev))
         ckpt_path = ROOT / "build" / "chip_smoke" / f"main_layer{CKPT_LAYER}.npz"
@@ -2545,7 +2891,7 @@ def main():
         by_path.update(measure_chi64(dev, eng, probe))
         by_path.update(sample_chi64(dev, eng))
         del eng, step
-        by_path.update(switches_phase(dev, args.layers, main_rate))
+        by_path.update(switches_phase(dev, args.layers, main_rate, main_devs=trajectory[3]))
         by_w2, eng = measure_w2(dev)
         by_path.update(by_w2)
         evolutions_launched(by_path)
@@ -2567,13 +2913,17 @@ def main():
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "launches_by_path", "fp32_ms", "shape", "sweeps", "relative_12", "square")
+            "bound_by", "library_ms", "launches_by_path", "fp32_ms", "shape", "sweeps", "relative_12", "square", "tall",
+            "plain_shape", "cluster", "clusters")
     # `launches`: each row's own path, phase 5 for K1-K3, 10c for K3's bf16_3x
     # mode, 8d for K1 and K2 at n = 192 and 8e at n = 256
     own = {"bp_sweep_group_bf16_3x": by_path["10c"]["bp_sweep_group_bf16_3x"]}
     for name, path in (("192", "8d"), ("256", "8e")):
         for k in ("jacobi_eigh_wide", "osj_svd"):
             own[f"{k} n={name}"] = by_path[path][f"{k} n={name}"]
+    for n in L2_N:  # the L2 variants' rows: the thermal path's (n = 512; n = 320 is on no path of the smoke)
+        for k in ("jacobi_eigh_l2", "osj_svd_l2"):
+            own[f"{k} n={n}"] = by_path["10e"][f"{k} n={n}"]
     kernels = [{key: v for key, v in dict(k, launches=own.get(k["name"], launches[k["name"]]),
                                           launches_by_path={p: c[k["name"]] for p, c in by_path.items()}).items()
                 if key in keys} for k in kernels]

@@ -69,15 +69,30 @@ def test_osj_plan_real_path_is_one_wave():
 @pytest.mark.parametrize("R, n", [(993, 128), (2000, 128), (2050, 64), (258, 258), (513, 256), (64, 63), (3, 4),
                                   (2, 2)])
 def test_wrappers_raise_past_the_limit(R, n):
-    with pytest.raises(ValueError, match="osj_svd kernel takes even 4 <= n <= 256"):
-        osj.osj_fits(R, n)
-    with pytest.raises(ValueError, match="osj_svd kernel takes even 4 <= n <= 256"):
-        osj.osj_cluster(1, R, n, _fake_active)
+    """Past the shared-memory layout (more rows than its clusters hold, or
+    n > 256) K1 takes the L2 variant, whose clusters `osj_fits` then lists;
+    only an odd n, n < 4 or R < n has no kernel, and every wrapper raises on
+    it.  The wrappers raise on a CPU tensor in either case."""
     A = torch.zeros((1, R, n), dtype=torch.complex64)
-    with pytest.raises(ValueError, match="osj_svd kernel takes even 4 <= n <= 256"):
-        osj._osj_svd_cuda(A, torch.zeros((1, n, n), dtype=torch.complex64), 4)
-    if n % 2 == 0 and n > 256:
-        with pytest.raises(ValueError, match="even 4 <= n <= 256"):
+    V = torch.zeros((1, n, n), dtype=torch.complex64)
+    if n % 2 == 0 and 4 <= n <= R:
+        assert osj.osj_l2(R, n) and osj.osj_fits(R, n) == list(jacobi.L2_CLUSTERS) and osj.pjsvd_fits(R, n)
+        with pytest.raises(ValueError, match="takes the L2 variant"):
+            osj.osj_cluster(1, R, n, _fake_active)
+        with pytest.raises(ValueError, match="complex64 CUDA tensors"):
+            osj._osj_svd_cuda(A, V, 4)
+        with pytest.raises(ValueError, match="contiguous complex64 CUDA tensor"):
+            jacobi._jacobi_eigh_cuda(torch.zeros((1, n, n), dtype=torch.complex64), 8)
+        return
+    assert not osj.osj_l2(R, n) and not osj.pjsvd_fits(R, n)
+    with pytest.raises(ValueError, match="osj_svd kernel takes even n >= 4 and n <= R"):
+        osj.osj_fits(R, n)
+    with pytest.raises(ValueError, match="osj_svd kernel takes even n >= 4 and n <= R"):
+        osj.osj_cluster(1, R, n, _fake_active)
+    with pytest.raises(ValueError, match="osj_svd kernel takes even n >= 4 and n <= R"):
+        osj._osj_svd_cuda(A, V, 4)
+    if n % 2 or n < 4:
+        with pytest.raises(ValueError, match="even n >= 4"):
             jacobi._jacobi_eigh_cuda(torch.zeros((1, n, n), dtype=torch.complex64), 8)
 
 

@@ -176,16 +176,17 @@ def test_cpu_tensor_takes_the_plain_path():
 @pytest.mark.parametrize(
     "shape, route",
     [((5, 256, 128), "pjsvd"), ((5, 128, 256), "pjsvd"), ((5, 128, 128), "pjsvd"), ((5, 384, 192), "pjsvd"),
-     ((5, 192, 384), "pjsvd"), ((5, 512, 256), "pjsvd"), ((5, 256, 62), "library"), ((5, 516, 258), "library"),
-     ((5, 258, 516), "library"), ((5, 1024, 256), "library")],
+     ((5, 192, 384), "pjsvd"), ((5, 512, 256), "pjsvd"), ((5, 256, 62), "library"), ((5, 516, 258), "pjsvd"),
+     ((5, 258, 516), "pjsvd"), ((5, 1024, 256), "pjsvd")],
 )
 def test_theta_route_holds_the_kernels_shapes(monkeypatch, shape, route):
-    """`_theta_svds` sends a theta to `pjsvd` only where both kernels hold
-    its shape (`osj.pjsvd_fits`: smaller side even, 64..256, and rows that
-    fit K1's clusters), decided from the shape before any launch, so meta
-    tensors take the card's route; the saturated chi = 96 and chi = 128
-    thetas take the kernels, the chi > 128 thetas (smaller side 2 chi) and
-    thetas too tall for K1 the library SVD."""
+    """`_theta_svds` sends a theta to `pjsvd` by JAX's gate word for word
+    (`tnqs/engine.py:1231-1235`: smaller side even and at least 64, no upper
+    limit), decided from the shape before any launch, so meta tensors take
+    the card's route; the saturated chi = 96 and chi = 128 thetas take the
+    shared-memory kernels, the chi > 128 thetas (smaller side 2 chi) and
+    thetas too tall for K1's clusters the L2 variants (`osj.pjsvd_fits`
+    holds for all of them), an odd or narrower side the library SVD."""
     import tnqs_torch.engine as pe
     from tnqs_torch.graphs import NamedGraph
 

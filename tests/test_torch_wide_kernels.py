@@ -17,6 +17,8 @@ from tnqs.ops.osj import osj_svd as j_osj_svd
 
 from tnqs_torch.ops import jacobi, osj
 
+from torch_wide_cases import one_blas_thread  # noqa: F401  (autouse: numpy BLAS on one thread)
+
 torch.set_num_threads(1)
 
 

@@ -587,6 +587,189 @@ bool wide_ok(int n, int cluster) {
   return n > kMaxN && n <= kWideMaxN && n % 2 == 0 && (cluster == 4 || cluster == 8) &&
          (n / 2) / cluster >= 2 && wide_smem_bytes(n, cluster) <= 232448;
 }
+
+// ---------------------------------------------------------------------------
+// n > 256: the L2 variant.  A CTA's share of H and V no longer fits shared
+// memory at any cluster size (n = 512 needs 297,120 bytes a CTA in the wide
+// layout on 16 CTAs), so H and V stay in device memory, column-major by
+// index (hc[col][row] = H[row][col], vc[col][row] = V[row][col]; the
+// wrapper copies H in and V = I), and stay hot in L2: the wrapper runs only
+// as many matrices at once as keep their iterates within ~40 MB of it
+// (`eigh_l2_plan` in tnqs_torch/ops/jacobi.py), each cluster taking the
+// next matrix when it is done.  One cluster of C CTAs (16, non-portable,
+// where the card holds one, else 8) per matrix; CTA k owns the pair
+// positions [k m / C, (k+1) m / C) and, each round, the columns of H and V
+// whose indices stand at them (`index_at`).  Columns never move: a column
+// that leaves a CTA's positions only changes owner.  The same rotations as
+// the kernels above: `rot_params` with either skip, rows first, then
+// columns, by `rowmix` and `colmix`.  A round:
+//   A. every CTA forms all m rotations from a small exchange buffer that
+//      holds, for every column x, H[x][x] and, if x stands right of its
+//      pair, the coupling H[p][x] to the left column p; every CTA reads the
+//      same values in the same order, so all take bitwise the same
+//      rotations and the same vote on whether any is taken, with no
+//      exchange of rotations;
+//   B. if one is: the CTA rotates the 2x2 blocks (every row pair i, its own
+//      column pairs j) of H and its own columns of V, in device memory;
+//   C. the CTA writes into the other half of the exchange buffer the next
+//      round's entries of its own columns (each column's next position has a
+//      closed form, `next_position`), then a cluster barrier, release then
+//      acquire, makes its writes visible to the CTAs that own those columns
+//      next.
+// Every load of H, V or the exchange buffer is `ld.global.cg`: a column is
+// written by other CTAs between two of this CTA's visits, so no line of it
+// may be served from this SM's L1.  The exchange buffer is double-buffered
+// by round parity: round r+1 writes the half round r read only after all
+// CTAs passed round r's barrier, which each reaches after its reads of
+// round r.  H is updated in full, not mirrored, as in the wide variant.
+// The eigenvalues are the final diagonal, which the wrapper reads.
+//
+// What bounds it: the bytes a round moves through L2 (H's and V's columns
+// read and written once a round a rotation is taken: 32 n^2 bytes a matrix)
+// and the latency of the sweeps * (n-1) dependent rounds, each one cluster
+// barrier; not FLOPs.  Shared memory holds only the round's rotations and
+// the index at each position: 12 n bytes a CTA.
+
+constexpr int kL2Threads = 512;
+
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release;\n\tbarrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// The position the entry at position j takes in the next round, along the
+// cycle of `index_at` (m -> 1 -> ... -> m-1 -> n-1 -> ... -> m+1 -> m).
+__device__ __forceinline__ int next_position(int j, int m) {
+  if (j == 0) return 0;
+  if (j == m) return 1;
+  if (j < m - 1) return j + 1;
+  if (j == m - 1) return 2 * m - 1;
+  return j - 1;
+}
+
+// The exchange entry of column x, standing at position j in the round whose
+// cycle step is rr: (H[x][x], and right of its pair Re, Im of H[p][x] with
+// p the left column).
+__device__ __forceinline__ float4 l2_entry(const float2* H, int x, int j, int rr, int n, int m) {
+  float4 e = make_float4(__ldcg(H + (size_t)x * n + x).x, 0.0f, 0.0f, 0.0f);
+  if (j >= m) {
+    const float2 g = __ldcg(H + (size_t)x * n + index_at(j - m, rr, m));
+    e.y = g.x;
+    e.z = g.y;
+  }
+  return e;
+}
+
+__host__ __device__ constexpr size_t l2_smem_bytes(int n) { return (size_t)16 * (n / 2) + (size_t)4 * n; }
+
+__global__ void __launch_bounds__(kL2Threads, 1)
+jacobi_eigh_l2_kernel(float2* __restrict__ hc, float2* __restrict__ vc, float4* __restrict__ xbuf,
+                      unsigned long long* __restrict__ taken_out, int batch, int n, int rounds, float eps,
+                      int relative) {
+  extern __shared__ float4 smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), k = (int)cluster.block_rank();
+  const int cid = blockIdx.x / C, W = gridDim.x / C;  // this cluster, the clusters at once
+  const int m = n / 2, tid = threadIdx.x;
+  const int s0 = k * m / C, P = (k + 1) * m / C - s0;  // the CTA's pair positions
+  float4* rot = smem;                             // [m] (c, Re s, Im s, taken)
+  int* pos = reinterpret_cast<int*>(rot + m);     // [n] the index at each position
+  float4* xb = xbuf + (size_t)cid * 2 * n;        // [2][n] by round parity
+  unsigned long long taken_here = 0;  // CTA 0's count of the rotations taken
+  for (int mat = cid; mat < batch; mat += W) {
+    float2* H = hc + (size_t)mat * n * n;
+    float2* V = vc + (size_t)mat * n * n;
+    // round 0's entries of the CTA's columns, from the input
+    for (int t = tid; t < 2 * P; t += blockDim.x) {
+      const int j = t < P ? s0 + t : m + s0 + t - P;
+      xb[index_at(j, 0, m)] = l2_entry(H, index_at(j, 0, m), j, 0, n, m);
+    }
+    cluster_barrier();
+    int rr = 0;  // round mod (n-1)
+    for (int r = 0; r < rounds; ++r) {
+      const int rn = rr + 1 == n - 1 ? 0 : rr + 1;
+      // A. every rotation, the same in every CTA
+      const float4* xr = xb + (r & 1) * n;
+      int live = 0;
+      for (int i = tid; i < m; i += blockDim.x) {
+        const int p = index_at(i, rr, m), q = index_at(m + i, rr, m);
+        const float4 ep = __ldcg(xr + p), eq = __ldcg(xr + q);
+        float4 qv = make_float4(1.0f, 0.0f, 0.0f, 0.0f);
+        const bool taken = rot_params(ep.x, eq.x, eq.y, eq.z, eps, relative != 0, qv.x, qv.y, qv.z);
+        qv.w = taken ? 1.0f : 0.0f;
+        rot[i] = qv;
+        live |= taken;
+        taken_here += k == 0 && taken;
+      }
+      for (int j = tid; j < n; j += blockDim.x) pos[j] = index_at(j, rr, m);
+      const int any = __syncthreads_or(live);
+      // B. the blocks (row pair i, the CTA's column pair j), rows first, then
+      // columns; the CTA's columns of V
+      if (any) {
+        for (int e = tid; e < P * m; e += blockDim.x) {
+          const int j = e / m, i = e - j * m;
+          const float4 qi = rot[i], qj = rot[s0 + j];
+          if (qi.w == 0.0f && qj.w == 0.0f) continue;
+          float2* L = H + (size_t)pos[s0 + j] * n;
+          float2* R = H + (size_t)pos[m + s0 + j] * n;
+          const int p = pos[i], q = pos[m + i];
+          float2 h0 = __ldcg(L + p), h1 = __ldcg(R + p), h2 = __ldcg(L + q), h3 = __ldcg(R + q);
+          if (qi.w != 0.0f) {
+            rowmix(h0, h2, qi);
+            rowmix(h1, h3, qi);
+          }
+          if (qj.w != 0.0f) {
+            colmix(h0, h1, qj);
+            colmix(h2, h3, qj);
+          }
+          L[p] = h0;
+          R[p] = h1;
+          L[q] = h2;
+          R[q] = h3;
+        }
+        for (int e = tid; e < P * n; e += blockDim.x) {
+          const int j = e / n, row = e - j * n;
+          const float4 qj = rot[s0 + j];
+          if (qj.w == 0.0f) continue;
+          float2* L = V + (size_t)pos[s0 + j] * n + row;
+          float2* R = V + (size_t)pos[m + s0 + j] * n + row;
+          float2 x = __ldcg(L), y = __ldcg(R);
+          colmix(x, y, qj);
+          *L = x;
+          *R = y;
+        }
+        __syncthreads();
+      }
+      // C. the next round's entries of the CTA's columns, then the barrier
+      float4* xn = xb + ((r + 1) & 1) * n;
+      for (int t = tid; t < 2 * P; t += blockDim.x) {
+        const int j = t < P ? s0 + t : m + s0 + t - P;
+        xn[pos[j]] = l2_entry(H, pos[j], next_position(j, m), rn, n, m);
+      }
+      cluster_barrier();
+      rr = rn;
+    }
+  }
+  if (taken_out != nullptr && taken_here) atomicAdd(taken_out, taken_here);
+}
+
+cudaError_t l2_attributes(int n) {
+  cudaError_t err = cudaFuncSetAttribute(jacobi_eigh_l2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)l2_smem_bytes(n));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(jacobi_eigh_l2_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+cudaLaunchConfig_t l2_launch_config(int clusters, int n, int cluster, cudaStream_t stream,
+                                    cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = wide_launch_config(clusters, n, cluster, stream, attr);
+  cfg.blockDim = dim3(kL2Threads);
+  cfg.dynamicSmemBytes = l2_smem_bytes(n);
+  return cfg;
+}
+
+bool l2_ok(int n, int cluster) {
+  return n >= 4 && n % 2 == 0 && (cluster == 8 || cluster == 16) && l2_smem_bytes(n) <= 232448;
+}
 }  // namespace
 
 // The most clusters the card holds at once for size n
@@ -646,6 +829,37 @@ extern "C" int tnqs_jacobi_eigh_wide(const void* h_in, void* vt_out, void* w_out
   const cudaLaunchConfig_t cfg = wide_launch_config(batch, n, cluster, (cudaStream_t)stream, &attr);
   err = cudaLaunchKernelEx(&cfg, jacobi_eigh_wide_kernel, (const float2*)h_in, (float2*)vt_out,
                            (float*)w_out, n, rounds, eps, relative);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The most clusters of `cluster` CTAs the card holds at once for the L2
+// variant at size n (cudaOccupancyMaxActiveClusters), into *active.
+extern "C" int tnqs_jacobi_eigh_l2_clusters(int n, int cluster, int* active) {
+  if (!l2_ok(n, cluster)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = l2_attributes(n);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = l2_launch_config(1, n, cluster, 0, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(active, (const void*)jacobi_eigh_l2_kernel, &cfg);
+}
+
+// The L2 variant, n > 256, in place: hc [batch, n, n] with hc[b][col][row] =
+// H[row, col] (hermitian) ends holding the rotated H, whose diagonal is the
+// eigenvalues; vc [batch, n, n] the identity in the same layout ends holding
+// V (vc[b][col][row] = V[row, col]).  `clusters` clusters of `cluster` CTAs
+// run at once, each taking matrices clusters apart; xbuf is their exchange
+// buffers, [clusters][2][n] float4.  The rotations taken (not skipped) are
+// added to *taken unless it is null.
+extern "C" int tnqs_jacobi_eigh_l2(void* hc, void* vc, void* xbuf, void* taken, int batch, int n, int rounds,
+                                   float eps, int relative, int cluster, int clusters, void* stream) {
+  if (batch <= 0 || rounds < 0 || clusters <= 0 || !l2_ok(n, cluster)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = l2_attributes(n);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = l2_launch_config(clusters, n, cluster, (cudaStream_t)stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, jacobi_eigh_l2_kernel, (float2*)hc, (float2*)vc, (float4*)xbuf,
+                           (unsigned long long*)taken, batch, n, rounds, eps, relative);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

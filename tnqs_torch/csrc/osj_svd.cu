@@ -335,6 +335,178 @@ cudaError_t set_attributes(int smem) {
   return cudaFuncSetAttribute(osj_svd_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
 }
 
+// ---------------------------------------------------------------------------
+// Past the shared-memory layout (n > 256, or rows past what a cluster of 16
+// holds): the L2 variant.  At [640, 320] a CTA of 16 would need 358,416
+// bytes and at [512, 512] A and V alone 262,144, so the iterate stays in
+// device memory and is kept hot in L2: the wrapper runs only as many
+// matrices at once as keep their iterates within ~40 MB of it
+// (`osj_l2_plan` in tnqs_torch/ops/osj.py), each cluster taking the next
+// matrix when it is done.  The wrapper lays A and V out column-major in one
+// buffer, x[col][row] with rows [0, 32 nch) of A (zero past R) and then
+// rows [32 nch, 32 (nch + vch)) of V (zero past n); the kernel rotates it in
+// place.  One cluster of C CTAs (16, non-portable, where the card holds
+// one, else 8) per matrix; CTA k owns the A chunks [k nch / C, (k+1) nch / C)
+// and the V chunks [k vch / C, (k+1) vch / C), and only it reads or writes
+// them, so the iterate needs no exchange.  Columns never move (`index_at`).
+// A round:
+//   1. each warp takes groups of 8 pairs and sums their (a, b, Re g, Im g)
+//      over the CTA's chunks of A, chunk by chunk in order (lane = row, the
+//      warp fold of the kernel above), and writes the CTA's partial of each
+//      pair into the cluster's exchange buffer in device memory;
+//   2. a cluster barrier, release then acquire;
+//   3. every CTA sums each pair's C partials in CTA order (`ld.global.cg`:
+//      other SMs wrote them), so every CTA takes bitwise the same rotation
+//      and skip (|g|^2 <= eps^2 a b, as above), and writes the next round's
+//      index at each position; block barrier;
+//   4. each warp rotates 8 pairs over one of the CTA's chunks of A or V,
+//      reading only the pairs that rotate; block barrier.
+// The exchange buffer is double-buffered by the parity of a round count that
+// runs on across the cluster's matrices: a CTA writes round t+2's partials
+// into round t's half only after round t+1's barrier, which every CTA
+// reaches after its sums of round t.  Shared memory holds the rotations and
+// two rounds' index tables, 16 n bytes, whatever R.  The result is bitwise
+// the same on every run; it depends on C (the order of the partial sums).
+//
+// What bounds it: the bytes each round moves through L2 (the Gram reads A,
+// the rotation reads and writes A and V where a pair rotates: up to 24 n
+// (R + n) bytes a matrix a round) and the latency of the dependent rounds,
+// one cluster barrier and two block barriers each; not FLOPs.
+
+constexpr int kL2Threads = 512;
+
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release;\n\tbarrier.cluster.wait.acquire;" ::: "memory");
+}
+
+__host__ __device__ constexpr size_t l2_smem_bytes(int n) { return (size_t)16 * (n / 2) + (size_t)8 * n; }
+
+__global__ void __launch_bounds__(kL2Threads, 1)
+osj_svd_l2_kernel(float2* __restrict__ x, float4* __restrict__ part, unsigned long long* __restrict__ taken_out,
+                  int batch, int n, int nch, int vch, int rounds, float eps) {
+  extern __shared__ float4 smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), k = (int)cluster.block_rank();
+  const int cid = blockIdx.x / C, W = gridDim.x / C;  // this cluster, the clusters at once
+  const int m = n / 2, groups = (m + kGroup - 1) / kGroup;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int ld = (nch + vch) * kChunk;
+  const int a0 = k * nch / C, a1 = (k + 1) * nch / C;  // the CTA's chunks of A
+  const int v0 = nch + k * vch / C, v1 = nch + (k + 1) * vch / C;  // and of V, as chunks of x
+  const int ach = a1 - a0, own = ach + v1 - v0;
+  float4* rot = smem;                         // [m] (c, Re s, Im s, taken)
+  int* tab = reinterpret_cast<int*>(rot + m);  // [2][n] the index at each position, by round parity
+  float4* pc = part + (size_t)cid * 2 * C * m;  // [2][C][m] this cluster's partials
+  int t = 0;  // rounds this cluster has run, over its matrices
+  unsigned long long taken_here = 0;  // CTA 0's count of the rotations taken
+  for (int mat = cid; mat < batch; mat += W) {
+    float2* X = x + (size_t)mat * n * ld;
+    for (int j = threadIdx.x; j < n; j += blockDim.x) tab[(t & 1) * n + j] = index_at(j, 0, m);
+    __syncthreads();
+    int rr = 0;  // round mod (n-1)
+    for (int round = 0; round < rounds; ++round, ++t) {
+      const int* pos = tab + (t & 1) * n;
+      float4* pr = pc + (size_t)(t & 1) * C * m;
+      // 1. the CTA's partial of every pair, its chunks summed in order
+      for (int gp = warp; gp < groups; gp += nwarps) {
+        float acc = 0.0f;
+        for (int ch = a0; ch < a1; ++ch) {
+          const int row = ch * kChunk + lane;
+          float v[32];
+#pragma unroll
+          for (int p = 0; p < kGroup; ++p) {
+            const int i = gp * kGroup + p;
+            float2 a = make_float2(0.0f, 0.0f), b = a;
+            if (i < m) {
+              a = X[(size_t)pos[i] * ld + row];
+              b = X[(size_t)pos[m + i] * ld + row];
+            }
+            v[4 * p] = a.x * a.x + a.y * a.y;
+            v[4 * p + 1] = b.x * b.x + b.y * b.y;
+            v[4 * p + 2] = a.x * b.x + a.y * b.y;
+            v[4 * p + 3] = a.x * b.y - a.y * b.x;
+          }
+          fold<16>(v, lane);
+          fold<8>(v, lane);
+          fold<4>(v, lane);
+          fold<2>(v, lane);
+          fold<1>(v, lane);
+          acc += v[0];
+        }
+        if (gp * kGroup + lane / 4 < m) reinterpret_cast<float*>(pr + (size_t)k * m)[gp * 32 + lane] = acc;
+      }
+      // 2. every CTA's partials are in
+      cluster_barrier();
+      // 3. pair i's sum over the CTAs in order, and its rotation; the next
+      // round's index at each position
+      for (int i = threadIdx.x; i < m; i += blockDim.x) {
+        float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        for (int c = 0; c < C; ++c) {
+          const float4 val = __ldcg(pr + (size_t)c * m + i);
+          sum.x += val.x;
+          sum.y += val.y;
+          sum.z += val.z;
+          sum.w += val.w;
+        }
+        float cr = 1.0f, sr = 0.0f, si = 0.0f;
+        const bool live = rot_params_rel(sum.x, sum.y, sum.z, sum.w, eps, cr, sr, si);
+        rot[i] = make_float4(cr, sr, si, live ? 1.0f : 0.0f);
+        taken_here += k == 0 && live;
+      }
+      const int rn = rr + 1 == n - 1 ? 0 : rr + 1;
+      for (int j = threadIdx.x; j < n; j += blockDim.x) tab[((t + 1) & 1) * n + j] = index_at(j, rn, m);
+      __syncthreads();
+      // 4. rotate 8 pairs over one of the CTA's chunks of A or V
+      for (int task = warp; task < own * groups; task += nwarps) {
+        const int c = task / groups, gp = task - c * groups;
+        const int row = (c < ach ? a0 + c : v0 + c - ach) * kChunk + lane;
+        int lo[kGroup], ro[kGroup];
+        float4 q[kGroup];
+        float2 a[kGroup], b[kGroup];
+#pragma unroll
+        for (int u = 0; u < kGroup; ++u) {
+          const int i = gp * kGroup + u, ic = min(i, m - 1);
+          q[u] = rot[ic];
+          if (i >= m) q[u].w = 0.0f;
+          lo[u] = pos[ic] * ld + row;
+          ro[u] = pos[m + ic] * ld + row;
+          if (q[u].w != 0.0f) {
+            a[u] = X[lo[u]];
+            b[u] = X[ro[u]];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kGroup; ++u) {
+          if (q[u].w == 0.0f) continue;
+          colmix(a[u], b[u], q[u].x, q[u].y, q[u].z);
+          X[lo[u]] = a[u];
+          X[ro[u]] = b[u];
+        }
+      }
+      __syncthreads();
+      rr = rn;
+    }
+  }
+  if (taken_out != nullptr && taken_here) atomicAdd(taken_out, taken_here);
+}
+
+cudaError_t l2_attributes(int n) {
+  cudaError_t err = cudaFuncSetAttribute(osj_svd_l2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)l2_smem_bytes(n));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(osj_svd_l2_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+cudaLaunchConfig_t l2_launch_config(int clusters, int cluster, int n, cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = launch_config(clusters, cluster, (int)l2_smem_bytes(n), stream, attr);
+  cfg.blockDim = dim3(kL2Threads);
+  return cfg;
+}
+
+bool l2_ok(int n, int cluster) {
+  return n >= 4 && n % 2 == 0 && (cluster == 8 || cluster == 16) && l2_smem_bytes(n) <= 232448;
+}
+
 }  // namespace
 
 // The most clusters of `cluster` CTAs with `smem` bytes each that the card
@@ -364,6 +536,38 @@ extern "C" int tnqs_osj_svd(const void* a_in, const void* v_in, void* a_out, voi
   const cudaLaunchConfig_t cfg = launch_config(batch, cluster, smem, (cudaStream_t)stream, &attr);
   err = cudaLaunchKernelEx(&cfg, osj_svd_kernel, (const float2*)a_in, (const float2*)v_in,
                            (float2*)a_out, (float2*)v_out, rows, n, rounds, cpc, vpc, eps);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The most clusters of `cluster` CTAs the card holds at once for the L2
+// variant at width n (cudaOccupancyMaxActiveClusters), into *active.
+extern "C" int tnqs_osj_svd_l2_clusters(int n, int cluster, int* active) {
+  if (!l2_ok(n, cluster)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = l2_attributes(n);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = l2_launch_config(1, cluster, n, 0, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(active, (const void*)osj_svd_l2_kernel, &cfg);
+}
+
+// The L2 variant, in place on x [batch, n, 32 (nch + vch)] complex64:
+// x[b][col][row] holds A[row, col] for rows below 32 nch (zero past A's
+// rows) and V[row - 32 nch, col] after (zero past n).  `clusters` clusters
+// of `cluster` CTAs run at once, each taking matrices clusters apart; part
+// is their exchange buffers, [clusters][2][cluster][n/2] float4.  The
+// rotations taken (not skipped) are added to *taken unless it is null.
+extern "C" int tnqs_osj_svd_l2(void* x, void* part, void* taken, int batch, int n, int nch, int vch, int rounds,
+                               float eps, int cluster, int clusters, void* stream) {
+  if (batch <= 0 || rounds < 0 || clusters <= 0 || nch * kChunk < n || vch * kChunk < n || !l2_ok(n, cluster) ||
+      (long long)n * (nch + vch) * kChunk >= (1ll << 31))  // offsets within a matrix are int
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = l2_attributes(n);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = l2_launch_config(clusters, cluster, n, (cudaStream_t)stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, osj_svd_l2_kernel, (float2*)x, (float4*)part, (unsigned long long*)taken, batch, n,
+                           nch, vch, rounds, eps);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

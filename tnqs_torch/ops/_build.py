@@ -44,10 +44,18 @@ _SIGNATURES = {
     "tnqs_jacobi_eigh_wide": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _P],
     # (n, cluster, active_out)
     "tnqs_jacobi_eigh_wide_clusters": [_I, _I, ctypes.POINTER(_I)],
+    # the L2 variant, n > 256: (hc, vc, xbuf, taken, batch, n, rounds, eps, relative, cluster, clusters, stream)
+    "tnqs_jacobi_eigh_l2": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P],
+    # (n, cluster, active_out)
+    "tnqs_jacobi_eigh_l2_clusters": [_I, _I, ctypes.POINTER(_I)],
     # (a_in, v_in, a_out, v_out, batch, rows, n, rounds, eps, cluster, cpc, vpc, smem, stream)
     "tnqs_osj_svd": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I, _P],
     # (cluster, smem, active_out)
     "tnqs_osj_svd_clusters": [_I, _I, ctypes.POINTER(_I)],
+    # the L2 variant: (x, part, taken, batch, n, nch, vch, rounds, eps, cluster, clusters, stream)
+    "tnqs_osj_svd_l2": [_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
+    # (n, cluster, active_out)
+    "tnqs_osj_svd_l2_clusters": [_I, _I, ctypes.POINTER(_I)],
     # (t, rows, min, out, scratch, plan int64[14], n_k, device, stream)
     "tnqs_bp_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     # (smem_mode, smem_pass2, ctas_mode, ctas_pass2, ctas_wide, sms), all out

@@ -5,8 +5,9 @@ rotation rounds run in the CUDA kernel `tnqs_torch/csrc/jacobi_eigh.cu` on a
 CUDA tensor (up to n = 128 a cluster of three CTAs per matrix, H resident in
 one CTA's shared memory and V in the other two's; for 128 < n <= 256 a
 cluster of 4 or 8, each CTA holding the columns of H and V at its pair
-positions, `eigh_wide_plan`), and in `_jacobi_eigh_plain`, the same schedule
-written in PyTorch, on a CPU tensor.  The Newton–Schulz
+positions, `eigh_wide_plan`; past n = 256 the L2 variant, H and V in
+device memory kept hot in L2, `eigh_l2_plan`), and in `_jacobi_eigh_plain`,
+the same schedule written in PyTorch, on a CPU tensor.  The Newton–Schulz
 repair of V, the Rayleigh eigenvalues and the ascending sort
 (`tnqs/ops/jacobi.py:300-318`) are PyTorch in both cases.
 """
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -24,6 +26,8 @@ from . import _build
 EPS32 = float(torch.finfo(torch.float32).eps)
 SMEM_LIMIT = 232_448  # bytes of shared memory one CTA of an H100 may use
 WIDE_CLUSTERS = (4, 8)  # cluster sizes of the wide variant, 128 < n <= 256
+L2_CLUSTERS = (16, 8)  # cluster sizes of the L2 variants, the first the card holds
+L2_BUDGET = 40 * 2**20  # bytes of live iterates the L2 variants keep in the H100's 50 MB L2
 
 
 def _rot_params(a, b, gr, gi, eps: float, relative: bool):
@@ -68,6 +72,22 @@ def index_at(j: int, r: int, n: int) -> int:
         return 0
     k = ((j if j < m else 0 if j == m else 3 * m - 1 - j) - r) % (n - 1)
     return m if k == 0 else k if k < m else 3 * m - 1 - k
+
+
+def next_position(j: int, n: int) -> int:
+    """The position the entry at position j takes in the next round, along
+    the cycle of `index_at`: index_at(next_position(j), r + 1) ==
+    index_at(j, r).  The L2 variant's CTAs (`next_position` in
+    `tnqs_torch/csrc/jacobi_eigh.cu`) use it to hand each column's next
+    entries to the CTA that owns the column next."""
+    m = n // 2
+    if j == 0:
+        return 0
+    if j == m:
+        return 1
+    if j < m - 1:
+        return j + 1
+    return n - 1 if j == m - 1 else j - 1
 
 
 def _jacobi_eigh_plain(H: torch.Tensor, sweeps: int, relative: bool = True):
@@ -130,30 +150,102 @@ def eigh_wide_plan(n: int):
     raise ValueError(f"no cluster of {WIDE_CLUSTERS} holds n={n}")
 
 
+class L2Plan(NamedTuple):
+    """An L2 variant's launch: `cluster` CTAs a matrix, `clusters` clusters
+    (matrices) at once, the batch in `waves` of them, `scratch` bytes of
+    device memory (the iterates and the exchange buffers) and `smem` shared
+    bytes a CTA."""
+    cluster: int
+    clusters: int
+    waves: int
+    scratch: int
+    smem: int
+
+
+def l2_plan(B: int, live: int, exchange: int, smem: int, active) -> L2Plan:
+    """The L2 variants' launch for B matrices whose iterates take `live`
+    bytes each and whose clusters each take `exchange` bytes of exchange
+    buffers: clusters of 16 where the card holds one (`active(C)`,
+    `cudaOccupancyMaxActiveClusters`), else 8; as many matrices at once as
+    keep their iterates within `L2_BUDGET` (at least one), at most B and at
+    most what the card holds.  RuntimeError when it holds no cluster."""
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the L2 variants' {smem} shared bytes a CTA exceed {SMEM_LIMIT}")
+    for C in L2_CLUSTERS:
+        held = active(C)
+        if held > 0:
+            at_once = max(1, min(B, L2_BUDGET // live, held))
+            return L2Plan(C, at_once, -(-B // at_once), B * live + at_once * exchange, smem)
+    raise RuntimeError(f"no cluster of {L2_CLUSTERS} CTAs fits on the card")
+
+
+def eigh_l2_smem(n: int) -> int:
+    """The L2 variant's shared bytes a CTA (`l2_smem_bytes` in
+    `tnqs_torch/csrc/jacobi_eigh.cu`): the m rotations and the index at each
+    position."""
+    return 16 * (n // 2) + 4 * n
+
+
+def eigh_l2_plan(B: int, n: int, active) -> L2Plan:
+    """The L2 variant's launch for B matrices [n, n] (n > 256): H and V
+    column-major, 16 n^2 bytes a matrix, and each cluster's exchange buffer
+    (a float4 a column, two rounds), `l2_plan`."""
+    if n % 2 or n <= 256:
+        raise ValueError(f"the L2 jacobi_eigh kernel takes even n > 256, got {n}")
+    return l2_plan(B, 16 * n * n, 32 * n, eigh_l2_smem(n), active)
+
+
+@functools.cache
+def l2_active_clusters(device: torch.device, n: int, C: int) -> int:
+    """How many clusters of C CTAs of the L2 variant at size n the card holds
+    at once (`cudaOccupancyMaxActiveClusters`)."""
+    active = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _build.check(_build.kernels().tnqs_jacobi_eigh_l2_clusters(n, C, ctypes.byref(active)),
+                     "tnqs_jacobi_eigh_l2_clusters")
+    return active.value
+
+
 def _jacobi_eigh_cuda(H: torch.Tensor, sweeps: int, relative: bool = True):
     """Launch `tnqs_jacobi_eigh` (n <= 128, one cluster of three CTAs per
-    matrix) or `tnqs_jacobi_eigh_wide` (128 < n <= 256, `eigh_wide_plan`)
-    on H [B, n, n] hermitian complex64 (CUDA, contiguous).  Returns
-    (w [B, n] unsorted, V [B, n, n])."""
-    if H.dim() != 3 or H.shape[1] != H.shape[2] or H.shape[1] % 2 or not 4 <= H.shape[1] <= 256:
-        raise ValueError(f"jacobi_eigh kernel takes [B, n, n] with even 4 <= n <= 256, got {tuple(H.shape)}")
+    matrix), `tnqs_jacobi_eigh_wide` (128 < n <= 256, `eigh_wide_plan`) or
+    `tnqs_jacobi_eigh_l2` (n > 256, `eigh_l2_plan`: in place on a
+    column-major copy of H and an identity V) on H [B, n, n] hermitian
+    complex64 (CUDA, contiguous).  Returns (w [B, n] unsorted, V [B, n, n])."""
+    if H.dim() != 3 or H.shape[1] != H.shape[2] or H.shape[1] % 2 or H.shape[1] < 4:
+        raise ValueError(f"jacobi_eigh kernel takes [B, n, n] with even n >= 4, got {tuple(H.shape)}")
     if not (H.is_cuda and H.dtype == torch.complex64 and H.is_contiguous()):
         raise ValueError("jacobi_eigh kernel takes a contiguous complex64 CUDA tensor [B, n, n]")
     B, n, _ = H.shape
     lib = _build.kernels()
-    if active_clusters(H.device, n) == 0:
-        raise RuntimeError(f"jacobi_eigh kernel: no cluster for n={n} fits on {H.device}")
-    vt = torch.empty_like(H)
-    w = torch.empty((B, n), dtype=torch.float32, device=H.device)
     with torch.cuda.device(H.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if n <= 128:
-            err = lib.tnqs_jacobi_eigh(H.data_ptr(), vt.data_ptr(), w.data_ptr(), B, n, sweeps * (n - 1), EPS32,
-                                       int(relative), stream)
+        if n > 256:
+            plan = eigh_l2_plan(B, n, lambda C: l2_active_clusters(H.device, n, C))
+            hc = H.mT.contiguous()  # hc[b][col][row] = H[row, col]
+            vt = torch.eye(n, dtype=H.dtype, device=H.device).expand(B, n, n).contiguous()
+            xbuf = torch.empty((plan.clusters, 2, n, 4), dtype=torch.float32, device=H.device)
+            jacobi_eigh.rotations = torch.zeros((), dtype=torch.int64, device=H.device)
+            err = lib.tnqs_jacobi_eigh_l2(hc.data_ptr(), vt.data_ptr(), xbuf.data_ptr(),
+                                          jacobi_eigh.rotations.data_ptr(), B, n, sweeps * (n - 1), EPS32,
+                                          int(relative), plan.cluster, plan.clusters, stream)
+            name = "tnqs_jacobi_eigh_l2"
         else:
-            err = lib.tnqs_jacobi_eigh_wide(H.data_ptr(), vt.data_ptr(), w.data_ptr(), B, n, sweeps * (n - 1),
-                                            EPS32, int(relative), eigh_wide_plan(n)[0], stream)
-    _build.check(err, "tnqs_jacobi_eigh" if n <= 128 else "tnqs_jacobi_eigh_wide")
+            if active_clusters(H.device, n) == 0:
+                raise RuntimeError(f"jacobi_eigh kernel: no cluster for n={n} fits on {H.device}")
+            vt = torch.empty_like(H)
+            w = torch.empty((B, n), dtype=torch.float32, device=H.device)
+            if n <= 128:
+                err = lib.tnqs_jacobi_eigh(H.data_ptr(), vt.data_ptr(), w.data_ptr(), B, n, sweeps * (n - 1), EPS32,
+                                           int(relative), stream)
+                name = "tnqs_jacobi_eigh"
+            else:
+                err = lib.tnqs_jacobi_eigh_wide(H.data_ptr(), vt.data_ptr(), w.data_ptr(), B, n, sweeps * (n - 1),
+                                                EPS32, int(relative), eigh_wide_plan(n)[0], stream)
+                name = "tnqs_jacobi_eigh_wide"
+    _build.check(err, name)
+    if n > 256:
+        w = hc.diagonal(dim1=1, dim2=2).real
     jacobi_eigh.launches += 1
     jacobi_eigh.launches_by_shape[(B, n)] = jacobi_eigh.launches_by_shape.get((B, n), 0) + 1
     return w, vt.mT
@@ -162,8 +254,8 @@ def _jacobi_eigh_cuda(H: torch.Tensor, sweeps: int, relative: bool = True):
 @functools.cache
 def active_clusters(device: torch.device, n: int) -> int:
     """How many of the kernel's clusters for size n (three CTAs up to
-    n = 128, `eigh_wide_plan`'s past it) the card holds at once
-    (`cudaOccupancyMaxActiveClusters`)."""
+    n = 128, `eigh_wide_plan`'s up to 256; `l2_active_clusters` past it)
+    the card holds at once (`cudaOccupancyMaxActiveClusters`)."""
     active = ctypes.c_int(0)
     lib = _build.kernels()
     with torch.cuda.device(device):
@@ -217,6 +309,7 @@ def jacobi_eigh(H: torch.Tensor, sweeps: int = 12, refine: bool = True, relative
 
 jacobi_eigh.launches = 0
 jacobi_eigh.launches_by_shape = {}  # (B, n) -> launches
+jacobi_eigh.rotations = None  # the L2 variant's last launch: rotations taken, a device scalar
 
 
 def eigh_from_rounds(Hb: torch.Tensor, w: torch.Tensor, V: torch.Tensor, refine: bool = True):

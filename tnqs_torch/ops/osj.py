@@ -3,11 +3,12 @@
 Port of `tnqs/ops/osj.py::osj_svd` (`:225`) and `pjsvd` (`:349`).  The
 rotation rounds of `osj_svd` run in the CUDA kernel
 `tnqs_torch/csrc/osj_svd.cu` on a CUDA tensor (one thread-block cluster per
-matrix, the iterate resident in its CTAs' shared memory; `osj_plan` is its
-layout), and in `_osj_svd_plain`, the same schedule written in PyTorch, on a
-CPU tensor.  The Frobenius prescale,
-the column norms, the descending sort and U = A/s (`tnqs/ops/osj.py:
-245-345`) are PyTorch in both cases.
+matrix, the iterate resident in its CTAs' shared memory, `osj_plan` its
+layout, up to n = 256; past it, or past the rows a cluster holds, the L2
+variant, the iterate in device memory kept hot in L2, `osj_l2_plan`), and
+in `_osj_svd_plain`, the same schedule written in PyTorch, on a CPU tensor.
+The Frobenius prescale, the column norms, the descending sort and U = A/s
+(`tnqs/ops/osj.py:245-345`) are PyTorch in both cases.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import math
 import torch
 
 from . import _build
-from .jacobi import EPS32, SMEM_LIMIT, jacobi_eigh, round_robin
+from .jacobi import EPS32, SMEM_LIMIT, L2_CLUSTERS, L2Plan, eigh_l2_smem, jacobi_eigh, l2_plan, round_robin
 
 
 def _rot_params_rel(a, b, gr, gi, eps: float):
@@ -76,7 +77,7 @@ _osj_svd_plain.rotations = None
 # for n > 128, where [512, 256] (the chi = 128 thetas) needs it
 CLUSTERS = (1, 2, 4, 8, 16)
 CHUNK = 32  # rows of A or V a warp sums over: the unit the kernel splits rows by
-MAX_N = 256  # the widest A the kernel takes
+RESIDENT_N = 256  # the widest A the shared-memory layout takes; past it the L2 variant
 
 
 def osj_plan(R: int, n: int, C: int):
@@ -94,13 +95,13 @@ def osj_plan(R: int, n: int, C: int):
 
 
 def _fitting_clusters(R: int, n: int) -> list[int]:
-    """The cluster sizes the kernel takes A [R, n] on; empty past its shapes.
-    Up to n = 128: the sizes up to 8 whose CTAs each hold at least one chunk
-    of A and fit their share in shared memory.  Past n = 128 (up to
-    `MAX_N`): the one smallest size whose CTAs fit, up to 16, even where
-    some CTA then holds no chunk of A ([384, 192] on 8 CTAs: 12 chunks of
-    A, two chunks a CTA)."""
-    if n % 2 or not 4 <= n <= MAX_N or R < n:
+    """The cluster sizes the shared-memory layout takes A [R, n] on; empty
+    past its shapes.  Up to n = 128: the sizes up to 8 whose CTAs each hold
+    at least one chunk of A and fit their share in shared memory.  Past
+    n = 128 (up to `RESIDENT_N`): the one smallest size whose CTAs fit, up to
+    16, even where some CTA then holds no chunk of A ([384, 192] on 8 CTAs:
+    12 chunks of A, two chunks a CTA)."""
+    if n % 2 or not 4 <= n <= RESIDENT_N or R < n:
         return []
     nch = -(-R // CHUNK)
     if n > 128:
@@ -108,35 +109,78 @@ def _fitting_clusters(R: int, n: int) -> list[int]:
     return [C for C in CLUSTERS[:4] if (C - 1) * osj_plan(R, n, C)[0] < nch and osj_plan(R, n, C)[2] <= SMEM_LIMIT]
 
 
+def osj_l2_smem(n: int) -> int:
+    """The L2 variant's shared bytes a CTA (`l2_smem_bytes` in
+    `tnqs_torch/csrc/osj_svd.cu`): the m rotations and two rounds' index at
+    each position, whatever R."""
+    return 16 * (n // 2) + 8 * n
+
+
+def osj_l2(R: int, n: int) -> bool:
+    """Whether the wrapper takes A [R, n] on the L2 variant: an even
+    n >= 4, R >= n, that the shared-memory layout does not hold (n > 256, or
+    more rows than its clusters hold) and whose rotations fit a CTA."""
+    return (n % 2 == 0 and 4 <= n <= R and not _fitting_clusters(R, n) and osj_l2_smem(n) <= SMEM_LIMIT
+            and n * CHUNK * (-(-R // CHUNK) - (-n // CHUNK)) < 2**31)  # the kernel's offsets are int
+
+
 def pjsvd_fits(R: int, n: int) -> bool:
     """Whether `pjsvd` takes A [R, n] (R >= n) through its kernels: K2 on
-    the Gram [n, n] (even 4 <= n <= 256) and K1 on [R, n] (`osj_fits`).
-    Decided from the shape alone, before any launch, and never raises, so a
-    caller routes every other shape elsewhere on every device."""
-    return bool(_fitting_clusters(R, n))
+    the Gram [n, n] and K1 on [R, n] (`osj_fits`), which together take every
+    even n >= 4 with R >= n up to the widths whose rotations fill a CTA's
+    shared memory (n = 14,528).  Decided from the shape alone, before any
+    launch, and never raises, so a caller routes every other shape
+    elsewhere on every device."""
+    return bool(_fitting_clusters(R, n)) or (osj_l2(R, n) and eigh_l2_smem(n) <= SMEM_LIMIT)
 
 
 def osj_fits(R: int, n: int) -> list[int]:
-    """The cluster sizes the kernel takes A [R, n] on (`_fitting_clusters`),
-    or ValueError when none does.  This is the kernel's one limit on shape:
-    even 4 <= n <= 256, R >= n, and R at most what a cluster of 8 holds up
-    to n = 128 (992 rows at n = 128), of 16 past it (512 rows at n = 256,
-    800 at n = 192)."""
+    """The cluster sizes the kernel takes A [R, n] on: the shared-memory
+    layout's (`_fitting_clusters`), else the L2 variant's (`L2_CLUSTERS`,
+    `osj_l2`), or ValueError for a shape neither takes (odd n, n < 4,
+    R < n, or n past 14,528)."""
     fits = _fitting_clusters(R, n)
-    if not fits:
-        raise ValueError(f"osj_svd kernel takes even 4 <= n <= {MAX_N} and n <= R with R rows fitting the "
-                         f"shared memory of a cluster of 8 (16 past n = 128; {SMEM_LIMIT} bytes a CTA), "
-                         f"got [{R}, {n}]")
-    return fits
+    if fits:
+        return fits
+    if osj_l2(R, n):
+        return list(L2_CLUSTERS)
+    raise ValueError(f"osj_svd kernel takes even n >= 4 and n <= R, with the L2 variant's rotations within "
+                     f"{SMEM_LIMIT} shared bytes a CTA, got [{R}, {n}]")
+
+
+def osj_l2_plan(B: int, R: int, n: int, active) -> tuple[L2Plan, int, int]:
+    """The L2 variant's launch for B matrices [R, n] (`jacobi.l2_plan`, with
+    `active(C)` the clusters of C the card holds), and the chunks of 32 rows
+    of A (nch) and of V (vch): the iterate column-major, rows of A then of
+    V padded to whole chunks, 8 n 32 (nch + vch) bytes a matrix; each
+    cluster's exchange buffer two rounds of a float4 a pair from each of its
+    CTAs (16 n L2_CLUSTERS[0] bytes, sized for the larger cluster)."""
+    nch, vch = -(-R // CHUNK), -(-n // CHUNK)
+    return l2_plan(B, 8 * n * CHUNK * (nch + vch), 16 * n * L2_CLUSTERS[0], osj_l2_smem(n), active), nch, vch
+
+
+@functools.cache
+def l2_active_clusters(device: torch.device, n: int, C: int) -> int:
+    """How many clusters of C CTAs of the L2 variant at width n the card
+    holds at once (`cudaOccupancyMaxActiveClusters`)."""
+    active = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _build.check(_build.kernels().tnqs_osj_svd_l2_clusters(n, C, ctypes.byref(active)),
+                     "tnqs_osj_svd_l2_clusters")
+    return active.value
 
 
 def osj_cluster(B: int, R: int, n: int, active) -> int:
-    """The cluster size for a batch of B matrices [R, n]: the largest that
-    fits and of which the card holds B clusters at once (`active(C, smem)`,
-    `cudaOccupancyMaxActiveClusters`), else the smallest that fits.  Raises
-    ValueError past the kernel's shapes and RuntimeError when the card holds
-    no cluster at all."""
-    fits = osj_fits(R, n)
+    """The cluster size of the shared-memory layout for a batch of B
+    matrices [R, n]: the largest that fits and of which the card holds B
+    clusters at once (`active(C, smem)`, `cudaOccupancyMaxActiveClusters`),
+    else the smallest that fits.  Raises ValueError past the kernel's shapes
+    and RuntimeError when the card holds no cluster at all."""
+    fits = _fitting_clusters(R, n)
+    if not fits:
+        osj_fits(R, n)  # ValueError past every shape the kernels take
+        raise ValueError(f"osj_svd kernel: [{R}, {n}] takes the L2 variant (`osj_l2_plan`), not the shared-memory "
+                         f"layout")
     for C in reversed(fits):
         if B <= active(C, osj_plan(R, n, C)[2]):
             return C
@@ -160,8 +204,10 @@ def active_clusters(device: torch.device, C: int, smem: int) -> int:
 def _osj_svd_cuda(A: torch.Tensor, V: torch.Tensor, sweeps: int, cluster: int | None = None):
     """Launch `tnqs_osj_svd` on A [B, R, n] and V [B, n, n] complex64 CUDA
     tensors, one cluster per matrix (`cluster` CTAs, or as `osj_cluster`
-    picks).  The kernel reads both row-major and writes the rotated (A, V)
-    into new row-major tensors."""
+    picks), which reads both row-major and writes the rotated (A, V) into
+    new row-major tensors; or, where `osj_l2` holds, `tnqs_osj_svd_l2`
+    (`osj_l2_plan`, or `cluster` CTAs), in place on a column-major copy of
+    A and V, whose transposed views it returns."""
     B, R, n = A.shape
     if V.shape != (B, n, n):
         raise ValueError(f"osj_svd kernel: bad shapes A {tuple(A.shape)}, V {tuple(V.shape)}")
@@ -170,16 +216,32 @@ def _osj_svd_cuda(A: torch.Tensor, V: torch.Tensor, sweeps: int, cluster: int | 
     if not (A.is_cuda and V.device == A.device and A.dtype == V.dtype == torch.complex64):
         raise ValueError("osj_svd kernel takes complex64 CUDA tensors on one device")
     lib = _build.kernels()
-    if cluster is None:
-        cluster = osj_cluster(B, R, n, lambda C, smem: active_clusters(A.device, C, smem))
-    cpc, vpc, smem = osj_plan(R, n, cluster)
-    A, V = A.contiguous(), V.contiguous()
-    A_out, V_out = torch.empty_like(A), torch.empty_like(V)
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tnqs_osj_svd(A.data_ptr(), V.data_ptr(), A_out.data_ptr(), V_out.data_ptr(), B, R, n,
-                               sweeps * (n - 1), EPS32, cluster, cpc, vpc, smem, stream)
-    _build.check(err, "tnqs_osj_svd")
+    if osj_l2(R, n):
+        plan, nch, vch = osj_l2_plan(B, R, n, lambda C: l2_active_clusters(A.device, n, C) if cluster in (None, C)
+                                     else 0)
+        rp = CHUNK * nch
+        x = torch.zeros((B, n, rp + CHUNK * vch), dtype=A.dtype, device=A.device)
+        x[:, :, :R] = A.mT
+        x[:, :, rp:rp + n] = V.mT
+        part = torch.empty((plan.clusters, 2, plan.cluster, n // 2, 4), dtype=torch.float32, device=A.device)
+        osj_svd.rotations = torch.zeros((), dtype=torch.int64, device=A.device)
+        with torch.cuda.device(A.device):
+            err = lib.tnqs_osj_svd_l2(x.data_ptr(), part.data_ptr(), osj_svd.rotations.data_ptr(), B, n, nch, vch,
+                                      sweeps * (n - 1), EPS32, plan.cluster, plan.clusters,
+                                      torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "tnqs_osj_svd_l2")
+        A_out, V_out = x[:, :, :R].mT, x[:, :, rp:rp + n].mT
+    else:
+        if cluster is None:
+            cluster = osj_cluster(B, R, n, lambda C, smem: active_clusters(A.device, C, smem))
+        cpc, vpc, smem = osj_plan(R, n, cluster)
+        A, V = A.contiguous(), V.contiguous()
+        A_out, V_out = torch.empty_like(A), torch.empty_like(V)
+        with torch.cuda.device(A.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.tnqs_osj_svd(A.data_ptr(), V.data_ptr(), A_out.data_ptr(), V_out.data_ptr(), B, R, n,
+                                   sweeps * (n - 1), EPS32, cluster, cpc, vpc, smem, stream)
+        _build.check(err, "tnqs_osj_svd")
     osj_svd.launches += 1
     osj_svd.launches_by_shape[(B, R, n)] = osj_svd.launches_by_shape.get((B, R, n), 0) + 1
     return A_out, V_out
@@ -222,6 +284,7 @@ def osj_svd(A: torch.Tensor, V0: torch.Tensor | None = None, sweeps: int = 10):
 
 osj_svd.launches = 0
 osj_svd.launches_by_shape = {}  # (B, R, n) -> launches
+osj_svd.rotations = None  # the L2 variant's last launch: rotations taken, a device scalar
 
 
 def prescale(Ab: torch.Tensor):
