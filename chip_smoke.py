@@ -42,9 +42,12 @@ Run from the repository root.  Phases, each of which fails the run:
    at `L2_CHECK_SWEEPS`, timed at 8 absolute and 12 relative sweeps), K1 as
    pjsvd's polish at [4, 512, 512], [26, 640, 320] and [26, 1024, 512]
    (against the plain version and LAPACK's graded bounds at
-   `L2_GRADED_SWEEPS`, the engine's sweeps recorded), two calls bitwise
-   equal, beside the library call and the bound from the rotations the
-   kernel counted;
+   `L2_GRADED_SWEEPS`, the engine's sweeps recorded), five calls bitwise
+   equal, beside the library call (K2 and `eigh` in turn, ten calls each,
+   min / median / max) and the bound from the rotations the kernel counted;
+   the L2 variants at `L2_BOUNDARY`, and there with their schedule split
+   into launches of 1000 rounds (bitwise one launch); V's kernel alone, in
+   stages of part of a round and in place (bitwise);
 4. BP kernel: `bp_sweep_group` against its plain version on every degree
    >= 2 group of the Eagle chi=64 color plan, on random site tensors and
    positive messages, plus groups of gathered rows at degree 2-6 that
@@ -161,9 +164,9 @@ Run from the repository root.  Phases, each of which fails the run:
    card and on a CPU engine (the loop factor Z / Z_BP within 1e-6), and a
    random 6-ring at chi=3, complex128, within 1e-12 of its exact
    contraction; (e) the thermal state of `golden_thermal.json` (chi=32,
-   dbeta=0.01, 25 steps, operator sites) at complex128 on the card and the
-   CPU (1e-10 apart; within the JAX engine's own distance from the golden,
-   plus that) and at complex64 in both BP precisions (K3 at d = 4, k = 3,
+   dbeta=0.01, 25 steps, operator sites) at complex128 on the card and,
+   for the first `THERMAL_CPU_STEPS` steps, the CPU (1e-10 apart; within
+   the JAX engine's own distance from the golden, plus that) and at complex64 in both BP precisions (K3 at d = 4, k = 3,
    chi=32; every [4, 512, 512] theta on the L2 variants of K2 then K1, none
    on the library SVD, each recorded step within 1e-5 of complex128), then
    complex64 on `svd_impl="xla"`, its seconds beside the kernels', every
@@ -294,6 +297,35 @@ def cuda_ms(fn, reps, warmup=True):
     return start.elapsed_time(end) / reps
 
 
+def alternating_ms(fns, calls):
+    """Milliseconds of each call of each of `fns`, the functions called in
+    turn (a b a b ...) `calls` times each after one warm-up call of each,
+    every call timed alone by CUDA events.  Returns one list a function, in
+    call order."""
+    for fn in fns:
+        fn()
+    times = [[] for _ in fns]
+    for _ in range(calls):
+        for fn, t in zip(fns, times):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            t.append(start.elapsed_time(end))
+    return times
+
+
+def median(t):
+    return sorted(t)[len(t) // 2]
+
+
+def spread(t):
+    """min / median / max of times, for a printed line."""
+    return f"{min(t):.3f} / {median(t):.3f} / {max(t):.3f}"
+
+
 # The 8 `pjsvd` calls of one Eagle chi=64 layer (`compile_circuit` on
 # `eagle_lattice()`, thetas routed as `tnqs_torch/engine.py:716-733` routes
 # them): (batch, theta rows, polish sweeps), width 128.  K2 takes each one's
@@ -302,23 +334,27 @@ REAL_PATH = ((18, 128, 4), (18, 128, 4), (26, 256, 6), (9, 256, 6), (16, 256, 6)
              (24, 256, 6))
 
 
-def eigh_bound(B, n, taken):
+def eigh_bound(B, n, taken, log=0):
     """K2's bound: a rotation taken updates 2n elements of H's upper half
     (rows, then columns; the lower half is their mirror) and 2n of V's
-    columns (`jacobi_eigh.cu`), each c x + s y with real c: 4 FMAs and 2
-    multiplies, 6 issue slots of the FP32 pipe (a slot is 2 FLOP at the peak
-    rate).  A pair found converged skips its update, so the rotations count
-    as this run's data takes them, as the plain version counts them."""
-    return bound(taken * 4 * n * 6 * 2, B * n * n * 8 * 2 + B * n * 4)
+    columns (`jacobi_eigh.cu`; past n = 256 V's in `rotation_log.cu`), each
+    c x + s y with real c: 4 FMAs and 2 multiplies, 6 issue slots of the FP32
+    pipe (a slot is 2 FLOP at the peak rate).  A pair found converged skips
+    its update, so the rotations count as this run's data takes them, as the
+    plain version counts them.  `log`: the rotation log's bytes, written and
+    read, where V is made from it."""
+    return bound(taken * 4 * n * 6 * 2, B * n * n * 8 * 2 + B * n * 4 + log)
 
 
-def osj_bound(B, R, n, sweeps, taken):
+def osj_bound(B, R, n, sweeps, taken, log=0):
     """K1's bound: every pair of every round forms its 2x2 Gram, 4 x 2 FMAs a
     row (`osj_svd.cu`, step 1); a rotation taken updates R + n rows of the
     pair's two columns of A and V, 12 issue slots each (`colmix`: 4 FMAs and
-    2 multiplies per output); the rotations as this run's data takes them."""
+    2 multiplies per output); the rotations as this run's data takes them.
+    `log`: the rotation log's bytes, written and read, where V is made from
+    it (`rotation_log.cu`)."""
     pairs = B * sweeps * (n - 1) * (n // 2)
-    return bound((pairs * 8 * R + taken * 12 * (R + n)) * 2, B * (R * n + n * n) * 8 * 2)
+    return bound((pairs * 8 * R + taken * 12 * (R + n)) * 2, B * (R * n + n * n) * 8 * 2 + log)
 
 
 def check_eigh(name, Hb, w, V):
@@ -568,24 +604,41 @@ def wide_kernel_phase(dev):
     return list(rows.values())
 
 
-# K1 and K2 past n = 256, the L2 variants: K2 on [B, n, n] Grams at n = 320
-# (chi = 160) and 512 (the thermal path's thetas, chi = 256); K1 as pjsvd's
-# polish (batch, rows, width, polish sweeps) at the thermal path's saturated
-# thetas ([4, 512, 512] a call, three calls a step in 10e) and the chi = 160
-# and chi = 256 Eagle thetas
+# K1 and K2 past n = 256: K2 on [B, n, n] Grams at n = 320 (chi = 160) and
+# 512 (the thermal path's thetas, chi = 256), H resident in a cluster of 8
+# or 16; K1 as pjsvd's polish (batch, rows, width, polish sweeps) at the
+# thermal path's saturated thetas ([4, 512, 512] a call, three calls a step in
+# 10e) and the chi = 160 thetas (A resident in a cluster of 16) and the
+# chi = 256 ones (A in L2); V from each call's rotation log.  Past the
+# resident layouts, the L2 variants: K2 at the first width past it and K1 at
+# the first height past it at n = 512 (`L2_BOUNDARY`).
 L2_N = (320, 512)
 L2_EIGH = ((26, 320), (4, 512))
 L2_PATH = ((4, 512, 512, 4), (26, 640, 320, 6), (26, 1024, 512, 6))
+L2_BOUNDARY = ((2, 600), (2, 544, 512, 6))  # K2 [B, n], K1 [B, R, n, polish]: the L2 variants
 L2_PLAIN_BATCH = 2  # the plain comparison's batch; the kernels run and are timed at the full batch
-# sweeps at which K2's L2 variant is held to its plain version: both skips
-# converge every family there (at 12 with the relative skip the plain version
-# itself leaves 1.1e-05 of the spectral norm on the clusters family at n = 320)
+L2_SAME_CALLS = 5  # calls of each kernel that must agree bit for bit
+L2_TIMED_CALLS = 10  # calls of K2 past n = 256 and of `torch.linalg.eigh`, in turn, each timed alone
+L2_CHUNK_ROUNDS = 1000  # rounds a launch when `l2_chunk_case` splits the L2 variants' schedule
+# sweeps at which K2's variants past n = 256 are held to their plain version:
+# both skips converge every family there (at 12 with the relative skip the
+# plain version itself leaves 1.1e-05 of the spectral norm on the clusters
+# family at n = 320)
 L2_CHECK_SWEEPS = 16
+# The earlier design's times (V in the rounds, the iterate in L2), recorded
+# on an NVIDIA H100 80GB HBM3, 700 W (PERF.md §6), not measured by this
+# script: printed on a labelled line of their own, never in the `kernels` line
+EARLIER_MS = {"jacobi_eigh_l2 n=320": {"ms": 45.626, "relative_12": 76.461},
+              "jacobi_eigh_l2 n=512": {"ms": 54.251, "relative_12": 83.130},
+              "osj_svd_l2 n=512": {"ms": 30.688, "tall": 344.368}, "osj_svd_l2 n=320": {"ms": 114.166}}
+EARLIER_THERMAL_S = 2.837  # 10e complex64 "highest" on the earlier design (recorded, PERF.md §6)
 
 
 def l2_residual(Hb, w, V):
     """max |H V - V diag(w)| of each member over its spectral norm."""
     return (Hb @ V - V * w[:, None, :]).abs().amax(dim=(1, 2)) / w.abs().amax(1)
+
+
 L2_LAPACK_BATCH = 5  # members held to LAPACK's SVD: one of each spectrum family
 # polish sweeps at which pjsvd is held to LAPACK's graded bounds: the
 # engine's square schedule (4, JAX's) leaves the dense families unconverged
@@ -593,147 +646,305 @@ L2_LAPACK_BATCH = 5  # members held to LAPACK's SVD: one of each spectrum family
 L2_GRADED_SWEEPS = 6
 
 
-def l2_kernel_phase(dev):
-    """K1 and K2 past n = 256 (the L2 variants) on the card: each variant's
-    plan (cluster size, clusters at once, waves, scratch); K2 on the Grams of
-    `L2_EIGH` in both skips, checked against its plain version on the first
-    `L2_PLAIN_BATCH` members (eigenvalues within 1e-5 of the spectral norm)
-    and on every member (eigen-residual at most 1e-5 of it) at
-    `L2_CHECK_SWEEPS`, timed at pjsvd's 8 sweeps with the absolute skip and
-    `default_eigh`'s 12 with the relative one, where the residuals of kernel
-    and plain version are recorded beside each other; K1 as pjsvd's polish
-    on `L2_PATH`, against its plain version (s within 1e-5 of s_max, rank-n/2 reconstruction within
-    3e-5 of it) and pjsvd against LAPACK by the graded bounds of
-    `tests/test_torch_wide_pjsvd.py` on one member of each family; two
-    calls of each kernel bitwise equal; each beside the library call and
-    its bound, the rotations taken counted by the kernel in the timed call.
-    Returns the rows of the `kernels` line, one per kernel and width."""
-    from tnqs_torch.ops import jacobi, osj
+def log_bytes(B, n, rounds):
+    """The rotation log a call writes and the V kernel reads: 16 n/2 bytes a
+    round a matrix, twice."""
+    return 2 * B * rounds * 8 * n
 
-    rng = np.random.default_rng(12)
+
+def same_calls(fn, label):
+    """`L2_SAME_CALLS` calls of `fn`, every output bitwise the first's."""
+    first = fn()
+    for _ in range(L2_SAME_CALLS - 1):
+        again = fn()
+        require(all(torch.equal(a, b) for a, b in zip(first, again)), f"{label}: {L2_SAME_CALLS} calls differ")
+    return first
+
+
+def l2_eigh_case(dev, rng, B, n, skips, plain_timed):
+    """K2 past n = 256 on the Grams [B, n, n] of the families scaled to n:
+    per skip, checked at `L2_CHECK_SWEEPS` against its plain version on the
+    first `L2_PLAIN_BATCH` members (eigenvalues within 1e-5 of the spectral
+    norm) and on every member (eigen-residual at most 1e-5 of it),
+    `L2_SAME_CALLS` calls bitwise equal; timed at pjsvd's 8 sweeps with the
+    absolute skip and `default_eigh`'s 12 with the relative one, in turn
+    with `torch.linalg.eigh` (`L2_TIMED_CALLS` calls each, the medians
+    kept), beside the bound (and, with `plain_timed`, the plain version).  Returns {skip: (ms, plain_ms, bound_ms, bound_by, library_ms,
+    taken)}, the largest |dw| and the plan."""
+    from tnqs_torch.ops import jacobi
+
     pb = L2_PLAIN_BATCH
-    rows = {}
-    for B, n in L2_EIGH:
-        plan = jacobi.eigh_l2_plan(B, n, lambda C: jacobi.l2_active_clusters(dev, n, C))
-        print(f"K2 L2 [{B},{n},{n}]: {plan} (clusters of 16 the card holds: "
-              f"{jacobi.l2_active_clusters(dev, n, 16)}, of 8: {jacobi.l2_active_clusters(dev, n, 8)})")
-        A = torch.as_tensor(spectrum_batch(rng, B, 2 * n, n, scaled_families(n)), device=dev)
-        G = A.mH @ A
-        Hb = (0.5 * (G + G.mH)).contiguous()
-        errs, timed = [], {}
-        for relative, sweeps in ((False, 8), (True, 12)):
-            skip = "relative" if relative else "absolute"
-            raw = jacobi._jacobi_eigh_cuda(Hb, L2_CHECK_SWEEPS, relative)
-            again = jacobi._jacobi_eigh_cuda(Hb, L2_CHECK_SWEEPS, relative)
-            same = torch.equal(raw[0], again[0]) and torch.equal(raw[1], again[1])
-            w_k, V_k = jacobi.jacobi_eigh(G, sweeps=L2_CHECK_SWEEPS, relative=relative)
-            w_p, V_p = jacobi.eigh_from_rounds(Hb[:pb], *jacobi._jacobi_eigh_plain(Hb[:pb], L2_CHECK_SWEEPS, relative))
-            torch.cuda.synchronize()
-            check_eigh(f"L2 kernel [{B},{n},{n}] {skip}", Hb, w_k, V_k)
-            check_eigh(f"plain [{pb},{n},{n}] {skip}", Hb[:pb], w_p, V_p)
-            dw = ((w_k[:pb] - w_p).abs().amax(1) / w_k[:pb].abs().amax(1)).max().item()
-            resid = l2_residual(Hb, w_k, V_k).max().item()
-            errs.append((w_k[:pb] - w_p).abs().max().item())
-            print(f"jacobi_eigh L2 [{B},{n},{n}] {skip}, {L2_CHECK_SWEEPS} sweeps: kernel vs plain on {pb} members "
-                  f"max |dw| "
-                  f"{dw:.3e} of the spectral norm (bound 1e-5), kernel eigen-residual {resid:.3e} of it on all {B} "
-                  f"(bound 1e-5); two calls bitwise equal: {same}")
-            require(same, f"jacobi_eigh L2 [{B},{n},{n}] {skip}: two calls differ")
-            require(dw <= 1e-5 and resid <= 1e-5, f"jacobi_eigh L2 [{B},{n},{n}] {skip}: off its plain version")
-            ms = cuda_ms(lambda: jacobi.jacobi_eigh(G, sweeps=sweeps, relative=relative), 3)
-            taken = jacobi.jacobi_eigh.rotations.item()
-            w_t, V_t = jacobi.jacobi_eigh(G, sweeps=sweeps, relative=relative)
+    plan = jacobi.eigh_log_plan(B, n, 8 * (n - 1), jacobi.log_active_clusters(dev, n))
+    print(f"K2 past 256 [{B},{n},{n}]: {plan} (clusters the card holds: resident of 16 "
+          f"{jacobi.res_active_clusters(dev, n, 16) if jacobi.eigh_res_fits(n, 16) else 0}, of 8 "
+          f"{jacobi.res_active_clusters(dev, n, 8) if jacobi.eigh_res_fits(n, 8) else 0}; L2 of 16 "
+          f"{jacobi.l2_active_clusters(dev, n, 16)}, of 8 {jacobi.l2_active_clusters(dev, n, 8)})")
+    A = torch.as_tensor(spectrum_batch(rng, B, 2 * n, n, scaled_families(n)), device=dev)
+    G = A.mH @ A
+    Hb = (0.5 * (G + G.mH)).contiguous()
+    errs, timed = [], {}
+    for relative, sweeps in skips:
+        skip = "relative" if relative else "absolute"
+        layouts = dict(jacobi.jacobi_eigh.launches_by_layout)
+        same_calls(lambda: jacobi._jacobi_eigh_cuda(Hb, L2_CHECK_SWEEPS, relative), f"jacobi_eigh [{B},{n},{n}] {skip}")
+        used = {k: v - layouts[k] for k, v in jacobi.jacobi_eigh.launches_by_layout.items() if v > layouts[k]}
+        require(list(used) == [plan.layout], f"jacobi_eigh [{B},{n},{n}]: launched {used}, planned {plan.layout}")
+        w_k, V_k = jacobi.jacobi_eigh(G, sweeps=L2_CHECK_SWEEPS, relative=relative)
+        w_p, V_p = jacobi.eigh_from_rounds(Hb[:pb], *jacobi._jacobi_eigh_plain(Hb[:pb], L2_CHECK_SWEEPS, relative))
+        torch.cuda.synchronize()
+        check_eigh(f"{plan.layout} kernel [{B},{n},{n}] {skip}", Hb, w_k, V_k)
+        check_eigh(f"plain [{pb},{n},{n}] {skip}", Hb[:pb], w_p, V_p)
+        dw = ((w_k[:pb] - w_p).abs().amax(1) / w_k[:pb].abs().amax(1)).max().item()
+        resid = l2_residual(Hb, w_k, V_k).max().item()
+        errs.append((w_k[:pb] - w_p).abs().max().item())
+        print(f"jacobi_eigh {plan.layout} [{B},{n},{n}] {skip}, {L2_CHECK_SWEEPS} sweeps: kernel vs plain on {pb} "
+              f"members max |dw| {dw:.3e} of the spectral norm (bound 1e-5), kernel eigen-residual {resid:.3e} of it "
+              f"on all {B} (bound 1e-5); {L2_SAME_CALLS} calls bitwise equal")
+        require(dw <= 1e-5 and resid <= 1e-5, f"jacobi_eigh [{B},{n},{n}] {skip}: off its plain version")
+        torch.cuda.reset_peak_memory_stats()
+        k_t, l_t = alternating_ms((lambda: jacobi.jacobi_eigh(G, sweeps=sweeps, relative=relative),
+                                   lambda: torch.linalg.eigh(Hb)), L2_TIMED_CALLS)
+        ms, library_ms = median(k_t), median(l_t)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        taken = jacobi.jacobi_eigh.rotations.item()
+        w_t, V_t = jacobi.jacobi_eigh(G, sweeps=sweeps, relative=relative)
+        plain_ms = float("nan")
+        if plain_timed:
             plain_ms = cuda_ms(lambda: jacobi.eigh_from_rounds(
                 Hb[:pb], *jacobi._jacobi_eigh_plain(Hb[:pb], sweeps, relative)), 1, warmup=False)
             r_t = l2_residual(Hb, w_t, V_t)
             b = int(r_t.argmax())  # the kernel's worst member, through the plain version too
             w_q, V_q = jacobi.eigh_from_rounds(Hb[b:b + 1], *jacobi._jacobi_eigh_plain(Hb[b:b + 1], sweeps, relative))
-            print(f"jacobi_eigh L2 [{B},{n},{n}] {skip} at the timed {sweeps} sweeps (recorded): eigen-residual of the "
+            print(f"jacobi_eigh [{B},{n},{n}] {skip} at the timed {sweeps} sweeps (recorded): eigen-residual of the "
                   f"spectral norm, kernel {r_t.max().item():.3e} on all {B} (member {b}), plain "
                   f"{l2_residual(Hb[b:b + 1], w_q, V_q).item():.3e} on member {b}")
-            library_ms = cuda_ms(lambda: torch.linalg.eigh(Hb), 3)
-            bound_ms, bound_by = eigh_bound(B, n, taken)
-            timed[skip] = (ms, plain_ms, bound_ms, bound_by, library_ms)
-            print(f"jacobi_eigh L2 [{B},{n},{n}] sweeps={sweeps} {skip}: kernel {ms:.3f} ms (wrapper, copies and "
-                  f"refinement included), plain {plain_ms:.3f} ms at batch {pb}, torch.linalg.eigh {library_ms:.3f} "
-                  f"ms, bound {bound_ms:.3f} ms ({bound_by}; {taken} of {B * sweeps * (n - 1) * (n // 2)} rotations "
-                  f"taken, counted by the kernel; kernel at {100 * bound_ms / ms:.1f}%)", flush=True)
-        ms, plain_ms, bound_ms, bound_by, library_ms = timed["absolute"]
-        rows[f"jacobi_eigh_l2 n={n}"] = dict(
-            name=f"jacobi_eigh_l2 n={n}", route="cuda", source="tnqs_torch/csrc/jacobi_eigh.cu",
-            replaces="tnqs/ops/jacobi.py:279", max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=library_ms, shape=[B, n, n], sweeps=8, plain_shape=[pb, n, n],
-            cluster=plan.cluster, clusters=plan.clusters,
-            relative_12=dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"), timed["relative"])))
+        bound_ms, bound_by = eigh_bound(B, n, taken, log_bytes(B, n, sweeps * (n - 1)))
+        timed[skip] = (ms, plain_ms, bound_ms, bound_by, library_ms, taken)
+        print(f"jacobi_eigh {plan.layout} [{B},{n},{n}] sweeps={sweeps} {skip}: kernel {ms:.3f} ms (wrapper, V's "
+              f"kernel, copies and refinement included; peak {peak:.3f} GiB), plain {plain_ms:.3f} ms at batch {pb}, "
+              f"torch.linalg.eigh {library_ms:.3f} ms ({'faster' if ms < library_ms else 'slower'}: "
+              f"{library_ms / ms:.2f}x; medians of {L2_TIMED_CALLS} calls each in turn, min / median / max: kernel "
+              f"{spread(k_t)}, eigh {spread(l_t)}; kernel faster in {sum(a < b for a, b in zip(k_t, l_t))} of the "
+              f"{L2_TIMED_CALLS} pairs), bound {bound_ms:.3f} ms ({bound_by}; {taken} of "
+              f"{B * sweeps * (n - 1) * (n // 2)} rotations taken, counted by the kernel; kernel at "
+              f"{100 * bound_ms / ms:.1f}%)", flush=True)
+    return timed, max(errs), plan
 
-    for B, R, n, polish in L2_PATH:
-        plan, nch, vch = osj.osj_l2_plan(B, R, n, lambda C: osj.l2_active_clusters(dev, n, C))
-        print(f"K1 L2 [{B},{R},{n}]: {plan}, {nch} + {vch} chunks of A + V (clusters of 16 the card holds: "
-              f"{osj.l2_active_clusters(dev, n, 16)}, of 8: {osj.l2_active_clusters(dev, n, 8)})")
-        A = torch.as_tensor(spectrum_batch(rng, B, R, n, scaled_families(n)), device=dev)
-        _, V0 = jacobi.jacobi_eigh(A.mH @ A, sweeps=8, relative=False)
-        B0 = A @ V0
-        Ab, scale = osj.prescale(B0)
-        Ab, V0c = Ab.contiguous(), V0.contiguous()
-        raw, again = osj._osj_svd_cuda(Ab, V0c, polish), osj._osj_svd_cuda(Ab, V0c, polish)
-        same = torch.equal(raw[0], again[0]) and torch.equal(raw[1], again[1])
-        lb = L2_LAPACK_BATCH
-        U0, s0, Vh0 = torch.linalg.svd(A[:lb].to(torch.complex128), full_matrices=False)
-        k = n // 2  # the bond: the rank-chi truncation against LAPACK's
-        best = (U0[:, :, :k] * s0[:, None, :k]) @ Vh0[:, :k]
-        fams = list(scaled_families(n))
-        for sweeps in sorted({polish, max(polish, L2_GRADED_SWEEPS)}):
-            # the engine's sweeps, recorded; the graded bounds where the schedule converges
-            gated = sweeps >= L2_GRADED_SWEEPS
-            U_k, s_k, Vh_k = osj.osj_svd(B0, V0, sweeps=sweeps)
-            U_p, s_p, Vh_p = osj.svd_from_rounds(*osj._osj_svd_plain(Ab[:pb], V0c[:pb], sweeps), scale[:pb])
-            U_j, s_j, Vh_j = osj.pjsvd(A, polish_sweeps=sweeps)
-            off = []
-            for name, U, s, Vh, b in (("kernel", U_k, s_k, Vh_k, lb), ("plain", U_p, s_p, Vh_p, pb),
-                                      ("pjsvd", U_j, s_j, Vh_j, lb)):
-                require(all(torch.isfinite(x).all() for x in (U, s, Vh)),
-                        f"osj_svd L2 {name} [{B},{R},{n}]: non-finite")
-                U, s, Vh = U[:b], s[:b], Vh[:b]
-                rec = ((U[:, :, :k] * s[:, None, :k]) @ Vh[:, :k]).to(torch.complex128)
-                recon = torch.linalg.vector_norm((rec - best[:b]).flatten(1), dim=1) / s0[:b, 0]
-                s_err = (s.double() - s0[:b]).abs().amax(1) / s0[:b, 0]
-                sorted_ok = bool((s[:, 1:] - s[:, :-1] <= 1e-6).all())
-                print(f"osj_svd L2 {name} [{B},{R},{n}] {sweeps} sweeps ({'gated' if gated else 'recorded'}): "
-                      f"rank-{k} reconstruction (bound 3e-5) and s error (bound 1e-4) of s_max by member: "
-                      + ", ".join(f"{fams[i % 5]} {r.item():.3e} {e.item():.3e}"
-                                  for i, (r, e) in enumerate(zip(recon, s_err)))
-                      + f"; descending {sorted_ok}")
-                if not (recon.max().item() < 3e-5 and s_err.max().item() < 1e-4 and sorted_ok):
-                    off.append(name)
-            require(not gated or not off, f"osj_svd L2 [{B},{R},{n}]: {off} off LAPACK")
-            # the kernel against its plain version: gated where the schedule
-            # converges; before it the two part by float32 rounding (F2)
-            err = (s_k[:pb] - s_p).abs().max().item()
-            rel = ((s_k[:pb] - s_p).abs().amax(1) / s_p[:, 0]).max().item()
-            print(f"osj_svd L2 [{B},{R},{n}] {sweeps} sweeps ({'gated' if gated else 'recorded'}) kernel vs plain on "
-                  f"{pb} members: max |ds| {err:.3e}, {rel:.3e} of s_max (bound 1e-5); two calls bitwise equal: {same}")
-        require(same, f"osj_svd L2 [{B},{R},{n}]: two calls differ")
-        require(rel <= 1e-5, f"osj_svd L2 [{B},{R},{n}]: kernel and plain singular values differ")
-        k_ms = cuda_ms(lambda: osj.osj_svd(B0, V0, sweeps=polish), 3)
-        taken = osj.osj_svd.rotations.item()
+
+def l2_osj_case(dev, rng, B, R, n, polish, plain_timed):
+    """K1 past the cluster kernel as pjsvd's polish on [B, R, n]: against
+    its plain version (s within 1e-5 of s_max) and pjsvd against LAPACK by
+    the graded bounds of `tests/test_torch_wide_pjsvd.py` on one member of
+    each family, `L2_SAME_CALLS` calls bitwise equal, timed beside
+    `torch.linalg.svd` and the bound (and, with `plain_timed`, the plain
+    version).  Returns the row's numbers and the plan."""
+    from tnqs_torch.ops import jacobi, osj
+
+    pb = L2_PLAIN_BATCH
+    plan, nch, cpc = osj.osj_log_plan(B, R, n, polish * (n - 1), osj.log_active_clusters(dev, n))
+    print(f"K1 past the cluster kernel [{B},{R},{n}]: {plan}, {nch} chunks of A, {cpc} a CTA resident")
+    A = torch.as_tensor(spectrum_batch(rng, B, R, n, scaled_families(n)), device=dev)
+    _, V0 = jacobi.jacobi_eigh(A.mH @ A, sweeps=8, relative=False)
+    B0 = A @ V0
+    Ab, scale = osj.prescale(B0)
+    Ab, V0c = Ab.contiguous(), V0.contiguous()
+    layouts = dict(osj.osj_svd.launches_by_layout)
+    same_calls(lambda: osj._osj_svd_cuda(Ab, V0c, polish), f"osj_svd [{B},{R},{n}]")
+    used = {k: v - layouts[k] for k, v in osj.osj_svd.launches_by_layout.items() if v > layouts[k]}
+    require(list(used) == [plan.layout], f"osj_svd [{B},{R},{n}]: launched {used}, planned {plan.layout}")
+    lb = min(L2_LAPACK_BATCH, B)
+    U0, s0, Vh0 = torch.linalg.svd(A[:lb].to(torch.complex128), full_matrices=False)
+    k = n // 2  # the bond: the rank-chi truncation against LAPACK's
+    best = (U0[:, :, :k] * s0[:, None, :k]) @ Vh0[:, :k]
+    fams = list(scaled_families(n))
+    for sweeps in sorted({polish, max(polish, L2_GRADED_SWEEPS)}):
+        # the engine's sweeps, recorded; the graded bounds where the schedule converges
+        gated = sweeps >= L2_GRADED_SWEEPS
+        U_k, s_k, Vh_k = osj.osj_svd(B0, V0, sweeps=sweeps)
+        U_p, s_p, Vh_p = osj.svd_from_rounds(*osj._osj_svd_plain(Ab[:pb], V0c[:pb], sweeps), scale[:pb])
+        U_j, s_j, Vh_j = osj.pjsvd(A, polish_sweeps=sweeps)
+        off = []
+        for name, U, s, Vh, b in (("kernel", U_k, s_k, Vh_k, lb), ("plain", U_p, s_p, Vh_p, pb),
+                                  ("pjsvd", U_j, s_j, Vh_j, lb)):
+            require(all(torch.isfinite(x).all() for x in (U, s, Vh)), f"osj_svd {name} [{B},{R},{n}]: non-finite")
+            U, s, Vh = U[:b], s[:b], Vh[:b]
+            rec = ((U[:, :, :k] * s[:, None, :k]) @ Vh[:, :k]).to(torch.complex128)
+            recon = torch.linalg.vector_norm((rec - best[:b]).flatten(1), dim=1) / s0[:b, 0]
+            s_err = (s.double() - s0[:b]).abs().amax(1) / s0[:b, 0]
+            sorted_ok = bool((s[:, 1:] - s[:, :-1] <= 1e-6).all())
+            print(f"osj_svd {plan.layout} {name} [{B},{R},{n}] {sweeps} sweeps ({'gated' if gated else 'recorded'}): "
+                  f"rank-{k} reconstruction (bound 3e-5) and s error (bound 1e-4) of s_max by member: "
+                  + ", ".join(f"{fams[i % 5]} {r.item():.3e} {e.item():.3e}"
+                              for i, (r, e) in enumerate(zip(recon, s_err)))
+                  + f"; descending {sorted_ok}")
+            if not (recon.max().item() < 3e-5 and s_err.max().item() < 1e-4 and sorted_ok):
+                off.append(name)
+        require(not gated or not off, f"osj_svd [{B},{R},{n}]: {off} off LAPACK")
+        # the kernel against its plain version: gated where the schedule
+        # converges; before it the two part by float32 rounding (F2)
+        err = (s_k[:pb] - s_p).abs().max().item()
+        rel = ((s_k[:pb] - s_p).abs().amax(1) / s_p[:, 0]).max().item()
+        print(f"osj_svd {plan.layout} [{B},{R},{n}] {sweeps} sweeps ({'gated' if gated else 'recorded'}) kernel vs "
+              f"plain on {pb} members: max |ds| {err:.3e}, {rel:.3e} of s_max (bound 1e-5); {L2_SAME_CALLS} calls "
+              f"bitwise equal")
+    require(rel <= 1e-5, f"osj_svd [{B},{R},{n}]: kernel and plain singular values differ")
+    torch.cuda.reset_peak_memory_stats()
+    k_ms = cuda_ms(lambda: osj.osj_svd(B0, V0, sweeps=polish), 3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    taken = osj.osj_svd.rotations.item()
+    p_ms = float("nan")
+    if plain_timed:
         p_ms = cuda_ms(lambda: osj.svd_from_rounds(*osj._osj_svd_plain(Ab[:pb], V0c[:pb], polish), scale[:pb]), 1,
                        warmup=False)
-        l_ms = cuda_ms(lambda: torch.linalg.svd(A, full_matrices=False), 2)
-        bound_ms, bound_by = osj_bound(B, R, n, polish, taken)
-        print(f"osj_svd L2 [{B},{R},{n}] sweeps={polish}, C={plan.cluster}: kernel {k_ms:.3f} ms (wrapper, copies, "
-              f"prescale and sort included), plain {p_ms:.3f} ms at batch {pb}, torch.linalg.svd {l_ms:.3f} ms, bound "
-              f"{bound_ms:.3f} ms ({bound_by}; {taken} of {B * polish * (n - 1) * (n // 2)} rotations taken, counted "
-              f"by the kernel; kernel at {100 * bound_ms / k_ms:.1f}%)", flush=True)
-        row = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=l_ms, shape=[B, R, n],
-                   sweeps=polish, max_abs_err=err, plain_shape=[pb, R, n], cluster=plan.cluster,
-                   clusters=plan.clusters)
+    l_ms = cuda_ms(lambda: torch.linalg.svd(A, full_matrices=False), 2)
+    bound_ms, bound_by = osj_bound(B, R, n, polish, taken, log_bytes(B, n, polish * (n - 1)))
+    print(f"osj_svd {plan.layout} [{B},{R},{n}] sweeps={polish}, C={plan.cluster}: kernel {k_ms:.3f} ms (wrapper, "
+          f"V's kernel, copies, prescale and sort included; peak {peak:.3f} GiB), plain {p_ms:.3f} ms at batch {pb}, "
+          f"torch.linalg.svd {l_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; {taken} of "
+          f"{B * polish * (n - 1) * (n // 2)} rotations taken, counted by the kernel; kernel at "
+          f"{100 * bound_ms / k_ms:.1f}%)", flush=True)
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=l_ms, shape=[B, R, n],
+                sweeps=polish, max_abs_err=err, plain_shape=[pb, R, n], cluster=plan.cluster, clusters=plan.clusters,
+                layout=plan.layout), plan
+
+
+def rotation_log_case(dev, rng):
+    """The V kernel alone: the log of the resident K2 on the thermal path's
+    Grams [4, 512, 512] (8 sweeps, absolute skip), applied to V = I by the
+    kernel and by its plain version on the card (the same operations in
+    PyTorch's complex arithmetic: within 1e-5, FMA contraction apart),
+    `L2_SAME_CALLS` calls bitwise equal, timed beside the bound (12 FP32
+    operations a row of a taken pair, the log read and V written once).
+    No single PyTorch call applies a sequence of rotations: library_ms is
+    null.  Returns the row's numbers."""
+    from tnqs_torch.ops import _build, jacobi, rotation_log
+
+    B, n, sweeps = 4, 512, 8
+    rounds = sweeps * (n - 1)
+    A = torch.as_tensor(spectrum_batch(rng, B, 2 * n, n, scaled_families(n)), device=dev)
+    G = A.mH @ A
+    Hb = (0.5 * (G + G.mH)).contiguous()
+    plan = jacobi.eigh_log_plan(B, n, rounds, jacobi.log_active_clusters(dev, n))
+    log = torch.empty((B, rounds, n // 2, 4), dtype=torch.float32, device=dev)
+    w = torch.empty((B, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _build.check(_build.kernels().tnqs_jacobi_eigh_res(Hb.data_ptr(), log.data_ptr(), w.data_ptr(), None, None,
+                                                            None, 1, B, n, rounds, jacobi.EPS32, 0, plan.cluster,
+                                                            torch.cuda.current_stream().cuda_stream),
+                     "tnqs_jacobi_eigh_res")
+    V_k = same_calls(lambda: (rotation_log.apply_rotation_log(log),), "rotation_log")[0]
+    V_p = rotation_log._apply_rotation_log_plain(log)
+    err = (V_k - V_p).abs().max().item()
+    taken = int(rotation_log.unpack(log)[2].sum().item())
+    ms = cuda_ms(lambda: rotation_log.apply_rotation_log(log), 3)
+    plain_ms = cuda_ms(lambda: rotation_log._apply_rotation_log_plain(log), 1, warmup=False)
+    bound_ms, bound_by = bound(taken * 2 * n * 6 * 2, log.numel() * 4 + B * n * n * 8)
+    S, E, smem = rotation_log.plan(n)
+    # stages of part of a round (the layout past n = 9684, here at a stage
+    # of m/3 + 5 entries), and V in place from two launches' logs (the L2
+    # variants' schedule in chunks): both bit for bit one whole launch
+    Ep, h = n // 2 // 3 + 5, rounds // 2
+    V_s = torch.empty_like(V_k)
+    with torch.cuda.device(dev):
+        _build.check(_build.kernels().tnqs_rotation_log(None, log.data_ptr(), V_s.data_ptr(), B, n, rounds, S, Ep,
+                                                         None, None, None, 0, 0,
+                                                         torch.cuda.current_stream().cuda_stream), "tnqs_rotation_log")
+    V_h = rotation_log.apply_rotation_log(log[:, :h].contiguous())
+    rotation_log.apply_rotation_log(log[:, h:].contiguous(), V_h, out=V_h)
+    print(f"rotation_log [{B},{n},{n}] from K2's {rounds}-round log ({taken} rotations taken): kernel vs plain on the "
+          f"card max |dV| {err:.3e} (bound 1e-5); {L2_SAME_CALLS} calls bitwise equal; stages of {Ep} entries (part "
+          f"of a round) and two launches in place each bitwise equal: {torch.equal(V_s, V_k)}, "
+          f"{torch.equal(V_h, V_k)}; kernel {ms:.3f} ms ({S} rows a CTA, {E} entries ({E // (n // 2)} rounds) a "
+          f"stage, {smem} shared bytes), plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; kernel at "
+          f"{100 * bound_ms / ms:.1f}%)", flush=True)
+    require(err <= 1e-5, "rotation_log: kernel and plain differ")
+    require(torch.equal(V_s, V_k) and torch.equal(V_h, V_k), "rotation_log: part-round stages or in place differ")
+    return dict(name="rotation_log", route="cuda", source="tnqs_torch/csrc/rotation_log.cu",
+                replaces="tnqs/ops/jacobi.py:279 and tnqs/ops/osj.py:306 (their V accumulation)", max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None, shape=[B, n, n],
+                sweeps=sweeps)
+
+
+def l2_chunk_case(dev, rng):
+    """The L2 variants with their schedule split into launches of
+    `L2_CHUNK_ROUNDS` rounds, as `jacobi.LOG_BUDGET` splits a matrix whose
+    log does not fit it (lowered here, so that the `L2_BOUNDARY` shapes
+    split): each launch starts at its round of the schedule and V takes each
+    launch's log in place.  Bit for bit one launch (K2's w and V, K1's A
+    and V), with the launches counted."""
+    from tnqs_torch.ops import jacobi, osj
+
+    (B, n), (Bo, Ro, no, polish) = L2_BOUNDARY
+    A = torch.as_tensor(spectrum_batch(rng, B, 2 * n, n, scaled_families(n)), device=dev)
+    G = A.mH @ A
+    Hb = (0.5 * (G + G.mH)).contiguous()
+    Ao = torch.as_tensor(spectrum_batch(rng, Bo, Ro, no, scaled_families(no)), device=dev)
+    V0 = jacobi.jacobi_eigh(Ao.mH @ Ao, sweeps=8, relative=False)[1].contiguous()
+    Ab = osj.prescale(Ao @ V0)[0].contiguous()
+    whole = jacobi._jacobi_eigh_cuda(Hb, 8, False) + osj._osj_svd_cuda(Ab, V0, polish)
+    budget, before = jacobi.LOG_BUDGET, (jacobi.jacobi_eigh.launches, osj.osj_svd.launches)
+    try:
+        jacobi.LOG_BUDGET = 8 * n * L2_CHUNK_ROUNDS
+        plan = jacobi.eigh_log_plan(B, n, 8 * (n - 1), jacobi.log_active_clusters(dev, n))
+        split = jacobi._jacobi_eigh_cuda(Hb, 8, False)
+        jacobi.LOG_BUDGET = 8 * no * L2_CHUNK_ROUNDS
+        oplan = osj.osj_log_plan(Bo, Ro, no, polish * (no - 1), osj.log_active_clusters(dev, no))[0]
+        split += osj._osj_svd_cuda(Ab, V0, polish)
+    finally:
+        jacobi.LOG_BUDGET = budget
+    launches = (jacobi.jacobi_eigh.launches - before[0], osj.osj_svd.launches - before[1])
+    want = (B * -(-8 * (n - 1) // L2_CHUNK_ROUNDS), Bo * -(-polish * (no - 1) // L2_CHUNK_ROUNDS))
+    same = [torch.equal(a, b) for a, b in zip(whole, split)]
+    print(f"L2 variants in launches of {L2_CHUNK_ROUNDS} rounds: K2 [{B},{n},{n}] ({plan.layout}, chunk {plan.chunk}) "
+          f"and K1 [{Bo},{Ro},{no}] ({oplan.layout}, chunk {oplan.chunk}) in {launches} launches (planned {want}); "
+          f"w, V, A, V bitwise one launch's: {same}", flush=True)
+    require(plan.layout == oplan.layout == "l2" and plan.chunk == oplan.chunk == L2_CHUNK_ROUNDS,
+            f"the split plans {plan}, {oplan}")
+    require(launches == want and all(same), "the L2 variants in chunks of rounds differ from one launch")
+
+
+def l2_kernel_phase(dev):
+    """K1 and K2 past the cluster kernels (the resident and L2 variants, V
+    from the rotation log) on the card: K2 at `L2_EIGH` (both skips) and
+    K1 at `L2_PATH` (`l2_eigh_case`, `l2_osj_case`), each variant's plan,
+    the layout it launched; the L2 variants at `L2_BOUNDARY`, whole and in
+    chunks of rounds (`l2_chunk_case`); the V kernel alone
+    (`rotation_log_case`).  Returns the rows of the `kernels` line,
+    one per kernel and width."""
+    rng = np.random.default_rng(12)
+    rows = {}
+    for B, n in L2_EIGH:
+        timed, err, plan = l2_eigh_case(dev, rng, B, n, ((False, 8), (True, 12)), True)
+        ms, plain_ms, bound_ms, bound_by, library_ms, _ = timed["absolute"]
+        key = f"jacobi_eigh_l2 n={n}"
+        rows[key] = dict(
+            name=key, route="cuda", source="tnqs_torch/csrc/jacobi_eigh.cu", replaces="tnqs/ops/jacobi.py:279",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+            shape=[B, n, n], sweeps=8, plain_shape=[L2_PLAIN_BATCH, n, n], cluster=plan.cluster,
+            clusters=plan.clusters, layout=plan.layout,
+            relative_12=dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"), timed["relative"][:5])))
+    (B, n), (Bo, Ro, no, polish) = L2_BOUNDARY
+    timed, err, plan = l2_eigh_case(dev, rng, B, n, ((False, 8),), False)
+    require(plan.layout == "l2", f"jacobi_eigh [{B},{n},{n}]: {plan.layout}, not past the resident layout")
+    rows["jacobi_eigh_l2 n=512"]["past_resident"] = dict(
+        zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"), timed["absolute"][:5]), shape=[B, n, n],
+        layout=plan.layout, max_abs_err=err)
+    for B, R, n, polish in L2_PATH:
+        row, _ = l2_osj_case(dev, rng, B, R, n, polish, True)
         key = f"osj_svd_l2 n={n}"
         if key not in rows:
             rows[key] = dict(name=key, route="cuda", source="tnqs_torch/csrc/osj_svd.cu",
                              replaces="tnqs/ops/osj.py:306", **row)
         else:
             rows[key]["tall"] = row
-            rows[key]["max_abs_err"] = max(err, rows[key]["max_abs_err"])
+            rows[key]["max_abs_err"] = max(row["max_abs_err"], rows[key]["max_abs_err"])
+    row, plan = l2_osj_case(dev, rng, Bo, Ro, no, polish, False)
+    require(plan.layout == "l2", f"osj_svd [{Bo},{Ro},{no}]: {plan.layout}, not past the resident layout")
+    rows["osj_svd_l2 n=512"]["past_resident"] = row
+    l2_chunk_case(dev, rng)
+    rows["rotation_log"] = rotation_log_case(dev, rng)
+    print(f"the earlier design's times, ms (V in the rounds; recorded in PERF.md, not measured in this run): "
+          f"{EARLIER_MS}")
     return list(rows.values())
 
 
@@ -1063,12 +1274,7 @@ def main_path(dev, layers, checkpoint=None):
     plain_calls = (jacobi._jacobi_eigh_plain.calls, osj._osj_svd_plain.calls, bp_sweep._bp_sweep_group_plain.calls)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    jacobi.jacobi_eigh.launches = 0
-    osj.osj_svd.launches = 0
-    bp_sweep.bp_sweep_group.launches = 0
-    bp_sweep.bp_sweep_group.launches_by_mode.update(dict.fromkeys(bp_sweep.MODES, 0))
-    jacobi.jacobi_eigh.launches_by_shape.clear()
-    osj.osj_svd.launches_by_shape.clear()
+    reset_counts()
     devs, times, discarded, zs = [], [], [], []
     for li in range(layers):
         torch.cuda.synchronize()
@@ -1311,9 +1517,14 @@ def reset_counts():
     from tnqs_torch.ops import bp_sweep, jacobi, osj
     from tnqs_torch.ops.factorizations import default_eigh
 
+    from tnqs_torch.ops.rotation_log import apply_rotation_log
+
     jacobi.jacobi_eigh.launches = osj.osj_svd.launches = bp_sweep.bp_sweep_group.launches = 0
+    apply_rotation_log.launches = 0
     jacobi.jacobi_eigh.launches_by_shape.clear()
     osj.osj_svd.launches_by_shape.clear()
+    for by_layout in (jacobi.jacobi_eigh.launches_by_layout, osj.osj_svd.launches_by_layout):
+        by_layout.update(dict.fromkeys(by_layout, 0))
     bp_sweep.bp_sweep_group.launches_by_mode.update(dict.fromkeys(bp_sweep.MODES, 0))
     bp_sweep.bp_sweep_group.launches_by_shape.clear()
     default_eigh.library_calls = 0
@@ -1331,12 +1542,18 @@ def read_counts(plain_before):
 
 
 def k3_launches():
-    """Launches by kernel row of the `kernels` line, K3's by mode."""
+    """Launches by kernel row of the `kernels` line, K3's by mode; past
+    n = 256 also K1's and K2's by layout (resident, L2)."""
     from tnqs_torch.ops import bp_sweep, jacobi, osj
+    from tnqs_torch.ops.rotation_log import apply_rotation_log
 
     by_mode = bp_sweep.bp_sweep_group.launches_by_mode
     counts = {"jacobi_eigh": jacobi.jacobi_eigh.launches, "osj_svd": osj.osj_svd.launches,
-              "bp_sweep_group": by_mode["highest"], "bp_sweep_group_bf16_3x": by_mode["bf16_3x"]}
+              "bp_sweep_group": by_mode["highest"], "bp_sweep_group_bf16_3x": by_mode["bf16_3x"],
+              "rotation_log": apply_rotation_log.launches}
+    for layout in ("resident", "l2"):
+        counts[f"jacobi_eigh {layout}"] = jacobi.jacobi_eigh.launches_by_layout[layout]
+        counts[f"osj_svd {layout}"] = osj.osj_svd.launches_by_layout[layout]
     for n, k2, k1 in [(n, "jacobi_eigh_wide", "osj_svd") for n in WIDE_N] + [(n, "jacobi_eigh_l2", "osj_svd_l2")
                                                                            for n in L2_N]:
         # the rows past n = 128 (K2's wide variant, K1) and past n = 256 (the L2 variants), by width
@@ -2051,7 +2268,7 @@ def measure_wide(dev, label, chi, discarded, cap_s, xla_cap_s, full_layers=0):
 # phase 9: certified sampling
 # ----------------------------------------------------------------------
 
-SAMPLE_CAP_S = 60.0  # 9d draws the most samples, up to 50, whose groups fit this
+SAMPLE_CAP_S = 30.0  # 9d draws the most samples, up to 50, whose groups fit this
 
 
 def sample_stats(label, out):
@@ -2459,8 +2676,60 @@ def loop_corrections(dev, state_main, state_w2):
 JAX_THERMAL_DIST = 1.049161e-13
 
 
-def thermal_run(label, chi, dtype, device, bp_precision=None, svd_impl="auto"):
+def busy_ms(prof):
+    """Milliseconds in which at least one kernel ran in a torch.profiler
+    window: the union of the kernels' spans, which V's kernel beside the
+    iterate (a second stream) would otherwise count twice."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if "CUDA" in str(e.device_type) and e.time_range.end > e.time_range.start)
+    total, start, end = 0.0, None, None
+    for s, e in spans:
+        if end is None or s > end:
+            total += 0.0 if end is None else end - start
+            start, end = s, e
+        else:
+            end = max(end, e)
+    return (total + (0.0 if end is None else end - start)) / 1e3
+
+
+def thermal_breakdown(label, prof, wall_ms):
+    """Device time by kernel of a torch.profiler window over thermal steps:
+    K1's and K2's variants past n = 256, V's kernel, K3 and the top others,
+    and the idle share of the window's wall time (the profiler's overhead
+    included, so an upper bound)."""
+    kernels = device_times(prof)
+    busy = sum(ms for ms, _ in kernels.values())
+    if busy == 0:
+        print(f"10e {label}: torch.profiler saw no device time (wall {wall_ms:.3f} ms)")
+        return
+    union = busy_ms(prof)
+    print(f"10e {label} (torch.profiler): wall {wall_ms:.3f} ms, kernels {busy:.3f} ms summed over both streams, "
+          f"device busy {union:.3f} ms (their union), idle share {1 - union / wall_ms:.4f}")
+    labels = (("K2 resident", ("jacobi_eigh_res_kernel",)), ("K2 L2", ("jacobi_eigh_l2_kernel",)),
+              ("K1 resident", ("osj_svd_res_kernel",)), ("K1 L2", ("osj_svd_l2_kernel",)),
+              ("V from the log", ("rotation_log_kernel",)), ("K1 clusters", ("osj_svd_kernel",)),
+              ("K2 n <= 256", ("jacobi_eigh_kernel", "jacobi_eigh_wide_kernel")),
+              ("K3 bp_sweep_group", ("bp_mode_product", "bp_pass2", "bp_reduce")))
+    for name, keys in labels:
+        sel = [v for k, v in kernels.items() if any(key in k for key in keys)]
+        ms, n = sum(v[0] for v in sel), sum(v[1] for v in sel)
+        print(f"  {name}: {ms:.3f} ms in {n} launches ({100 * ms / busy:.1f}% of device time, "
+              f"{100 * ms / wall_ms:.1f}% of the wall)")
+    ours = [key for _, keys in labels for key in keys]
+    others = sorted(((v, k) for k, v in kernels.items() if not any(key in k for key in ours)), reverse=True)
+    for (ms, n), k in others[:6]:
+        print(f"  {ms:9.3f} ms {n:5d}x ({100 * ms / busy:4.1f}%) {k[:110]}")
+
+
+THERMAL_CPU_STEPS = 10  # 10e's complex128 steps on the CPU port, held to the card's (the card runs all 25)
+
+
+def thermal_run(label, chi, dtype, device, bp_precision=None, svd_impl="auto", profile_last=0, steps=None):
+    """The thermal state of golden_thermal.json at bond `chi`, its `steps`
+    steps (all of them by default); the last `profile_last` steps under
+    torch.profiler (`thermal_breakdown`)."""
     import tnqs_torch
+    from torch.profiler import ProfilerActivity, profile
     from tnqs_torch.engine import LatticeEngine
 
     gold = json.loads((ROOT / "tests" / "golden" / "golden_thermal.json").read_text())
@@ -2475,17 +2744,29 @@ def thermal_run(label, chi, dtype, device, bp_precision=None, svd_impl="auto"):
     logz = -eng.freenergy()
     eng.rescale()
     f = []
-    for _ in range(c["steps"]):
+    prof = None
+    steps = steps or c["steps"]
+    for k in range(steps):
+        if profile_last and k == steps - profile_last:
+            sync(eng.device)
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof.__enter__()
+            t_prof = time.perf_counter()
         eng.T, eng.M, _ = step(eng.T, eng.M)
         logz -= eng.freenergy()
         eng.rescale()
         f.append(float(np.real(logz) / g.nv()))
     sync(eng.device)
+    if prof is not None:
+        wall_ms = 1e3 * (time.perf_counter() - t_prof)
+        prof.__exit__(None, None, None)
+        thermal_breakdown(f"{label}, the last {profile_last} steps", prof, wall_ms)
     rec = np.array(f[c["record_every"] - 1:: c["record_every"]])
-    htse = np.abs(rec - np.array(gold["htse_4th"]))
-    flex = np.abs(rec - np.array(gold["free_energy_density"]))
+    htse = np.abs(rec - np.array(gold["htse_4th"][:len(rec)]))
+    flex = np.abs(rec - np.array(gold["free_energy_density"][:len(rec)]))
     seconds = time.perf_counter() - t0
-    print(f"10e {label}: {seconds:.3f} s, f at steps 5..25 {[f'{x:.10f}' for x in rec]}; |f - HTSE 4th| max "
+    print(f"10e {label}: {seconds:.3f} s, f at steps {c['record_every']}..{steps} {[f'{x:.10f}' for x in rec]}; "
+          f"|f - HTSE 4th| max "
           f"{htse.max():.3e} (bound 2e-3); |f - golden free_energy_density| max {flex.max():.3e}", flush=True)
     require(np.isfinite(rec).all() and htse.max() < 2e-3, f"10e {label}: off the HTSE anchor")
     return rec, flex if chi == c["maxdim"] else None, seconds
@@ -2508,9 +2789,9 @@ def thermal_phase(dev, chi=32):
     f128, dist, _ = thermal_run("complex128, card", chi, torch.complex128, dev)
     counts = read_counts(plain_before)
     require(not any(counts[0].values()) and not counts[3], f"10e: complex128 launched {counts[0]}")
-    f_cpu, _, _ = thermal_run("complex128, CPU port", chi, torch.complex128, "cpu")
-    d_cpu = np.abs(f128 - f_cpu).max()
-    print(f"10e: complex128 card - CPU {d_cpu:.3e} (bound 1e-10)")
+    f_cpu, _, _ = thermal_run("complex128, CPU port", chi, torch.complex128, "cpu", steps=THERMAL_CPU_STEPS)
+    d_cpu = np.abs(f128[:len(f_cpu)] - f_cpu).max()
+    print(f"10e: complex128 card - CPU over the first {THERMAL_CPU_STEPS} steps {d_cpu:.3e} (bound 1e-10)")
     require(d_cpu <= 1e-10, "10e: complex128 card and CPU differ")
     if dist is not None:  # golden_thermal.json's chi
         print(f"10e: complex128 card from the golden {dist.max():.3e}, the JAX engine's own CPU distance "
@@ -2522,7 +2803,9 @@ def thermal_phase(dev, chi=32):
         label = f"complex64, card, bp_precision={prec}, svd_impl={svd_impl}"
         plain_before = reset_counts()
         fallback = dict(_svd_fallback.calls_by_shape)
+        torch.cuda.reset_peak_memory_stats()
         f64, _, seconds[label] = thermal_run(label, chi, torch.complex64, dev, prec, svd_impl)
+        print(f"10e {label}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
         counts = read_counts(plain_before)
         library = {k: v - fallback.get(k, 0) for k, v in _svd_fallback.calls_by_shape.items() if v > fallback.get(k, 0)}
         shapes = {key[:3] for key in bp_sweep.bp_sweep_group.launches_by_shape}
@@ -2540,10 +2823,19 @@ def thermal_phase(dev, chi=32):
                                                               for shape in osj.osj_svd.launches_by_shape)
                 and not any(shape[1:] == (wide, wide) for shape in library),
                 f"10e {label}: the [*, {wide}, {wide}] thetas did not all take K2 then K1")
+        # the thetas' K2 and K1 on the resident variants, V from their logs
+        require(counts[0]["jacobi_eigh resident"] > 0 and counts[0]["osj_svd resident"] > 0
+                and counts[0]["rotation_log"] >= counts[0]["jacobi_eigh"] + counts[0]["osj_svd"],
+                f"10e {label}: K1/K2 by layout and V's kernel {counts[0]}")
         require(d128.max() <= 1e-5, f"10e {label}: {d128.max():.3e} from complex128 (bound 1e-5)")
         by_path["10e" if prec is None else "10e high"] = counts[0]
+    # where the steps' time goes once the thetas are saturated: two steps
+    # under torch.profiler, on the kernels
+    thermal_run("complex64, card, profiled", chi, torch.complex64, dev, profile_last=2)
     print("10e complex64 seconds (25 steps, BP included): "
-          + "; ".join(f"{label.split('card, ')[1]}: {t:.3f} s" for label, t in seconds.items()))
+          + "; ".join(f"{label.split('card, ')[1]}: {t:.3f} s" for label, t in seconds.items())
+          + f" (the earlier design, V in the rounds, recorded in PERF.md, not measured in this run: "
+            f"{EARLIER_THERMAL_S:.3f} s for bp_precision=None, auto)")
     return by_path
 
 
@@ -2734,20 +3026,21 @@ def flex_phase(dev, state_main):
 def sanitize_target(dev):
     """The cluster kernels at batch 1-2 and one sweep, for compute-sanitizer
     (`--sanitize`): K2's wide variant at n = 256 (8 CTAs), K1 on 16 CTAs at
-    [512, 256], and both L2 variants at n = 320."""
+    [512, 256], the resident variants at n = 320 ([640, 320] for K1), the L2
+    variants past them (n = 600; [544, 512]), each with V's kernel."""
     from tnqs_torch.ops import jacobi, osj
 
     rng = np.random.default_rng(13)
-    for B, n in ((2, 256), (1, 320)):
+    for B, n in ((2, 256), (1, 320), (1, 600)):
         X = torch.as_tensor(rand_c(rng, (B, n, n)), device=dev)
         jacobi._jacobi_eigh_cuda((0.5 * (X + X.mH)).contiguous(), 1, False)
         torch.cuda.synchronize()
         print(f"sanitize target: jacobi_eigh [{B},{n},{n}] one sweep done", flush=True)
-    for B, R, n in ((2, 512, 256), (1, 640, 320)):
+    for B, R, n in ((2, 512, 256), (1, 640, 320), (1, 544, 512)):
         A = torch.as_tensor(rand_c(rng, (B, R, n)), device=dev)
         osj._osj_svd_cuda(A, torch.eye(n, dtype=A.dtype, device=dev).expand(B, n, n).contiguous(), 1)
         torch.cuda.synchronize()
-        print(f"sanitize target: osj_svd [{B},{R},{n}] one sweep done ({'L2' if osj.osj_l2(R, n) else 'clusters of '
+        print(f"sanitize target: osj_svd [{B},{R},{n}] one sweep done ({'past the cluster kernel' if osj.osj_l2(R, n) else 'clusters of '
               + str(osj.osj_fits(R, n)[0])})", flush=True)
 
 
@@ -2914,16 +3207,17 @@ def main():
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "launches_by_path", "fp32_ms", "shape", "sweeps", "relative_12", "square", "tall",
-            "plain_shape", "cluster", "clusters")
+            "plain_shape", "cluster", "clusters", "layout", "past_resident")
     # `launches`: each row's own path, phase 5 for K1-K3, 10c for K3's bf16_3x
     # mode, 8d for K1 and K2 at n = 192 and 8e at n = 256
     own = {"bp_sweep_group_bf16_3x": by_path["10c"]["bp_sweep_group_bf16_3x"]}
     for name, path in (("192", "8d"), ("256", "8e")):
         for k in ("jacobi_eigh_wide", "osj_svd"):
             own[f"{k} n={name}"] = by_path[path][f"{k} n={name}"]
-    for n in L2_N:  # the L2 variants' rows: the thermal path's (n = 512; n = 320 is on no path of the smoke)
+    for n in L2_N:  # the rows past n = 256: the thermal path's (n = 512; n = 320 is on no path of the smoke)
         for k in ("jacobi_eigh_l2", "osj_svd_l2"):
             own[f"{k} n={n}"] = by_path["10e"][f"{k} n={n}"]
+    own["rotation_log"] = by_path["10e"]["rotation_log"]
     kernels = [{key: v for key, v in dict(k, launches=own.get(k["name"], launches[k["name"]]),
                                           launches_by_path={p: c[k["name"]] for p, c in by_path.items()}).items()
                 if key in keys} for k in kernels]

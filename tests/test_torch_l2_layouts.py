@@ -10,6 +10,10 @@ CTA forms every rotation from an exchange buffer that each owner fills with
 its columns' next entries (`jacobi.next_position`), and no column moves.
 `_osj_l2_model` replays K1's: CTA k owns a range of 32-row chunks, sums its
 chunks' Gram partials in order, and the C partials are summed in CTA order.
+Neither rotates V in its rounds: each logs its rotations, and V is the log
+applied afterwards (`rotation_log._apply_rotation_log_plain`); where a log
+would pass its budget the wrapper runs the rounds in chunks, one launch
+each, and applies each chunk's log to V in turn (`chunk=`).
 Both are held against the plain versions (which `tests/test_torch_l2_kernels.py`
 holds against the JAX kernels) at n = 258, 320 and 512; the launch plan and
 the route are checked on shapes alone.  The kernels run on the card in
@@ -19,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from tnqs_torch.ops import jacobi, osj
+from tnqs_torch.ops import jacobi, osj, rotation_log
 
 torch.set_num_threads(1)
 
@@ -37,14 +41,15 @@ def _positions(m, C):
     return np.concatenate(owned)
 
 
-def _jacobi_l2_model(H, sweeps, C, relative):
+def _jacobi_l2_model(H, sweeps, C, relative, chunk=None):
     """K2's L2 variant over C virtual CTAs, in the plain version's arithmetic.
     H [B, n, n]; returns (w [B, n], V [B, n, n]) as the wrapper reads them,
-    by index."""
+    by index, V from the rounds' rotation log: with `chunk`, each launch of
+    `chunk` rounds starts from the entries of H as it stands and V takes
+    each launch's log in turn."""
     B, n, _ = H.shape
-    m = n // 2
+    m, rounds = n // 2, sweeps * (n - 1)
     Hc = H.mT.contiguous()  # Hc[b, col, row] = H[b, row, col]; columns never move
-    Vc = torch.eye(n, dtype=H.dtype).expand(B, n, n).contiguous()
     owned = _positions(m, C)
     perm = jacobi.round_robin(n, "cpu").numpy()
     nxt = np.array([jacobi.next_position(j, n) for j in range(n)])
@@ -61,44 +66,53 @@ def _jacobi_l2_model(H, sweeps, C, relative):
         g = Hc[:, x[right], pos_next[jn[right] - m]]
         xb[par, :, x[right], 1], xb[par, :, x[right], 2] = g.real, g.imag
 
-    pos = np.arange(n)
-    export(0, pos, pos, np.arange(n))
-    for r in range(sweeps * (n - 1)):
-        P_, Q_ = pos[:m], pos[m:]
-        e = xb[r & 1]
-        c, s, live = jacobi._rot_params(e[:, P_, 0], e[:, Q_, 0], e[:, Q_, 1], e[:, Q_, 2], jacobi.EPS32, relative)
-        if live.any():
-            # every CTA's blocks: rows first (in every column), then its columns
-            cc, sc = c[:, None, :], s[:, None, :]
-            top, bot = Hc[:, :, P_], Hc[:, :, Q_]
-            Hc[:, :, P_], Hc[:, :, Q_] = cc * top + sc.conj() * bot, -sc * top + cc * bot
-            cr, sr = c[:, :, None], s[:, :, None]
-            for X in (Hc, Vc):
-                lft, rgt = X[:, P_], X[:, Q_]
-                X[:, P_], X[:, Q_] = cr * lft + sr * rgt, -sr.conj() * lft + cr * rgt
-        pos_next = pos[perm]
-        export((r + 1) & 1, pos, pos_next, nxt)
-        pos = pos_next
-    return Hc.diagonal(dim1=1, dim2=2).real, Vc.mT
+    pos, V = np.arange(n), None
+    chunk = chunk or max(rounds, 1)
+    for r0 in range(0, max(rounds, 1), chunk):
+        r1 = min(rounds, r0 + chunk)
+        log = torch.zeros((B, r1 - r0, m, 4))
+        export(0, pos, pos, np.arange(n))  # the launch's first round's entries, from H as it stands
+        for r in range(r0, r1):
+            P_, Q_ = pos[:m], pos[m:]
+            e = xb[(r - r0) & 1]
+            c, s, live = jacobi._rot_params(e[:, P_, 0], e[:, Q_, 0], e[:, Q_, 1], e[:, Q_, 2], jacobi.EPS32, relative)
+            log[:, r - r0] = torch.stack([c, s.real, s.imag, rotation_log.meta(torch.as_tensor(P_), torch.as_tensor(Q_),
+                                                                                 live)], -1)
+            if live.any():
+                # every CTA's blocks: rows first (in every column), then its columns
+                cc, sc = c[:, None, :], s[:, None, :]
+                top, bot = Hc[:, :, P_], Hc[:, :, Q_]
+                Hc[:, :, P_], Hc[:, :, Q_] = cc * top + sc.conj() * bot, -sc * top + cc * bot
+                cr, sr = c[:, :, None], s[:, :, None]
+                lft, rgt = Hc[:, P_], Hc[:, Q_]
+                Hc[:, P_], Hc[:, Q_] = cr * lft + sr * rgt, -sr.conj() * lft + cr * rgt
+            pos_next = pos[perm]
+            export((r - r0 + 1) & 1, pos, pos_next, nxt)
+            pos = pos_next
+        V = rotation_log._apply_rotation_log_plain(log, V)
+    return Hc.diagonal(dim1=1, dim2=2).real, V
 
 
-def _osj_l2_model(A, V, sweeps, C):
+def _osj_l2_model(A, V, sweeps, C, chunk=None):
     """K1's L2 variant over C virtual CTAs: the iterate x[col][row] (rows of
-    A, then of V, each padded to 32-row chunks), CTA k's chunks of A summed
-    in order into its partial of every pair, the C partials summed in CTA
-    order, every row rotated by its owner.  Returns the rotated (A, V)."""
+    A padded to 32-row chunks), CTA k's chunks summed in order into its
+    partial of every pair, the C partials summed in CTA order, every row
+    rotated by its owner, each round's rotations logged.  Returns the
+    rotated A and V, V0 with the log applied (with `chunk`, each launch's
+    log of `chunk` rounds in turn)."""
     B, R, n = A.shape
-    m, ck = n // 2, osj.CHUNK
-    nch, vch = -(-R // ck), -(-n // ck)
+    m, ck, rounds = n // 2, osj.CHUNK, sweeps * (n - 1)
+    nch = -(-R // ck)
     rp = ck * nch
-    X = torch.zeros((B, n, rp + ck * vch), dtype=A.dtype)
-    X[:, :, :R], X[:, :, rp:rp + n] = A.mT, V.mT
+    X = torch.zeros((B, n, rp), dtype=A.dtype)
+    X[:, :, :R] = A.mT
+    per_launch = chunk or max(rounds, 1)
+    log = torch.zeros((B, rounds, m, 4))
     a_own = [range(k * nch // C, (k + 1) * nch // C) for k in range(C)]
-    v_own = [range(nch + k * vch // C, nch + (k + 1) * vch // C) for k in range(C)]
-    assert sorted(ch for own in a_own + v_own for ch in own) == list(range(nch + vch))  # every chunk once
+    assert sorted(ch for own in a_own for ch in own) == list(range(nch))  # every chunk once
     perm = jacobi.round_robin(n, "cpu").numpy()
     pos = np.arange(n)
-    for _ in range(sweeps * (n - 1)):
+    for r in range(sweeps * (n - 1)):
         P_, Q_ = pos[:m], pos[m:]
         xa = X[:, :, :rp].reshape(B, n, nch, ck)
         x, y = xa[:, P_], xa[:, Q_]
@@ -111,12 +125,15 @@ def _osj_l2_model(A, V, sweeps, C):
             for ch in own:
                 part = part + chunk[:, :, ch]
             total = total + part
-        c, s, _ = osj._rot_params_rel(total[..., 0], total[..., 1], total[..., 2], total[..., 3], jacobi.EPS32)
+        c, s, live = osj._rot_params_rel(total[..., 0], total[..., 1], total[..., 2], total[..., 3], jacobi.EPS32)
+        log[:, r] = torch.stack([c, s.real, s.imag, rotation_log.meta(torch.as_tensor(P_), torch.as_tensor(Q_), live)], -1)
         cc, sc = c[:, :, None], s[:, :, None]
         lft, rgt = X[:, P_], X[:, Q_]
         X[:, P_], X[:, Q_] = cc * lft + sc * rgt, -sc.conj() * lft + cc * rgt
         pos = pos[perm]
-    return X[:, :, :R].mT, X[:, :, rp:rp + n].mT
+    for r0 in range(0, max(rounds, 1), per_launch):  # each launch's log, in turn
+        V = rotation_log._apply_rotation_log_plain(log[:, r0:r0 + per_launch], V)
+    return X[:, :, :R].mT, V
 
 
 @pytest.mark.parametrize("n, C, relative", [(258, 16, True), (320, 16, False)])
@@ -130,6 +147,27 @@ def test_jacobi_l2_model_is_the_plain_version(n, C, relative):
     w_k, V_k = _jacobi_l2_model(H, 1, C, relative)
     w_p, V_p = jacobi._jacobi_eigh_plain(H, 1, relative)
     assert torch.equal(w_k, w_p) and torch.equal(V_k, V_p)
+
+
+@pytest.mark.parametrize("n, chunk", [(258, 100), (258, 257), (258, 1)])
+def test_l2_models_in_round_chunks(n, chunk):
+    """The L2 variants run in launches of `chunk` rounds (the wrapper's
+    `LogPlan.chunk`, past `LOG_BUDGET`), each starting from the iterate as
+    the last left it (K2's exchange entries read anew from H, K1's index
+    table from the round), V taking each launch's log in turn: the same bits
+    as one launch, and for K2 as the plain version (chunks from one round to
+    a sweep, across the sweep's end)."""
+    rng = np.random.default_rng(n + chunk)
+    X = _rand_c(rng, (1, n, n))
+    H = (0.5 * (X + X.mH)).contiguous()
+    w_k, V_k = _jacobi_l2_model(H, 2 if chunk > 1 else 1, 16, chunk % 2 == 0, chunk)
+    w_p, V_p = jacobi._jacobi_eigh_plain(H, 2 if chunk > 1 else 1, chunk % 2 == 0)
+    assert torch.equal(w_k, w_p) and torch.equal(V_k, V_p)
+    A = _rand_c(rng, (1, n + 64, n))
+    V0 = _rand_c(rng, (1, n, n))
+    A_k, V_k = _osj_l2_model(A, V0, 1, 16, chunk)
+    A_1, V_1 = _osj_l2_model(A, V0, 1, 16)
+    assert torch.equal(A_k, A_1) and torch.equal(V_k, V_1)
 
 
 @pytest.mark.parametrize("n, C", [(258, 16), (320, 8), (512, 16)])
@@ -202,17 +240,18 @@ def test_l2_plan(B, live, held, want):
 def test_l2_plans_at_the_paths_shapes(B, R, n):
     """The L2 plans at the thermal path's and the chi = 160 and 256 shapes
     (and a theta too tall for K1's shared-memory layout), on a card that
-    holds 7 clusters of 16: K1's iterate is 8 n 32 (nch + vch) bytes, K2's
-    H and V 16 n^2, and each stays within the shared memory of a CTA."""
+    holds 7 clusters of 16: K1's iterate is A alone, 8 n 32 nch bytes, K2's
+    H alone, 8 n^2 (V is out of the rounds), and each stays within the
+    shared memory of a CTA."""
     assert osj.osj_l2(R, n) and osj.osj_fits(R, n) == list(jacobi.L2_CLUSTERS)
-    plan, nch, vch = osj.osj_l2_plan(B, R, n, lambda C: 7)
-    live = 8 * n * osj.CHUNK * (nch + vch)
-    assert nch == -(-R // 32) and vch == -(-n // 32) and plan.smem == osj.osj_l2_smem(n) <= osj.SMEM_LIMIT
+    plan, nch = osj.osj_l2_plan(B, R, n, lambda C: 7)
+    live = 8 * n * osj.CHUNK * nch
+    assert nch == -(-R // 32) and plan.smem == osj.osj_l2_smem(n) <= osj.SMEM_LIMIT
     assert plan.clusters == min(B, jacobi.L2_BUDGET // live, 7) and plan.cluster == 16
     if n > 256:
         eplan = jacobi.eigh_l2_plan(B, n, lambda C: 7)
-        assert eplan.clusters == min(B, jacobi.L2_BUDGET // (16 * n * n), 7)
-        assert eplan.scratch == B * 16 * n * n + eplan.clusters * 32 * n and eplan.smem <= jacobi.SMEM_LIMIT
+        assert eplan.clusters == min(B, jacobi.L2_BUDGET // (8 * n * n), 7)
+        assert eplan.scratch == B * 8 * n * n + eplan.clusters * 32 * n and eplan.smem <= jacobi.SMEM_LIMIT
 
 
 def _jax_gate(R, n):

@@ -1,7 +1,9 @@
 // Batched Hermitian eigensolver: two-sided parallel (Brent-Luk) Jacobi.  Up
 // to n = 128 one cluster of three CTAs per matrix: H in one, the
 // accumulated V in two; for 128 < n <= 256 the wide variant below, one
-// cluster of 4 or 8 CTAs per matrix, each holding columns of H and V.
+// cluster of 4 or 8 CTAs per matrix, each holding columns of H and V; past
+// n = 256 the resident and L2 variants at the end, H alone in the rounds and
+// V from their rotation log (`rotation_log.cu`).
 //
 // Replaces the Pallas kernel of `tnqs/ops/jacobi.py::jacobi_eigh` (kernel
 // body `_make_kernel`, tnqs/ops/jacobi.py:81; rotation `_rot_params`, :58).
@@ -589,51 +591,107 @@ bool wide_ok(int n, int cluster) {
 }
 
 // ---------------------------------------------------------------------------
-// n > 256: the L2 variant.  A CTA's share of H and V no longer fits shared
-// memory at any cluster size (n = 512 needs 297,120 bytes a CTA in the wide
-// layout on 16 CTAs), so H and V stay in device memory, column-major by
-// index (hc[col][row] = H[row][col], vc[col][row] = V[row][col]; the
-// wrapper copies H in and V = I), and stay hot in L2: the wrapper runs only
-// as many matrices at once as keep their iterates within ~40 MB of it
-// (`eigh_l2_plan` in tnqs_torch/ops/jacobi.py), each cluster taking the
-// next matrix when it is done.  One cluster of C CTAs (16, non-portable,
-// where the card holds one, else 8) per matrix; CTA k owns the pair
-// positions [k m / C, (k+1) m / C) and, each round, the columns of H and V
-// whose indices stand at them (`index_at`).  Columns never move: a column
-// that leaves a CTA's positions only changes owner.  The same rotations as
-// the kernels above: `rot_params` with either skip, rows first, then
-// columns, by `rowmix` and `colmix`.  A round:
+// n > 256.  V no longer takes part in the rounds: each round's m rotations
+// go to a rotation log in device memory ([batch][rounds][m] float4: c,
+// Re s, Im s and meta = p << 16 | q << 1 | taken, p and q the pair's
+// indices), and `rotation_log.cu` applies the log to V = I afterwards, by
+// slabs of rows, with the same `colmix` in the same order.  The rounds then
+// touch H alone: 8 n^2 bytes a matrix, half of H and V.
+//
+// The resident variant (256 < n <= 598 on 16 CTAs, <= 436 on 8;
+// `eigh_res_fits` in tnqs_torch/ops/jacobi.py).  H stays in the cluster's
+// shared memory for all rounds, in the wide variant's layout: CTA k owns the
+// pair positions [k m / C, (k+1) m / C) and holds the columns of H standing
+// at them, in two rings of slots (`Ring`), each with two spare slots, not
+// one; rows keep their index; columns move along the tournament's cycle, and
+// so between CTAs.  The same rotations as the kernels above: the same
+// pairing (`index_at`), `rot_params` with either skip, rows first, then
+// columns, by `rowmix` and `colmix`, H updated in full.  One hand-over a round, not two: every CTA
+// forms all m rotations itself from the entries (H[x][x], and right of its
+// pair H[p][x]) of every column x, which the column's holder sends into
+// every CTA for the round ahead.  A round r:
+//   A. wait on the mbarrier of round r's parity for the n entries and (past
+//      round 0) the two columns that arrive;
+//   B. all m rotations from the entries, bitwise the same in every CTA, so
+//      the block vote on whether any is taken is the same everywhere; the
+//      CTA's own pairs' rotations into the log;
+//   C. if one is: each 2x2 block (row pair i of all m, column pair j of the
+//      CTA's P) rotated, rows then columns, in registers; a block barrier;
+//   D. (not after the last round) the two columns that leave the CTA's
+//      positions go into a spare slot of the CTAs that own their next
+//      positions, by `st.async` (16 bytes each) against the receiver's
+//      mbarrier of round r+1's parity; and the entries of the CTA's 2P
+//      columns for round r+1 (`next_position`), computed from its own
+//      columns (the leaving ones too), into every CTA the same way.
+// Why no buffer is overwritten while it is read: a CTA sends round r+1's
+// entries and columns only after it received every CTA's round r entries.
+// (a) Entries, double-buffered by parity: CTA c read its round r-1 half
+//     (B of round r-1) before it sent its round r entries (D of round r-1).
+// (b) Slots: the arriving column of round r+1 takes the slot of the
+//     receiver's ring that its column leaving after round r-2 freed (two
+//     spare slots a ring); the receiver read that column (D of round r-2)
+//     before the vote barrier of round r-1, which precedes its round r
+//     entries (D of round r-1).  So D needs no barrier between the columns
+//     and the entries, which a ring with one spare slot would.
+// (c) mbarriers: a round r+2 byte can reach CTA c only after c's round r
+//     phase completed (the round r+1 data that precedes it was sent after
+//     every CTA received round r's), and a byte that lands before c's thread
+//     0 posts the phase's expected count leaves the count below zero, which
+//     the phase allows.
+// No send follows the last round, so every CTA has received all that was
+// sent to it when it leaves.  H's final diagonal is w.  Every `stage` rounds
+// (and at the end) thread 0 publishes how many rounds the CTA has logged
+// (`publish`), for a V kernel that follows the log (`rotation_log.cu`).
+//
+// What bounds it: the latency of the sweeps * (n-1) dependent rounds (one
+// DSMEM hand-over, the vote and a block barrier each) and one SM's FP32
+// issue rate for a round's m P blocks (48 FP32 operations a block), not
+// bytes: H is read from device memory once and only w is written.
+//
+// Past that width (or where the card holds no such cluster) the L2 variant:
+// H column-major in device memory (hc[col][row] = H[row][col]; the wrapper
+// copies H in) kept hot in L2 (the wrapper runs only as many matrices at
+// once as keep their H within ~40 MB of it, `eigh_l2_plan`), each cluster
+// taking the next matrix when it is done.  One cluster of C CTAs (16,
+// non-portable, where the card holds one, else 8) per matrix; CTA k owns the
+// pair positions [k m / C, (k+1) m / C) and, each round, the columns of H
+// whose indices stand at them (`index_at`); columns never move.  A round:
 //   A. every CTA forms all m rotations from a small exchange buffer that
 //      holds, for every column x, H[x][x] and, if x stands right of its
 //      pair, the coupling H[p][x] to the left column p; every CTA reads the
 //      same values in the same order, so all take bitwise the same
 //      rotations and the same vote on whether any is taken, with no
-//      exchange of rotations;
+//      exchange of rotations; the CTA's own pairs' rotations into the log;
 //   B. if one is: the CTA rotates the 2x2 blocks (every row pair i, its own
-//      column pairs j) of H and its own columns of V, in device memory;
+//      column pairs j) of H, in device memory;
 //   C. the CTA writes into the other half of the exchange buffer the next
-//      round's entries of its own columns (each column's next position has a
-//      closed form, `next_position`), then a cluster barrier, release then
-//      acquire, makes its writes visible to the CTAs that own those columns
-//      next.
-// Every load of H, V or the exchange buffer is `ld.global.cg`: a column is
+//      round's entries of its own columns (`next_position`), then a cluster
+//      barrier, release then acquire, makes its writes visible to the CTAs
+//      that own those columns next.
+// Every load of H or the exchange buffer is `ld.global.cg`: a column is
 // written by other CTAs between two of this CTA's visits, so no line of it
 // may be served from this SM's L1.  The exchange buffer is double-buffered
 // by round parity: round r+1 writes the half round r read only after all
 // CTAs passed round r's barrier, which each reaches after its reads of
-// round r.  H is updated in full, not mirrored, as in the wide variant.
-// The eigenvalues are the final diagonal, which the wrapper reads.
-//
-// What bounds it: the bytes a round moves through L2 (H's and V's columns
-// read and written once a round a rotation is taken: 32 n^2 bytes a matrix)
-// and the latency of the sweeps * (n-1) dependent rounds, each one cluster
-// barrier; not FLOPs.  Shared memory holds only the round's rotations and
-// the index at each position: 12 n bytes a CTA.
+// round r.  H is updated in full, not mirrored.  The eigenvalues are the
+// final diagonal, which the wrapper reads.  What bounds it: the bytes a
+// round moves through L2 (H's columns read and written once a round a
+// rotation is taken: 16 n^2 bytes a matrix) and the latency of the rounds,
+// each one cluster barrier; not FLOPs.
 
+constexpr int kResThreads = 512;
 constexpr int kL2Threads = 512;
 
-__device__ __forceinline__ void cluster_barrier() {
-  asm volatile("barrier.cluster.arrive.release;\n\tbarrier.cluster.wait.acquire;" ::: "memory");
+// `v` (16 bytes) into CTA `rank`'s shared memory at this CTA's address
+// `addr`, counted against the transaction count of the mbarrier there at
+// `bar`.
+__device__ __forceinline__ void send4(unsigned addr, float4 v, unsigned bar, unsigned rank) {
+  unsigned raddr, rbar;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(raddr) : "r"(addr), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(rbar) : "r"(bar), "r"(rank));
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];"
+               ::"r"(raddr), "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)), "r"(__float_as_uint(v.z)),
+               "r"(__float_as_uint(v.w)), "r"(rbar) : "memory");
 }
 
 // The position the entry at position j takes in the next round, along the
@@ -644,6 +702,260 @@ __device__ __forceinline__ int next_position(int j, int m) {
   if (j < m - 1) return j + 1;
   if (j == m - 1) return 2 * m - 1;
   return j - 1;
+}
+
+// The log's entry of pair (p, q): the rotation and its meta bits.
+__device__ __forceinline__ float4 log_entry(float4 q, int p, int qq) {
+  return make_float4(q.x, q.y, q.z, __int_as_float(p << 16 | qq << 1 | (q.w != 0.0f)));
+}
+
+// The entry of column x (held in `col`, by row) for the round whose cycle
+// step is rr, x standing at position j then: (H[x][x], and right of its
+// pair Re, Im of H[p][x] with p the left column).
+__device__ __forceinline__ float4 res_entry(const float2* col, int x, int j, int rr, int m) {
+  float4 e = make_float4(col[x].x, 0.0f, 0.0f, 0.0f);
+  if (j >= m) {
+    const float2 g = col[index_at(j - m, rr, m)];
+    e.y = g.x;
+    e.z = g.y;
+  }
+  return e;
+}
+
+// A lane's ring of column slots in the resident variant: `size` slots for
+// size - 2 moving columns, two spare; `off` = the round mod size, kept by
+// stepping (no division in the round).  The column t steps along the lane
+// (t = 0 where the arriving column enters) sits at slot at(t) while it
+// stays.
+struct Ring {
+  int size, off;
+  __device__ int at(int t) const {
+    const int x = t - off;
+    return x < 0 ? x + size : x;
+  }
+  __device__ int next_at(int t) const {  // at(t) a round later
+    const int x = t - (off + 1 == size ? 0 : off + 1);
+    return x < 0 ? x + size : x;
+  }
+  __device__ void step() { off = off + 1 == size ? 0 : off + 1; }
+};
+
+// the entries [2][n] float4 (by round parity), the rotations [m] float4, the
+// column slots of H [2 pmax + 5][n] float2 (two rings of pmax + 2, and CTA
+// 0's fixed position 0), 2 mbarriers (by round parity), the index at each
+// position [n] int, the CTA's pairs' slots [2][pmax] int (`eigh_res_smem` in
+// tnqs_torch/ops/jacobi.py states the same sum)
+__host__ __device__ constexpr size_t res_smem_bytes(int n, int C) {
+  return (size_t)32 * n + (size_t)8 * n + (size_t)8 * (2 * wide_pmax(n / 2, C) + 5) * n + 16 + (size_t)4 * n +
+         (size_t)8 * wide_pmax(n / 2, C);
+}
+
+// Where a V kernel follows this one's log as it grows (`rotation_log.cu`):
+// store v at p after every write of this CTA's threads that a block barrier
+// ordered before (the device-wide fence makes them visible first).
+__device__ __forceinline__ void publish(int* p, int v) {
+  __threadfence();
+  *(volatile int*)p = v;
+}
+
+__global__ void __launch_bounds__(kResThreads, 1)
+jacobi_eigh_res_kernel(const float2* __restrict__ h_in, float4* __restrict__ log, float* __restrict__ w,
+                       unsigned long long* __restrict__ taken_out, int* __restrict__ started,
+                       int* __restrict__ progress, int stage, int n, int rounds, float eps, int relative) {
+  extern __shared__ float4 smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int k = (int)cluster.block_rank();
+  const int mat = blockIdx.x / C;
+  const int m = n / 2, tid = threadIdx.x;
+  const int pmax = wide_pmax(m, C), nslots = 2 * pmax + 5;
+  const int s0 = k * m / C, P = (k + 1) * m / C - s0;  // the CTA's pair positions
+  const int lc = __ffs(C) - 1;                          // C = 1 << lc
+  float4* ent = smem;                                                                      // [2][n]
+  float4* rot = ent + 2 * n;                                                               // [m]
+  float2* Hs = reinterpret_cast<float2*>(rot + m);                                         // [nslots][n]
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(Hs + (size_t)nslots * n);  // [2]
+  int* pos = reinterpret_cast<int*>(bars + 2);                                             // [n]
+  int* cs = pos + n;  // [2][P]: the left, then the right slot of each pair
+  float4* lg = log + (size_t)mat * rounds * m;
+  // The rings: the left lane (positions moving up; CTA 0's position 0 stays
+  // in slot 2 pmax + 4) in slots [0, pmax + 2), the right lane (moving down)
+  // in [pmax + 2, 2 pmax + 4); those of the CTAs the leaving columns go to.
+  const auto pairs = [&](int c) { return (c + 1) * m / C - c * m / C; };
+  Ring left{P - (k == 0) + 2, 0}, right{P + 2, 0};
+  Ring up{k < C - 1 ? pairs(k + 1) + 2 : P + 2, 0}, down{k > 0 ? pairs(k - 1) + 2 : P - (k == 0) + 2, 0};
+  const int fixed = 2 * pmax + 4;
+  const auto slot_of = [&](int t) {  // the slot of the CTA's t-th column: left of pair t, or right of pair t - P
+    return t < P ? (k == 0 && t == 0 ? fixed : left.at(t - (k == 0))) : pmax + 2 + right.at(2 * P - 1 - t);
+  };
+
+  // round 0: position = index; the CTA's columns of H
+  const float2* hb = h_in + (size_t)mat * n * n;
+  for (int e = tid; e < 2 * P * n; e += blockDim.x) {
+    const int row = e / (2 * P), t = e - row * (2 * P);
+    Hs[slot_of(t) * n + row] = hb[(size_t)row * n + (t < P ? s0 + t : m + s0 + t - P)];
+  }
+  if (tid == 0) {
+    for (int b = 0; b < 2; ++b)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bars + b)));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // every CTA of the cluster is running, its columns are loaded and its
+  // mbarriers are set
+  cluster.sync();
+  if (started != nullptr && k == 0 && tid == 0) publish(started + mat, 1);
+  // round 0's entries of the CTA's columns, into every CTA
+  for (int e = tid; rounds > 0 && e < 2 * P * C; e += blockDim.x) {
+    const int t = e >> lc, c = e & (C - 1);
+    const int j = t < P ? s0 + t : m + s0 + t - P;
+    send4(smem_addr(ent + j), res_entry(Hs + slot_of(t) * n, j, j, 0, m), smem_addr(bars), c);
+  }
+
+  unsigned long long taken_here = 0;  // the rotations of the CTA's pairs taken
+  int rr = 0;                         // round mod (n-1)
+  for (int r = 0; r < rounds; ++r) {
+    const int par = r & 1;
+    const unsigned bar = smem_addr(bars + par);
+    if (tid == 0) expect_bytes(bar, r > 0 ? 32u * n : 16u * n);  // n entries, two columns
+    for (int j = tid; j < n; j += blockDim.x) pos[j] = index_at(j, rr, m);
+    if (tid < 2 * P) cs[tid] = slot_of(tid);
+    // A.
+    wait_phase(bar, (r >> 1) & 1);
+    // B. every rotation, the same in every CTA; the vote (also the barrier
+    // before pos and cs are read)
+    const float4* er = ent + par * n;
+    int live = 0;
+    for (int i = tid; i < m; i += blockDim.x) {
+      const int p = index_at(i, rr, m), q = index_at(m + i, rr, m);
+      const float4 ep = er[p], eq = er[q];
+      float4 qv = make_float4(1.0f, 0.0f, 0.0f, 0.0f);
+      const bool taken = rot_params(ep.x, eq.x, eq.y, eq.z, eps, relative != 0, qv.x, qv.y, qv.z);
+      qv.w = taken ? 1.0f : 0.0f;
+      rot[i] = qv;
+      live |= taken;
+      if (i >= s0 && i < s0 + P) {
+        lg[(size_t)r * m + i] = log_entry(qv, p, q);
+        taken_here += taken;
+      }
+    }
+    const int any = __syncthreads_or(live);
+    // C. block (pair i's rows, the CTA's pair j's columns), rows first, then
+    // columns; a thread keeps one row pair and takes every `step`-th of the
+    // CTA's column pairs, two blocks at a time, the second's loads before
+    // the first's stores.  (nvcc contracts the two blocks' products into
+    // FMAs otherwise than in a loop of one block at a time, so H and w
+    // part from the L2 variant's by rounding; one block at a time gives its
+    // bits and costs ~7% more at [4, 512, 512].)
+    if (any) {
+      const int step = blockDim.x / m, i = tid % m;
+      if (tid < step * m) {
+        const float4 qi = rot[i];
+        const int p = pos[i], q = pos[m + i];
+        for (int j = tid / m; j < P; j += 2 * step) {
+          const int j2 = min(j + step, P - 1);
+          const float4 qj = rot[s0 + j], qk = rot[s0 + j2];
+          const bool g1 = qi.w != 0.0f || qj.w != 0.0f;
+          const bool g2 = j + step < P && (qi.w != 0.0f || qk.w != 0.0f);
+          float2* L = Hs + cs[j] * n;
+          float2* R = Hs + cs[P + j] * n;
+          float2* L2 = Hs + cs[j2] * n;
+          float2* R2 = Hs + cs[P + j2] * n;
+          float2 h0, h1, h2, h3, k0, k1, k2, k3;
+          if (g1) {
+            h0 = L[p];
+            h1 = R[p];
+            h2 = L[q];
+            h3 = R[q];
+          }
+          if (g2) {
+            k0 = L2[p];
+            k1 = R2[p];
+            k2 = L2[q];
+            k3 = R2[q];
+          }
+          if (g1) {
+            if (qi.w != 0.0f) {
+              rowmix(h0, h2, qi);
+              rowmix(h1, h3, qi);
+            }
+            if (qj.w != 0.0f) {
+              colmix(h0, h1, qj);
+              colmix(h2, h3, qj);
+            }
+            L[p] = h0;
+            R[p] = h1;
+            L[q] = h2;
+            R[q] = h3;
+          }
+          if (g2) {
+            if (qi.w != 0.0f) {
+              rowmix(k0, k2, qi);
+              rowmix(k1, k3, qi);
+            }
+            if (qk.w != 0.0f) {
+              colmix(k0, k1, qk);
+              colmix(k2, k3, qk);
+            }
+            L2[p] = k0;
+            R2[p] = k1;
+            L2[q] = k2;
+            R2[q] = k3;
+          }
+        }
+      }
+      __syncthreads();
+    }
+    if (r + 1 == rounds) break;
+    const int rn = rr + 1 == n - 1 ? 0 : rr + 1;
+    const unsigned bar_n = smem_addr(bars + (par ^ 1));
+    // D. the left lane's top column goes up to the next CTA's left lane (the
+    // last CTA's to its own right lane, position m-1 -> n-1), the right
+    // lane's bottom one down to the previous CTA's right lane (CTA 0's to its
+    // own left lane, position m -> 1), each into a spare slot of the
+    // receiver's ring
+    {
+      const int src_l = left.at(P - (k == 0) - 1), src_r = pmax + 2 + right.at(P - 1);
+      const int to_l = k < C - 1 ? k + 1 : k, to_r = k > 0 ? k - 1 : 0;
+      const int dst_l = k < C - 1 ? up.next_at(0) : pmax + 2 + up.next_at(0);
+      const int dst_r = k > 0 ? pmax + 2 + down.next_at(0) : down.next_at(0);
+      for (int e = tid; e < n; e += blockDim.x) {  // two columns, two rows a store
+        const int lane = e >= m, u = e - lane * m;
+        const float4 v = reinterpret_cast<const float4*>(Hs + (lane ? src_r : src_l) * n)[u];
+        send4(smem_addr(reinterpret_cast<float4*>(Hs + (lane ? dst_r : dst_l) * n) + u), v, bar_n,
+              lane ? to_r : to_l);
+      }
+    }
+    // then the entries of the CTA's 2P columns for round r+1, into every CTA
+    for (int e = tid; e < 2 * P * C; e += blockDim.x) {
+      const int t = e >> lc, c = e & (C - 1);
+      const int j = t < P ? s0 + t : m + s0 + t - P;
+      const int x = index_at(j, rr, m);
+      send4(smem_addr(ent + (par ^ 1) * n + x), res_entry(Hs + slot_of(t) * n, x, next_position(j, m), rn, m), bar_n,
+            c);
+    }
+    // the log's rounds up to r are written (B, before the vote barrier):
+    // every `stage` rounds, tell a V kernel that follows
+    if (progress != nullptr && tid == 0 && (r + 1) % stage == 0) publish(progress + mat * C + k, r + 1);
+    rr = rn;
+    left.step();
+    right.step();
+    up.step();
+    down.step();
+  }
+
+  // w from the diagonal at the last round's positions (its move is not made)
+  for (int t = tid; t < 2 * P; t += blockDim.x) {
+    const int j = t < P ? s0 + t : m + s0 + t - P;
+    const int x = index_at(j, rr, m);
+    w[(size_t)mat * n + x] = Hs[slot_of(t) * n + x].x;
+  }
+  if (progress != nullptr && tid == 0) publish(progress + mat * C + k, rounds);
+  if (taken_out != nullptr && taken_here) atomicAdd(taken_out, taken_here);
+  cluster.sync();
+}
+
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release;\n\tbarrier.cluster.wait.acquire;" ::: "memory");
 }
 
 // The exchange entry of column x, standing at position j in the round whose
@@ -662,14 +974,14 @@ __device__ __forceinline__ float4 l2_entry(const float2* H, int x, int j, int rr
 __host__ __device__ constexpr size_t l2_smem_bytes(int n) { return (size_t)16 * (n / 2) + (size_t)4 * n; }
 
 __global__ void __launch_bounds__(kL2Threads, 1)
-jacobi_eigh_l2_kernel(float2* __restrict__ hc, float2* __restrict__ vc, float4* __restrict__ xbuf,
-                      unsigned long long* __restrict__ taken_out, int batch, int n, int rounds, float eps,
-                      int relative) {
+jacobi_eigh_l2_kernel(float2* __restrict__ hc, float4* __restrict__ log, float4* __restrict__ xbuf,
+                      unsigned long long* __restrict__ taken_out, int batch, int n, int round0, int rounds,
+                      float eps, int relative) {
   extern __shared__ float4 smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), k = (int)cluster.block_rank();
   const int cid = blockIdx.x / C, W = gridDim.x / C;  // this cluster, the clusters at once
-  const int m = n / 2, tid = threadIdx.x;
+  const int m = n / 2, tid = threadIdx.x, rr0 = round0 % (n - 1);
   const int s0 = k * m / C, P = (k + 1) * m / C - s0;  // the CTA's pair positions
   float4* rot = smem;                             // [m] (c, Re s, Im s, taken)
   int* pos = reinterpret_cast<int*>(rot + m);     // [n] the index at each position
@@ -677,17 +989,19 @@ jacobi_eigh_l2_kernel(float2* __restrict__ hc, float2* __restrict__ vc, float4* 
   unsigned long long taken_here = 0;  // CTA 0's count of the rotations taken
   for (int mat = cid; mat < batch; mat += W) {
     float2* H = hc + (size_t)mat * n * n;
-    float2* V = vc + (size_t)mat * n * n;
-    // round 0's entries of the CTA's columns, from the input
+    float4* lg = log + (size_t)mat * rounds * m;
+    // the first round's entries of the CTA's columns, from H as it stands
+    // (the input, or where an earlier launch's rounds left it: the same
+    // values as that launch's step C would have written)
     for (int t = tid; t < 2 * P; t += blockDim.x) {
       const int j = t < P ? s0 + t : m + s0 + t - P;
-      xb[index_at(j, 0, m)] = l2_entry(H, index_at(j, 0, m), j, 0, n, m);
+      xb[index_at(j, rr0, m)] = l2_entry(H, index_at(j, rr0, m), j, rr0, n, m);
     }
     cluster_barrier();
-    int rr = 0;  // round mod (n-1)
+    int rr = rr0;  // round mod (n-1)
     for (int r = 0; r < rounds; ++r) {
       const int rn = rr + 1 == n - 1 ? 0 : rr + 1;
-      // A. every rotation, the same in every CTA
+      // A. every rotation, the same in every CTA; the CTA's pairs' into the log
       const float4* xr = xb + (r & 1) * n;
       int live = 0;
       for (int i = tid; i < m; i += blockDim.x) {
@@ -699,11 +1013,12 @@ jacobi_eigh_l2_kernel(float2* __restrict__ hc, float2* __restrict__ vc, float4* 
         rot[i] = qv;
         live |= taken;
         taken_here += k == 0 && taken;
+        if (i >= s0 && i < s0 + P) lg[(size_t)r * m + i] = log_entry(qv, p, q);
       }
       for (int j = tid; j < n; j += blockDim.x) pos[j] = index_at(j, rr, m);
       const int any = __syncthreads_or(live);
       // B. the blocks (row pair i, the CTA's column pair j), rows first, then
-      // columns; the CTA's columns of V
+      // columns
       if (any) {
         for (int e = tid; e < P * m; e += blockDim.x) {
           const int j = e / m, i = e - j * m;
@@ -726,17 +1041,6 @@ jacobi_eigh_l2_kernel(float2* __restrict__ hc, float2* __restrict__ vc, float4* 
           L[q] = h2;
           R[q] = h3;
         }
-        for (int e = tid; e < P * n; e += blockDim.x) {
-          const int j = e / n, row = e - j * n;
-          const float4 qj = rot[s0 + j];
-          if (qj.w == 0.0f) continue;
-          float2* L = V + (size_t)pos[s0 + j] * n + row;
-          float2* R = V + (size_t)pos[m + s0 + j] * n + row;
-          float2 x = __ldcg(L), y = __ldcg(R);
-          colmix(x, y, qj);
-          *L = x;
-          *R = y;
-        }
         __syncthreads();
       }
       // C. the next round's entries of the CTA's columns, then the barrier
@@ -750,6 +1054,25 @@ jacobi_eigh_l2_kernel(float2* __restrict__ hc, float2* __restrict__ vc, float4* 
     }
   }
   if (taken_out != nullptr && taken_here) atomicAdd(taken_out, taken_here);
+}
+
+cudaError_t res_attributes(int n, int cluster) {
+  cudaError_t err = cudaFuncSetAttribute(jacobi_eigh_res_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)res_smem_bytes(n, cluster));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(jacobi_eigh_res_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+cudaLaunchConfig_t res_launch_config(int batch, int n, int cluster, cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = wide_launch_config(batch, n, cluster, stream, attr);
+  cfg.blockDim = dim3(kResThreads);
+  cfg.dynamicSmemBytes = res_smem_bytes(n, cluster);
+  return cfg;
+}
+
+bool res_ok(int n, int cluster) {
+  return n > kWideMaxN && n % 2 == 0 && n / 2 <= 0x7fff && (cluster == 8 || cluster == 16) &&
+         (n / 2) / cluster >= 2 && res_smem_bytes(n, cluster) <= 232448;
 }
 
 cudaError_t l2_attributes(int n) {
@@ -768,7 +1091,8 @@ cudaLaunchConfig_t l2_launch_config(int clusters, int n, int cluster, cudaStream
 }
 
 bool l2_ok(int n, int cluster) {
-  return n >= 4 && n % 2 == 0 && (cluster == 8 || cluster == 16) && l2_smem_bytes(n) <= 232448;
+  return n >= 4 && n % 2 == 0 && n / 2 <= 0x7fff && (cluster == 8 || cluster == 16) &&
+         l2_smem_bytes(n) <= 232448;
 }
 }  // namespace
 
@@ -833,6 +1157,39 @@ extern "C" int tnqs_jacobi_eigh_wide(const void* h_in, void* vt_out, void* w_out
   return (int)cudaGetLastError();
 }
 
+// The most clusters of `cluster` CTAs the card holds at once for the
+// resident variant at size n (cudaOccupancyMaxActiveClusters), into *active.
+extern "C" int tnqs_jacobi_eigh_res_clusters(int n, int cluster, int* active) {
+  if (!res_ok(n, cluster)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = res_attributes(n, cluster);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = res_launch_config(1, n, cluster, 0, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(active, (const void*)jacobi_eigh_res_kernel, &cfg);
+}
+
+// The resident variant, 256 < n, one cluster of `cluster` CTAs a matrix:
+// h_in [batch, n, n] hermitian complex64 (row-major), w_out [batch, n] (the
+// final diagonal, unsorted), log [batch][rounds][n/2] float4 (the rotations,
+// for `tnqs_rotation_log`); `relative` != 0 takes the scale-relative skip.
+// The rotations taken (not skipped) are added to *taken unless it is null.
+// Unless null, started [batch] and progress [batch][cluster] (zero) tell a
+// V kernel that follows the log: a matrix's cluster runs; the rounds each
+// CTA has logged, every `stage` rounds and at the end.
+extern "C" int tnqs_jacobi_eigh_res(const void* h_in, void* log, void* w_out, void* taken, void* started,
+                                    void* progress, int stage, int batch, int n, int rounds, float eps, int relative,
+                                    int cluster, void* stream) {
+  if (batch <= 0 || rounds < 0 || stage < 1 || !res_ok(n, cluster)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = res_attributes(n, cluster);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = res_launch_config(batch, n, cluster, (cudaStream_t)stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, jacobi_eigh_res_kernel, (const float2*)h_in, (float4*)log, (float*)w_out,
+                           (unsigned long long*)taken, (int*)started, (int*)progress, stage, n, rounds, eps, relative);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 // The most clusters of `cluster` CTAs the card holds at once for the L2
 // variant at size n (cudaOccupancyMaxActiveClusters), into *active.
 extern "C" int tnqs_jacobi_eigh_l2_clusters(int n, int cluster, int* active) {
@@ -846,20 +1203,23 @@ extern "C" int tnqs_jacobi_eigh_l2_clusters(int n, int cluster, int* active) {
 
 // The L2 variant, n > 256, in place: hc [batch, n, n] with hc[b][col][row] =
 // H[row, col] (hermitian) ends holding the rotated H, whose diagonal is the
-// eigenvalues; vc [batch, n, n] the identity in the same layout ends holding
-// V (vc[b][col][row] = V[row, col]).  `clusters` clusters of `cluster` CTAs
-// run at once, each taking matrices clusters apart; xbuf is their exchange
-// buffers, [clusters][2][n] float4.  The rotations taken (not skipped) are
-// added to *taken unless it is null.
-extern "C" int tnqs_jacobi_eigh_l2(void* hc, void* vc, void* xbuf, void* taken, int batch, int n, int rounds,
-                                   float eps, int relative, int cluster, int clusters, void* stream) {
-  if (batch <= 0 || rounds < 0 || clusters <= 0 || !l2_ok(n, cluster)) return (int)cudaErrorInvalidValue;
+// eigenvalues; log [batch][rounds][n/2] float4 the rotations (for
+// `tnqs_rotation_log`).  The launch runs rounds [round0, round0 + rounds) of
+// the schedule: a run split into launches at any rounds gives the bits of
+// one launch, each launch's log holding its own rounds.  `clusters` clusters of `cluster` CTAs run at once,
+// each taking matrices clusters apart; xbuf is their exchange buffers,
+// [clusters][2][n] float4.  The rotations taken (not skipped) are added to
+// *taken unless it is null.
+extern "C" int tnqs_jacobi_eigh_l2(void* hc, void* log, void* xbuf, void* taken, int batch, int n, int round0,
+                                   int rounds, float eps, int relative, int cluster, int clusters, void* stream) {
+  if (batch <= 0 || round0 < 0 || rounds < 0 || clusters <= 0 || !l2_ok(n, cluster))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = l2_attributes(n);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = l2_launch_config(clusters, n, cluster, (cudaStream_t)stream, &attr);
-  err = cudaLaunchKernelEx(&cfg, jacobi_eigh_l2_kernel, (float2*)hc, (float2*)vc, (float4*)xbuf,
-                           (unsigned long long*)taken, batch, n, rounds, eps, relative);
+  err = cudaLaunchKernelEx(&cfg, jacobi_eigh_l2_kernel, (float2*)hc, (float4*)log, (float4*)xbuf,
+                           (unsigned long long*)taken, batch, n, round0, rounds, eps, relative);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

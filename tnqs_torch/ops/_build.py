@@ -27,6 +27,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 HOST_SOURCES = (CSRC / "host" / "loop_enum.cpp", CSRC / "host" / "contract_opt.cpp")
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "tnqs_torch"
+SMEM_LIMIT = 232_448  # bytes of shared memory one CTA of an H100 may use (every kernel's plan checks it)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -44,18 +45,32 @@ _SIGNATURES = {
     "tnqs_jacobi_eigh_wide": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _P],
     # (n, cluster, active_out)
     "tnqs_jacobi_eigh_wide_clusters": [_I, _I, ctypes.POINTER(_I)],
-    # the L2 variant, n > 256: (hc, vc, xbuf, taken, batch, n, rounds, eps, relative, cluster, clusters, stream)
-    "tnqs_jacobi_eigh_l2": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P],
+    # the resident variant, n > 256: (h_in, log, w_out, taken, started, progress, stage, batch, n, rounds, eps,
+    # relative, cluster, stream)
+    "tnqs_jacobi_eigh_res": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
+    # (n, cluster, active_out)
+    "tnqs_jacobi_eigh_res_clusters": [_I, _I, ctypes.POINTER(_I)],
+    # the L2 variant, past it: (hc, log, xbuf, taken, batch, n, round0, rounds, eps, relative, cluster, clusters,
+    # stream)
+    "tnqs_jacobi_eigh_l2": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P],
     # (n, cluster, active_out)
     "tnqs_jacobi_eigh_l2_clusters": [_I, _I, ctypes.POINTER(_I)],
     # (a_in, v_in, a_out, v_out, batch, rows, n, rounds, eps, cluster, cpc, vpc, smem, stream)
     "tnqs_osj_svd": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I, _P],
     # (cluster, smem, active_out)
     "tnqs_osj_svd_clusters": [_I, _I, ctypes.POINTER(_I)],
-    # the L2 variant: (x, part, taken, batch, n, nch, vch, rounds, eps, cluster, clusters, stream)
-    "tnqs_osj_svd_l2": [_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
+    # the resident variant: (a_in, a_out, log, taken, started, progress, stage, batch, rows, n, nch, cpc, rounds, eps,
+    # cluster, stream)
+    "tnqs_osj_svd_res": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+    # (n, cpc, cluster, active_out)
+    "tnqs_osj_svd_res_clusters": [_I, _I, _I, ctypes.POINTER(_I)],
+    # the L2 variant: (x, log, part, taken, batch, n, nch, round0, rounds, eps, cluster, clusters, stream)
+    "tnqs_osj_svd_l2": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
     # (n, cluster, active_out)
     "tnqs_osj_svd_l2_clusters": [_I, _I, ctypes.POINTER(_I)],
+    # V from a rotation log: (v_in or null, log, v_out, batch, n, rounds, rows a CTA, entries a stage, started,
+    # progress, claim, cluster, mode, stream)
+    "tnqs_rotation_log": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P],
     # (t, rows, min, out, scratch, plan int64[14], n_k, device, stream)
     "tnqs_bp_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     # (smem_mode, smem_pass2, ctas_mode, ctas_pass2, ctas_wide, sms), all out

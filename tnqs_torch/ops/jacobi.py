@@ -5,9 +5,11 @@ rotation rounds run in the CUDA kernel `tnqs_torch/csrc/jacobi_eigh.cu` on a
 CUDA tensor (up to n = 128 a cluster of three CTAs per matrix, H resident in
 one CTA's shared memory and V in the other two's; for 128 < n <= 256 a
 cluster of 4 or 8, each CTA holding the columns of H and V at its pair
-positions, `eigh_wide_plan`; past n = 256 the L2 variant, H and V in
-device memory kept hot in L2, `eigh_l2_plan`), and in `_jacobi_eigh_plain`,
-the same schedule written in PyTorch, on a CPU tensor.  The Newton–Schulz
+positions, `eigh_wide_plan`; past n = 256 H alone in the rounds, resident in
+a cluster of 16 or 8 up to n = 598, else in device memory kept hot in L2,
+`eigh_log_plan`, and V from the rounds' rotation log,
+`rotation_log.apply_rotation_log`), and in `_jacobi_eigh_plain`, the same
+schedule written in PyTorch, on a CPU tensor.  The Newton–Schulz
 repair of V, the Rayleigh eigenvalues and the ascending sort
 (`tnqs/ops/jacobi.py:300-318`) are PyTorch in both cases.
 """
@@ -22,12 +24,15 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from . import rotation_log
+from ._build import SMEM_LIMIT
+from .rotation_log import apply_rotation_log
 
 EPS32 = float(torch.finfo(torch.float32).eps)
-SMEM_LIMIT = 232_448  # bytes of shared memory one CTA of an H100 may use
 WIDE_CLUSTERS = (4, 8)  # cluster sizes of the wide variant, 128 < n <= 256
-L2_CLUSTERS = (16, 8)  # cluster sizes of the L2 variants, the first the card holds
+L2_CLUSTERS = (16, 8)  # cluster sizes past the cluster kernels (resident and L2 variants)
 L2_BUDGET = 40 * 2**20  # bytes of live iterates the L2 variants keep in the H100's 50 MB L2
+LOG_BUDGET = 512 * 2**20  # bytes of rotation log one launch past the cluster kernels may write
 
 
 def _rot_params(a, b, gr, gi, eps: float, relative: bool):
@@ -179,6 +184,71 @@ def l2_plan(B: int, live: int, exchange: int, smem: int, active) -> L2Plan:
     raise RuntimeError(f"no cluster of {L2_CLUSTERS} CTAs fits on the card")
 
 
+class LogPlan(NamedTuple):
+    """A launch past the cluster kernels, V from the rotation log: `layout`
+    "resident" (the iterate in the cluster's shared memory) or "l2" (in
+    device memory kept hot in L2); `cluster` CTAs a matrix, `clusters`
+    clusters the card holds at once, the batch in `waves` of them; `group`
+    matrices and `chunk` rounds a launch (`log_chunks`: `LOG_BUDGET` bounds
+    the log); `scratch` bytes of device memory a launch (the log, and for
+    "l2" the iterates and exchange buffers); `smem` shared bytes a CTA."""
+    layout: str
+    cluster: int
+    clusters: int
+    waves: int
+    group: int
+    chunk: int
+    scratch: int
+    smem: int
+
+
+def log_group(B: int, n: int, rounds: int) -> int:
+    """Matrices a launch whose logs (16 n/2 bytes a round) fit `LOG_BUDGET`,
+    at least one."""
+    return max(1, min(B, LOG_BUDGET // max(1, 8 * n * rounds)))
+
+
+def log_chunks(B: int, n: int, rounds: int) -> tuple[int, int]:
+    """(matrices, rounds) a launch whose log fits `LOG_BUDGET`: the whole
+    schedule for as many matrices as fit (`log_group`); where not even one
+    matrix's does, one matrix and the rounds that fit, V then taken from
+    each launch's log in turn (the L2 variants only: their iterate stays in
+    device memory between launches)."""
+    group = log_group(B, n, rounds)
+    return group, max(1, min(rounds, LOG_BUDGET // (8 * n * group)))
+
+
+def resident_choice(B: int, sizes, active):
+    """Of the resident cluster sizes `sizes` (a subset of `L2_CLUSTERS`),
+    the one whose clusters take B matrices in the
+    fewest waves (`active(C)` clusters at once; the larger C on a tie, its
+    rounds being shorter): (C, clusters at once, waves), or None when the
+    card holds none of them."""
+    best = None
+    for C in L2_CLUSTERS:
+        held = active(C) if C in sizes else 0
+        if held > 0 and (best is None or -(-B // held) < best[2]):
+            best = (C, held, -(-B // held))
+    return best
+
+
+def eigh_res_smem(n: int, C: int) -> int:
+    """The resident variant's shared bytes a CTA (`res_smem_bytes` in
+    `tnqs_torch/csrc/jacobi_eigh.cu`): two rounds' entries of every column,
+    the m rotations, 2 pmax + 5 column slots of H (two rings of pmax + 2 and
+    position 0), two mbarriers, the index at each position and the CTA's
+    pairs' slots."""
+    pmax = -(-(n // 2) // C)
+    return 40 * n + 8 * (2 * pmax + 5) * n + 16 + 4 * n + 8 * pmax
+
+
+def eigh_res_fits(n: int, C: int) -> bool:
+    """Whether the resident variant holds H [n, n] on C CTAs: even
+    n > 256, at least two pairs a CTA, within a CTA's shared memory (up to
+    n = 598 on 16, 436 on 8)."""
+    return n % 2 == 0 and n > 256 and (n // 2) // C >= 2 and eigh_res_smem(n, C) <= SMEM_LIMIT
+
+
 def eigh_l2_smem(n: int) -> int:
     """The L2 variant's shared bytes a CTA (`l2_smem_bytes` in
     `tnqs_torch/csrc/jacobi_eigh.cu`): the m rotations and the index at each
@@ -187,12 +257,32 @@ def eigh_l2_smem(n: int) -> int:
 
 
 def eigh_l2_plan(B: int, n: int, active) -> L2Plan:
-    """The L2 variant's launch for B matrices [n, n] (n > 256): H and V
-    column-major, 16 n^2 bytes a matrix, and each cluster's exchange buffer
+    """The L2 variant's launch for B matrices [n, n] (n > 256): H
+    column-major, 8 n^2 bytes a matrix, and each cluster's exchange buffer
     (a float4 a column, two rounds), `l2_plan`."""
     if n % 2 or n <= 256:
         raise ValueError(f"the L2 jacobi_eigh kernel takes even n > 256, got {n}")
-    return l2_plan(B, 16 * n * n, 32 * n, eigh_l2_smem(n), active)
+    return l2_plan(B, 8 * n * n, 32 * n, eigh_l2_smem(n), active)
+
+
+def eigh_log_plan(B: int, n: int, rounds: int, active) -> LogPlan:
+    """K2's launch past n = 256 for B matrices [n, n] and `rounds` rounds:
+    the resident variant where H fits a cluster the card holds
+    (`eigh_res_fits`, `resident_choice`) and one matrix's log fits
+    `LOG_BUDGET`, else the L2 variant (`eigh_l2_plan`), in chunks of rounds
+    where it must (`log_chunks`); `active(layout, C)` the clusters of C the
+    card holds at once."""
+    if n % 2 or n <= 256:
+        raise ValueError(f"jacobi_eigh takes the variants past the cluster kernels at even n > 256, got {n}")
+    group, chunk = log_chunks(B, n, rounds)
+    log = group * 8 * n * chunk
+    best = resident_choice(B, [C for C in L2_CLUSTERS if eigh_res_fits(n, C)],
+                           lambda C: active("resident", C)) if chunk >= rounds else None
+    if best is not None:
+        C, held, waves = best
+        return LogPlan("resident", C, held, waves, group, chunk, log, eigh_res_smem(n, C))
+    p = eigh_l2_plan(group, n, lambda C: active("l2", C))
+    return LogPlan("l2", p.cluster, p.clusters, -(-B // p.clusters), group, chunk, log + p.scratch, p.smem)
 
 
 @functools.cache
@@ -206,12 +296,82 @@ def l2_active_clusters(device: torch.device, n: int, C: int) -> int:
     return active.value
 
 
+@functools.cache
+def res_active_clusters(device: torch.device, n: int, C: int) -> int:
+    """How many clusters of C CTAs of the resident variant at size n the
+    card holds at once (`cudaOccupancyMaxActiveClusters`)."""
+    active = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _build.check(_build.kernels().tnqs_jacobi_eigh_res_clusters(n, C, ctypes.byref(active)),
+                     "tnqs_jacobi_eigh_res_clusters")
+    return active.value
+
+
+def log_active_clusters(device: torch.device, n: int):
+    """`eigh_log_plan`'s `active(layout, C)` on this device."""
+    return lambda layout, C: (res_active_clusters if layout == "resident" else l2_active_clusters)(device, n, C)
+
+
+def _jacobi_eigh_past_256(H: torch.Tensor, sweeps: int, relative: bool, stream):
+    """K2 past n = 256 (`eigh_log_plan`): the rounds on H alone, resident
+    (`tnqs_jacobi_eigh_res`) or in L2 (`tnqs_jacobi_eigh_l2`, in place on a
+    column-major copy of H, `plan.chunk` rounds a launch), a group of
+    matrices a launch, V from each launch's rotation log.  Returns (w [B, n]
+    unsorted, V [B, n, n])."""
+    B, n, _ = H.shape
+    lib = _build.kernels()
+    rounds = sweeps * (n - 1)
+    plan = eigh_log_plan(B, n, rounds, log_active_clusters(H.device, n))
+    w = torch.empty((B, n), dtype=torch.float32, device=H.device)
+    V = torch.empty_like(H)
+    logs = torch.empty(plan.group * plan.chunk * (n // 2) * 4, dtype=torch.float32, device=H.device)
+    jacobi_eigh.rotations = torch.zeros((), dtype=torch.int64, device=H.device)
+    taken = jacobi_eigh.rotations.data_ptr()
+    for g0 in range(0, B, plan.group):
+        b = min(plan.group, B - g0)
+        log = logs[:b * plan.chunk * (n // 2) * 4].view(b, plan.chunk, n // 2, 4)
+        if plan.layout == "resident":
+            def launch(started=None, progress=None, stage=1):
+                err = lib.tnqs_jacobi_eigh_res(H[g0].data_ptr(), log.data_ptr(), w[g0].data_ptr(), taken,
+                                               None if started is None else started.data_ptr(),
+                                               None if progress is None else progress.data_ptr(), stage, b, n,
+                                               rounds, EPS32, int(relative), plan.cluster, stream)
+                _build.check(err, "tnqs_jacobi_eigh_res")
+            if rotation_log.follows(b, plan.cluster, plan.waves, H.device):
+                # V's kernel beside the rounds, on the SMs their clusters leave
+                with rotation_log.follow(log, None, V[g0:g0 + b], plan.cluster) as flags:
+                    launch(*flags)
+            else:
+                launch()
+                apply_rotation_log(log, out=V[g0:g0 + b])
+            _count_launch(B, n, plan.layout)
+        else:
+            hc = H[g0:g0 + b].mT.contiguous()  # hc[b][col][row] = H[row, col]
+            xbuf = torch.empty((plan.clusters, 2, n, 4), dtype=torch.float32, device=H.device)
+            for r0 in range(0, max(rounds, 1), plan.chunk):  # one launch at least: V = I at 0 rounds
+                k = min(plan.chunk, rounds - r0)
+                log = logs[:b * k * (n // 2) * 4].view(b, k, n // 2, 4)
+                err = lib.tnqs_jacobi_eigh_l2(hc.data_ptr(), log.data_ptr(), xbuf.data_ptr(), taken, b, n, r0, k,
+                                              EPS32, int(relative), plan.cluster, plan.clusters, stream)
+                _build.check(err, "tnqs_jacobi_eigh_l2")
+                _count_launch(B, n, plan.layout)
+                apply_rotation_log(log, None if r0 == 0 else V[g0:g0 + b], out=V[g0:g0 + b])
+            w[g0:g0 + b] = hc.diagonal(dim1=1, dim2=2).real
+    return w, V
+
+
+def _count_launch(B: int, n: int, layout: str):
+    jacobi_eigh.launches += 1
+    jacobi_eigh.launches_by_shape[(B, n)] = jacobi_eigh.launches_by_shape.get((B, n), 0) + 1
+    jacobi_eigh.launches_by_layout[layout] += 1
+
+
 def _jacobi_eigh_cuda(H: torch.Tensor, sweeps: int, relative: bool = True):
     """Launch `tnqs_jacobi_eigh` (n <= 128, one cluster of three CTAs per
-    matrix), `tnqs_jacobi_eigh_wide` (128 < n <= 256, `eigh_wide_plan`) or
-    `tnqs_jacobi_eigh_l2` (n > 256, `eigh_l2_plan`: in place on a
-    column-major copy of H and an identity V) on H [B, n, n] hermitian
-    complex64 (CUDA, contiguous).  Returns (w [B, n] unsorted, V [B, n, n])."""
+    matrix), `tnqs_jacobi_eigh_wide` (128 < n <= 256, `eigh_wide_plan`) or,
+    past n = 256, the resident or L2 variant and the rotation log
+    (`_jacobi_eigh_past_256`) on H [B, n, n] hermitian complex64 (CUDA,
+    contiguous).  Returns (w [B, n] unsorted, V [B, n, n])."""
     if H.dim() != 3 or H.shape[1] != H.shape[2] or H.shape[1] % 2 or H.shape[1] < 4:
         raise ValueError(f"jacobi_eigh kernel takes [B, n, n] with even n >= 4, got {tuple(H.shape)}")
     if not (H.is_cuda and H.dtype == torch.complex64 and H.is_contiguous()):
@@ -221,31 +381,20 @@ def _jacobi_eigh_cuda(H: torch.Tensor, sweeps: int, relative: bool = True):
     with torch.cuda.device(H.device):
         stream = torch.cuda.current_stream().cuda_stream
         if n > 256:
-            plan = eigh_l2_plan(B, n, lambda C: l2_active_clusters(H.device, n, C))
-            hc = H.mT.contiguous()  # hc[b][col][row] = H[row, col]
-            vt = torch.eye(n, dtype=H.dtype, device=H.device).expand(B, n, n).contiguous()
-            xbuf = torch.empty((plan.clusters, 2, n, 4), dtype=torch.float32, device=H.device)
-            jacobi_eigh.rotations = torch.zeros((), dtype=torch.int64, device=H.device)
-            err = lib.tnqs_jacobi_eigh_l2(hc.data_ptr(), vt.data_ptr(), xbuf.data_ptr(),
-                                          jacobi_eigh.rotations.data_ptr(), B, n, sweeps * (n - 1), EPS32,
-                                          int(relative), plan.cluster, plan.clusters, stream)
-            name = "tnqs_jacobi_eigh_l2"
+            return _jacobi_eigh_past_256(H, sweeps, relative, stream)
+        if active_clusters(H.device, n) == 0:
+            raise RuntimeError(f"jacobi_eigh kernel: no cluster for n={n} fits on {H.device}")
+        vt = torch.empty_like(H)
+        w = torch.empty((B, n), dtype=torch.float32, device=H.device)
+        if n <= 128:
+            err = lib.tnqs_jacobi_eigh(H.data_ptr(), vt.data_ptr(), w.data_ptr(), B, n, sweeps * (n - 1), EPS32,
+                                       int(relative), stream)
+            name = "tnqs_jacobi_eigh"
         else:
-            if active_clusters(H.device, n) == 0:
-                raise RuntimeError(f"jacobi_eigh kernel: no cluster for n={n} fits on {H.device}")
-            vt = torch.empty_like(H)
-            w = torch.empty((B, n), dtype=torch.float32, device=H.device)
-            if n <= 128:
-                err = lib.tnqs_jacobi_eigh(H.data_ptr(), vt.data_ptr(), w.data_ptr(), B, n, sweeps * (n - 1), EPS32,
-                                           int(relative), stream)
-                name = "tnqs_jacobi_eigh"
-            else:
-                err = lib.tnqs_jacobi_eigh_wide(H.data_ptr(), vt.data_ptr(), w.data_ptr(), B, n, sweeps * (n - 1),
-                                                EPS32, int(relative), eigh_wide_plan(n)[0], stream)
-                name = "tnqs_jacobi_eigh_wide"
+            err = lib.tnqs_jacobi_eigh_wide(H.data_ptr(), vt.data_ptr(), w.data_ptr(), B, n, sweeps * (n - 1),
+                                            EPS32, int(relative), eigh_wide_plan(n)[0], stream)
+            name = "tnqs_jacobi_eigh_wide"
     _build.check(err, name)
-    if n > 256:
-        w = hc.diagonal(dim1=1, dim2=2).real
     jacobi_eigh.launches += 1
     jacobi_eigh.launches_by_shape[(B, n)] = jacobi_eigh.launches_by_shape.get((B, n), 0) + 1
     return w, vt.mT
@@ -254,7 +403,7 @@ def _jacobi_eigh_cuda(H: torch.Tensor, sweeps: int, relative: bool = True):
 @functools.cache
 def active_clusters(device: torch.device, n: int) -> int:
     """How many of the kernel's clusters for size n (three CTAs up to
-    n = 128, `eigh_wide_plan`'s up to 256; `l2_active_clusters` past it)
+    n = 128, `eigh_wide_plan`'s up to 256; `log_active_clusters` past it)
     the card holds at once (`cudaOccupancyMaxActiveClusters`)."""
     active = ctypes.c_int(0)
     lib = _build.kernels()
@@ -309,7 +458,8 @@ def jacobi_eigh(H: torch.Tensor, sweeps: int = 12, refine: bool = True, relative
 
 jacobi_eigh.launches = 0
 jacobi_eigh.launches_by_shape = {}  # (B, n) -> launches
-jacobi_eigh.rotations = None  # the L2 variant's last launch: rotations taken, a device scalar
+jacobi_eigh.launches_by_layout = {"resident": 0, "l2": 0}  # past n = 256
+jacobi_eigh.rotations = None  # the last call past n = 256: rotations taken, a device scalar
 
 
 def eigh_from_rounds(Hb: torch.Tensor, w: torch.Tensor, V: torch.Tensor, refine: bool = True):

@@ -4,9 +4,11 @@ Port of `tnqs/ops/osj.py::osj_svd` (`:225`) and `pjsvd` (`:349`).  The
 rotation rounds of `osj_svd` run in the CUDA kernel
 `tnqs_torch/csrc/osj_svd.cu` on a CUDA tensor (one thread-block cluster per
 matrix, the iterate resident in its CTAs' shared memory, `osj_plan` its
-layout, up to n = 256; past it, or past the rows a cluster holds, the L2
-variant, the iterate in device memory kept hot in L2, `osj_l2_plan`), and
-in `_osj_svd_plain`, the same schedule written in PyTorch, on a CPU tensor.
+layout, up to n = 256; past it, or past the rows a cluster holds, A alone
+in the rounds, resident in a cluster of 16 or 8 where its chunks fit, else
+in device memory kept hot in L2, `osj_log_plan`, and V from the rounds'
+rotation log, `rotation_log.apply_rotation_log`), and in `_osj_svd_plain`,
+the same schedule written in PyTorch, on a CPU tensor.
 The Frobenius prescale, the column norms, the descending sort and U = A/s
 (`tnqs/ops/osj.py:245-345`) are PyTorch in both cases.
 """
@@ -19,8 +21,10 @@ import math
 
 import torch
 
-from . import _build
-from .jacobi import EPS32, SMEM_LIMIT, L2_CLUSTERS, L2Plan, eigh_l2_smem, jacobi_eigh, l2_plan, round_robin
+from . import _build, rotation_log
+from .jacobi import (EPS32, L2_CLUSTERS, SMEM_LIMIT, L2Plan, LogPlan, eigh_l2_smem, jacobi_eigh, l2_plan, log_chunks,
+                     resident_choice, round_robin)
+from .rotation_log import apply_rotation_log
 
 
 def _rot_params_rel(a, b, gr, gi, eps: float):
@@ -117,28 +121,30 @@ def osj_l2_smem(n: int) -> int:
 
 
 def osj_l2(R: int, n: int) -> bool:
-    """Whether the wrapper takes A [R, n] on the L2 variant: an even
-    n >= 4, R >= n, that the shared-memory layout does not hold (n > 256, or
-    more rows than its clusters hold) and whose rotations fit a CTA."""
-    return (n % 2 == 0 and 4 <= n <= R and not _fitting_clusters(R, n) and osj_l2_smem(n) <= SMEM_LIMIT
-            and n * CHUNK * (-(-R // CHUNK) - (-n // CHUNK)) < 2**31)  # the kernel's offsets are int
+    """Whether the wrapper takes A [R, n] past the shared-memory layout (the
+    resident or L2 variant, `osj_log_plan`): an even n >= 4, R >= n, that
+    the layout does not hold (n > 256, or more rows than its clusters hold),
+    up to the widths whose m rotations and index table fit a CTA of the L2
+    variant (n = 14,528; V's kernel, `rotation_log.fits`, takes wider)."""
+    return (n % 2 == 0 and 4 <= n <= R and not _fitting_clusters(R, n) and rotation_log.fits(n)
+            and osj_l2_smem(n) <= SMEM_LIMIT
+            and n * CHUNK * -(-R // CHUNK) < 2**31)  # the L2 variant's offsets are int
 
 
 def pjsvd_fits(R: int, n: int) -> bool:
     """Whether `pjsvd` takes A [R, n] (R >= n) through its kernels: K2 on
     the Gram [n, n] and K1 on [R, n] (`osj_fits`), which together take every
-    even n >= 4 with R >= n up to the widths whose rotations fill a CTA's
-    shared memory (n = 14,528).  Decided from the shape alone, before any
-    launch, and never raises, so a caller routes every other shape
-    elsewhere on every device."""
+    even n >= 4 with R >= n up to n = 14,528 (`osj_l2`).  Decided from the shape alone, before any launch, and
+    never raises, so a caller routes every other shape elsewhere on every
+    device."""
     return bool(_fitting_clusters(R, n)) or (osj_l2(R, n) and eigh_l2_smem(n) <= SMEM_LIMIT)
 
 
 def osj_fits(R: int, n: int) -> list[int]:
     """The cluster sizes the kernel takes A [R, n] on: the shared-memory
-    layout's (`_fitting_clusters`), else the L2 variant's (`L2_CLUSTERS`,
-    `osj_l2`), or ValueError for a shape neither takes (odd n, n < 4,
-    R < n, or n past 14,528)."""
+    layout's (`_fitting_clusters`), else those of the variants past it
+    (`L2_CLUSTERS`, `osj_l2`), or ValueError for a shape none takes (odd n,
+    n < 4, R < n, or n past 14,528)."""
     fits = _fitting_clusters(R, n)
     if fits:
         return fits
@@ -148,15 +154,61 @@ def osj_fits(R: int, n: int) -> list[int]:
                      f"{SMEM_LIMIT} shared bytes a CTA, got [{R}, {n}]")
 
 
-def osj_l2_plan(B: int, R: int, n: int, active) -> tuple[L2Plan, int, int]:
+def osj_l2_plan(B: int, R: int, n: int, active) -> tuple[L2Plan, int]:
     """The L2 variant's launch for B matrices [R, n] (`jacobi.l2_plan`, with
     `active(C)` the clusters of C the card holds), and the chunks of 32 rows
-    of A (nch) and of V (vch): the iterate column-major, rows of A then of
-    V padded to whole chunks, 8 n 32 (nch + vch) bytes a matrix; each
-    cluster's exchange buffer two rounds of a float4 a pair from each of its
-    CTAs (16 n L2_CLUSTERS[0] bytes, sized for the larger cluster)."""
-    nch, vch = -(-R // CHUNK), -(-n // CHUNK)
-    return l2_plan(B, 8 * n * CHUNK * (nch + vch), 16 * n * L2_CLUSTERS[0], osj_l2_smem(n), active), nch, vch
+    of A (nch): A column-major, its rows padded to whole chunks, 8 n 32 nch
+    bytes a matrix; each cluster's exchange buffer two rounds of a float4 a
+    pair from each of its CTAs (16 n L2_CLUSTERS[0] bytes, sized for the
+    larger cluster)."""
+    nch = -(-R // CHUNK)
+    return l2_plan(B, 8 * n * CHUNK * nch, 16 * n * L2_CLUSTERS[0], osj_l2_smem(n), active), nch
+
+
+def osj_res_smem(n: int, cpc: int, C: int) -> int:
+    """The resident variant's shared bytes a CTA (`res_smem_bytes` in
+    `tnqs_torch/csrc/osj_svd.cu`): cpc chunks of A column-major with an odd
+    pitch, two rounds of the owner's partials (C CTAs' float4 for each of
+    its pmax pairs), two rounds of the m rotations, two rounds' index at
+    each position, four mbarriers."""
+    return 8 * n * (cpc * CHUNK + 1) + 32 * C * -(-(n // 2) // C) + 32 * (n // 2) + 8 * n + 32
+
+
+def osj_res_sizes(R: int, n: int) -> dict[int, tuple[int, int]]:
+    """The resident variant's cluster sizes for A [R, n]: C -> (chunks of
+    A a CTA at most, shared bytes a CTA), those within a CTA's shared memory
+    ([512, 512] and [640, 320] on 16; not [1024, 512])."""
+    nch = -(-R // CHUNK)
+    sizes = {}
+    for C in L2_CLUSTERS:
+        cpc = -(-nch // C)
+        smem = osj_res_smem(n, cpc, C)
+        if (n // 2) // C >= 1 and smem <= SMEM_LIMIT:
+            sizes[C] = (cpc, smem)
+    return sizes
+
+
+def osj_log_plan(B: int, R: int, n: int, rounds: int, active) -> tuple[LogPlan, int, int]:
+    """K1's launch past the shared-memory layout for B matrices [R, n] and
+    `rounds` rounds: the resident variant where A's chunks fit a cluster the
+    card holds (`osj_res_sizes`, `jacobi.resident_choice`), else the L2
+    variant (`osj_l2_plan`); `active(layout, C, cpc)` the clusters of C the
+    card holds at once; the resident variant only where one matrix's log
+    fits `LOG_BUDGET`, the L2 variant in chunks of rounds where it must
+    (`jacobi.log_chunks`).  Returns (plan, chunks of A, chunks of A a CTA at
+    most)."""
+    if not osj_l2(R, n):
+        raise ValueError(f"osj_svd: [{R}, {n}] takes the shared-memory layout or no kernel")
+    nch = -(-R // CHUNK)
+    group, chunk = log_chunks(B, n, rounds)
+    log = group * 8 * n * chunk
+    sizes = osj_res_sizes(R, n) if chunk >= rounds else {}
+    best = resident_choice(B, list(sizes), lambda C: active("resident", C, sizes[C][0]))
+    if best is not None:
+        C, held, waves = best
+        return LogPlan("resident", C, held, waves, group, chunk, log, sizes[C][1]), nch, sizes[C][0]
+    p, _ = osj_l2_plan(group, R, n, lambda C: active("l2", C, 0))
+    return LogPlan("l2", p.cluster, p.clusters, -(-B // p.clusters), group, chunk, log + p.scratch, p.smem), nch, 0
 
 
 @functools.cache
@@ -168,6 +220,27 @@ def l2_active_clusters(device: torch.device, n: int, C: int) -> int:
         _build.check(_build.kernels().tnqs_osj_svd_l2_clusters(n, C, ctypes.byref(active)),
                      "tnqs_osj_svd_l2_clusters")
     return active.value
+
+
+@functools.cache
+def res_active_clusters(device: torch.device, n: int, cpc: int, C: int) -> int:
+    """How many clusters of C CTAs of the resident variant at width n, cpc
+    chunks of A a CTA, the card holds at once (`cudaOccupancyMaxActiveClusters`)."""
+    active = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _build.check(_build.kernels().tnqs_osj_svd_res_clusters(n, cpc, C, ctypes.byref(active)),
+                     "tnqs_osj_svd_res_clusters")
+    return active.value
+
+
+def log_active_clusters(device: torch.device, n: int, cluster: int | None = None):
+    """`osj_log_plan`'s `active(layout, C, cpc)` on this device (0 for every
+    C but `cluster` when one is given)."""
+    def active(layout, C, cpc):
+        if cluster not in (None, C):
+            return 0
+        return res_active_clusters(device, n, cpc, C) if layout == "resident" else l2_active_clusters(device, n, C)
+    return active
 
 
 def osj_cluster(B: int, R: int, n: int, active) -> int:
@@ -201,13 +274,69 @@ def active_clusters(device: torch.device, C: int, smem: int) -> int:
     return active.value
 
 
+def _osj_svd_past_cluster(A: torch.Tensor, V: torch.Tensor, sweeps: int, cluster: int | None):
+    """K1 past the shared-memory layout (`osj_log_plan`, or `cluster` CTAs):
+    the rounds on A alone, resident (`tnqs_osj_svd_res`) or in L2
+    (`tnqs_osj_svd_l2`, in place on a column-major copy of A, `plan.chunk`
+    rounds a launch), a group of matrices a launch, V from V0 and each
+    launch's rotation log.  Returns the rotated (A, V), row-major."""
+    B, R, n = A.shape
+    lib = _build.kernels()
+    rounds = sweeps * (n - 1)
+    plan, nch, cpc = osj_log_plan(B, R, n, rounds, log_active_clusters(A.device, n, cluster))
+    A, V = A.contiguous(), V.contiguous()
+    A_out, V_out = torch.empty_like(A), torch.empty_like(V)
+    logs = torch.empty(plan.group * plan.chunk * (n // 2) * 4, dtype=torch.float32, device=A.device)
+    osj_svd.rotations = torch.zeros((), dtype=torch.int64, device=A.device)
+    taken = osj_svd.rotations.data_ptr()
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for g0 in range(0, B, plan.group):
+            b = min(plan.group, B - g0)
+            log = logs[:b * plan.chunk * (n // 2) * 4].view(b, plan.chunk, n // 2, 4)
+            if plan.layout == "resident":
+                def launch(started=None, progress=None, stage=1):
+                    err = lib.tnqs_osj_svd_res(A[g0].data_ptr(), A_out[g0].data_ptr(), log.data_ptr(), taken,
+                                               None if started is None else started.data_ptr(),
+                                               None if progress is None else progress.data_ptr(), stage, b, R, n,
+                                               nch, cpc, rounds, EPS32, plan.cluster, stream)
+                    _build.check(err, "tnqs_osj_svd_res")
+                if rotation_log.follows(b, plan.cluster, plan.waves, A.device):
+                    # V's kernel beside the rounds, on the SMs their clusters leave
+                    with rotation_log.follow(log, V[g0:g0 + b], V_out[g0:g0 + b], plan.cluster) as flags:
+                        launch(*flags)
+                else:
+                    launch()
+                    apply_rotation_log(log, V[g0:g0 + b], out=V_out[g0:g0 + b])
+                _count_launch(B, R, n, plan.layout)
+            else:
+                x = torch.zeros((b, n, CHUNK * nch), dtype=A.dtype, device=A.device)
+                x[:, :, :R] = A[g0:g0 + b].mT
+                part = torch.empty((plan.clusters, 2, plan.cluster, n // 2, 4), dtype=torch.float32, device=A.device)
+                for r0 in range(0, max(rounds, 1), plan.chunk):  # one launch at least: V = V0 at 0 rounds
+                    k = min(plan.chunk, rounds - r0)
+                    log = logs[:b * k * (n // 2) * 4].view(b, k, n // 2, 4)
+                    err = lib.tnqs_osj_svd_l2(x.data_ptr(), log.data_ptr(), part.data_ptr(), taken, b, n, nch, r0, k,
+                                              EPS32, plan.cluster, plan.clusters, stream)
+                    _build.check(err, "tnqs_osj_svd_l2")
+                    _count_launch(B, R, n, plan.layout)
+                    apply_rotation_log(log, V[g0:g0 + b] if r0 == 0 else V_out[g0:g0 + b], out=V_out[g0:g0 + b])
+                A_out[g0:g0 + b] = x[:, :, :R].mT
+    return A_out, V_out
+
+
+def _count_launch(B: int, R: int, n: int, layout: str):
+    osj_svd.launches += 1
+    osj_svd.launches_by_shape[(B, R, n)] = osj_svd.launches_by_shape.get((B, R, n), 0) + 1
+    osj_svd.launches_by_layout[layout] += 1
+
+
 def _osj_svd_cuda(A: torch.Tensor, V: torch.Tensor, sweeps: int, cluster: int | None = None):
     """Launch `tnqs_osj_svd` on A [B, R, n] and V [B, n, n] complex64 CUDA
     tensors, one cluster per matrix (`cluster` CTAs, or as `osj_cluster`
     picks), which reads both row-major and writes the rotated (A, V) into
-    new row-major tensors; or, where `osj_l2` holds, `tnqs_osj_svd_l2`
-    (`osj_l2_plan`, or `cluster` CTAs), in place on a column-major copy of
-    A and V, whose transposed views it returns."""
+    new row-major tensors; or, where `osj_l2` holds, the resident or L2
+    variant and the rotation log (`_osj_svd_past_cluster`)."""
     B, R, n = A.shape
     if V.shape != (B, n, n):
         raise ValueError(f"osj_svd kernel: bad shapes A {tuple(A.shape)}, V {tuple(V.shape)}")
@@ -215,33 +344,19 @@ def _osj_svd_cuda(A: torch.Tensor, V: torch.Tensor, sweeps: int, cluster: int | 
         raise ValueError(f"osj_svd kernel: a cluster of {cluster} does not fit [{R}, {n}]")
     if not (A.is_cuda and V.device == A.device and A.dtype == V.dtype == torch.complex64):
         raise ValueError("osj_svd kernel takes complex64 CUDA tensors on one device")
-    lib = _build.kernels()
     if osj_l2(R, n):
-        plan, nch, vch = osj_l2_plan(B, R, n, lambda C: l2_active_clusters(A.device, n, C) if cluster in (None, C)
-                                     else 0)
-        rp = CHUNK * nch
-        x = torch.zeros((B, n, rp + CHUNK * vch), dtype=A.dtype, device=A.device)
-        x[:, :, :R] = A.mT
-        x[:, :, rp:rp + n] = V.mT
-        part = torch.empty((plan.clusters, 2, plan.cluster, n // 2, 4), dtype=torch.float32, device=A.device)
-        osj_svd.rotations = torch.zeros((), dtype=torch.int64, device=A.device)
-        with torch.cuda.device(A.device):
-            err = lib.tnqs_osj_svd_l2(x.data_ptr(), part.data_ptr(), osj_svd.rotations.data_ptr(), B, n, nch, vch,
-                                      sweeps * (n - 1), EPS32, plan.cluster, plan.clusters,
-                                      torch.cuda.current_stream().cuda_stream)
-        _build.check(err, "tnqs_osj_svd_l2")
-        A_out, V_out = x[:, :, :R].mT, x[:, :, rp:rp + n].mT
-    else:
-        if cluster is None:
-            cluster = osj_cluster(B, R, n, lambda C, smem: active_clusters(A.device, C, smem))
-        cpc, vpc, smem = osj_plan(R, n, cluster)
-        A, V = A.contiguous(), V.contiguous()
-        A_out, V_out = torch.empty_like(A), torch.empty_like(V)
-        with torch.cuda.device(A.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.tnqs_osj_svd(A.data_ptr(), V.data_ptr(), A_out.data_ptr(), V_out.data_ptr(), B, R, n,
-                                   sweeps * (n - 1), EPS32, cluster, cpc, vpc, smem, stream)
-        _build.check(err, "tnqs_osj_svd")
+        return _osj_svd_past_cluster(A, V, sweeps, cluster)
+    lib = _build.kernels()
+    if cluster is None:
+        cluster = osj_cluster(B, R, n, lambda C, smem: active_clusters(A.device, C, smem))
+    cpc, vpc, smem = osj_plan(R, n, cluster)
+    A, V = A.contiguous(), V.contiguous()
+    A_out, V_out = torch.empty_like(A), torch.empty_like(V)
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tnqs_osj_svd(A.data_ptr(), V.data_ptr(), A_out.data_ptr(), V_out.data_ptr(), B, R, n,
+                               sweeps * (n - 1), EPS32, cluster, cpc, vpc, smem, stream)
+    _build.check(err, "tnqs_osj_svd")
     osj_svd.launches += 1
     osj_svd.launches_by_shape[(B, R, n)] = osj_svd.launches_by_shape.get((B, R, n), 0) + 1
     return A_out, V_out
@@ -284,7 +399,8 @@ def osj_svd(A: torch.Tensor, V0: torch.Tensor | None = None, sweeps: int = 10):
 
 osj_svd.launches = 0
 osj_svd.launches_by_shape = {}  # (B, R, n) -> launches
-osj_svd.rotations = None  # the L2 variant's last launch: rotations taken, a device scalar
+osj_svd.launches_by_layout = {"resident": 0, "l2": 0}  # past the shared-memory layout
+osj_svd.rotations = None  # the last call past the shared-memory layout: rotations taken, a device scalar
 
 
 def prescale(Ab: torch.Tensor):
