@@ -25,10 +25,17 @@ Run from the repository root.  Phases, each of which fails the run:
    environment bank [144, 64, 64], the subspace solve [54, 72, 72] and full
    truncation's Grams [54, 128, 128], at `default_eigh`'s 12 sweeps and
    relative skip, each beside `torch.linalg.eigh` and its bound; then K1 and
-   K2 past n = 128 (`wide_kernel_phase`): K2's wide variant on [26, n, n]
-   Grams at n = 192 and 256 in both skips (checked at 12 sweeps, timed at
-   pjsvd's 8 with the absolute skip and `default_eigh`'s 12 with the
-   relative one), K1 as pjsvd's polish at the chi = 96 and chi = 128
+   K2 past n = 128 (`wide_kernel_phase`): K2's resident variant on
+   [26, n, n] Grams at n = 192 and 256 in both skips, by the V route each
+   width takes (`jacobi.v_route_of`: V in the rings at 192, from the
+   rotation log at 256; the plans printed: layout, cluster size, clusters
+   at once, waves, shared bytes), checked at 12 sweeps, timed at pjsvd's 8
+   sweeps with the absolute skip and `default_eigh`'s 12 with the relative
+   one (and [54, 256, 256] there) in turn with `torch.linalg.eigh`; the
+   bound from the rotations the kernel counted; at n = 130, 224 and 226
+   (pair ranges split unevenly over the CTAs) checked at
+   `L2_CHECK_SWEEPS` against the plain version on two members; K1 as
+   pjsvd's polish at the chi = 96 and chi = 128
    thetas [26, 384, 192], [18, 192, 192], [26, 512, 256] and
    [18, 256, 256], each against its plain version and LAPACK on the
    spectrum families scaled to n, beside the library call and its bound,
@@ -501,20 +508,68 @@ WIDE_PATH = ((26, 384, 192, 6), (18, 192, 192, 4), (26, 512, 256, 6), (18, 256, 
 F2_MEMBER = 21  # the zero-padded [26, 384, 192] batch's worst member under the kernel (`zero_padded_member`)
 
 
+WIDE_TIMED_CALLS = 5  # calls of K2 and of `eigh` at n = 192/256, in turn
+WIDE_FULL_B = 54  # [54, 256, 256]: 8e's full-truncation Grams (12 sweeps, the relative skip)
+# the narrowest width past 128 and the two sides of `jacobi.RING_N`: pair ranges that do not split
+# evenly over the CTAs (130 on 4: 16-17 pairs a CTA; 224 on 4: 28; 226 on 4: 28-29)
+WIDE_EDGE_N = (130, 224, 226)
+
+
+def k2_plan(dev, B, n):
+    """The launch `jacobi._jacobi_eigh_cuda` takes for B matrices [n, n]
+    past n = 128 at 8 sweeps: (layout and V's route, cluster size, clusters
+    at once, waves, shared bytes a CTA, whether V's kernel follows the
+    rounds on the SMs they leave)."""
+    from tnqs_torch.ops import jacobi, rotation_log
+
+    if jacobi.v_route_of(n) == "ring":
+        C, held, waves, smem = jacobi.eigh_ring_plan(B, n, lambda C: jacobi.res_active_clusters(dev, n, C, True))
+        return "resident, V in the rings", C, held, waves, smem, False
+    plan = jacobi.eigh_log_plan(B, n, 8 * (n - 1), jacobi.log_active_clusters(dev, n))
+    follows = plan.layout == "resident" and rotation_log.follows(plan.group, plan.cluster, plan.waves, dev)
+    return f"{plan.layout}, V from the log", plan.cluster, plan.clusters, plan.waves, plan.smem, follows
+
+
+def k2_refined(Hb, sweeps, relative):
+    """K2 on the Hermitian Hb [B, n, n] as `jacobi_eigh` runs it on the
+    card: the kernel, then the refinement and sort."""
+    from tnqs_torch.ops import jacobi
+
+    return jacobi.eigh_from_rounds(Hb, *jacobi._jacobi_eigh_cuda(Hb, sweeps, relative))
+
+
+def wide_eigh_timed(Hb, sweeps, relative):
+    """K2 and `torch.linalg.eigh` on Hb in turn, `WIDE_TIMED_CALLS` calls
+    each timed alone (K2's refinement included): {name: times}, and the
+    rotations K2 took."""
+    from tnqs_torch.ops import jacobi
+
+    fns = {"kernel": lambda: k2_refined(Hb, sweeps, relative), "eigh": lambda: torch.linalg.eigh(Hb)}
+    times = dict(zip(fns, alternating_ms(list(fns.values()), WIDE_TIMED_CALLS)))
+    k2_refined(Hb, sweeps, relative)
+    return times, jacobi.jacobi_eigh.rotations.item()
+
+
 def wide_kernel_phase(dev):
-    """K1 and K2 past n = 128 against their plain versions on the card: the
-    wide variant of K2 on [26, n, n] Grams in both skips (checked at 12
-    sweeps; timed at pjsvd's 8 with the absolute skip and at
-    `default_eigh`'s 12 with the relative one), K1 as pjsvd's polish on
-    every shape of `WIDE_PATH`, each beside the library call and its bound.
-    Returns the rows of the `kernels` line, one per kernel and width."""
+    """K1 and K2 past n = 128 against their plain versions on the card: K2's
+    resident variant on [26, n, n] Grams at n = 192 and 256 in both skips
+    by the route `jacobi.v_route_of` gives each width (checked at 12
+    sweeps; timed at pjsvd's 8 sweeps with the absolute skip and at
+    `default_eigh`'s 12 with the relative one, and at [54, 256, 256], 8e's
+    full truncation, in turn with `torch.linalg.eigh`); at the widths whose
+    pair ranges split unevenly (`WIDE_EDGE_N`) checked at `L2_CHECK_SWEEPS`;
+    K1 as pjsvd's polish on every shape of `WIDE_PATH`, each beside the
+    library call and its bound.  Returns the rows of the `kernels` line,
+    one per kernel and width."""
     from tnqs_torch.ops import jacobi, osj
 
     rng = np.random.default_rng(10)
+    more = np.random.default_rng(11)  # the shapes only timed, drawn apart so the checked inputs stay as they were
     for n in WIDE_N:
-        C, pairs, smem = jacobi.eigh_wide_plan(n)
-        print(f"K2 wide n={n}: clusters of {C} CTAs, {min(pairs)}-{max(pairs)} pairs a CTA, {smem} B a CTA, "
-              f"{jacobi.active_clusters(dev, n)} clusters at once")
+        for B in (26, WIDE_FULL_B) if n == 256 else (26,):
+            layout, C, held, waves, smem, follows = k2_plan(dev, B, n)
+            print(f"K2 [{B},{n},{n}]: {layout}, clusters of {C} CTAs, {held} at once, {waves} waves, {smem} B a CTA"
+                  + (f", V's kernel beside the rounds: {follows}" if "log" in layout else ""))
     for B, R, n, _ in WIDE_PATH:
         (C,) = osj.osj_fits(R, n)
         cpc, vpc, smem = osj.osj_plan(R, n, C)
@@ -528,36 +583,58 @@ def wide_kernel_phase(dev):
         G = A.mH @ A
         Hb = (0.5 * (G + G.mH)).contiguous()
         errs, timed = [], {}
+        route = jacobi.v_route_of(n)
         for relative, sweeps in ((False, 8), (True, 12)):
             skip = "relative" if relative else "absolute"
-            w_k, V_k = jacobi.jacobi_eigh(G, sweeps=12, relative=relative)
             w_p, V_p = jacobi.eigh_from_rounds(Hb, *jacobi._jacobi_eigh_plain(Hb, 12, relative))
-            torch.cuda.synchronize()
-            check_eigh(f"wide kernel [{B},{n},{n}] {skip}", Hb, w_k, V_k)
             check_eigh(f"plain [{B},{n},{n}] {skip}", Hb, w_p, V_p)
+            w_k, V_k = jacobi.jacobi_eigh(G, sweeps=12, relative=relative)
+            torch.cuda.synchronize()
+            check_eigh(f"resident, V {route}, [{B},{n},{n}] {skip}", Hb, w_k, V_k)
             rel = ((w_k - w_p).abs().amax(1) / w_p.abs().amax(1)).max().item()
             errs.append((w_k - w_p).abs().max().item())
-            print(f"jacobi_eigh wide [{B},{n},{n}] {skip} kernel vs plain: max |dw| {errs[-1]:.3e}, relative to "
-                  f"largest {rel:.3e}")
-            require(rel < 1e-4, f"jacobi_eigh wide [{B},{n},{n}] {skip}: kernel and plain differ by more than 1e-4")
-            ms = cuda_ms(lambda: jacobi.jacobi_eigh(G, sweeps=sweeps, relative=relative), 5)
+            print(f"jacobi_eigh resident, V {route}, [{B},{n},{n}] {skip} kernel vs plain: max |dw| {errs[-1]:.3e}, "
+                  f"relative to largest {rel:.3e}")
+            require(rel < 1e-4, f"jacobi_eigh [{B},{n},{n}] {skip}: kernel and plain differ by more than 1e-4")
+            times, taken = wide_eigh_timed(Hb, sweeps, relative)
+            ms, library_ms = median(times["kernel"]), median(times["eigh"])
             plain_ms = cuda_ms(lambda: jacobi.eigh_from_rounds(Hb, *jacobi._jacobi_eigh_plain(Hb, sweeps, relative)),
                                1, warmup=False)
-            taken = jacobi._jacobi_eigh_plain.rotations.item()
-            library_ms = cuda_ms(lambda: torch.linalg.eigh(Hb), 5)
-            bound_ms, bound_by = eigh_bound(B, n, taken)
+            bound_ms, bound_by = eigh_bound(B, n, taken, log_bytes(B, n, sweeps * (n - 1)) if route == "log" else 0)
             timed[skip] = (ms, plain_ms, bound_ms, bound_by, library_ms)
-            print(f"jacobi_eigh wide [{B},{n},{n}] sweeps={sweeps} {skip}: kernel {ms:.3f} ms (wrapper, refinement "
-                  f"included), plain {plain_ms:.3f} ms, torch.linalg.eigh {library_ms:.3f} ms, bound {bound_ms:.3f} "
-                  f"ms ({bound_by}; {taken} of {B * sweeps * (n - 1) * (n // 2)} rotations taken; kernel at "
-                  f"{100 * bound_ms / ms:.1f}%)", flush=True)
+            print(f"jacobi_eigh [{B},{n},{n}] sweeps={sweeps} {skip}, V {route}, {WIDE_TIMED_CALLS} calls each in "
+                  f"turn, min / median / max ms: " + "; ".join(f"{k} {spread(t)}" for k, t in times.items())
+                  + f"; plain {plain_ms:.3f}; bound {bound_ms:.3f} ({bound_by}; {taken} of "
+                  f"{B * sweeps * (n - 1) * (n // 2)} rotations taken; kernel at {100 * bound_ms / ms:.1f}%)",
+                  flush=True)
+            if n == 256 and relative:
+                Af = torch.as_tensor(spectrum_batch(more, WIDE_FULL_B, 2 * n, n, scaled_families(n)), device=dev)
+                Gf = Af.mH @ Af
+                Hf = (0.5 * (Gf + Gf.mH)).contiguous()
+                times_f, taken_f = wide_eigh_timed(Hf, sweeps, relative)
+                print(f"jacobi_eigh [{WIDE_FULL_B},{n},{n}] sweeps={sweeps} {skip} (8e's full truncation), min / "
+                      f"median / max ms: " + "; ".join(f"{k} {spread(t)}" for k, t in times_f.items())
+                      + f"; {taken_f} rotations taken", flush=True)
         ms, plain_ms, bound_ms, bound_by, library_ms = timed["absolute"]
-        rows[f"jacobi_eigh_wide n={n}"] = dict(
-            name=f"jacobi_eigh_wide n={n}", route="cuda", source="tnqs_torch/csrc/jacobi_eigh.cu",
+        layout, C, held, _, _, _ = k2_plan(dev, B, n)
+        rows[f"jacobi_eigh_res n={n}"] = dict(
+            name=f"jacobi_eigh_res n={n}", route="cuda", source="tnqs_torch/csrc/jacobi_eigh.cu",
             replaces="tnqs/ops/jacobi.py:279", max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=library_ms, shape=[B, n, n], sweeps=8,
+            bound_by=bound_by, library_ms=library_ms, shape=[B, n, n], sweeps=8, layout=layout, cluster=C,
+            clusters=held,
             relative_12=dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"), timed["relative"])))
 
+    for n in WIDE_EDGE_N:  # the route each width takes, against the plain version on two members
+        A = torch.as_tensor(spectrum_batch(more, 26, 2 * n, n, scaled_families(n)), device=dev)
+        G = A.mH @ A
+        Hb = (0.5 * (G + G.mH)).contiguous()
+        w_p, _ = jacobi.eigh_from_rounds(Hb[:2], *jacobi._jacobi_eigh_plain(Hb[:2], L2_CHECK_SWEEPS, False))
+        w_k, V_k = k2_refined(Hb, L2_CHECK_SWEEPS, False)
+        check_eigh(f"resident, V {jacobi.v_route_of(n)}, [26,{n},{n}] absolute", Hb, w_k, V_k)
+        rel = ((w_k[:2] - w_p).abs().amax(1) / w_p.abs().amax(1)).max().item()
+        print(f"jacobi_eigh resident, V {jacobi.v_route_of(n)}, [26,{n},{n}] absolute, {L2_CHECK_SWEEPS} sweeps: "
+              f"kernel vs plain on 2 members, relative to largest {rel:.3e}", flush=True)
+        require(rel < 1e-4, f"jacobi_eigh [26,{n},{n}]: kernel and plain differ by more than 1e-4")
     for B, R, n, polish in WIDE_PATH:
         A = torch.as_tensor(spectrum_batch(rng, B, R, n, scaled_families(n)), device=dev)
         _, V0 = jacobi.jacobi_eigh(A.mH @ A, sweeps=8, relative=False)
@@ -1360,10 +1437,11 @@ def profile_window(eng, step, layers=2):
         print(f"profile window: torch.profiler saw no device time; CUDA events over {layers} layers: "
               f"{start.elapsed_time(end):.3f} ms")
         return
-    print(f"profile window, {layers} steady layers (torch.profiler): wall {wall_ms:.3f} ms, device busy "
-          f"{busy:.3f} ms, idle share {1 - busy / wall_ms:.4f}")
+    union = busy_ms(prof)  # V's kernel may run beside K2 on a second stream
+    print(f"profile window, {layers} steady layers (torch.profiler): wall {wall_ms:.3f} ms, kernels {busy:.3f} ms "
+          f"summed over streams, device busy {union:.3f} ms (their union), idle share {1 - union / wall_ms:.4f}")
     labels = (("K1 osj_svd", ("osj_svd_kernel",)), ("K2 jacobi_eigh", ("jacobi_eigh_kernel",)),
-              ("K2 wide variant", ("jacobi_eigh_wide_kernel",)),
+              ("K2 resident (n > 128)", ("jacobi_eigh_res_kernel",)), ("V from the log", ("rotation_log_kernel",)),
               ("K3 bp_sweep_group", ("bp_mode_product", "bp_pass2", "bp_reduce")))
     for label, keys in labels:
         sel = [v for k, v in kernels.items() if any(key in k for key in keys)]
@@ -1554,9 +1632,10 @@ def k3_launches():
     for layout in ("resident", "l2"):
         counts[f"jacobi_eigh {layout}"] = jacobi.jacobi_eigh.launches_by_layout[layout]
         counts[f"osj_svd {layout}"] = osj.osj_svd.launches_by_layout[layout]
-    for n, k2, k1 in [(n, "jacobi_eigh_wide", "osj_svd") for n in WIDE_N] + [(n, "jacobi_eigh_l2", "osj_svd_l2")
-                                                                           for n in L2_N]:
-        # the rows past n = 128 (K2's wide variant, K1) and past n = 256 (the L2 variants), by width
+    counts["jacobi_eigh ring"] = jacobi.jacobi_eigh.launches_by_layout["ring"]
+    for n, k2, k1 in [(n, "jacobi_eigh_res", "osj_svd") for n in WIDE_N] + [(n, "jacobi_eigh_l2", "osj_svd_l2")
+                                                                          for n in L2_N]:
+        # the rows past n = 128 (K2's resident variant, K1) and past n = 256 (the L2 variants), by width
         counts[f"{k2} n={n}"] = sum(c for (_, w), c in jacobi.jacobi_eigh.launches_by_shape.items() if w == n)
         counts[f"{k1} n={n}"] = sum(c for (_, _, w), c in osj.osj_svd.launches_by_shape.items() if w == n)
     return counts
@@ -2219,7 +2298,7 @@ def measure_wide(dev, label, chi, discarded, cap_s, xla_cap_s, full_layers=0):
           f"K1 launches {counts[0]['osj_svd']}, at n={n}: {counts[0][f'osj_svd n={n}']}; thetas to the library SVD "
           f"by [B, m, n]: {routed}")
     require(not held, f"{label}: thetas the kernels hold took the library SVD: {held}")
-    require(counts[0][f"jacobi_eigh_wide n={n}"] > 0 and counts[0][f"osj_svd n={n}"] > 0,
+    require(counts[0][f"jacobi_eigh_res n={n}"] > 0 and counts[0][f"osj_svd n={n}"] > 0,
             f"{label}: K1 or K2 not launched at n = {n}: {counts[0]}")
     require(not counts[3], f"{label}: a plain kernel version ran on the card")
     same = [li for li in range(len(devs)) if li < len(discarded) and discarded[li] <= cfg["cutoff"]]
@@ -2708,7 +2787,7 @@ def thermal_breakdown(label, prof, wall_ms):
     labels = (("K2 resident", ("jacobi_eigh_res_kernel",)), ("K2 L2", ("jacobi_eigh_l2_kernel",)),
               ("K1 resident", ("osj_svd_res_kernel",)), ("K1 L2", ("osj_svd_l2_kernel",)),
               ("V from the log", ("rotation_log_kernel",)), ("K1 clusters", ("osj_svd_kernel",)),
-              ("K2 n <= 256", ("jacobi_eigh_kernel", "jacobi_eigh_wide_kernel")),
+              ("K2 n <= 128", ("jacobi_eigh_kernel",)),
               ("K3 bp_sweep_group", ("bp_mode_product", "bp_pass2", "bp_reduce")))
     for name, keys in labels:
         sel = [v for k, v in kernels.items() if any(key in k for key in keys)]
@@ -3025,17 +3104,18 @@ def flex_phase(dev, state_main):
 
 def sanitize_target(dev):
     """The cluster kernels at batch 1-2 and one sweep, for compute-sanitizer
-    (`--sanitize`): K2's wide variant at n = 256 (8 CTAs), K1 on 16 CTAs at
-    [512, 256], the resident variants at n = 320 ([640, 320] for K1), the L2
-    variants past them (n = 600; [544, 512]), each with V's kernel."""
+    (`--sanitize`): K2's resident variant at n = 192 (V in the rings), 256
+    and 320, K1 on 16 CTAs at [512, 256], K1's resident variant at
+    [640, 320], the L2 variants past them (n = 600; [544, 512]), each with
+    V's kernel."""
     from tnqs_torch.ops import jacobi, osj
 
     rng = np.random.default_rng(13)
-    for B, n in ((2, 256), (1, 320), (1, 600)):
+    for B, n in ((2, 192), (2, 256), (1, 320), (1, 600)):
         X = torch.as_tensor(rand_c(rng, (B, n, n)), device=dev)
         jacobi._jacobi_eigh_cuda((0.5 * (X + X.mH)).contiguous(), 1, False)
         torch.cuda.synchronize()
-        print(f"sanitize target: jacobi_eigh [{B},{n},{n}] one sweep done", flush=True)
+        print(f"sanitize target: jacobi_eigh [{B},{n},{n}] V {jacobi.v_route_of(n)}, one sweep done", flush=True)
     for B, R, n in ((2, 512, 256), (1, 640, 320), (1, 544, 512)):
         A = torch.as_tensor(rand_c(rng, (B, R, n)), device=dev)
         osj._osj_svd_cuda(A, torch.eye(n, dtype=A.dtype, device=dev).expand(B, n, n).contiguous(), 1)
@@ -3065,6 +3145,8 @@ def sanitize():
         for line in [line for line in out if line.startswith("=========")][:12] + out[-4:]:
             print(f"  {line}")
         clean = proc.returncode == 0 and any("0 errors" in line or "0 hazards" in line for line in out)
+        if any("not supported" in line.lower() for line in out):
+            print(f"sanitize {check}: compute-sanitizer refuses this card (\"Device not supported\"): no {check} ran")
         rc |= not clean
     return rc
 
@@ -3212,7 +3294,7 @@ def main():
     # mode, 8d for K1 and K2 at n = 192 and 8e at n = 256
     own = {"bp_sweep_group_bf16_3x": by_path["10c"]["bp_sweep_group_bf16_3x"]}
     for name, path in (("192", "8d"), ("256", "8e")):
-        for k in ("jacobi_eigh_wide", "osj_svd"):
+        for k in ("jacobi_eigh_res", "osj_svd"):
             own[f"{k} n={name}"] = by_path[path][f"{k} n={name}"]
     for n in L2_N:  # the rows past n = 256: the thermal path's (n = 512; n = 320 is on no path of the smoke)
         for k in ("jacobi_eigh_l2", "osj_svd_l2"):

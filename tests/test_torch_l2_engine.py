@@ -5,7 +5,7 @@ versions of K2 and K1, which the L2 variants run on the card; until them
 these thetas took the library SVD), truncated back to chi = 130
 (`tests/torch_engine_cases.py`)."""
 
-from torch_engine_cases import one_blas_thread, two_site_group_against_jax  # noqa: F401
+from torch_engine_cases import two_site_group_against_jax
 
 
 def test_l2_two_site_group_matches_jax(monkeypatch):

@@ -36,7 +36,7 @@ import torch
 from tnqs_torch.ops import jacobi, osj, rotation_log
 
 from test_torch_l2_layouts import _osj_l2_model, _rand_c
-from torch_wide_cases import one_blas_thread  # noqa: F401  (autouse: numpy BLAS on one thread)
+import torch_wide_cases  # noqa: F401  (numpy's BLAS on one thread in the process)
 
 torch.set_num_threads(1)
 
@@ -96,15 +96,20 @@ def _res_lanes(m, C, k):
     return 2 * pmax + 5, P, k * m // C, slot, leaving
 
 
-def _jacobi_res_model(H, sweeps, C, relative, rng, slab=16):
+def _jacobi_res_model(H, sweeps, C, relative, rng, slab=16, v_ring=False):
     """K2's resident variant over C virtual CTAs in a shuffled order, in the
     plain version's arithmetic.  H [B, n, n]; returns (w [B, n] by index,
-    V [B, n, n] from the log by slabs, the log)."""
+    V [B, n, n] from the log by slabs, the log).  With `v_ring` a slot holds
+    V's column below H's (rows n..2n-1), which the column rotations and the
+    hand-overs move with it, and V is read from the slots instead."""
     B, n, _ = H.shape
     m, rounds = n // 2, sweeps * (n - 1)
     Hc = H.mT.contiguous()  # Hc[b, x] = column x of H
+    if v_ring:
+        Hc = torch.cat([Hc, torch.eye(n, dtype=H.dtype).expand(B, n, n)], 2)  # column x of V = I below
     log = torch.zeros((B, rounds, m, 4))
     w = torch.full((B, n), float("nan"))
+    V = torch.full((B, n, n), float("nan"), dtype=H.dtype)  # with v_ring, from the slots
     lanes = [_res_lanes(m, C, k) for k in range(C)]
     slots = [[None] * lanes[k][0] for k in range(C)]  # the column data, kept after it leaves
     holds = [[None] * lanes[k][0] for k in range(C)]  # the index a slot holds, None when free
@@ -164,7 +169,7 @@ def _jacobi_res_model(H, sweeps, C, relative, rng, slab=16):
             X = torch.stack([slots[k][x] for x in sl], 1)  # [B, 2P, n]: the CTA's columns
             if live.any():
                 cc, sc = c[:, None, :], s[:, None, :]
-                top, bot = X[:, :, P_], X[:, :, Q_]  # rows first
+                top, bot = X[:, :, P_], X[:, :, Q_]  # rows first (H's: P_, Q_ < n)
                 X[:, :, P_], X[:, :, Q_] = cc * top + sc.conj() * bot, -sc * top + cc * bot
                 cr, sr = c[:, own, None], s[:, own, None]  # then the CTA's column pairs
                 lft, rgt = X[:, :P], X[:, P:]
@@ -190,6 +195,8 @@ def _jacobi_res_model(H, sweeps, C, relative, rng, slab=16):
         for t, j in enumerate(js):
             x = int(at[rr][j])
             w[:, x] = slots[k][slot(t, last)][:, x].real
+            if v_ring:
+                V[:, :, x] = slots[k][slot(t, last)][:, n:]
 
     def ready(cond):
         if cond[0] == "sync":
@@ -200,7 +207,7 @@ def _jacobi_res_model(H, sweeps, C, relative, rng, slab=16):
         return True
 
     _run({k: cta(k) for k in range(C)}, ready, rng)
-    return w, _v_by_slabs(log, None, n, slab, rng), log
+    return w, V if v_ring else _v_by_slabs(log, None, n, slab, rng), log
 
 
 def _osj_res_model(A, V0, sweeps, C, rng, slab=16):
@@ -296,13 +303,15 @@ def _hermitian(n, seed):
     return (0.5 * (X + X.mH)).contiguous()
 
 
-@pytest.mark.parametrize("n, C, relative, slab", [(258, 16, False, 43), (320, 8, True, 80)])
+@pytest.mark.parametrize("n, C, relative, slab", [(258, 16, False, 43), (320, 8, True, 80), (130, 8, True, 13),
+                                                 (192, 2, False, 48), (256, 4, True, 64)])
 def test_jacobi_res_model_is_the_plain_version(n, C, relative, slab):
     """One sweep in a shuffled CTA order: the same rotations in every CTA,
     no slot or entry overwritten before it is read, and the same bits as the
     plain version, w from the held columns and V from the log by slabs
     (n = 258: 129 pairs, 8 or 9 a CTA, the absolute skip; 320 on 8 CTAs: 20
-    a CTA, the relative one)."""
+    a CTA, the relative one; past n = 128: 130 on 8 CTAs, 8 or 9 pairs a
+    CTA, 192 on 2, 48 a CTA, and 256 on 4, the chi = 128 Grams' layout)."""
     H = _hermitian(n, n + C)
     w_k, V_k, _ = _jacobi_res_model(H, 1, C, relative, np.random.default_rng(C + slab))
     w_p, V_p = jacobi._jacobi_eigh_plain(H, 1, relative)
@@ -317,6 +326,29 @@ def test_jacobi_res_model_in_any_order(seed):
     H = _hermitian(80, seed)
     w_k, V_k, _ = _jacobi_res_model(H, 2, 16, seed != 2, np.random.default_rng(seed), slab=8)
     w_p, V_p = jacobi._jacobi_eigh_plain(H, 2, seed != 2)
+    assert torch.equal(w_k, w_p) and torch.equal(V_k, V_p)
+
+
+@pytest.mark.parametrize("seed, n, C", [(3, 80, 2), (4, 80, 4), (5, 64, 8)])
+def test_jacobi_res_model_small_clusters_in_any_order(seed, n, C):
+    """The clusters of 2, 4 and 8 that K2 takes for 128 < n <= 256, at
+    small n (20, 10 and 4 pairs a CTA), two sweeps in a shuffled CTA order
+    with either skip: the same bits as the plain version."""
+    H = _hermitian(n, seed)
+    w_k, V_k, _ = _jacobi_res_model(H, 2, C, seed % 2 == 1, np.random.default_rng(seed), slab=8)
+    w_p, V_p = jacobi._jacobi_eigh_plain(H, 2, seed % 2 == 1)
+    assert torch.equal(w_k, w_p) and torch.equal(V_k, V_p)
+
+
+@pytest.mark.parametrize("n, C, sweeps, relative", [(192, 4, 1, False), (224, 4, 1, True), (130, 2, 1, True),
+                                                    (64, 8, 2, False)])
+def test_jacobi_res_model_v_ring_is_the_plain_version(n, C, sweeps, relative):
+    """V's columns in the rings beside H's (the route K2 takes up to
+    n = 224: `jacobi.v_route_of`), moved by the same hand-overs in a
+    shuffled CTA order: the same bits as the plain version, w and V."""
+    H = _hermitian(n, n + C)
+    w_k, V_k, _ = _jacobi_res_model(H, sweeps, C, relative, np.random.default_rng(n), v_ring=True)
+    w_p, V_p = jacobi._jacobi_eigh_plain(H, sweeps, relative)
     assert torch.equal(w_k, w_p) and torch.equal(V_k, V_p)
 
 
@@ -453,12 +485,18 @@ def test_rotation_log_stages_walk_the_log(E):
 
 
 def test_resident_limits():
-    """The resident K2 takes 256 < n <= 598 on 16 CTAs and <= 436 on 8; the
-    resident K1 takes [512, 512] and [640, 320] on 16, not [1024, 512] or
-    [544, 512] (two chunks of 512 columns a CTA)."""
-    assert [n for n in range(258, 700, 2) if jacobi.eigh_res_fits(n, 16)][-1] == 598
-    assert [n for n in range(258, 700, 2) if jacobi.eigh_res_fits(n, 8)][-1] == 436
-    assert not jacobi.eigh_res_fits(256, 16) and not jacobi.eigh_res_fits(600, 16)
+    """The resident K2 takes 128 < n <= 598 on 16 CTAs, <= 436 on 8, <= 320
+    on 4 and <= 228 on 2 (V in the rings: up to `jacobi.RING_N` = 224 on 8
+    and 4, <= 160 on 2); the resident K1 takes [512, 512] and [640, 320] on 16, not
+    [1024, 512] or [544, 512] (two chunks of 512 columns a CTA)."""
+    assert [n for n in range(130, 700, 2) if jacobi.eigh_res_fits(n, 16)][-1] == 598
+    assert [n for n in range(130, 700, 2) if jacobi.eigh_res_fits(n, 8)][-1] == 436
+    assert [n for n in range(130, 700, 2) if jacobi.eigh_res_fits(n, 4)][-1] == 320
+    assert [n for n in range(130, 700, 2) if jacobi.eigh_res_fits(n, 2)][-1] == 228
+    assert [[n for n in range(130, 700, 2) if jacobi.eigh_res_fits(n, C, True)][-1]
+            for C in (8, 4, 2)] == [224, 224, 160]
+    assert not jacobi.eigh_res_fits(128, 16) and not jacobi.eigh_res_fits(600, 16)
+    assert not jacobi.eigh_res_fits(226, 8, True) and not jacobi.eigh_res_fits(258, 16, True)
     assert osj.osj_res_sizes(512, 512) == {16: (1, osj.osj_res_smem(512, 1, 16))}
     assert list(osj.osj_res_sizes(640, 320)) == [16] and osj.osj_res_sizes(640, 320)[16][0] == 2
     assert osj.osj_res_sizes(1024, 512) == {} and osj.osj_res_sizes(544, 512) == {}
@@ -467,14 +505,18 @@ def test_resident_limits():
 
 @pytest.mark.parametrize("B, n, sweeps, held, want", [
     (4, 512, 8, {16: 7, 8: 14}, ("resident", 16, 1, 4)),      # the thermal path's Grams: H on 16 CTAs
-    (26, 320, 12, {16: 8, 8: 16}, ("resident", 8, 2, 26)),    # fewer waves on 8 than on 16 (4)
-    (26, 320, 12, {16: 13, 8: 13}, ("resident", 16, 2, 26)),  # a tie: the larger cluster
+    (26, 320, 12, {16: 8, 8: 16, 4: 0}, ("resident", 8, 2, 26)),    # fewer waves on 8 than on 16 (4)
+    (26, 320, 12, {16: 13, 8: 13, 4: 0}, ("resident", 16, 2, 26)),  # a tie: the larger cluster
     (4, 512, 8, {16: 0, 8: 14}, ("l2", 8, 1, 4)),             # no cluster of 16, and H does not fit 8
     (2, 610, 8, {16: 7, 8: 14}, ("l2", 16, 1, 2)),            # past the resident width
     (26, 512, 8, {16: 7, 8: 14}, ("resident", 16, 4, 26)),    # [26, 1024, 512]'s Grams: the log fits
     (26, 1024, 12, {16: 7, 8: 14}, ("l2", 16, 6, 5)),         # its log past LOG_BUDGET: groups of 5
     (4, 512, 300, {16: 7, 8: 14}, ("l2", 16, 4, 1)),          # one matrix's log past it: L2, in chunks of rounds
     (1, 4096, 12, {16: 7, 8: 14}, ("l2", 16, 1, 1)),          # 1.5 GiB of log a matrix: chunks of 16384 rounds
+    (26, 320, 12, {16: 7, 8: 15, 4: 30}, ("resident", 4, 1, 26)),   # one wave on 4, as the H100 holds them
+    (26, 256, 8, {16: 7, 8: 15, 4: 30}, ("resident", 4, 1, 26)),    # the chi = 128 Grams: H on 4 CTAs, one wave
+    (54, 256, 12, {16: 7, 8: 15, 4: 30}, ("resident", 4, 2, 54)),   # 8e's full truncation: two waves on 4
+    (26, 192, 8, {16: 7, 8: 15, 4: 30, 2: 66}, ("resident", 4, 1, 26)),  # a tie of 4 and 2: the larger
 ])
 def test_eigh_log_plan(B, n, sweeps, held, want):
     rounds = sweeps * (n - 1)
@@ -489,7 +531,7 @@ def test_eigh_log_plan(B, n, sweeps, held, want):
     else:
         assert plan.scratch > log and plan.smem == jacobi.eigh_l2_smem(n)
     with pytest.raises(ValueError):
-        jacobi.eigh_log_plan(B, 256, rounds, lambda layout, C: 7)
+        jacobi.eigh_log_plan(B, 128, rounds, lambda layout, C: 7)
 
 
 @pytest.mark.parametrize("B, R, n, want", [

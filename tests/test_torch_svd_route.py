@@ -26,7 +26,7 @@ import tnqs_torch as tt
 from tnqs_torch.engine import LatticeEngine, resolve_svd_impl
 from tnqs_torch.ops import osj
 
-from torch_wide_cases import one_blas_thread  # noqa: F401  (autouse: numpy BLAS on one thread)
+import torch_wide_cases  # noqa: F401  (numpy's BLAS on one thread in the process)
 
 torch.set_num_threads(1)
 

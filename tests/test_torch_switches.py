@@ -147,7 +147,7 @@ def test_subspace_eigh_matches_jax(k):
 )
 def test_default_eigh_routes(n, dtypes, route):
     """K2's route for complex64 at even 32 <= n <= 256 (the JAX gate; its
-    wide variant past 128), the library's for complex128, n < 32, odd n and
+    resident variant past 128), the library's for complex128, n < 32, odd n and
     n > 256; both keep the eigh contract."""
     np_dtype, _ = dtypes
     rng = np.random.default_rng(n)

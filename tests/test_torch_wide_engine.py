@@ -4,7 +4,7 @@ through `pjsvd` (the JAX Pallas kernels in interpret mode; the port's plain
 versions of K2 and K1), truncated back to chi = 96
 (`tests/torch_engine_cases.py`)."""
 
-from torch_engine_cases import one_blas_thread, two_site_group_against_jax  # noqa: F401
+from torch_engine_cases import two_site_group_against_jax
 
 
 def test_wide_two_site_group_matches_jax(monkeypatch):

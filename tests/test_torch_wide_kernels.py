@@ -17,7 +17,7 @@ from tnqs.ops.osj import osj_svd as j_osj_svd
 
 from tnqs_torch.ops import jacobi, osj
 
-from torch_wide_cases import one_blas_thread  # noqa: F401  (autouse: numpy BLAS on one thread)
+import torch_wide_cases  # noqa: F401  (numpy's BLAS on one thread in the process)
 
 torch.set_num_threads(1)
 

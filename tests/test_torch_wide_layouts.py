@@ -1,16 +1,18 @@
 """The layouts of the Jacobi kernels past n = 128, modelled on the CPU.
 
-K2's wide variant (`jacobi_eigh_wide_kernel` in
-`tnqs_torch/csrc/jacobi_eigh.cu`, 128 < n <= 256) spreads H and V over a
-cluster: CTA k owns a range of pair positions and holds the whole columns
-at them, the rotations are broadcast to every CTA, and the columns that
-leave a CTA's positions move into the neighbour's spare slot of a ring.
-`_jacobi_wide_model` replays that over C virtual CTAs, slot for slot, and
-is held against the plain version (which `tests/test_torch_ops.py` and
-`tests/test_torch_wide_kernels.py` hold against the JAX kernel) at small n,
-where the same closed forms apply.  K1 past n = 128 keeps its layout on a
-cluster of up to 16 (`osj.osj_plan`); its plan is checked for every width
-of the new range.  The kernels themselves run on the card in
+K2 past n = 128 runs the resident variant (`jacobi_eigh_res_kernel` in
+`tnqs_torch/csrc/jacobi_eigh.cu`): CTA k of a cluster of 2, 4, 8 or 16 owns
+a range of pair positions and holds the columns of H at them in two rings
+of slots, every CTA forms every rotation from the entries the columns'
+holders send it, and the columns that leave a CTA's positions move into a
+spare slot of their next holder.  `test_torch_l2_resident._jacobi_res_model`
+replays that over C virtual CTAs in a shuffled order; here it is held
+against the plain version (which `tests/test_torch_ops.py` and
+`tests/test_torch_wide_kernels.py` hold against the JAX kernel) at small n
+on clusters of 2, 4 and 8, its ring slots are checked round by round, and
+its plan is checked for every width of (128, 256].  K1 past n = 128 keeps
+its layout on a cluster of up to 16 (`osj.osj_plan`); its plan is checked
+for every width of the range.  The kernels themselves run on the card in
 `chip_smoke.py`."""
 
 import numpy as np
@@ -19,6 +21,8 @@ import torch
 
 from tnqs_torch.ops import jacobi, osj
 
+from test_torch_l2_resident import _jacobi_res_model, _res_lanes
+
 torch.set_num_threads(1)
 
 
@@ -26,160 +30,68 @@ def _rand_c(rng, shape):
     return torch.as_tensor((rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(np.complex64))
 
 
-class _Lanes:
-    """The kernel's `Lanes`: pair positions by CTA and the two rings of
-    column slots of each CTA (left lane moving up, right lane moving down,
-    CTA 0's position 0 fixed)."""
-
-    def __init__(self, m, C):
-        self.m, self.C, self.pmax = m, C, -(-m // C)
-
-    def first(self, k):
-        return k * self.m // self.C
-
-    def pairs(self, k):
-        return (k + 1) * self.m // self.C - k * self.m // self.C
-
-    def left(self, k, t, r):
-        return (t - r) % (self.pairs(k) - (k == 0) + 1)
-
-    def right(self, k, t, r):
-        return self.pmax + 1 + (t - r) % (self.pairs(k) + 1)
-
-    def fixed(self):
-        return 2 * self.pmax + 2
-
-    def pair_left(self, k, j, r):
-        return self.fixed() if k == 0 and j == 0 else self.left(k, j - (k == 0), r)
-
-    def pair_right(self, k, j, r):
-        return self.right(k, self.pairs(k) - 1 - j, r)
-
-
-def _jacobi_wide_model(H, sweeps, C, relative=True):
-    """K2's wide variant over C virtual CTAs.  H [B, n, n]; returns (w [B, n]
-    unsorted, V [B, n, n]) as the kernel writes them, by index."""
-    B, n, _ = H.shape
-    m = n // 2
-    lanes = _Lanes(m, C)
-    nslots = 2 * lanes.pmax + 3
-    # per CTA: column slots of H and of V, [B, nslots, n] (slot, row)
-    Hs = [torch.zeros((B, nslots, n), dtype=H.dtype) for _ in range(C)]
-    Vs = [torch.zeros((B, nslots, n), dtype=H.dtype) for _ in range(C)]
-    eye = torch.eye(n, dtype=H.dtype)
-    for k in range(C):
-        for j in range(lanes.pairs(k)):
-            for slot, col in ((lanes.pair_left(k, j, 0), lanes.first(k) + j),
-                              (lanes.pair_right(k, j, 0), m + lanes.first(k) + j)):
-                Hs[k][:, slot] = H[:, :, col]
-                Vs[k][:, slot] = eye[:, col]
-    rounds = sweeps * (n - 1)
-    for r in range(rounds):
-        rr = r % (n - 1)
-        pos = [jacobi.index_at(j, rr, n) for j in range(n)]
-        # A: each CTA's pairs' rotations from its own columns, into every CTA
-        rot = [None] * m
-        slots = {}
-        for k in range(C):
-            for j in range(lanes.pairs(k)):
-                i = lanes.first(k) + j
-                sl, sr = lanes.pair_left(k, j, r), lanes.pair_right(k, j, r)
-                slots[k, j] = (sl, sr)
-                p, q = pos[i], pos[m + i]
-                g = Hs[k][:, sr, p]
-                rot[i] = jacobi._rot_params(Hs[k][:, sl, p].real[:, None], Hs[k][:, sr, q].real[:, None],
-                                            g.real[:, None], g.imag[:, None], jacobi.EPS32, relative)
-        c = torch.cat([x[0] for x in rot], 1)  # [B, m]
-        s = torch.cat([x[1] for x in rot], 1)
-        live = torch.cat([x[2] for x in rot], 1)
-        # B, C: the vote, then each CTA's blocks (all row pairs x its column
-        # pairs), rows first, then columns, and its V columns
-        if live.any():
-            P_, Q_ = pos[:m], pos[m:]
-            ci, si = c[:, :, None], s[:, :, None]
-            for k in range(C):
-                for j in range(lanes.pairs(k)):
-                    sl, sr = slots[k, j]
-                    i = lanes.first(k) + j
-                    cj, sj = c[:, i, None], s[:, i, None]
-                    L, R = Hs[k][:, sl].clone(), Hs[k][:, sr].clone()
-                    h0, h1, h2, h3 = L[:, P_], R[:, P_], L[:, Q_], R[:, Q_]
-                    h0, h2 = ci[..., 0] * h0 + si[..., 0].conj() * h2, -si[..., 0] * h0 + ci[..., 0] * h2
-                    h1, h3 = ci[..., 0] * h1 + si[..., 0].conj() * h3, -si[..., 0] * h1 + ci[..., 0] * h3
-                    h0, h1 = cj * h0 + sj * h1, -sj.conj() * h0 + cj * h1
-                    h2, h3 = cj * h2 + sj * h3, -sj.conj() * h2 + cj * h3
-                    L[:, P_], R[:, P_], L[:, Q_], R[:, Q_] = h0, h1, h2, h3
-                    Hs[k][:, sl], Hs[k][:, sr] = L, R
-                    x, y = Vs[k][:, sl].clone(), Vs[k][:, sr].clone()
-                    Vs[k][:, sl], Vs[k][:, sr] = cj * x + sj * y, -sj.conj() * x + cj * y
-        # D: every CTA's two leaving columns into their receivers' spare slots
-        moves = []
-        for k in range(C):
-            P = lanes.pairs(k)
-            src_l, src_r = lanes.left(k, P - (k == 0) - 1, r), lanes.right(k, P - 1, r)
-            to_l, dst_l = (k + 1, lanes.left(k + 1, 0, r + 1)) if k < C - 1 else (k, lanes.right(k, 0, r + 1))
-            to_r, dst_r = (k - 1, lanes.right(k - 1, 0, r + 1)) if k > 0 else (0, lanes.left(0, 0, r + 1))
-            moves += [(k, src_l, to_l, dst_l), (k, src_r, to_r, dst_r)]
-        sent = [(Hs[k][:, src].clone(), Vs[k][:, src].clone(), to, dst) for k, src, to, dst in moves]
-        for h, v, to, dst in sent:
-            Hs[to][:, dst], Vs[to][:, dst] = h, v
-    w = torch.zeros((B, n), dtype=torch.float32)
-    V = torch.zeros((B, n, n), dtype=H.dtype)
-    rf = rounds % (n - 1)
-    for k in range(C):
-        for j in range(lanes.pairs(k)):
-            for slot, x in ((lanes.pair_left(k, j, rounds), lanes.first(k) + j),
-                            (lanes.pair_right(k, j, rounds), m + lanes.first(k) + j)):
-                idx = jacobi.index_at(x, rf, n)
-                V[:, :, idx] = Vs[k][:, slot]
-                w[:, idx] = Hs[k][:, slot, idx].real
-    return w, V
-
-
 @pytest.mark.parametrize("n, C, sweeps, relative", [(12, 2, 3, True), (20, 4, 2, True), (20, 4, 2, False),
                                                     (40, 8, 1, True)])
-def test_jacobi_wide_model_matches_plain(n, C, sweeps, relative):
-    """The same rotations on the same columns: the model's H is not mirrored
-    (as the kernel's is not), so it differs from the plain version's by
-    rounding only.  Uneven pair ranges (n = 20: 2, 3, 2, 3 pairs; n = 40 on
-    8 CTAs) and both skips are covered."""
+def test_jacobi_res_model_at_small_widths(n, C, sweeps, relative):
+    """The resident layout at small n in a shuffled CTA order: the same
+    rotations on the same columns as the plain version, which it matches
+    to rounding here (PyTorch's CPU kernels round the model's smaller
+    products by another path).  Uneven pair ranges (n = 20: 2, 3, 2, 3
+    pairs; n = 40 on 8 CTAs, 2 or 3) and both skips are covered."""
     rng = np.random.default_rng(n + C)
     X = _rand_c(rng, (2, n, n))
     H = (0.5 * (X + X.mH)).contiguous()
-    w_k, V_k = _jacobi_wide_model(H, sweeps, C, relative)
+    w_k, V_k, _ = _jacobi_res_model(H, sweeps, C, relative, rng, slab=4)
     w_p, V_p = jacobi._jacobi_eigh_plain(H, sweeps, relative)
     assert torch.allclose(w_k, w_p, atol=2e-5 * w_p.abs().max().item())
     assert torch.allclose(V_k, V_p, atol=1e-4)
 
 
-def test_jacobi_wide_model_every_slot_holds_one_column():
+def test_jacobi_res_model_every_slot_holds_one_column():
     """Over two sweeps at n = 20 on 4 CTAs, every position's column is in
-    exactly one slot of its owner, and no two columns share a slot."""
+    exactly one slot of its owner, no two columns share a slot, and the two
+    columns that arrive for the next round land in slots no column of this
+    round or the one before holds (the rings' two spare slots)."""
     n, C = 20, 4
-    m = n // 2
-    lanes = _Lanes(m, C)
+    lanes = [_res_lanes(n // 2, C, k) for k in range(C)]
     for r in range(2 * (n - 1) + 1):
         for k in range(C):
-            P = lanes.pairs(k)
-            used = [lanes.pair_left(k, j, r) for j in range(P)] + [lanes.pair_right(k, j, r) for j in range(P)]
-            assert len(set(used)) == 2 * P
-            spare_l, spare_r = lanes.left(k, 0, r + 1), lanes.right(k, 0, r + 1)
-            assert spare_l not in used and spare_r not in used  # the arrivals' slots are free
-            assert max(used + [spare_l, spare_r]) < 2 * lanes.pmax + 3
+            nslots, P, _, slot, _ = lanes[k]
+            used = [slot(t, r) for t in range(2 * P)]
+            assert len(set(used)) == 2 * P and max(used) < nslots
+            arrivals = [dst for c in range(C) for _, (to, dst) in lanes[c][4](r) if to == k]
+            assert len(arrivals) == 2 and not set(arrivals) & set(used)
+            assert r == 0 or not set(arrivals) & {slot(t, r - 1) for t in range(2 * P)}
+
+
+# clusters of each size an H100 holds at once for the resident variant at
+# n = 192 and 256 (`jacobi.res_active_clusters`, one CTA an SM; `chip_smoke.py`)
+H100_HELD = {16: 7, 8: 15, 4: 30, 2: 66}
 
 
 @pytest.mark.parametrize("n", list(range(130, 257, 2)))
-def test_eigh_wide_plan_fits(n):
-    C, pairs, smem = jacobi.eigh_wide_plan(n)
-    assert C in jacobi.WIDE_CLUSTERS and sum(pairs) == n // 2 and min(pairs) >= 2
-    assert max(pairs) - min(pairs) <= 1 and smem <= jacobi.SMEM_LIMIT
-    assert C == 4 if n <= 232 else C == 8  # the smaller cluster wherever its CTAs fit
+def test_eigh_res_plan_fits(n):
+    """Every even width of (128, 256] takes the resident variant: a cluster
+    size whose CTAs own at least two pairs each and fit their slots, the
+    batch of 26 Grams on 4 CTAs in one wave as the H100 holds them; V's
+    columns in the rings, up to n = 224, on 4 CTAs in one wave too, and
+    past it V from the log."""
+    plan = jacobi.eigh_log_plan(26, n, 8 * (n - 1), lambda layout, C: H100_HELD[C])
+    pairs = [(k + 1) * (n // 2) // plan.cluster - k * (n // 2) // plan.cluster for k in range(plan.cluster)]
+    assert plan.layout == "resident" and min(pairs) >= 2 and max(pairs) - min(pairs) <= 1
+    assert (plan.cluster, plan.waves, plan.group, plan.chunk) == (4, 1, 26, 8 * (n - 1))
+    assert plan.smem == jacobi.eigh_res_smem(n, 4) <= jacobi.SMEM_LIMIT
+    if jacobi.v_route_of(n) == "ring":
+        assert n <= 224 and jacobi.eigh_ring_plan(26, n, lambda C: H100_HELD[C]) == (
+            4, 30, 1, jacobi.eigh_res_smem(n, 4, True))
+    else:
+        assert n > 224 and not any(jacobi.eigh_res_fits(n, C, True) for C in jacobi.RES_CLUSTERS)
 
 
-@pytest.mark.parametrize("n", [128, 258, 131, 512])
-def test_eigh_wide_plan_refuses_other_widths(n):
-    with pytest.raises(ValueError, match="even 128 < n <= 256"):
-        jacobi.eigh_wide_plan(n)
+@pytest.mark.parametrize("n", [128, 131, 257, 64])
+def test_eigh_log_plan_refuses_other_widths(n):
+    with pytest.raises(ValueError, match="even n > 128"):
+        jacobi.eigh_log_plan(26, n, 8 * (n - 1), lambda layout, C: 7)
 
 
 # the saturated chi = 96 and chi = 128 thetas [R, n], and the widest R each width takes

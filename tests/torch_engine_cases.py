@@ -26,7 +26,7 @@ import tnqs_torch.engine as pe_mod
 from tnqs_torch.engine import LatticeEngine, _ClassData, _svd_fallback, compile_circuit
 from tnqs_torch.ops import jacobi, osj
 
-from torch_wide_cases import one_blas_thread  # noqa: F401  (autouse where imported: numpy BLAS on one thread)
+import torch_wide_cases  # noqa: F401  (numpy's BLAS on one thread in the process)
 
 torch.set_num_threads(1)
 

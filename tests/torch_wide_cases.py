@@ -1,29 +1,26 @@
 """Shared by `tests/test_torch_wide_pjsvd.py` and
-`tests/test_torch_wide_pjsvd_chi128.py` (and its fixture `one_blas_thread`
-by the port's other wide tests): `pjsvd` on one matrix of each
+`tests/test_torch_wide_pjsvd_chi128.py`: `pjsvd` on one matrix of each
 spectrum family of `test_pjsvd_graded_accuracy` (`tests/test_torch_ops.py`)
 at a wide theta shape, held to LAPACK by the graded bounds of
-`tests/test_ops.py:235-237`."""
+`tests/test_ops.py:235-237`.  Importing it holds numpy's BLAS to one
+thread in the process (`BLAS_LIMIT`)."""
 
 import functools
 
 import numpy as np
-import pytest
 import torch
 from threadpoolctl import threadpool_limits
 
 from tnqs_torch.ops import jacobi, osj
 
 torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True)
-def one_blas_thread():
-    """numpy's BLAS on one thread in the tests that import this fixture:
-    under the suite's workers its idle threads spin on the shared cores
-    (torch's are held to one by `torch.set_num_threads`)."""
-    with threadpool_limits(limits=1, user_api="blas"):
-        yield
+# numpy's BLAS on one thread in every process that imports this module, as
+# every worker of the suite does when it collects the port's tests: under the
+# suite's 6 workers OpenBLAS's idle threads spin on the shared cores and slow
+# every test, the JAX package's too (torch's are held to one above).  A
+# pytest run that collects no port test leaves OpenBLAS its own threads
+# (ROADMAP.md, "Suite budget")
+BLAS_LIMIT = threadpool_limits(limits=1, user_api="blas")
 
 FAMILIES = ("gentle", "wide", "rank16", "rankcut", "clusters")
 
@@ -43,22 +40,21 @@ def _spectrum(family, n):
 def _run(R, n, families):
     """One matrix of each of `families` in one `pjsvd` call, as the engine
     batches a class of thetas (6 polish sweeps: rectangular), and LAPACK's
-    SVD (numpy's BLAS on one thread, as `one_blas_thread`)."""
-    with threadpool_limits(limits=1, user_api="blas"):
-        rng = np.random.default_rng(R + n + FAMILIES.index(families[0]))
-        A = []
-        for family in families:
-            s = np.zeros(n)
-            spec = _spectrum(family, n)
-            s[: len(spec)] = spec
-            U, _ = np.linalg.qr(rng.normal(size=(R, n)) + 1j * rng.normal(size=(R, n)))
-            V, _ = np.linalg.qr(rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n)))
-            A.append((U * s[None, :]) @ V.conj().T)
-        A = np.stack(A).astype(np.complex64)
-        calls = (jacobi._jacobi_eigh_plain.calls, osj._osj_svd_plain.calls)
-        out = tuple(x.numpy() for x in osj.pjsvd(torch.as_tensor(A), polish_sweeps=6))
-        assert (jacobi._jacobi_eigh_plain.calls, osj._osj_svd_plain.calls) == (calls[0] + 1, calls[1] + 1)
-        return A, out, np.linalg.svd(A.astype(np.complex128), full_matrices=False)
+    SVD."""
+    rng = np.random.default_rng(R + n + FAMILIES.index(families[0]))
+    A = []
+    for family in families:
+        s = np.zeros(n)
+        spec = _spectrum(family, n)
+        s[: len(spec)] = spec
+        U, _ = np.linalg.qr(rng.normal(size=(R, n)) + 1j * rng.normal(size=(R, n)))
+        V, _ = np.linalg.qr(rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n)))
+        A.append((U * s[None, :]) @ V.conj().T)
+    A = np.stack(A).astype(np.complex64)
+    calls = (jacobi._jacobi_eigh_plain.calls, osj._osj_svd_plain.calls)
+    out = tuple(x.numpy() for x in osj.pjsvd(torch.as_tensor(A), polish_sweeps=6))
+    assert (jacobi._jacobi_eigh_plain.calls, osj._osj_svd_plain.calls) == (calls[0] + 1, calls[1] + 1)
+    return A, out, np.linalg.svd(A.astype(np.complex128), full_matrices=False)
 
 
 def check_family(R, n, family, families=FAMILIES):

@@ -1,9 +1,9 @@
 // Batched Hermitian eigensolver: two-sided parallel (Brent-Luk) Jacobi.  Up
 // to n = 128 one cluster of three CTAs per matrix: H in one, the
-// accumulated V in two; for 128 < n <= 256 the wide variant below, one
-// cluster of 4 or 8 CTAs per matrix, each holding columns of H and V; past
-// n = 256 the resident and L2 variants at the end, H alone in the rounds and
-// V from their rotation log (`rotation_log.cu`).
+// accumulated V in two; past n = 128 the resident variant (H in the shared
+// memory of a cluster of 2 to 16 CTAs) and, past its widths, the L2 variant,
+// at the end: H alone in the rounds and V from their rotation log
+// (`rotation_log.cu`).
 //
 // Replaces the Pallas kernel of `tnqs/ops/jacobi.py::jacobi_eigh` (kernel
 // body `_make_kernel`, tnqs/ops/jacobi.py:81; rotation `_rot_params`, :58).
@@ -37,8 +37,7 @@
 // So V is off H's critical path and never goes through L2.  Indices never
 // move; the pairing of round r has a closed form (`index_at`).  n is a
 // template parameter: 128, and 0 for any other even n (4 <= n <= 128)
-// given at run time.  This layout, and its bits, are unchanged by the wide
-// variant.
+// given at run time.
 //
 // What bounds it on Hopper: the latency of the 1016 dependent rounds (two
 // block barriers each) and the FP32 issue rate of one SM for the fused
@@ -305,318 +304,44 @@ cudaLaunchConfig_t launch_config(int batch, int n, cudaStream_t stream, cudaLaun
 
 
 // ---------------------------------------------------------------------------
-// 128 < n <= 256: H no longer fits one CTA (296,448 bytes at n = 192,
-// 526,336 at n = 256), so the wide variant spreads H and V over a cluster
-// of C CTAs (C = 4 or 8, `eigh_wide_plan` in tnqs_torch/ops/jacobi.py) as
-// Brent and Luk's processor array: CTA k owns the pair positions
-// [k m / C, (k+1) m / C) (P of them, at least 2) and holds the whole columns
-// of H and of V that stand at its positions i and m+i.  Rows keep their
-// index; columns move along the tournament's cycle between positions, and
-// so between CTAs.  It takes the same rotations as the n <= 128 kernel: the
-// same pairing (`index_at`), `rot_params` with either skip, rows first,
-// then columns, by `rowmix` and `colmix`.  A round:
-//   A. the P owners of the CTA's pairs form their rotations from their own
-//      columns (H[p][p], H[q][q], H[p][q]) and send them into every CTA of
-//      the cluster with `st.async` against that CTA's mbarrier for the
-//      round's rotations;
-//   B. every thread waits for all m rotations; a block vote on whether any
-//      is taken is the same in every CTA, so the vote is cluster-wide
-//      without a cluster barrier;
-//   C. if one is: each 2x2 block (row pair i of all m, column pair j of the
-//      CTA's P) is rotated, rows then columns, in registers, and the CTA's
-//      V columns take their pairs' rotations; a block barrier;
-//   D. the two columns of H and V that leave the CTA's positions along the
-//      cycle (m -> 1 -> ... -> m-1 -> n-1 -> ... -> m+1 -> m) go into the
-//      CTA that owns their next position, by `st.async` against its
-//      mbarrier for the round's columns, and every CTA waits for the two it
-//      receives.
-// No column moves within a CTA: each lane of positions (the left ones
-// moving up, the right ones moving down) is a ring of slots, one more than
-// the lane's moving columns, and a column keeps its slot while it stays;
-// the arriving column takes the spare slot, which the column that left a
-// round earlier freed, so every CTA knows every slot in closed form.  The
-// buffers are safe by the same argument as K1's: a CTA sends round r+2's
-// rotations, and round r+2's columns, only after it has received the
-// receiver's round r+1 rotations, which the receiver sends after it has
-// finished round r; and a slot a column left in round r is written again
-// (round r+1's arrival) only after its CTA, past a block barrier that
-// follows every read of the leaving columns, sent round r+1's rotations.  H is updated in full, not mirrored: it stays Hermitian
-// to rounding, and the Newton-Schulz repair and the Rayleigh quotients in
-// PyTorch follow as for the n <= 128 kernel.
+// n > 128.  H no longer fits one CTA (296,448 bytes at n = 192), and V no
+// longer takes part in the rounds: each round's m rotations go to a
+// rotation log in device memory ([batch][rounds][m] float4: c, Re s, Im s
+// and meta = p << 16 | q << 1 | taken, p and q the pair's indices), and
+// `rotation_log.cu` applies the log to V = I afterwards, or beside the
+// rounds on SMs their clusters leave idle, by slabs of rows, with the same
+// `colmix` in the same order.  The rounds then touch H alone: 8 n^2 bytes a
+// matrix, half of H and V.  (Up to n = 224, `kRingN`, a second instance
+// keeps V's columns in the rings beside H's, `kV`: the same slots, the
+// same hand-over, no log.)
 //
-// What bounds it: the latency of the 1146-3060 dependent rounds (two
-// DSMEM hand-overs, three block barriers and the vote each), not FLOPs or
-// bytes (a round's H update is m P / 512 blocks a thread).  148,640 shared
-// bytes a CTA at n = 256 (C = 8): one CTA an SM.
-
-constexpr int kWideThreads = 512;
-constexpr int kWideMaxN = 256;
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// `v` into CTA `rank`'s shared memory at this CTA's address `addr`, counted
-// as 4 bytes against the transaction count of the mbarrier there at `bar`.
-__device__ __forceinline__ void send(unsigned addr, float v, unsigned bar, unsigned rank) {
-  unsigned raddr, rbar;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(raddr) : "r"(addr), "r"(rank));
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(rbar) : "r"(bar), "r"(rank));
-  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];"
-               ::"r"(raddr), "r"(__float_as_uint(v)), "r"(rbar) : "memory");
-}
-
-// This phase of the mbarrier at `bar` expects `bytes` more.
-__device__ __forceinline__ void expect_bytes(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-// Wait for the phase of parity `parity` of the mbarrier at `bar`; a wait far
-// longer than any round traps rather than hangs.
-__device__ __forceinline__ void wait_phase(unsigned bar, unsigned parity) {
-  for (long long spin = 0;; ++spin) {
-    unsigned done;
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (spin > (1ll << 24)) __trap();
-  }
-}
-
-__host__ __device__ constexpr int wide_pmax(int m, int C) { return (m + C - 1) / C; }
-
-// rotations [2][m] float4 (by round parity), 4 mbarriers (the rotations'
-// and the columns', by round parity), the column slots of H and then of V,
-// [2 pmax + 3][n] float2 each (left ring pmax + 1, right ring pmax + 1, and
-// CTA 0's fixed position 0), the row index at each position [n] int, the
-// CTA's pairs' slots [2][pmax] int (`eigh_wide_plan` states the same sum)
-__host__ __device__ constexpr size_t wide_smem_bytes(int n, int C) {
-  return (size_t)16 * n + 32 + (size_t)16 * (2 * wide_pmax(n / 2, C) + 3) * n + (size_t)4 * n +
-         (size_t)8 * wide_pmax(n / 2, C);
-}
-
-// The pair positions and rings of a cluster of C over m pairs, by rank.
-struct Lanes {
-  int m, C, pmax;
-  __device__ int first(int k) const { return k * m / C; }
-  __device__ int pairs(int k) const { return (k + 1) * m / C - k * m / C; }
-  // slot of the column t steps along its lane's ring at round r
-  __device__ static int ring(int t, int r, int size) {
-    const int x = (t - r % size) % size;
-    return x < 0 ? x + size : x;
-  }
-  // the left lane's moving columns (CTA 0's position 0 stays): t = 0 at the
-  // lowest position, which the arriving column takes
-  __device__ int left(int k, int t, int r) const { return ring(t, r, pairs(k) - (k == 0) + 1); }
-  // the right lane's: t = 0 at the highest position
-  __device__ int right(int k, int t, int r) const { return pmax + 1 + ring(t, r, pairs(k) + 1); }
-  __device__ int fixed() const { return 2 * pmax + 2; }
-  // the slots of CTA k's pair j (positions first(k)+j and m+first(k)+j)
-  __device__ int pair_left(int k, int j, int r) const {
-    return k == 0 && j == 0 ? fixed() : left(k, j - (k == 0), r);
-  }
-  __device__ int pair_right(int k, int j, int r) const { return right(k, pairs(k) - 1 - j, r); }
-};
-
-__global__ void __launch_bounds__(kWideThreads, 1)
-jacobi_eigh_wide_kernel(const float2* __restrict__ h_in, float2* __restrict__ vt,
-                        float* __restrict__ w, int n, int rounds, float eps, int relative) {
-  extern __shared__ float4 smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int C = (int)cluster.num_blocks();
-  const int k = (int)cluster.block_rank();
-  const int mat = blockIdx.x / C;
-  const int m = n / 2, tid = threadIdx.x;
-  const Lanes lanes{m, C, wide_pmax(m, C)};
-  const int s0 = lanes.first(k), P = lanes.pairs(k), nslots = 2 * lanes.pmax + 3;
-  float4* rot = smem;                                                            // [2][m]
-  unsigned long long* bars = reinterpret_cast<unsigned long long*>(rot + 2 * m);  // [4]
-  float2* Hs = reinterpret_cast<float2*>(bars + 4);                              // [nslots][n]
-  float2* Vs = Hs + (size_t)nslots * n;                                          // [nslots][n]
-  int* pos = reinterpret_cast<int*>(Vs + (size_t)nslots * n);                    // [n]
-  int* cs = pos + n;  // [2][P]: the left, then the right slot of each pair
-
-  // round 0: position = index; the CTA's columns of H, and of V = I
-  const float2* hb = h_in + (size_t)mat * n * n;
-  for (int e = tid; e < 2 * P * n; e += blockDim.x) {
-    const int row = e / (2 * P), c = e - row * (2 * P);
-    const int j = c < P ? c : c - P;
-    const int slot = c < P ? lanes.pair_left(k, j, 0) : lanes.pair_right(k, j, 0);
-    const int col = (c < P ? 0 : m) + s0 + j;
-    Hs[slot * n + row] = hb[(size_t)row * n + col];
-    Vs[slot * n + row] = make_float2(row == col ? 1.0f : 0.0f, 0.0f);
-  }
-  if (tid == 0) {
-    for (int b = 0; b < 4; ++b)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bars + b)));
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  // every CTA of the cluster is running, its columns are loaded and its
-  // mbarriers are set
-  cluster.sync();
-
-  int rr = 0;  // round mod (n-1)
-  for (int r = 0; r < rounds; ++r) {
-    float4* rb = rot + (r & 1) * m;
-    const unsigned bar_rot = smem_addr(bars + (r & 1)), bar_col = smem_addr(bars + 2 + (r & 1));
-    const unsigned parity = (r >> 1) & 1;
-    if (tid == 0) {
-      expect_bytes(bar_rot, 16u * m);  // every pair's rotation
-      expect_bytes(bar_col, 32u * n);  // two columns of H and of V
-    }
-    // A. the row index at each position; the CTA's pairs' slots and rotations
-    if (tid < n) pos[tid] = index_at(tid, rr, m);
-    if (tid < P) {
-      const int i = s0 + tid;
-      const int sl = lanes.pair_left(k, tid, r), sr = lanes.pair_right(k, tid, r);
-      cs[tid] = sl;
-      cs[P + tid] = sr;
-      const int p = index_at(i, rr, m), q = index_at(m + i, rr, m);
-      const float2 g = Hs[sr * n + p];  // H[p][q]
-      float4 qv = make_float4(1.0f, 0.0f, 0.0f, 0.0f);
-      const bool live = rot_params(Hs[sl * n + p].x, Hs[sr * n + q].x, g.x, g.y, eps, relative != 0,
-                                   qv.x, qv.y, qv.z);
-      qv.w = live ? 1.0f : 0.0f;
-      const unsigned dst = smem_addr(rb + i);
-      for (int c = 0; c < C; ++c) {
-        send(dst, qv.x, bar_rot, c);
-        send(dst + 4, qv.y, bar_rot, c);
-        send(dst + 8, qv.z, bar_rot, c);
-        send(dst + 12, qv.w, bar_rot, c);
-      }
-    }
-    // B. all m rotations; the vote (also the barrier before pos and cs are read)
-    wait_phase(bar_rot, parity);
-    const int any = __syncthreads_or(tid < m && rb[tid].w != 0.0f);
-    // C. block (pair i's rows, the CTA's pair j's columns), rows first, then
-    // columns; V's columns of the CTA's pairs
-    if (any) {
-      for (int e = tid; e < m * P; e += blockDim.x) {
-        const int j = e / m, i = e - j * m;
-        const float4 qi = rb[i], qj = rb[s0 + j];
-        if (qi.w == 0.0f && qj.w == 0.0f) continue;
-        float2* L = Hs + cs[j] * n;
-        float2* R = Hs + cs[P + j] * n;
-        const int p = pos[i], q = pos[m + i];
-        float2 h0 = L[p], h1 = R[p], h2 = L[q], h3 = R[q];
-        if (qi.w != 0.0f) {
-          rowmix(h0, h2, qi);
-          rowmix(h1, h3, qi);
-        }
-        if (qj.w != 0.0f) {
-          colmix(h0, h1, qj);
-          colmix(h2, h3, qj);
-        }
-        L[p] = h0;
-        R[p] = h1;
-        L[q] = h2;
-        R[q] = h3;
-      }
-      for (int e = tid; e < P * n; e += blockDim.x) {
-        const int j = e / n, row = e - j * n;
-        const float4 qj = rb[s0 + j];
-        if (qj.w == 0.0f) continue;
-        float2 x = Vs[cs[j] * n + row], y = Vs[cs[P + j] * n + row];
-        colmix(x, y, qj);
-        Vs[cs[j] * n + row] = x;
-        Vs[cs[P + j] * n + row] = y;
-      }
-      __syncthreads();
-    }
-    // D. the left lane's top column goes up to the next CTA's left lane (the
-    // last CTA's to its own right lane, position m-1 -> n-1), the right
-    // lane's bottom one down to the previous CTA's right lane (CTA 0's to its
-    // own left lane, position m -> 1), each into the receiver's spare slot
-    {
-      const int src_l = lanes.left(k, P - (k == 0) - 1, r), src_r = lanes.right(k, P - 1, r);
-      const int to_l = k < C - 1 ? k + 1 : k, to_r = k > 0 ? k - 1 : 0;
-      const int dst_l = k < C - 1 ? lanes.left(k + 1, 0, r + 1) : lanes.right(k, 0, r + 1);
-      const int dst_r = k > 0 ? lanes.right(k - 1, 0, r + 1) : lanes.left(0, 0, r + 1);
-      for (int e = tid; e < 4 * n; e += blockDim.x) {
-        const int lane = e / (2 * n), rest = e - lane * 2 * n;
-        const bool in_v = rest >= n;
-        const int row = in_v ? rest - n : rest;
-        float2* X = in_v ? Vs : Hs;
-        const float2 v = X[(lane ? src_r : src_l) * n + row];
-        const unsigned dst = smem_addr(X + (lane ? dst_r : dst_l) * n + row);
-        const unsigned to = lane ? to_r : to_l;
-        send(dst, v.x, bar_col, to);
-        send(dst + 4, v.y, bar_col, to);
-      }
-    }
-    // every thread has read the leaving columns before any sends the next
-    // round's rotations: a receiver of those may already write the next
-    // round's arrival into the slot they leave
-    __syncthreads();
-    wait_phase(bar_col, parity);
-    if (++rr == n - 1) rr = 0;
-  }
-
-  // every index is at the position it started from after whole sweeps;
-  // write by index in any case
-  const int rf = rounds % (n - 1);
-  for (int e = tid; e < 2 * P * n; e += blockDim.x) {
-    const int c = e / n, row = e - c * n;
-    const int j = c < P ? c : c - P;
-    const int slot = c < P ? lanes.pair_left(k, j, rounds) : lanes.pair_right(k, j, rounds);
-    const int idx = index_at((c < P ? 0 : m) + s0 + j, rf, m);
-    vt[(size_t)mat * n * n + (size_t)idx * n + row] = Vs[slot * n + row];
-    if (row == idx) w[(size_t)mat * n + idx] = Hs[slot * n + idx].x;
-  }
-  // no CTA leaves while a peer may still read its mbarriers or write to it
-  cluster.sync();
-}
-
-cudaLaunchConfig_t wide_launch_config(int batch, int n, int cluster, cudaStream_t stream,
-                                      cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster * batch);
-  cfg.blockDim = dim3(kWideThreads);
-  cfg.dynamicSmemBytes = wide_smem_bytes(n, cluster);
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cluster;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-bool wide_ok(int n, int cluster) {
-  return n > kMaxN && n <= kWideMaxN && n % 2 == 0 && (cluster == 4 || cluster == 8) &&
-         (n / 2) / cluster >= 2 && wide_smem_bytes(n, cluster) <= 232448;
-}
-
-// ---------------------------------------------------------------------------
-// n > 256.  V no longer takes part in the rounds: each round's m rotations
-// go to a rotation log in device memory ([batch][rounds][m] float4: c,
-// Re s, Im s and meta = p << 16 | q << 1 | taken, p and q the pair's
-// indices), and `rotation_log.cu` applies the log to V = I afterwards, by
-// slabs of rows, with the same `colmix` in the same order.  The rounds then
-// touch H alone: 8 n^2 bytes a matrix, half of H and V.
-//
-// The resident variant (256 < n <= 598 on 16 CTAs, <= 436 on 8;
-// `eigh_res_fits` in tnqs_torch/ops/jacobi.py).  H stays in the cluster's
-// shared memory for all rounds, in the wide variant's layout: CTA k owns the
-// pair positions [k m / C, (k+1) m / C) and holds the columns of H standing
-// at them, in two rings of slots (`Ring`), each with two spare slots, not
-// one; rows keep their index; columns move along the tournament's cycle, and
-// so between CTAs.  The same rotations as the kernels above: the same
-// pairing (`index_at`), `rot_params` with either skip, rows first, then
-// columns, by `rowmix` and `colmix`, H updated in full.  One hand-over a round, not two: every CTA
-// forms all m rotations itself from the entries (H[x][x], and right of its
-// pair H[p][x]) of every column x, which the column's holder sends into
-// every CTA for the round ahead.  A round r:
+// The resident variant (128 < n <= 598: on 2, 4, 8 or 16 CTAs, the size that
+// takes a batch in the fewest waves, `eigh_res_fits` and `resident_choice`
+// in tnqs_torch/ops/jacobi.py; n = 256 fits 4 CTAs, 598 only 16).  H stays
+// in the cluster's shared memory for all rounds as Brent and Luk's
+// processor array: CTA k owns the pair positions [k m / C, (k+1) m / C) (P
+// of them, at least 2) and holds the columns of H standing at them, in two
+// rings of slots (`Ring`: the left lane's positions moving up, the right
+// lane's down), each with two spare slots; rows keep their index; columns
+// move along the tournament's cycle (m -> 1 -> ... -> m-1 -> n-1 -> ... ->
+// m+1 -> m), and so between CTAs, and keep their slot while they stay, so
+// every CTA knows every slot in closed form.  The same rotations as the
+// kernel above: the same pairing (`index_at`), `rot_params` with either
+// skip, rows first, then columns, by `rowmix` and `colmix`, H updated in
+// full (not mirrored: it stays Hermitian to rounding, and the Newton-Schulz
+// repair and the Rayleigh quotients in PyTorch follow as above).  One
+// hand-over a round: every CTA forms all m rotations itself from the
+// entries (H[x][x], and right of its pair H[p][x]) of every column x, which
+// the column's holder sends into every CTA for the round ahead, so no
+// rotation is broadcast.  A round r:
 //   A. wait on the mbarrier of round r's parity for the n entries and (past
 //      round 0) the two columns that arrive;
 //   B. all m rotations from the entries, bitwise the same in every CTA, so
 //      the block vote on whether any is taken is the same everywhere; the
 //      CTA's own pairs' rotations into the log;
 //   C. if one is: each 2x2 block (row pair i of all m, column pair j of the
-//      CTA's P) rotated, rows then columns, in registers; a block barrier;
+//      CTA's P) rotated, rows then columns, in registers, a thread keeping
+//      one row pair; a block barrier;
 //   D. (not after the last round) the two columns that leave the CTA's
 //      positions go into a spare slot of the CTAs that own their next
 //      positions, by `st.async` (16 bytes each) against the receiver's
@@ -680,7 +405,36 @@ bool wide_ok(int n, int cluster) {
 // each one cluster barrier; not FLOPs.
 
 constexpr int kResThreads = 512;
+// V in the rings up to this width, where H and V fit clusters of 4
+// (`RING_N` in tnqs_torch/ops/jacobi.py)
+constexpr int kRingN = 224;
 constexpr int kL2Threads = 512;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// This phase of the mbarrier at `bar` expects `bytes` more.
+__device__ __forceinline__ void expect_bytes(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// Wait for the phase of parity `parity` of the mbarrier at `bar`; a wait far
+// longer than any round traps rather than hangs.
+__device__ __forceinline__ void wait_phase(unsigned bar, unsigned parity) {
+  for (long long spin = 0;; ++spin) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (spin > (1ll << 24)) __trap();
+  }
+}
+
+// the most pairs a CTA of a cluster of C owns
+__host__ __device__ constexpr int ring_pmax(int m, int C) { return (m + C - 1) / C; }
 
 // `v` (16 bytes) into CTA `rank`'s shared memory at this CTA's address
 // `addr`, counted against the transaction count of the mbarrier there at
@@ -742,12 +496,13 @@ struct Ring {
 
 // the entries [2][n] float4 (by round parity), the rotations [m] float4, the
 // column slots of H [2 pmax + 5][n] float2 (two rings of pmax + 2, and CTA
-// 0's fixed position 0), 2 mbarriers (by round parity), the index at each
-// position [n] int, the CTA's pairs' slots [2][pmax] int (`eigh_res_smem` in
-// tnqs_torch/ops/jacobi.py states the same sum)
-__host__ __device__ constexpr size_t res_smem_bytes(int n, int C) {
-  return (size_t)32 * n + (size_t)8 * n + (size_t)8 * (2 * wide_pmax(n / 2, C) + 5) * n + 16 + (size_t)4 * n +
-         (size_t)8 * wide_pmax(n / 2, C);
+// 0's fixed position 0) and, with `v`, as many of V, 2 mbarriers (by round
+// parity), the index at each position [n] int, the CTA's pairs' slots
+// [2][pmax] int (`eigh_res_smem` in tnqs_torch/ops/jacobi.py states the same
+// sum)
+__host__ __device__ constexpr size_t res_smem_bytes(int n, int C, bool v) {
+  return (size_t)32 * n + (size_t)8 * n + (size_t)8 * (v ? 2 : 1) * (2 * ring_pmax(n / 2, C) + 5) * n + 16 +
+         (size_t)4 * n + (size_t)8 * ring_pmax(n / 2, C);
 }
 
 // Where a V kernel follows this one's log as it grows (`rotation_log.cu`):
@@ -758,9 +513,24 @@ __device__ __forceinline__ void publish(int* p, int v) {
   *(volatile int*)p = v;
 }
 
+// V's rows p, q of the column pair L, R rotated by qj (`colmix`).
+__device__ __forceinline__ void res_vpair(float2* L, float2* R, int p, int q, float4 qj) {
+  float2 a = L[p], b = R[p], c = L[q], d = R[q];
+  colmix(a, b, qj);
+  colmix(c, d, qj);
+  L[p] = a;
+  R[p] = b;
+  L[q] = c;
+  R[q] = d;
+}
+
+// kV = false: V from the log (`log`, w, the flags for a following V kernel);
+// kV = true: V's columns in the rings beside H's, written to vt (vt[col][row]
+// = V[row, col]) at the end, no log.
+template <bool kV>
 __global__ void __launch_bounds__(kResThreads, 1)
-jacobi_eigh_res_kernel(const float2* __restrict__ h_in, float4* __restrict__ log, float* __restrict__ w,
-                       unsigned long long* __restrict__ taken_out, int* __restrict__ started,
+jacobi_eigh_res_kernel(const float2* __restrict__ h_in, float4* __restrict__ log, float2* __restrict__ vt,
+                       float* __restrict__ w, unsigned long long* __restrict__ taken_out, int* __restrict__ started,
                        int* __restrict__ progress, int stage, int n, int rounds, float eps, int relative) {
   extern __shared__ float4 smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -768,16 +538,17 @@ jacobi_eigh_res_kernel(const float2* __restrict__ h_in, float4* __restrict__ log
   const int k = (int)cluster.block_rank();
   const int mat = blockIdx.x / C;
   const int m = n / 2, tid = threadIdx.x;
-  const int pmax = wide_pmax(m, C), nslots = 2 * pmax + 5;
+  const int pmax = ring_pmax(m, C), nslots = 2 * pmax + 5;
   const int s0 = k * m / C, P = (k + 1) * m / C - s0;  // the CTA's pair positions
   const int lc = __ffs(C) - 1;                          // C = 1 << lc
   float4* ent = smem;                                                                      // [2][n]
   float4* rot = ent + 2 * n;                                                               // [m]
   float2* Hs = reinterpret_cast<float2*>(rot + m);                                         // [nslots][n]
-  unsigned long long* bars = reinterpret_cast<unsigned long long*>(Hs + (size_t)nslots * n);  // [2]
+  float2* Vs = Hs + (size_t)nslots * n;                                                    // kV: [nslots][n]
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(Hs + (size_t)(kV ? 2 : 1) * nslots * n);  // [2]
   int* pos = reinterpret_cast<int*>(bars + 2);                                             // [n]
   int* cs = pos + n;  // [2][P]: the left, then the right slot of each pair
-  float4* lg = log + (size_t)mat * rounds * m;
+  float4* lg = kV ? nullptr : log + (size_t)mat * rounds * m;
   // The rings: the left lane (positions moving up; CTA 0's position 0 stays
   // in slot 2 pmax + 4) in slots [0, pmax + 2), the right lane (moving down)
   // in [pmax + 2, 2 pmax + 4); those of the CTAs the leaving columns go to.
@@ -789,11 +560,13 @@ jacobi_eigh_res_kernel(const float2* __restrict__ h_in, float4* __restrict__ log
     return t < P ? (k == 0 && t == 0 ? fixed : left.at(t - (k == 0))) : pmax + 2 + right.at(2 * P - 1 - t);
   };
 
-  // round 0: position = index; the CTA's columns of H
+  // round 0: position = index; the CTA's columns of H (and of V = I)
   const float2* hb = h_in + (size_t)mat * n * n;
   for (int e = tid; e < 2 * P * n; e += blockDim.x) {
     const int row = e / (2 * P), t = e - row * (2 * P);
-    Hs[slot_of(t) * n + row] = hb[(size_t)row * n + (t < P ? s0 + t : m + s0 + t - P)];
+    const int col = t < P ? s0 + t : m + s0 + t - P;
+    Hs[slot_of(t) * n + row] = hb[(size_t)row * n + col];
+    if constexpr (kV) Vs[slot_of(t) * n + row] = make_float2(row == col ? 1.0f : 0.0f, 0.0f);
   }
   if (tid == 0) {
     for (int b = 0; b < 2; ++b)
@@ -816,7 +589,8 @@ jacobi_eigh_res_kernel(const float2* __restrict__ h_in, float4* __restrict__ log
   for (int r = 0; r < rounds; ++r) {
     const int par = r & 1;
     const unsigned bar = smem_addr(bars + par);
-    if (tid == 0) expect_bytes(bar, r > 0 ? 32u * n : 16u * n);  // n entries, two columns
+    // n entries, two columns of H (and of V)
+    if (tid == 0) expect_bytes(bar, r > 0 ? (kV ? 48u : 32u) * n : 16u * n);
     for (int j = tid; j < n; j += blockDim.x) pos[j] = index_at(j, rr, m);
     if (tid < 2 * P) cs[tid] = slot_of(tid);
     // A.
@@ -834,7 +608,7 @@ jacobi_eigh_res_kernel(const float2* __restrict__ h_in, float4* __restrict__ log
       rot[i] = qv;
       live |= taken;
       if (i >= s0 && i < s0 + P) {
-        lg[(size_t)r * m + i] = log_entry(qv, p, q);
+        if constexpr (!kV) lg[(size_t)r * m + i] = log_entry(qv, p, q);
         taken_here += taken;
       }
     }
@@ -901,6 +675,10 @@ jacobi_eigh_res_kernel(const float2* __restrict__ h_in, float4* __restrict__ log
             L2[q] = k2;
             R2[q] = k3;
           }
+          if constexpr (kV) {  // V's rows p, q of the same column pairs
+            if (qj.w != 0.0f) res_vpair(Vs + cs[j] * n, Vs + cs[P + j] * n, p, q, qj);
+            if (j + step < P && qk.w != 0.0f) res_vpair(Vs + cs[j2] * n, Vs + cs[P + j2] * n, p, q, qk);
+          }
         }
       }
       __syncthreads();
@@ -912,16 +690,18 @@ jacobi_eigh_res_kernel(const float2* __restrict__ h_in, float4* __restrict__ log
     // last CTA's to its own right lane, position m-1 -> n-1), the right
     // lane's bottom one down to the previous CTA's right lane (CTA 0's to its
     // own left lane, position m -> 1), each into a spare slot of the
-    // receiver's ring
+    // receiver's ring (H's, then V's: the same slots)
     {
       const int src_l = left.at(P - (k == 0) - 1), src_r = pmax + 2 + right.at(P - 1);
       const int to_l = k < C - 1 ? k + 1 : k, to_r = k > 0 ? k - 1 : 0;
       const int dst_l = k < C - 1 ? up.next_at(0) : pmax + 2 + up.next_at(0);
       const int dst_r = k > 0 ? pmax + 2 + down.next_at(0) : down.next_at(0);
-      for (int e = tid; e < n; e += blockDim.x) {  // two columns, two rows a store
-        const int lane = e >= m, u = e - lane * m;
-        const float4 v = reinterpret_cast<const float4*>(Hs + (lane ? src_r : src_l) * n)[u];
-        send4(smem_addr(reinterpret_cast<float4*>(Hs + (lane ? dst_r : dst_l) * n) + u), v, bar_n,
+      for (int e = tid; e < (kV ? 2 : 1) * n; e += blockDim.x) {  // two columns, two rows a store
+        const int v = e >= n, f = e - v * n;
+        const int lane = f >= m, u = f - lane * m;
+        float2* X = v ? Vs : Hs;
+        const float4 val = reinterpret_cast<const float4*>(X + (lane ? src_r : src_l) * n)[u];
+        send4(smem_addr(reinterpret_cast<float4*>(X + (lane ? dst_r : dst_l) * n) + u), val, bar_n,
               lane ? to_r : to_l);
       }
     }
@@ -948,6 +728,13 @@ jacobi_eigh_res_kernel(const float2* __restrict__ h_in, float4* __restrict__ log
     const int j = t < P ? s0 + t : m + s0 + t - P;
     const int x = index_at(j, rr, m);
     w[(size_t)mat * n + x] = Hs[slot_of(t) * n + x].x;
+  }
+  if constexpr (kV) {  // V's columns by index
+    for (int e = tid; e < 2 * P * n; e += blockDim.x) {
+      const int t = e / n, row = e - t * n;
+      const int x = index_at(t < P ? s0 + t : m + s0 + t - P, rr, m);
+      vt[((size_t)mat * n + x) * n + row] = Vs[slot_of(t) * n + row];
+    }
   }
   if (progress != nullptr && tid == 0) publish(progress + mat * C + k, rounds);
   if (taken_out != nullptr && taken_here) atomicAdd(taken_out, taken_here);
@@ -1056,23 +843,51 @@ jacobi_eigh_l2_kernel(float2* __restrict__ hc, float4* __restrict__ log, float4*
   if (taken_out != nullptr && taken_here) atomicAdd(taken_out, taken_here);
 }
 
-cudaError_t res_attributes(int n, int cluster) {
-  cudaError_t err = cudaFuncSetAttribute(jacobi_eigh_res_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)res_smem_bytes(n, cluster));
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(jacobi_eigh_res_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-}
-
-cudaLaunchConfig_t res_launch_config(int batch, int n, int cluster, cudaStream_t stream, cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = wide_launch_config(batch, n, cluster, stream, attr);
-  cfg.blockDim = dim3(kResThreads);
-  cfg.dynamicSmemBytes = res_smem_bytes(n, cluster);
+// A launch of `clusters` clusters of `cluster` CTAs of `threads` threads.
+cudaLaunchConfig_t cluster_launch_config(int clusters, int cluster, int threads, size_t smem, cudaStream_t stream,
+                                         cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster * clusters);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
   return cfg;
 }
 
-bool res_ok(int n, int cluster) {
-  return n > kWideMaxN && n % 2 == 0 && n / 2 <= 0x7fff && (cluster == 8 || cluster == 16) &&
-         (n / 2) / cluster >= 2 && res_smem_bytes(n, cluster) <= 232448;
+template <bool kV>
+cudaError_t res_attributes(int n, int cluster) {
+  cudaError_t err = cudaFuncSetAttribute(jacobi_eigh_res_kernel<kV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)res_smem_bytes(n, cluster, kV));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(jacobi_eigh_res_kernel<kV>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+cudaLaunchConfig_t res_launch_config(int batch, int n, int cluster, bool v, cudaStream_t stream,
+                                     cudaLaunchAttribute* attr) {
+  return cluster_launch_config(batch, cluster, kResThreads, res_smem_bytes(n, cluster, v), stream, attr);
+}
+
+// 128 < n (V in the rings: n <= kRingN), two pairs a CTA at least, C a power of two
+bool res_ok(int n, int cluster, bool v) {
+  return n > kMaxN && n % 2 == 0 && n / 2 <= 0x7fff && (!v || n <= kRingN) &&
+         (cluster == 2 || cluster == 4 || cluster == 8 || cluster == 16) && (n / 2) / cluster >= 2 &&
+         res_smem_bytes(n, cluster, v) <= 232448;
+}
+
+template <bool kV>
+int res_clusters(int n, int cluster, int* active) {
+  if (!res_ok(n, cluster, kV)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = res_attributes<kV>(n, cluster);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = res_launch_config(1, n, cluster, kV, 0, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(active, (const void*)jacobi_eigh_res_kernel<kV>, &cfg);
 }
 
 cudaError_t l2_attributes(int n) {
@@ -1084,10 +899,7 @@ cudaError_t l2_attributes(int n) {
 
 cudaLaunchConfig_t l2_launch_config(int clusters, int n, int cluster, cudaStream_t stream,
                                     cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = wide_launch_config(clusters, n, cluster, stream, attr);
-  cfg.blockDim = dim3(kL2Threads);
-  cfg.dynamicSmemBytes = l2_smem_bytes(n);
-  return cfg;
+  return cluster_launch_config(clusters, cluster, kL2Threads, l2_smem_bytes(n), stream, attr);
 }
 
 bool l2_ok(int n, int cluster) {
@@ -1129,46 +941,13 @@ extern "C" int tnqs_jacobi_eigh(const void* h_in, void* vt_out, void* w_out,
   return (int)cudaGetLastError();
 }
 
-// The most clusters of `cluster` CTAs the card holds at once for the wide
-// variant at size n (cudaOccupancyMaxActiveClusters), into *active.
-extern "C" int tnqs_jacobi_eigh_wide_clusters(int n, int cluster, int* active) {
-  if (!wide_ok(n, cluster)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(jacobi_eigh_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)wide_smem_bytes(n, cluster));
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = wide_launch_config(1, n, cluster, 0, &attr);
-  return (int)cudaOccupancyMaxActiveClusters(active, (const void*)jacobi_eigh_wide_kernel, &cfg);
-}
-
-// The wide variant, 128 < n <= 256, on clusters of `cluster` CTAs; the same
-// arguments and outputs as tnqs_jacobi_eigh.
-extern "C" int tnqs_jacobi_eigh_wide(const void* h_in, void* vt_out, void* w_out, int batch, int n,
-                                     int rounds, float eps, int relative, int cluster, void* stream) {
-  if (batch <= 0 || rounds < 0 || !wide_ok(n, cluster)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(jacobi_eigh_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)wide_smem_bytes(n, cluster));
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = wide_launch_config(batch, n, cluster, (cudaStream_t)stream, &attr);
-  err = cudaLaunchKernelEx(&cfg, jacobi_eigh_wide_kernel, (const float2*)h_in, (float2*)vt_out,
-                           (float*)w_out, n, rounds, eps, relative);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
 // The most clusters of `cluster` CTAs the card holds at once for the
 // resident variant at size n (cudaOccupancyMaxActiveClusters), into *active.
 extern "C" int tnqs_jacobi_eigh_res_clusters(int n, int cluster, int* active) {
-  if (!res_ok(n, cluster)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = res_attributes(n, cluster);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = res_launch_config(1, n, cluster, 0, &attr);
-  return (int)cudaOccupancyMaxActiveClusters(active, (const void*)jacobi_eigh_res_kernel, &cfg);
+  return res_clusters<false>(n, cluster, active);
 }
 
-// The resident variant, 256 < n, one cluster of `cluster` CTAs a matrix:
+// The resident variant, 128 < n, one cluster of `cluster` CTAs a matrix:
 // h_in [batch, n, n] hermitian complex64 (row-major), w_out [batch, n] (the
 // final diagonal, unsorted), log [batch][rounds][n/2] float4 (the rotations,
 // for `tnqs_rotation_log`); `relative` != 0 takes the scale-relative skip.
@@ -1179,13 +958,37 @@ extern "C" int tnqs_jacobi_eigh_res_clusters(int n, int cluster, int* active) {
 extern "C" int tnqs_jacobi_eigh_res(const void* h_in, void* log, void* w_out, void* taken, void* started,
                                     void* progress, int stage, int batch, int n, int rounds, float eps, int relative,
                                     int cluster, void* stream) {
-  if (batch <= 0 || rounds < 0 || stage < 1 || !res_ok(n, cluster)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = res_attributes(n, cluster);
+  if (batch <= 0 || rounds < 0 || stage < 1 || !res_ok(n, cluster, false)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = res_attributes<false>(n, cluster);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = res_launch_config(batch, n, cluster, (cudaStream_t)stream, &attr);
-  err = cudaLaunchKernelEx(&cfg, jacobi_eigh_res_kernel, (const float2*)h_in, (float4*)log, (float*)w_out,
-                           (unsigned long long*)taken, (int*)started, (int*)progress, stage, n, rounds, eps, relative);
+  const cudaLaunchConfig_t cfg = res_launch_config(batch, n, cluster, false, (cudaStream_t)stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, jacobi_eigh_res_kernel<false>, (const float2*)h_in, (float4*)log, (float2*)nullptr,
+                           (float*)w_out, (unsigned long long*)taken, (int*)started, (int*)progress, stage, n, rounds,
+                           eps, relative);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The same for the resident variant with V's columns in the rings
+// (128 < n <= kRingN).
+extern "C" int tnqs_jacobi_eigh_res_v_clusters(int n, int cluster, int* active) {
+  return res_clusters<true>(n, cluster, active);
+}
+
+// The resident variant with V in the rings: vt_out [batch, n, n] with
+// vt_out[b][col][row] = V[row, col], the other arguments as
+// tnqs_jacobi_eigh_res's; no log.
+extern "C" int tnqs_jacobi_eigh_res_v(const void* h_in, void* vt_out, void* w_out, void* taken, int batch, int n,
+                                      int rounds, float eps, int relative, int cluster, void* stream) {
+  if (batch <= 0 || rounds < 0 || !res_ok(n, cluster, true)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = res_attributes<true>(n, cluster);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = res_launch_config(batch, n, cluster, true, (cudaStream_t)stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, jacobi_eigh_res_kernel<true>, (const float2*)h_in, (float4*)nullptr,
+                           (float2*)vt_out, (float*)w_out, (unsigned long long*)taken, (int*)nullptr, (int*)nullptr, 1,
+                           n, rounds, eps, relative);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -41,15 +41,16 @@ _SIGNATURES = {
     "tnqs_jacobi_eigh": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P],
     # (n, active_out)
     "tnqs_jacobi_eigh_clusters": [_I, ctypes.POINTER(_I)],
-    # the wide variant, 128 < n <= 256: (h_in, vt_out, w_out, batch, n, rounds, eps, relative, cluster, stream)
-    "tnqs_jacobi_eigh_wide": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _P],
-    # (n, cluster, active_out)
-    "tnqs_jacobi_eigh_wide_clusters": [_I, _I, ctypes.POINTER(_I)],
-    # the resident variant, n > 256: (h_in, log, w_out, taken, started, progress, stage, batch, n, rounds, eps,
+    # the resident variant, n > 128: (h_in, log, w_out, taken, started, progress, stage, batch, n, rounds, eps,
     # relative, cluster, stream)
     "tnqs_jacobi_eigh_res": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
     # (n, cluster, active_out)
     "tnqs_jacobi_eigh_res_clusters": [_I, _I, ctypes.POINTER(_I)],
+    # the resident variant with V in the rings, 128 < n <= 256: (h_in, vt_out, w_out, taken, batch, n, rounds, eps,
+    # relative, cluster, stream)
+    "tnqs_jacobi_eigh_res_v": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _P],
+    # (n, cluster, active_out)
+    "tnqs_jacobi_eigh_res_v_clusters": [_I, _I, ctypes.POINTER(_I)],
     # the L2 variant, past it: (hc, log, xbuf, taken, batch, n, round0, rounds, eps, relative, cluster, clusters,
     # stream)
     "tnqs_jacobi_eigh_l2": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P],

@@ -97,7 +97,7 @@ def default_eigh(H: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     The route is keyed on the tensor, before any launch: complex64 with
     even 32 <= n <= 256, the JAX gate (`tnqs/ops/factorizations.py:125`),
     takes `jacobi_eigh` at its default 12 sweeps and scale-relative skip
-    (K2 on a CUDA tensor, its wide variant past n = 128; its plain version
+    (K2 on a CUDA tensor, its resident variant past n = 128; its plain version
     on a CPU tensor); everything else takes `torch.linalg.eigh`.  The
     relative skip departs from the JAX kernel's absolute one, with which the
     Gram truncation broke down on the chi=64 Eagle run (`jacobi_eigh`).

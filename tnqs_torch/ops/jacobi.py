@@ -3,15 +3,15 @@
 Port of `tnqs/ops/jacobi.py::jacobi_eigh` (`tnqs/ops/jacobi.py:208`).  The
 rotation rounds run in the CUDA kernel `tnqs_torch/csrc/jacobi_eigh.cu` on a
 CUDA tensor (up to n = 128 a cluster of three CTAs per matrix, H resident in
-one CTA's shared memory and V in the other two's; for 128 < n <= 256 a
-cluster of 4 or 8, each CTA holding the columns of H and V at its pair
-positions, `eigh_wide_plan`; past n = 256 H alone in the rounds, resident in
-a cluster of 16 or 8 up to n = 598, else in device memory kept hot in L2,
-`eigh_log_plan`, and V from the rounds' rotation log,
-`rotation_log.apply_rotation_log`), and in `_jacobi_eigh_plain`, the same
-schedule written in PyTorch, on a CPU tensor.  The Newton–Schulz
-repair of V, the Rayleigh eigenvalues and the ascending sort
-(`tnqs/ops/jacobi.py:300-318`) are PyTorch in both cases.
+one CTA's shared memory and V in the other two's; past n = 128 H resident
+in the shared memory of a cluster of 2, 4, 8 or 16 CTAs up to n = 598, each
+CTA holding the columns of H at its pair positions, else in device memory
+kept hot in L2, `eigh_log_plan`; V's columns in the same CTAs up to
+n = 224, else V from the rounds' rotation log,
+`rotation_log.apply_rotation_log`, `v_route_of`), and in
+`_jacobi_eigh_plain`, the same schedule written in PyTorch, on a CPU
+tensor.  The Newton–Schulz repair of V, the Rayleigh eigenvalues and the
+ascending sort (`tnqs/ops/jacobi.py:300-318`) are PyTorch in both cases.
 """
 
 from __future__ import annotations
@@ -29,10 +29,13 @@ from ._build import SMEM_LIMIT
 from .rotation_log import apply_rotation_log
 
 EPS32 = float(torch.finfo(torch.float32).eps)
-WIDE_CLUSTERS = (4, 8)  # cluster sizes of the wide variant, 128 < n <= 256
-L2_CLUSTERS = (16, 8)  # cluster sizes past the cluster kernels (resident and L2 variants)
+RES_CLUSTERS = (16, 8, 4, 2)  # K2's resident cluster sizes, past n = 128
+L2_CLUSTERS = (16, 8)  # cluster sizes of the L2 variants and of K1's resident one
 L2_BUDGET = 40 * 2**20  # bytes of live iterates the L2 variants keep in the H100's 50 MB L2
 LOG_BUDGET = 512 * 2**20  # bytes of rotation log one launch past the cluster kernels may write
+# V's columns in the resident rings up to this width, where H and V fit clusters of 4 (the rings beat
+# the log there on the H100, the log past it: `v_route_of`)
+RING_N = 224
 
 
 def _rot_params(a, b, gr, gi, eps: float, relative: bool):
@@ -134,27 +137,6 @@ _jacobi_eigh_plain.calls = 0
 _jacobi_eigh_plain.rotations = None
 
 
-def eigh_wide_plan(n: int):
-    """The wide variant's layout for 128 < n <= 256: (cluster size C, pair
-    positions of each CTA, shared bytes a CTA).  CTA k owns the positions
-    [k m / C, (k+1) m / C) of the m = n/2 pairs; C is the smaller of
-    `WIDE_CLUSTERS` whose CTAs each own at least 2 pairs and fit their
-    columns.  The sum is `wide_smem_bytes` in `tnqs_torch/csrc/
-    jacobi_eigh.cu`: the rotations of two rounds, four mbarriers, 2 pmax + 3
-    column slots of H and of V (two rings of pmax + 1, and position 0), the
-    row index at each position and the pairs' slots.  ValueError past the
-    variant's shapes."""
-    m = n // 2
-    if n % 2 or not 128 < n <= 256:
-        raise ValueError(f"the wide jacobi_eigh kernel takes even 128 < n <= 256, got {n}")
-    for C in WIDE_CLUSTERS:
-        pmax = -(-m // C)
-        smem = 16 * n + 32 + 16 * (2 * pmax + 3) * n + 4 * n + 8 * pmax
-        if m // C >= 2 and smem <= SMEM_LIMIT:
-            return C, [(k + 1) * m // C - k * m // C for k in range(C)], smem
-    raise ValueError(f"no cluster of {WIDE_CLUSTERS} holds n={n}")
-
-
 class L2Plan(NamedTuple):
     """An L2 variant's launch: `cluster` CTAs a matrix, `clusters` clusters
     (matrices) at once, the batch in `waves` of them, `scratch` bytes of
@@ -219,34 +201,34 @@ def log_chunks(B: int, n: int, rounds: int) -> tuple[int, int]:
 
 
 def resident_choice(B: int, sizes, active):
-    """Of the resident cluster sizes `sizes` (a subset of `L2_CLUSTERS`),
-    the one whose clusters take B matrices in the
-    fewest waves (`active(C)` clusters at once; the larger C on a tie, its
-    rounds being shorter): (C, clusters at once, waves), or None when the
-    card holds none of them."""
+    """Of the resident cluster sizes `sizes`, the one whose clusters take B
+    matrices in the fewest waves (`active(C)` clusters at once; the larger C
+    on a tie, its rounds being shorter): (C, clusters at once, waves), or
+    None when the card holds none of them."""
     best = None
-    for C in L2_CLUSTERS:
-        held = active(C) if C in sizes else 0
+    for C in sorted(sizes, reverse=True):
+        held = active(C)
         if held > 0 and (best is None or -(-B // held) < best[2]):
             best = (C, held, -(-B // held))
     return best
 
 
-def eigh_res_smem(n: int, C: int) -> int:
+def eigh_res_smem(n: int, C: int, v_ring: bool = False) -> int:
     """The resident variant's shared bytes a CTA (`res_smem_bytes` in
     `tnqs_torch/csrc/jacobi_eigh.cu`): two rounds' entries of every column,
     the m rotations, 2 pmax + 5 column slots of H (two rings of pmax + 2 and
-    position 0), two mbarriers, the index at each position and the CTA's
-    pairs' slots."""
+    position 0) and, with `v_ring`, as many of V, two mbarriers, the index at
+    each position and the CTA's pairs' slots."""
     pmax = -(-(n // 2) // C)
-    return 40 * n + 8 * (2 * pmax + 5) * n + 16 + 4 * n + 8 * pmax
+    return 40 * n + 8 * (2 if v_ring else 1) * (2 * pmax + 5) * n + 16 + 4 * n + 8 * pmax
 
 
-def eigh_res_fits(n: int, C: int) -> bool:
-    """Whether the resident variant holds H [n, n] on C CTAs: even
-    n > 256, at least two pairs a CTA, within a CTA's shared memory (up to
-    n = 598 on 16, 436 on 8)."""
-    return n % 2 == 0 and n > 256 and (n // 2) // C >= 2 and eigh_res_smem(n, C) <= SMEM_LIMIT
+def eigh_res_fits(n: int, C: int, v_ring: bool = False) -> bool:
+    """Whether the resident variant holds H [n, n] (with `v_ring` also V,
+    n <= `RING_N`) on C of `RES_CLUSTERS` CTAs: even n > 128, at least two
+    pairs a CTA, within a CTA's shared memory (n = 256 on 4, 598 on 16)."""
+    return (n % 2 == 0 and 128 < n <= (RING_N if v_ring else n) and C in RES_CLUSTERS and (n // 2) // C >= 2
+            and eigh_res_smem(n, C, v_ring) <= SMEM_LIMIT)
 
 
 def eigh_l2_smem(n: int) -> int:
@@ -266,21 +248,26 @@ def eigh_l2_plan(B: int, n: int, active) -> L2Plan:
 
 
 def eigh_log_plan(B: int, n: int, rounds: int, active) -> LogPlan:
-    """K2's launch past n = 256 for B matrices [n, n] and `rounds` rounds:
+    """K2's launch past n = 128 for B matrices [n, n] and `rounds` rounds:
     the resident variant where H fits a cluster the card holds
     (`eigh_res_fits`, `resident_choice`) and one matrix's log fits
-    `LOG_BUDGET`, else the L2 variant (`eigh_l2_plan`), in chunks of rounds
-    where it must (`log_chunks`); `active(layout, C)` the clusters of C the
-    card holds at once."""
-    if n % 2 or n <= 256:
-        raise ValueError(f"jacobi_eigh takes the variants past the cluster kernels at even n > 256, got {n}")
+    `LOG_BUDGET`, else (past n = 256) the L2 variant (`eigh_l2_plan`), in
+    chunks of rounds where it must (`log_chunks`); `active(layout, C)` the
+    clusters of C the card holds at once.  Up to n = 256 no L2 variant
+    runs: a card that holds no resident cluster raises RuntimeError."""
+    if n % 2 or n <= 128:
+        raise ValueError(f"jacobi_eigh takes the variants past the cluster kernel at even n > 128, got {n}")
     group, chunk = log_chunks(B, n, rounds)
     log = group * 8 * n * chunk
-    best = resident_choice(B, [C for C in L2_CLUSTERS if eigh_res_fits(n, C)],
+    best = resident_choice(B, [C for C in RES_CLUSTERS if eigh_res_fits(n, C)],
                            lambda C: active("resident", C)) if chunk >= rounds else None
     if best is not None:
         C, held, waves = best
         return LogPlan("resident", C, held, waves, group, chunk, log, eigh_res_smem(n, C))
+    if n <= 256:
+        if chunk < rounds:
+            raise ValueError(f"jacobi_eigh at n={n}: one matrix's log of {rounds} rounds exceeds LOG_BUDGET")
+        raise RuntimeError(f"jacobi_eigh: no resident cluster for n={n} fits on the card")
     p = eigh_l2_plan(group, n, lambda C: active("l2", C))
     return LogPlan("l2", p.cluster, p.clusters, -(-B // p.clusters), group, chunk, log + p.scratch, p.smem)
 
@@ -297,27 +284,59 @@ def l2_active_clusters(device: torch.device, n: int, C: int) -> int:
 
 
 @functools.cache
-def res_active_clusters(device: torch.device, n: int, C: int) -> int:
-    """How many clusters of C CTAs of the resident variant at size n the
-    card holds at once (`cudaOccupancyMaxActiveClusters`)."""
+def res_active_clusters(device: torch.device, n: int, C: int, v_ring: bool = False) -> int:
+    """How many clusters of C CTAs of the resident variant at size n (with
+    `v_ring`, V in the rings) the card holds at once
+    (`cudaOccupancyMaxActiveClusters`)."""
     active = ctypes.c_int(0)
+    lib = _build.kernels()
+    fn, name = ((lib.tnqs_jacobi_eigh_res_v_clusters, "tnqs_jacobi_eigh_res_v_clusters") if v_ring else
+                (lib.tnqs_jacobi_eigh_res_clusters, "tnqs_jacobi_eigh_res_clusters"))
     with torch.cuda.device(device):
-        _build.check(_build.kernels().tnqs_jacobi_eigh_res_clusters(n, C, ctypes.byref(active)),
-                     "tnqs_jacobi_eigh_res_clusters")
+        _build.check(fn(n, C, ctypes.byref(active)), name)
     return active.value
 
 
 def log_active_clusters(device: torch.device, n: int):
     """`eigh_log_plan`'s `active(layout, C)` on this device."""
-    return lambda layout, C: (res_active_clusters if layout == "resident" else l2_active_clusters)(device, n, C)
+    def active(layout, C):
+        return (res_active_clusters if layout == "resident" else l2_active_clusters)(device, n, C)
+    return active
 
 
-def _jacobi_eigh_past_256(H: torch.Tensor, sweeps: int, relative: bool, stream):
-    """K2 past n = 256 (`eigh_log_plan`): the rounds on H alone, resident
-    (`tnqs_jacobi_eigh_res`) or in L2 (`tnqs_jacobi_eigh_l2`, in place on a
-    column-major copy of H, `plan.chunk` rounds a launch), a group of
-    matrices a launch, V from each launch's rotation log.  Returns (w [B, n]
-    unsorted, V [B, n, n])."""
+def eigh_ring_plan(B: int, n: int, active):
+    """The resident variant with V's columns in the rings (128 < n <= `RING_N`):
+    (C, clusters at once, waves, shared bytes a CTA) by `resident_choice`
+    over the sizes whose CTAs hold both; `active(C)` the clusters of C the
+    card holds.  RuntimeError when it holds none."""
+    best = resident_choice(B, [C for C in RES_CLUSTERS if eigh_res_fits(n, C, True)], active)
+    if best is None:
+        raise RuntimeError(f"jacobi_eigh: no resident cluster holding H and V for n={n} fits on the card")
+    return best + (eigh_res_smem(n, best[0], True),)
+
+
+def _jacobi_eigh_ring(H: torch.Tensor, sweeps: int, relative: bool, stream):
+    """K2 for 128 < n <= `RING_N` with V in the rings
+    (`tnqs_jacobi_eigh_res_v`, `eigh_ring_plan`), one launch.  Returns
+    (w [B, n] unsorted, V [B, n, n])."""
+    B, n, _ = H.shape
+    C = eigh_ring_plan(B, n, lambda C: res_active_clusters(H.device, n, C, True))[0]
+    vt = torch.empty_like(H)
+    w = torch.empty((B, n), dtype=torch.float32, device=H.device)
+    jacobi_eigh.rotations = torch.zeros((), dtype=torch.int64, device=H.device)
+    err = _build.kernels().tnqs_jacobi_eigh_res_v(H.data_ptr(), vt.data_ptr(), w.data_ptr(),
+                                                  jacobi_eigh.rotations.data_ptr(), B, n, sweeps * (n - 1), EPS32,
+                                                  int(relative), C, stream)
+    _build.check(err, "tnqs_jacobi_eigh_res_v")
+    _count_launch(B, n, "ring")
+    return w, vt.mT
+
+
+def _jacobi_eigh_past_128(H: torch.Tensor, sweeps: int, relative: bool, stream):
+    """K2 past `RING_N` with V from the log (`eigh_log_plan`): the rounds on
+    H alone, resident (`tnqs_jacobi_eigh_res`) or in L2 (`tnqs_jacobi_eigh_l2`, in place on a column-major copy of H,
+    `plan.chunk` rounds a launch), a group of matrices a launch, V from each
+    launch's rotation log.  Returns (w [B, n] unsorted, V [B, n, n])."""
     B, n, _ = H.shape
     lib = _build.kernels()
     rounds = sweeps * (n - 1)
@@ -360,6 +379,18 @@ def _jacobi_eigh_past_256(H: torch.Tensor, sweeps: int, relative: bool, stream):
     return w, V
 
 
+def v_route_of(n: int) -> str:
+    """Where K2 past n = 128 makes V: "ring" (V's columns beside H's in the
+    resident variant's rings) up to `RING_N`, where both fit clusters of 4,
+    else "log" (the rotation log, `rotation_log.apply_rotation_log`).  On
+    the H100 the rings were faster up to n = 224 ([26, 192, 192]: one wave
+    of clusters of 4 either way, and V's columns take their rotations in the
+    round that forms them), the log from n = 226 on (the rings need
+    clusters of 8 there, two waves, where H alone takes one wave of 4 and
+    V's kernel the SMs it leaves; PERF.md)."""
+    return "ring" if 128 < n <= RING_N else "log"
+
+
 def _count_launch(B: int, n: int, layout: str):
     jacobi_eigh.launches += 1
     jacobi_eigh.launches_by_shape[(B, n)] = jacobi_eigh.launches_by_shape.get((B, n), 0) + 1
@@ -368,10 +399,11 @@ def _count_launch(B: int, n: int, layout: str):
 
 def _jacobi_eigh_cuda(H: torch.Tensor, sweeps: int, relative: bool = True):
     """Launch `tnqs_jacobi_eigh` (n <= 128, one cluster of three CTAs per
-    matrix), `tnqs_jacobi_eigh_wide` (128 < n <= 256, `eigh_wide_plan`) or,
-    past n = 256, the resident or L2 variant and the rotation log
-    (`_jacobi_eigh_past_256`) on H [B, n, n] hermitian complex64 (CUDA,
-    contiguous).  Returns (w [B, n] unsorted, V [B, n, n])."""
+    matrix) or, past n = 128, the resident variant with V in the rings
+    (`_jacobi_eigh_ring`, up to `RING_N`) or the resident or L2 variant and
+    the rotation log (`_jacobi_eigh_past_128`), by `v_route_of(n)`, on H
+    [B, n, n] hermitian complex64 (CUDA, contiguous).  Returns (w [B, n]
+    unsorted, V [B, n, n])."""
     if H.dim() != 3 or H.shape[1] != H.shape[2] or H.shape[1] % 2 or H.shape[1] < 4:
         raise ValueError(f"jacobi_eigh kernel takes [B, n, n] with even n >= 4, got {tuple(H.shape)}")
     if not (H.is_cuda and H.dtype == torch.complex64 and H.is_contiguous()):
@@ -380,21 +412,17 @@ def _jacobi_eigh_cuda(H: torch.Tensor, sweeps: int, relative: bool = True):
     lib = _build.kernels()
     with torch.cuda.device(H.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if n > 256:
-            return _jacobi_eigh_past_256(H, sweeps, relative, stream)
+        if n > 128:
+            if v_route_of(n) == "ring":
+                return _jacobi_eigh_ring(H, sweeps, relative, stream)
+            return _jacobi_eigh_past_128(H, sweeps, relative, stream)
         if active_clusters(H.device, n) == 0:
             raise RuntimeError(f"jacobi_eigh kernel: no cluster for n={n} fits on {H.device}")
         vt = torch.empty_like(H)
         w = torch.empty((B, n), dtype=torch.float32, device=H.device)
-        if n <= 128:
-            err = lib.tnqs_jacobi_eigh(H.data_ptr(), vt.data_ptr(), w.data_ptr(), B, n, sweeps * (n - 1), EPS32,
-                                       int(relative), stream)
-            name = "tnqs_jacobi_eigh"
-        else:
-            err = lib.tnqs_jacobi_eigh_wide(H.data_ptr(), vt.data_ptr(), w.data_ptr(), B, n, sweeps * (n - 1),
-                                            EPS32, int(relative), eigh_wide_plan(n)[0], stream)
-            name = "tnqs_jacobi_eigh_wide"
-    _build.check(err, name)
+        err = lib.tnqs_jacobi_eigh(H.data_ptr(), vt.data_ptr(), w.data_ptr(), B, n, sweeps * (n - 1), EPS32,
+                                   int(relative), stream)
+    _build.check(err, "tnqs_jacobi_eigh")
     jacobi_eigh.launches += 1
     jacobi_eigh.launches_by_shape[(B, n)] = jacobi_eigh.launches_by_shape.get((B, n), 0) + 1
     return w, vt.mT
@@ -402,17 +430,12 @@ def _jacobi_eigh_cuda(H: torch.Tensor, sweeps: int, relative: bool = True):
 
 @functools.cache
 def active_clusters(device: torch.device, n: int) -> int:
-    """How many of the kernel's clusters for size n (three CTAs up to
-    n = 128, `eigh_wide_plan`'s up to 256; `log_active_clusters` past it)
-    the card holds at once (`cudaOccupancyMaxActiveClusters`)."""
+    """How many of the kernel's clusters of three CTAs for size n <= 128 the
+    card holds at once (`cudaOccupancyMaxActiveClusters`;
+    `log_active_clusters` past it)."""
     active = ctypes.c_int(0)
-    lib = _build.kernels()
     with torch.cuda.device(device):
-        if n <= 128:
-            _build.check(lib.tnqs_jacobi_eigh_clusters(n, ctypes.byref(active)), "tnqs_jacobi_eigh_clusters")
-        else:
-            _build.check(lib.tnqs_jacobi_eigh_wide_clusters(n, eigh_wide_plan(n)[0], ctypes.byref(active)),
-                         "tnqs_jacobi_eigh_wide_clusters")
+        _build.check(_build.kernels().tnqs_jacobi_eigh_clusters(n, ctypes.byref(active)), "tnqs_jacobi_eigh_clusters")
     return active.value
 
 
@@ -458,8 +481,8 @@ def jacobi_eigh(H: torch.Tensor, sweeps: int = 12, refine: bool = True, relative
 
 jacobi_eigh.launches = 0
 jacobi_eigh.launches_by_shape = {}  # (B, n) -> launches
-jacobi_eigh.launches_by_layout = {"resident": 0, "l2": 0}  # past n = 256
-jacobi_eigh.rotations = None  # the last call past n = 256: rotations taken, a device scalar
+jacobi_eigh.launches_by_layout = {"resident": 0, "ring": 0, "l2": 0}  # past n = 128
+jacobi_eigh.rotations = None  # the last call past n = 128: rotations taken, a device scalar
 
 
 def eigh_from_rounds(Hb: torch.Tensor, w: torch.Tensor, V: torch.Tensor, refine: bool = True):

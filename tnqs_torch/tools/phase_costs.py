@@ -9,7 +9,13 @@ wrong; only their time is read), each into its own library under
 `build/tnqs_torch/phases/`, and times every variant with CUDA events at the
 main path's shapes: K1 at [18, 128, 128] (4 sweeps) and [26, 256, 128] (6
 sweeps) at every cluster size it can take, K2 at [26, 128, 128] (8 sweeps,
-the absolute skip of `pjsvd`'s preconditioner).
+the absolute skip of `pjsvd`'s preconditioner); and K2's resident variant
+past n = 128 (`jacobi_eigh_res_kernel`) at [26, 192, 192] by both V routes
+(V in the rings, the route n = 192 takes, and H alone, whose log is
+written but not applied), [26, 256, 256] and [4, 512, 512] (H alone, the
+routes they take), 8 sweeps with the absolute skip, on the cluster size
+the wrapper takes.  The resident variants cut the round's H (and V)
+update, its hand-over (the sends, and the wait for what arrives), or both.
 A phase's cost is the base time less the variant's.  Each variant names
 the text it removes, and the tool stops if a source no longer holds it.
 """
@@ -47,8 +53,24 @@ K2 = {
     "no H or V update": [K2_H, K2_V],
 }
 
+# the resident variant (both instances, V in the rings and H alone): the round's update (C), and its
+# hand-over (D's sends of the leaving columns and the next entries, round 0's entries, A's wait)
+K2_RES_UPDATE = [("    if (any) {\n      const int step = blockDim.x / m, i = tid % m;",
+                  "    if (false) {\n      const int step = blockDim.x / m, i = tid % m;")]
+K2_RES_HANDOVER = [("    if (tid == 0) expect_bytes(bar, r > 0 ? (kV ? 48u : 32u) * n : 16u * n);\n", ""),
+                   ("    wait_phase(bar, (r >> 1) & 1);\n", ""),
+                   ("rounds > 0 && e < 2 * P * C;", "rounds < 0 && e < 2 * P * C;"),
+                   ("e < (kV ? 2 : 1) * n; e += blockDim.x", "e < 0; e += blockDim.x"),
+                   ("    for (int e = tid; e < 2 * P * C; e += blockDim.x) {", "    for (int e = tid; e < 0; e += blockDim.x) {")]
+K2_RES = {
+    "base": [],
+    "no update": K2_RES_UPDATE,
+    "no hand-over": K2_RES_HANDOVER,
+    "neither": K2_RES_UPDATE + K2_RES_HANDOVER,
+}
 
-def build(stem: str, variants: dict) -> dict:
+
+def build(stem: str, variants: dict, tag: str = "") -> dict:
     """One library per variant of `csrc/<stem>.cu`, compiled in parallel."""
     out = _build.BUILD_DIR / "phases"
     out.mkdir(parents=True, exist_ok=True)
@@ -57,10 +79,10 @@ def build(stem: str, variants: dict) -> dict:
     for i, (name, cuts) in enumerate(variants.items()):
         text = src
         for old, new in cuts:
-            if old not in text:
+            if text.count(old) != 1:
                 sys.exit(f"{stem}.cu no longer holds {old!r}: update the variant {name!r}")
             text = text.replace(old, new)
-        cu = out / f"{stem}_{i}.cu"
+        cu = out / f"{stem}{tag}_{i}.cu"
         cu.write_text(text)
         so = cu.with_suffix(".so")
         procs[name] = (so, subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
@@ -89,6 +111,48 @@ def cuda_ms(fn, reps=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def resident_k2(libs, rand_c, stream):
+    """The resident K2's variants at its three widths, in turn: ms and µs a
+    round, and each phase's share of the base round."""
+    dev = torch.device("cuda", 0)
+    for B, n, ring in ((26, 192, True), (26, 192, False), (26, 256, False), (4, 512, False)):
+        X = rand_c((B, 2 * n, n))
+        G = X.mH @ X
+        H = (0.5 * (G + G.mH)).contiguous()
+        rounds = 8 * (n - 1)
+        w = torch.empty((B, n), device=dev)
+        taken = torch.zeros((), dtype=torch.int64, device=dev)
+        if ring:
+            C = jacobi.eigh_ring_plan(B, n, lambda C: jacobi.res_active_clusters(dev, n, C, True))[0]
+            vt = torch.empty_like(H)
+
+            def launch(lib):
+                return lib.tnqs_jacobi_eigh_res_v(H.data_ptr(), vt.data_ptr(), w.data_ptr(), taken.data_ptr(), B, n,
+                                                  rounds, jacobi.EPS32, 0, C, stream)
+        else:
+            plan = jacobi.eigh_log_plan(B, n, rounds, jacobi.log_active_clusters(dev, n))
+            if plan.layout != "resident" or plan.group < B:
+                sys.exit(f"phase_costs: [{B},{n},{n}] takes {plan}, not one resident launch")
+            C = plan.cluster
+            log = torch.empty((B, rounds, n // 2, 4), device=dev)
+
+            def launch(lib):
+                return lib.tnqs_jacobi_eigh_res(H.data_ptr(), log.data_ptr(), w.data_ptr(), taken.data_ptr(), None,
+                                                None, 1, B, n, rounds, jacobi.EPS32, 0, C, stream)
+        ms = {name: [] for name in libs}
+        for _ in range(3):  # the variants in turn, three times
+            for name, lib in libs.items():
+                ms[name].append(cuda_ms(lambda: launch(lib), 5))
+        best = {name: min(t) for name, t in ms.items()}
+        row = "; ".join(f"{name} {t:.3f} ms ({1e3 * t / rounds:.3f} us a round)" for name, t in best.items())
+        base = best["base"]
+        split = (f"update {1e3 * (base - best['no update']) / rounds:.3f} us, hand-over "
+                 f"{1e3 * (best['no update'] - best['neither']) / rounds:.3f} us, the rest (rotations, vote, "
+                 f"tables, log) {1e3 * best['neither'] / rounds:.3f} us a round")
+        print(f"K2 resident [{B},{n},{n}] 8 sweeps, V {'in the rings' if ring else 'left to the log'}, C={C} "
+              f"(fastest of 3 turns of 5 calls): {row}; {split}", flush=True)
 
 
 def main():
@@ -134,6 +198,8 @@ def main():
                                                   jacobi.EPS32, 0, stream))
         row.append(f"{name} {ms:.3f} ms ({1e3 * ms / rounds:.2f} us a round)")
     print(f"K2 [26,{n},{n}] 8 sweeps: " + "; ".join(row))
+
+    resident_k2(build("jacobi_eigh", K2_RES, "_res"), rand_c, stream)
 
 
 if __name__ == "__main__":
