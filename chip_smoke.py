@@ -63,12 +63,17 @@ Run from the repository root.  Phases, each of which fails the run:
    `group_messages` and as one multi-operand `torch.einsum` (the
    yardstick), beside its bound; the largest group's kernels' device time
    (torch.profiler); the host side of one launch; one BP sweep timed on the
-   kernel and on the einsum route; then K3's bf16_3x mode against its own
-   plain version (the same bf16 splits, float32 products) on the same
-   groups and on the other shape classes (d = 4 and depth padding
-   included), two calls bitwise equal, each Eagle group timed beside the
-   FP32 mode, the largest beside its plain version, the library einsum and
-   its bound at the dense bf16 rate;
+   kernel and on the einsum route; then K3's bf16_3x mode: ptxas's
+   registers and spills of its tensor-core kernels (none may spill), the
+   split pass bit for bit against `_split` (ties, subnormals, signed zeros;
+   the Eagle T[3]) and timed, the kernel against its own plain version
+   (the same bf16 splits, float32 products) on the same groups and on the
+   other shape classes (d = 4, depth padding, the thermal path's k = 3,
+   chi=32 groups; both designs, `tc_route`), two calls bitwise equal and
+   equal to a call given T alone, each Eagle group timed beside the FP32
+   mode (every k >= 3 group must be faster), the largest in turns with the
+   FP32 mode and the library einsum, beside its plain version, its bound at
+   the dense bf16 rate and the design's byte floor, by kernel (profiler);
 5. main path: `LatticeEngine.make_step` on the Eagle-127 kicked-Ising layer
    (J = pi/4, theta_h = 0.4) at chi=64, complex64, cutoff 1e-12,
    bp_maxiter=25, N layers (default 10) from "↑".  After each layer <Z> at
@@ -162,10 +167,11 @@ Run from the repository root.  Phases, each of which fails the run:
    run to layer 10: T and M bit for bit phase 5's, and the file restored on
    the CPU gives the same arrays; (b) `evolve_ladder` from "↑" with rungs
    (8, 16, 32, 64), every layer within the main bound, K3 launched at every
-   rung; (c) `bp_precision="high"` from "↑": every K3 launch bf16_3x, every
-   layer within the main bound and <Z>(7,8), <Z>(11,5) within 1e-5 of phase
-   5's, then one BP sweep on each route (K3 bf16_3x, K3 FP32, einsum)
-   timed in turns; (d) `loopcorrected_partitionfunction(12)` on the main
+   rung; (c) `bp_precision="high"` from "↑": every K3 launch bf16_3x on the
+   tensor cores with T split once a BP run, every layer within the main
+   bound and <Z>(7,8), <Z>(11,5) within 1e-5 of phase 5's, its peak
+   memory, then one BP sweep on each route (K3 bf16_3x on T's split planes,
+   K3 FP32, einsum) timed in turns, and the split's own time; (d) `loopcorrected_partitionfunction(12)` on the main
    path's state after phase 6's `bp_update` (18 plaquettes; finite, the
    shift against Z_BP, wall time, peak memory), on 8a's chi=8 state on the
    card and on a CPU engine (the loop factor Z / Z_BP within 1e-6), and a
@@ -1247,23 +1253,92 @@ def bp_3x_flops(B, k, chi):
     return 3 * bp_flops(B, k, chi)
 
 
+def tc_build_lines():
+    """ptxas's lines (registers, spills, wgmma serialization) for the
+    tensor-core bf16_3x kernels and the split pass, from the build log;
+    whether any of them spills; and whether ptxas serialized a kernel's
+    `wgmma` (C7512, a line that names its function before the function's
+    own lines)."""
+    from tnqs_torch.ops import _build
+
+    names = ("bp_bra_tc", "bp_pass2_tc", "bp_split_planes")
+    lines, keep, spills, serialized = [], False, False, False
+    for line in _build.build_log().splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            keep = any(name in line for name in names)
+        if "C7512" in line and any(name in line for name in names):
+            lines.append(line.strip())
+            serialized = True
+        elif keep and any(w in line for w in ("entry function", "registers", "spill", "wgmma")):
+            lines.append(line.strip())
+            if "spill" in line:
+                spills |= any(f"{n} bytes spill" in line and n != "0" for n in line.replace(",", " ").split())
+    return lines, spills, serialized
+
+
+def split_check(dev, T3):
+    """The split pass (`split_bucket` on the card, `bp_split_planes`) bit for
+    bit against `_split_planes_plain` on values that round at a tie both ways,
+    subnormals (bf16 keeps float32's exponent range), signed zeros and large
+    values, and on the Eagle bucket T[3]; then timed on T[3] beside its
+    plain version and its bound (bytes: 8 read and 8 written a value)."""
+    from tnqs_torch.ops import bp_sweep
+
+    rng = np.random.default_rng(5)
+    special = np.array([1.0, 1 + 2.0**-8, 1 + 3 * 2.0**-9, -(1 + 2.0**-8), 1 + 2.0**-8 + 2.0**-20, 2.0**-126,
+                        1.5 * 2.0**-130, 1e-40, -3e-41, 2.0**-149, 3 * 2.0**-149, 0.0, -0.0, 3.0e38, -1.7e38,
+                        3.1415927, 1 + 2.0**-16 + 2.0**-24], dtype=np.float32)
+    x = np.empty((3, 2, 8, 8), dtype=np.complex64)
+    x.real = rng.choice(special, size=x.shape)
+    x.imag = rng.choice(special, size=x.shape)
+    # the special values against the CPU's plain split (whose float32
+    # subtraction keeps subnormals, as the kernel's does), T[3] against the
+    # card's
+    err = 0.0
+    for name, Tk, ref in (("special values", torch.as_tensor(x, device=dev), torch.as_tensor(x)),
+                          ("Eagle T[3]", T3, T3)):
+        planes = bp_sweep.split_bucket(Tk).planes.cpu()
+        plain = bp_sweep._split_planes_plain(ref).cpu()
+        err = max(err, (planes.double() - plain.double()).abs().max().item())
+        require(torch.equal(planes.view(torch.int16), plain.view(torch.int16)),
+                f"split pass on {name}: planes differ from _split's")
+        print(f"split pass on {name} {tuple(Tk.shape)}: bit for bit _split's hi and lo planes")
+    ms = cuda_ms(lambda: bp_sweep.split_bucket(T3), 10)
+    plain_ms = cuda_ms(lambda: bp_sweep._split_planes_plain(T3), 3)
+    bound_ms = 1e3 * 2 * T3.numel() * 8 / PEAK_BYTES
+    print(f"split pass T[3] {tuple(T3.shape)}: {ms:.4f} ms (plain {plain_ms:.4f} ms), bound {bound_ms:.4f} ms "
+          f"(bytes; {100 * bound_ms / ms:.1f}%)")
+    return dict(name="bp_split_planes", route="cuda", source="tnqs_torch/csrc/bp_sweep.cu",
+                replaces="tnqs/ops/bp_sweep.py:154-157 (dot2's bf16 split of each operand)", max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=None)
+
+
 def bp_kernel_3x_phase(dev, chi=64):
-    """K3's bf16_3x mode: the kernel against its plain version (the same
-    splits, float32 products of them) on every Eagle chi=64 group and on
-    the other shape classes (gathered rows, degree 4-6, a 512-wide and a
-    72-wide bond, depth padding at chi=24, d = 4), two calls bitwise equal,
-    every Eagle group timed beside the FP32 mode, the largest with its
-    plain version, the library einsum and its bound at the bf16 rate."""
+    """K3's bf16_3x mode: the split pass bit for bit; the kernel against its
+    plain version (the same splits, float32 products of them) on every Eagle
+    chi=64 group and on the other shape classes (gathered rows, degree 4-6,
+    a 512-wide and a 72-wide bond, depth padding at chi=24, the thermal
+    path's d = 4, k = 3, chi=32), both designs (`tc_route`), two calls
+    bitwise equal and equal to a call given T alone; every Eagle group timed
+    beside the FP32 mode, the largest in turns with the FP32 mode and the
+    library einsum, by pass, beside its plain version, its bound at the
+    bf16 rate and the design's byte floor."""
     import tnqs_torch
     from tnqs_torch.engine import LatticeEngine
     from tnqs_torch.ops import bp_sweep
 
+    lines, spills, serialized = tc_build_lines()
+    print("tensor-core bf16_3x kernels, ptxas:\n  " + "\n  ".join(lines))
+    require(lines and not spills, "the tensor-core bf16_3x kernels spill registers (or the build log lacks them)")
+    require(not serialized, "ptxas serialized the tensor-core bf16_3x kernels' wgmma (C7512)")
     rng = np.random.default_rng(2)  # the FP32 phase's inputs
     eng = LatticeEngine(tnqs_torch.eagle_lattice(), chi=chi, device=dev)
     T = {k: torch.as_tensor(rand_c(rng, tuple(v.shape)), device=dev) for k, v in eng.T.items()}
     G = torch.as_tensor(rand_c(rng, tuple(eng.M.shape)), device=dev)
     M = G @ G.mH
     M = M / torch.diagonal(M, dim1=1, dim2=2).sum(-1)[:, None, None]
+    split_row = split_check(dev, T[3])
+    splits = {k: bp_sweep.split_bucket(v) for k, v in T.items() if bp_sweep.tc_route(k, chi)}
     # Tolerance: the kernel and its plain version split at the same points
     # and multiply the same bf16 values exactly; they differ in the order of
     # the float32 sums (the FP32 mode's 1e-4 bar) and where a float32 V or
@@ -1276,19 +1351,20 @@ def bp_kernel_3x_phase(dev, chi=64):
     for (stage, k, t, src, _, ins, rows, in_all) in eng._bp_groups:
         if k < 2:
             continue
-        B, Min = rows.shape[0], M[in_all]
-        m1 = bp_sweep.bp_sweep_group(T[k], Min, rows, t, mode="bf16_3x")
-        m2 = bp_sweep.bp_sweep_group(T[k], Min, rows, t, mode="bf16_3x")
+        B, Min, sp = rows.shape[0], M[in_all], splits.get(k)
+        m1 = bp_sweep.bp_sweep_group(T[k], Min, rows, t, mode="bf16_3x", split=sp)
+        m2 = bp_sweep.bp_sweep_group(T[k], Min, rows, t, mode="bf16_3x", split=sp)
+        m0 = bp_sweep.bp_sweep_group(T[k], Min, rows, t, mode="bf16_3x")  # T alone: the wrapper splits it
         m_p = normalized(bp_sweep._bp_sweep_group_plain(T[k], Min, rows, t, mode="bf16_3x"))
         m_hi = normalized(bp_sweep.bp_sweep_group(T[k], Min, rows, t))
         require(torch.isfinite(m1).all(), f"bf16_3x k={k} t={t}: non-finite output")
-        require(torch.equal(m1, m2), f"bf16_3x stage {stage} k={k} t={t}: two calls differ")
+        require(torch.equal(m1, m2) and torch.equal(m1, m0), f"bf16_3x stage {stage} k={k} t={t}: two calls differ")
         err = (normalized(m1) - m_p).abs().max().item()
         rel = err / m_p.abs().max().item()
         rel_hi = ((normalized(m1) - m_hi).abs().max() / m_hi.abs().max()).item()
         errs.append(err)
         require(rel < tol, f"bf16_3x k={k} t={t}: kernel and plain differ by {rel:.3e}")
-        k_ms = cuda_ms(lambda: bp_sweep.bp_sweep_group(T[k], M[in_all], rows, t, mode="bf16_3x"), 10)
+        k_ms = cuda_ms(lambda: bp_sweep.bp_sweep_group(T[k], M[in_all], rows, t, mode="bf16_3x", split=sp), 10)
         f_ms = cuda_ms(lambda: bp_sweep.bp_sweep_group(T[k], M[in_all], rows, t), 10)
         b_ms, b_by = max((1e3 * bp_3x_flops(B, k, chi) / PEAK_BF16, "operations"),
                          (1e3 * bp_bytes(B, k, chi) / PEAK_BYTES, "bytes"))
@@ -1296,8 +1372,12 @@ def bp_kernel_3x_phase(dev, chi=64):
         print(f"  stage {stage} k={k} t={t} B={B}: vs plain {err:.3e} ({rel:.3e} of the largest), vs the FP32 mode "
               f"{rel_hi:.3e}; two calls bitwise equal; bf16_3x {k_ms:.4f} ms, FP32 mode {f_ms:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by}; kernel at {100 * b_ms / k_ms:.1f}%)")
+    require(all(v[1] < v[2] for key, v in table.items() if key[1] >= 3),
+            "bf16_3x is not faster than the FP32 mode at every k >= 3 group")
+    before = dict(bp_sweep.bp_sweep_group.launches_by_route)
     for kk, w, n_k, B, d in ((3, 64, 5, 3, 2), (4, 8, 4, 3, 2), (5, 8, 3, 2, 2), (6, 8, 2, 2, 2), (2, 512, 4, 3, 2),
-                             (2, 72, 4, 3, 2), (3, 24, 4, 3, 2), (3, 32, 5, 3, 4)):
+                             (2, 72, 4, 3, 2), (3, 24, 4, 3, 2), (3, 32, 5, 3, 4), (3, 32, 16, 7, 4), (2, 32, 6, 4, 4),
+                             (2, 40, 4, 3, 2), (3, 8, 4, 3, 2)):
         Tk = torch.as_tensor(rand_c(rng, (n_k, d) + (w,) * kk), device=dev)
         Min = torch.as_tensor(rand_c(rng, (B, kk - 1, w, w)), device=dev)
         rows = torch.as_tensor(rng.permutation(n_k)[:B], device=dev)
@@ -1308,20 +1388,69 @@ def bp_kernel_3x_phase(dev, chi=64):
             require(torch.equal(m_k, bp_sweep.bp_sweep_group(Tk, Min, rows, t, mode="bf16_3x")),
                     f"bf16_3x k={kk} chi={w} d={d} t={t}: two calls differ")
             rel = max(rel, ((m_k - m_p).abs().max() / m_p.abs().max()).item())
-        print(f"bf16_3x k={kk} chi={w} d={d} rows {rows.tolist()}, every slot: max relative difference {rel:.3e}, "
-              f"two calls bitwise equal")
+        route = "wgmma" if bp_sweep.tc_route(kk, w) else "mma.sync"
+        print(f"bf16_3x k={kk} chi={w} d={d} rows {rows.tolist()} ({route}), every slot: max relative difference "
+              f"{rel:.3e}, two calls bitwise equal")
         require(rel < tol, f"bf16_3x k={kk} chi={w} d={d}: kernel and plain differ by {rel:.3e}")
+    after = bp_sweep.bp_sweep_group.launches_by_route
+    require(after["wgmma"] > before["wgmma"] and after["mma.sync"] > before["mma.sync"],
+            f"bf16_3x: both designs must run ({before} -> {after})")
+
+    # the host side of one tensor-core launch alone (a 1-message chi=8
+    # group on its split planes, 200 calls, no sync), as phase 4 reads the
+    # FP32 mode's
+    Tt = torch.as_tensor(rand_c(rng, (2, 2, 8, 8)), device=dev)
+    Mt, rt = torch.as_tensor(rand_c(rng, (1, 1, 8, 8)), device=dev), torch.ones(1, dtype=torch.int64, device=dev)
+    st_ = bp_sweep.split_bucket(Tt)
+    bp_sweep.bp_sweep_group(Tt, Mt, rt, 0, mode="bf16_3x", split=st_)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        bp_sweep.bp_sweep_group(Tt, Mt, rt, 0, mode="bf16_3x", split=st_)
+    host_us = 1e6 * (time.perf_counter() - t0) / 200
+    torch.cuda.synchronize()
+    print(f"bf16_3x tensor-core host path: {host_us:.2f} us a launch (wrapper and ctypes, 200 calls, no sync)")
+
     stage, k, t = max(table, key=lambda key: table[key][0] * chi ** key[1])
     B, ms, fp32_ms, bound_ms, bound_by, rows, Min = table[(stage, k, t)]
-    plain_ms = cuda_ms(lambda: bp_sweep._bp_sweep_group_plain(T[k], Min, rows, t, mode="bf16_3x"), 2)
+    sp = splits[k]
     A, expr = T[k][rows], einsum_expr(k, t)
-    library_ms = cuda_ms(lambda: torch.einsum(expr, A, *Min.unbind(1), A.conj()), 10)
+    fns = (lambda: bp_sweep.bp_sweep_group(T[k], Min, rows, t, mode="bf16_3x", split=sp),
+           lambda: bp_sweep.bp_sweep_group(T[k], Min, rows, t),
+           lambda: torch.einsum(expr, A, *Min.unbind(1), A.conj()))
+    k_t, f_t, l_t = alternating_ms(fns, 10)
+    library_ms = cuda_ms(fns[2], 10)  # as the kernel's `ms`: calls queued back to back
+    plain_ms = cuda_ms(lambda: bp_sweep._bp_sweep_group_plain(T[k], Min, rows, t, mode="bf16_3x"), 2)
+    # the design's byte floor: pass 1 reads K and writes V, pass 2 reads K
+    # and V (each B d chi^k bf16 planes, 8 bytes a value), the partials out
+    # and back; with V read back from L2, one trip of V less
+    plan = bp_sweep.bp_plan(k, chi, B, t, 2, *bp_sweep._slots_tc(dev.index), tc=True)
+    vk, part = B * 2 * chi**k * 8, 2 * 8 * plan.part_elems
+    floor_ms, floor_l2_ms = 1e3 * (4 * vk + part) / PEAK_BYTES, 1e3 * (3 * vk + part) / PEAK_BYTES
+    print(f"bf16_3x k={k} t={t} B={B}, in turns (10 calls each, each timed alone, host included; median): kernel "
+          f"{median(k_t):.4f} ms, FP32 mode {median(f_t):.4f} ms, torch.einsum {median(l_t):.4f} ms; bound {bound_ms:.4f} ms ({bound_by}; kernel at "
+          f"{100 * bound_ms / median(k_t):.1f}%); the design's byte floor {floor_ms:.4f} ms ({floor_l2_ms:.4f} with V "
+          f"read back from L2); {plan.chunks} chunks")
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            fns[0]()
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        us = getattr(ev, "self_cuda_time_total", 0) if us is None else us
+        if us > 0 and "bp_" in ev.key:
+            print(f"  bf16_3x k={k} t={t} B={B}, {ev.key[:60]}: {us / 1e3 / 10:.4f} ms a call, {ev.count // 10} a "
+                  f"call (torch.profiler, 10 calls)")
     print(f"bf16_3x k={k} t={t} B={B}: kernel {ms:.4f} ms ({bp_3x_flops(B, k, chi) / ms / 1e9:.2f} TFLOP/s of bf16 "
           f"products), FP32 mode {fp32_ms:.4f} ms, plain {plain_ms:.3f} ms, torch.einsum {library_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by})")
-    return dict(name="bp_sweep_group_bf16_3x", route="cuda", source="tnqs_torch/csrc/bp_sweep.cu",
-                replaces="tnqs/ops/bp_sweep.py:282 (mode bf16_3x, :154-166)", max_abs_err=max(errs), ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms, fp32_ms=fp32_ms)
+    row = dict(name="bp_sweep_group_bf16_3x", route="cuda", source="tnqs_torch/csrc/bp_sweep.cu",
+               replaces="tnqs/ops/bp_sweep.py:282 (mode bf16_3x, :154-166)", max_abs_err=max(errs), ms=ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms, fp32_ms=fp32_ms)
+    return [row, split_row]
 
 
 def main_path(dev, layers, checkpoint=None):
@@ -1373,7 +1502,8 @@ def main_path(dev, layers, checkpoint=None):
         require(np.isfinite(dev_l), f"layer {li + 1}: non-finite <Z>")
         require(dev_l <= bound[li], f"layer {li + 1}: deviation {dev_l:.3e} above bound {bound[li]:.3e}")
     launches = k3_launches()
-    require(launches["bp_sweep_group_bf16_3x"] == 0, "the main path launched K3's bf16_3x mode")
+    require(launches["bp_sweep_group_bf16_3x"] == 0 and launches["bp_split_planes"] == 0,
+            "the main path launched K3's bf16_3x mode")
     by_shape = (dict(jacobi.jacobi_eigh.launches_by_shape), dict(osj.osj_svd.launches_by_shape))
     require(all(torch.isfinite(t).all() for t in eng.T.values()), "non-finite state")
     require(torch.isfinite(eng.M).all(), "non-finite messages")
@@ -1604,6 +1734,9 @@ def reset_counts():
     for by_layout in (jacobi.jacobi_eigh.launches_by_layout, osj.osj_svd.launches_by_layout):
         by_layout.update(dict.fromkeys(by_layout, 0))
     bp_sweep.bp_sweep_group.launches_by_mode.update(dict.fromkeys(bp_sweep.MODES, 0))
+    by_route = bp_sweep.bp_sweep_group.launches_by_route
+    by_route.update(dict.fromkeys(by_route, 0))
+    bp_sweep.split_bucket.launches = 0
     bp_sweep.bp_sweep_group.launches_by_shape.clear()
     default_eigh.library_calls = 0
     return (jacobi._jacobi_eigh_plain.calls, osj._osj_svd_plain.calls, bp_sweep._bp_sweep_group_plain.calls)
@@ -1628,6 +1761,8 @@ def k3_launches():
     by_mode = bp_sweep.bp_sweep_group.launches_by_mode
     counts = {"jacobi_eigh": jacobi.jacobi_eigh.launches, "osj_svd": osj.osj_svd.launches,
               "bp_sweep_group": by_mode["highest"], "bp_sweep_group_bf16_3x": by_mode["bf16_3x"],
+              "bp_split_planes": bp_sweep.split_bucket.launches,
+              "bf16_3x wgmma": bp_sweep.bp_sweep_group.launches_by_route["wgmma"],
               "rotation_log": apply_rotation_log.launches}
     for layout in ("resident", "l2"):
         counts[f"jacobi_eigh {layout}"] = jacobi.jacobi_eigh.launches_by_layout[layout]
@@ -2645,23 +2780,38 @@ def precision_high_run(dev, trajectory, bound_main, layers, chi=64):
     zs_main = trajectory[0]
     controls = json.loads((ROOT / "tests" / "golden" / "golden_f32_controls.json").read_text())["chi64"]
     refs = {(7, 8): controls["z_center_f64"], (11, 5): controls["z_bench_f64"]}
+    torch.cuda.reset_peak_memory_stats()
     eng, step, zs, devs, times, counts = evolve_eagle(dev, f"10c bp_precision=high c64 chi={chi}", chi,
                                                       torch.complex64, layers, refs, 1e-12, gate=bound_main,
                                                       bp_precision="high")
+    print(f"10c: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB (phase 5's, \"highest\", "
+          f"is printed there)")
     d_main = np.abs(zs - zs_main[:len(zs)]).max(axis=1)
     print(f"10c: |<Z> - the highest trajectory| by layer {[f'{x:.2e}' for x in d_main]} (bound 1e-5); "
           f"{1e3 * np.mean(times[1:]):.1f} ms a layer (phase 5's rate is host-bound; no claim)")
     require(d_main.max() <= 1e-5, f"10c: bp_precision='high' left the highest trajectory by {d_main.max():.3e}")
-    require(counts[0]["bp_sweep_group_bf16_3x"] > 0 and counts[0]["bp_sweep_group"] == 0 and not counts[3],
-            f"10c: K3 launches {counts[0]} (every one must be bf16_3x, no plain run)")
+    c = counts[0]
+    require(c["bp_sweep_group_bf16_3x"] > 0 and c["bp_sweep_group"] == 0 and not counts[3]
+            and c["bf16_3x wgmma"] == c["bp_sweep_group_bf16_3x"] and c["bp_split_planes"] > 0,
+            f"10c: K3 launches {c} (every one must be bf16_3x on the tensor cores, the split made, no plain run)")
+    # one sweep as the engine pays for it: on 10c's traffic a BP run is
+    # about one sweep (80 splits for 287 K3 launches, ~7 groups a sweep),
+    # so each turn makes T's split (`_bp_splits`, {} off "high") as
+    # `_bp_fixed_point` does once a run
     T = {k: v.contiguous() for k, v in eng.T.items()}
     sweep = {}
-    for route in ("bf16_3x", "highest", "einsum", "einsum", "highest", "bf16_3x"):
+    for route in ("bf16_3x", "highest", "einsum", "einsum", "highest", "bf16_3x") * 2:
         eng.bp_precision = "high" if route == "bf16_3x" else None
-        sweep.setdefault(route, []).append(cuda_ms(lambda: eng._bp_new_messages(T, eng.M, route != "einsum"), 5))
+        sweep.setdefault(route, []).append(
+            round(cuda_ms(lambda: eng._bp_new_messages(T, eng.M, route != "einsum", eng._bp_splits(T)), 5), 4))
     eng.bp_precision = "high"
-    print(f"10c: one BP sweep of the Eagle chi=64 color plan, ms (in turns): K3 bf16_3x {sweep['bf16_3x']}, K3 FP32 "
-          f"{sweep['highest']}, einsum route {sweep['einsum']}")
+    splits = eng._bp_splits(T)
+    split_ms = cuda_ms(lambda: eng._bp_splits(T), 5)
+    print(f"10c: one BP run of one sweep of the Eagle chi=64 color plan, T's split included, ms (in turns): K3 "
+          f"bf16_3x {sweep['bf16_3x']}, K3 FP32 {sweep['highest']}, einsum route {sweep['einsum']}; bf16_3x / FP32 "
+          f"{sum(sweep['bf16_3x']) / sum(sweep['highest']):.3f} (of the medians "
+          f"{median(sweep['bf16_3x']) / median(sweep['highest']):.3f}); of it the split of T {split_ms:.4f} ms "
+          f"({sum(v.planes.numel() * 2 for v in splits.values()) / 2**30:.3f} GiB)")
     return {"10c": counts[0]}
 
 
@@ -3210,8 +3360,8 @@ def main():
             return sanitize()
         if args.bp_kernel_only:
             print(json.dumps(bp_kernel_phase(dev)))
-            print(json.dumps({k: (v.tolist() if hasattr(v, "tolist") else v)
-                              for k, v in bp_kernel_3x_phase(dev).items()}))
+            for row in bp_kernel_3x_phase(dev):
+                print(json.dumps(row))
             return 0
         if args.switches_only:
             k2_switch_shapes(dev)
@@ -3255,7 +3405,7 @@ def main():
         kernels += wide_kernel_phase(dev)
         kernels += l2_kernel_phase(dev)
         kernels.append(bp_kernel_phase(dev))
-        kernels.append(bp_kernel_3x_phase(dev))
+        kernels += bp_kernel_3x_phase(dev)
         ckpt_path = ROOT / "build" / "chip_smoke" / f"main_layer{CKPT_LAYER}.npz"
         launches, eng, step, probe, main_rate, discarded, trajectory = main_path(
             dev, args.layers, (ckpt_path, CKPT_LAYER) if args.layers > CKPT_LAYER else None)
@@ -3292,7 +3442,7 @@ def main():
             "plain_shape", "cluster", "clusters", "layout", "past_resident")
     # `launches`: each row's own path, phase 5 for K1-K3, 10c for K3's bf16_3x
     # mode, 8d for K1 and K2 at n = 192 and 8e at n = 256
-    own = {"bp_sweep_group_bf16_3x": by_path["10c"]["bp_sweep_group_bf16_3x"]}
+    own = {name: by_path["10c"][name] for name in ("bp_sweep_group_bf16_3x", "bp_split_planes")}
     for name, path in (("192", "8d"), ("256", "8e")):
         for k in ("jacobi_eigh_res", "osj_svd"):
             own[f"{k} n={name}"] = by_path[path][f"{k} n={name}"]

@@ -54,24 +54,54 @@
 // JAX engine runs under `bp_precision="high"`, tnqs/engine.py:801-812): every
 // complex product of the same three steps (V = K x_u conj(M_u), W = K M_v,
 // W V^H) is four real products, each hi.hi + hi.lo + lo.hi of the operands'
-// bfloat16 split (hi = bf16(x), lo = bf16(x - hi)) with float32
-// accumulation, on the tensor cores by `mma.sync.m16n8k16` (bf16 in, f32
-// accumulate).  The split is made as a tile is stored to shared memory, into
-// hi and lo planes of the real and imaginary parts in a k-major layout of
-// their own (pitch 72 bf16: 144-byte rows, so `ldmatrix.trans` reads eight
-// rows without a bank conflict), and the fragments come by `ldmatrix`.  A
-// 64 x 64 x 16 complex step is 12 MMAs per 16 x 8 output block.  Loads are
-// plain (no cp.async) and each warp owns a 32 x 16 block of the 64 x 64
-// output: a simple kernel that is right; `wgmma` and TMA are later work.
-// What bounds it: the same work at the dense bf16 rate (three passes), or
-// the site tensors' bytes.  The passes keep the chunked, in-order reduce, so
-// two calls give the same bits here too.
+// bfloat16 split (hi = bf16(x), lo = bf16(x - hi), nearest even) with
+// float32 accumulation.  What bounds it: the same work at the dense bf16
+// rate (24 FLOP a complex MAC), and nearly as much the bytes: pass 1 reads
+// K and writes V, pass 2 reads both, each the group's d chi^k values a
+// message at 8 bytes.  Degree 2 and 3 at chi <= 64 (`tc_route` in the
+// wrapper: every shape a path runs) take the tensor-core kernels,
+// `bp_bra_tc` and `bp_pass2_tc`:
+// * Split once.  `bp_split_planes` writes T's planes (re hi, im hi, re lo,
+//   im lo; bf16 [4][n_k, d, chi^k]) once a BP run: the engine makes them
+//   with the run, the wrapper when it is given T alone.  Pass 1 writes V in
+//   the same planes, split in registers; a CTA splits its message as it
+//   stores it.  No split in the tile loads.
+// * TMA.  A K or V tile is one `cp.async.bulk.tensor` of a 5-D map over the
+//   planes (the slots from the last, bucket row x d + s, the plane): the
+//   tile's two strided slots and its four planes at once, the row from
+//   `rows[b]` (gathered groups stay), in the 128-byte swizzle wgmma reads,
+//   zero past chi (no padding code for chi = 8..56).  Tiles land in a ring
+//   of two 32 KB stages against mbarriers; pass 1 stores V's tile by TMA
+//   from the stage it read.
+// * `wgmma` m64n64k16 from shared memory, bf16 in, float32 accumulate;
+//   each tile K-major or MN-major as it lies (MN-major when t is the last
+//   slot), so no transposing copy; conj and minus by the instruction's
+//   operand scale.
+// * W stays in registers: its float32 accumulator, split into bf16 hi and
+//   lo, is the register A operand of the W V^H `wgmma` (the accumulator's
+//   layout is the fragment's, pair for pair), as FlashAttention-3 keeps P.
+// * V goes through HBM: launches of a few messages at a time, whose V pass
+//   2 would read back from L2, measured slower than one launch of each pass
+//   for the whole group (each launch's tail costs more than the trip).
+// * chi = 32 (the thermal path, d = 4) fills a quarter of each 64 x 64
+//   output tile: left so (K3 is a small share of a thermal step).
+// Pass 2 is one warpgroup whose thread 0 issues the loads (a producer warp
+// would cap two CTAs an SM at 168 registers, and the kernel spilled there);
+// pass 1 has a producer warp.  Two CTAs share an SM in both.  The other
+// admitted shapes (degree 4-6 at chi 8 and 16; degree 2 past chi = 64)
+// keep the `mma.sync` kernels, `bp_mode_product_3x` and `bp_pass2_3x`: the
+// split made as each tile is stored to shared memory (hi and lo planes of
+// the real and imaginary parts, k-major, pitch 72 bf16), fragments by
+// `ldmatrix`, `mma.sync.m16n8k16`, each warp a 32 x 16 block of the 64 x 64
+// output.  Every route keeps the chunked, in-order reduce, so two calls give
+// the same bits.
 //
 // The limits on k and chi are stated once, in the wrapper's `supports_group`
 // (tnqs_torch/ops/bp_sweep.py), and the launch plan (slots u and v, chunk
 // sizes, scratch layout) is made there too; this file checks only that the
 // arguments are well formed.
 
+#include <cuda.h>  // CUtensorMap; the driver's encoder is reached through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -372,7 +402,7 @@ __global__ void bp_reduce(const float2* __restrict__ part, float2* __restrict__ 
 }
 
 // ---------------------------------------------------------------------
-// bf16_3x mode
+// bf16_3x mode on mma.sync (degree >= 4, or chi > 64)
 // ---------------------------------------------------------------------
 
 constexpr int PITCH_H = TILE + 8;         // bf16 per plane row (144 bytes)
@@ -639,6 +669,460 @@ __global__ void __launch_bounds__(THREADS, WIDE ? 1 : 2)
   });
 }
 
+// ---------------------------------------------------------------------
+// bf16_3x on Hopper's tensor cores: wgmma fed by TMA (k <= 3, chi <= 64)
+// ---------------------------------------------------------------------
+
+constexpr int TC_THREADS = 160;                    // pass 1: a consumer warpgroup, then a producer warp
+constexpr int TC_PASS2_THREADS = 128;              // pass 2: the warpgroup alone
+constexpr int TC_PLANE_BYTES = TILE * TILE * 2;    // a 64 x 64 bf16 plane, rows of 128 bytes
+constexpr int TC_TILE_BYTES = 4 * TC_PLANE_BYTES;  // planes re hi, im hi, re lo, im lo: 32 KB
+constexpr int TC_STAGES = 2;                       // the ring of tiles TMA fills
+// 1024 bytes of slack to align the tiles (the 128-byte swizzle repeats every
+// 1024), the CTA's message tile, the ring, and the ring's full and empty
+// mbarriers
+constexpr size_t SMEM_TC = 1024 + (1 + TC_STAGES) * TC_TILE_BYTES + 2 * TC_STAGES * 8;
+// a plane's offset and a k16 step's in a wgmma descriptor's address field
+// (16-byte units): 8192 bytes a plane; 32 bytes along a row (K-major), 16
+// rows of 128 bytes (MN-major)
+constexpr unsigned long long DESC_PLANE = TC_PLANE_BYTES >> 4;
+constexpr unsigned long long DESC_K_ROW = 32 >> 4;
+constexpr unsigned long long DESC_K_ROWS = 2048 >> 4;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) { return (unsigned)__cvta_generic_to_shared(p); }
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Wait for the phase of parity `parity` of the mbarrier at `bar`; a wait far
+// longer than any tile load traps rather than hangs.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  for (long long spin = 0;; ++spin) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spin > (1ll << 24)) __trap();
+  }
+}
+
+// the consumer warpgroup's own barrier (the producer warp never joins it)
+__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 128;" ::: "memory"); }
+
+// generic-proxy writes to shared memory made visible to wgmma and TMA
+__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;" ::: "memory"); }
+
+// the box of `map` at coordinates c0..c4 into shared memory at `dst`, its
+// bytes counted against the mbarrier at `bar`
+__device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap* map, unsigned bar, int c0, int c1, int c2,
+                                         int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5, %6}], "
+      "[%7];" ::"r"(dst),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4), "r"(bar)
+      : "memory");
+}
+
+// shared memory at `src` into the box of `map` at c0..c4 (the part of the box
+// inside the tensor), in a bulk group of this thread
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, unsigned src, int c0, int c1, int c2, int c3,
+                                          int c4) {
+  asm volatile("cp.async.bulk.tensor.5d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5, %6}], [%1];" ::"l"(
+                   reinterpret_cast<unsigned long long>(map)),
+               "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// (x0, x1) -> hi and lo bf16 pairs, each rounded to nearest even, x0 in the
+// low half (the lower column, or the lower depth index of a fragment)
+__device__ __forceinline__ void split2(float x0, float x1, unsigned& hi, unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = *reinterpret_cast<const unsigned*>(&l);
+}
+
+// byte offset of row r, column c of a 64 x 64 bf16 plane in the 128-byte
+// swizzle that TMA writes and wgmma reads: 16-byte chunk c / 8 of row r sits
+// at chunk (c / 8) ^ (r % 8)
+__device__ __forceinline__ int swz(int r, int c) { return r * 128 + ((((c >> 3) ^ (r & 7)) << 4) | ((c & 7) << 1)); }
+
+// the four split planes of message M [chi, chi] into `tile` (row r, column c
+// = M[r, c]), zero past chi, by the 128 consumer threads
+__device__ __forceinline__ void put_message(unsigned char* tile, const float2* __restrict__ M, int chi) {
+  float4 m[16];  // every load in flight at once: the tile loads of the ring wait on this
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    const int e = threadIdx.x + 128 * q, r = e >> 5, c = 2 * (e & 31);
+    m[q] = r < chi && c < chi ? __ldg(reinterpret_cast<const float4*>(M + (size_t)r * chi + c))
+                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    const int e = threadIdx.x + 128 * q, r = e >> 5, c = 2 * (e & 31);
+    unsigned rh, rl, ih, il;
+    split2(m[q].x, m[q].z, rh, rl);
+    split2(m[q].y, m[q].w, ih, il);
+    const int at = swz(r, c);
+    *reinterpret_cast<unsigned*>(tile + at) = rh;
+    *reinterpret_cast<unsigned*>(tile + TC_PLANE_BYTES + at) = ih;
+    *reinterpret_cast<unsigned*>(tile + 2 * TC_PLANE_BYTES + at) = rl;
+    *reinterpret_cast<unsigned*>(tile + 3 * TC_PLANE_BYTES + at) = il;
+  }
+}
+
+// the wgmma descriptor of a 64 x 64 bf16 plane at shared address `addr`
+// (1024-byte aligned) in the 128-byte swizzle: 8-row groups 1024 bytes apart
+// (K-major: rows along M or N; MN-major: rows along K); the leading offset is
+// unused for a 64-wide tile
+__device__ __forceinline__ unsigned long long wg_desc(unsigned addr) {
+  return (unsigned long long)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wg_begin() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+
+// commit the products issued since `wg_begin` and wait for them
+__device__ __forceinline__ void wg_end() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+#define TNQS_WG_D32(d)                                                                                              \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),      \
+      "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),        \
+      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define TNQS_WG_REGS32                                                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d += SA a b, a 64 x 16 and b 16 x 64 bf16 from shared memory (descriptors;
+// TA, TB: MN-major), float32 accumulation; m64n64k16
+template <int SA, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], unsigned long long a, unsigned long long b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TNQS_WG_REGS32 ", %32, %33, p, %35, 1, %36, %37;\n}\n"
+      : TNQS_WG_D32(d)
+      : "l"(a), "l"(b), "r"(1), "n"(SA), "n"(TA), "n"(TB));
+}
+
+// d += SA a b, a from registers (the m16k16 fragment of each warp's 16 rows),
+// b from shared memory
+template <int SA, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const unsigned (&a)[4], unsigned long long b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TNQS_WG_REGS32
+      ", {%32, %33, %34, %35}, %36, p, %38, 1, %39;\n}\n"
+      : TNQS_WG_D32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(SA), "n"(TB));
+}
+
+// d += SA x y by the three bf16 products, the small ones first: xl yh, xh yl,
+// xh yh (x, y by their hi and lo planes' descriptors)
+template <int SA, int TA, int TB>
+__device__ __forceinline__ void mma3_ss(float (&d)[32], unsigned long long xh, unsigned long long xl,
+                                        unsigned long long yh, unsigned long long yl) {
+  wgmma_ss<SA, TA, TB>(d, xl, yh);
+  wgmma_ss<SA, TA, TB>(d, xh, yl);
+  wgmma_ss<SA, TA, TB>(d, xh, yh);
+}
+
+template <int SA, int TB>
+__device__ __forceinline__ void mma3_rs(float (&d)[32], const unsigned (&xh)[4], const unsigned (&xl)[4],
+                                        unsigned long long yh, unsigned long long yl) {
+  wgmma_rs<SA, TB>(d, xl, yh);
+  wgmma_rs<SA, TB>(d, xh, yl);
+  wgmma_rs<SA, TB>(d, xh, yh);
+}
+
+__device__ __forceinline__ void zero32(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.0f;
+}
+
+// The CTA's shared memory: the message tile, the ring, then the mbarriers
+// (full[stage], empty[stage]).
+struct TcSmem {
+  unsigned char* msg;
+  unsigned char* ring;
+  unsigned full, empty;
+};
+
+__device__ __forceinline__ TcSmem tc_smem(unsigned char* raw, unsigned empty_count) {
+  unsigned char* base = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+  TcSmem sm;
+  sm.msg = base;
+  sm.ring = base + TC_TILE_BYTES;
+  sm.full = smem_u32(base + (1 + TC_STAGES) * TC_TILE_BYTES);
+  sm.empty = sm.full + 8 * TC_STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TC_STAGES; ++s) {
+      mbar_init(sm.full + 8 * s, 1);
+      mbar_init(sm.empty + 8 * s, empty_count);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  return sm;
+}
+
+// Pass 1 on the tensor cores (k = 3): V = K x_u conj(M_u), split.  A unit is
+// one value o of the slot that is neither u nor the last:
+//   C[x, n] = sum_p conj(M_u[x, p]) K[s, p@u, o, n@last],
+// its 64 x 64 tile of K's planes brought by TMA (zero past chi), conj(M_u)
+// split into the CTA's shared memory once (the sign of its imaginary part
+// taken in the products), C split in registers and stored by TMA into V's
+// planes from the tile it was computed from.  Grid (unit chunks, d, B),
+// `per_cta` units a CTA.
+__global__ void __launch_bounds__(TC_THREADS, 2)
+    bp_bra_tc(const __grid_constant__ CUtensorMap src, const __grid_constant__ CUtensorMap dst,
+              const long long* __restrict__ rows, const float2* __restrict__ Min, int n_k, int chi, int d, int u,
+              int col, int per_cta) {
+  extern __shared__ __align__(1024) unsigned char smem_tc[];
+  const TcSmem sm = tc_smem(smem_tc, 1);
+  const int b = blockIdx.z, s = blockIdx.y;
+  const int i0 = blockIdx.x * per_cta, i1 = min(chi, i0 + per_cta);
+  // slot j is dimension 2 - j of the maps; u is 0 or 1, the other of the two
+  // (dimension 1 + u) is the unit's slot
+  const int dother = 1 + u;
+  if (threadIdx.x >= 128) {  // the producer warp: one thread issues every tile load
+    if (threadIdx.x == 128) {
+      const int row = (int)(source_row(rows, b, n_k) * d + s);
+      for (int i = i0, n = 0; i < i1; ++i, ++n) {
+        const int st = n % TC_STAGES;
+        mbar_wait(sm.empty + 8 * st, ((n / TC_STAGES) & 1) ^ 1);
+        mbar_expect(sm.full + 8 * st, TC_TILE_BYTES);
+        tma_load(smem_u32(sm.ring + st * TC_TILE_BYTES), &src, sm.full + 8 * st, 0, dother == 1 ? i : 0,
+                 dother == 2 ? i : 0, row, 0);
+      }
+    }
+    return;
+  }
+  put_message(sm.msg, Min + ((size_t)b * 2 + col) * chi * chi, chi);
+  fence_async_smem();
+  consumers_sync();
+  const unsigned long long a0 = wg_desc(smem_u32(sm.msg));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = i0, n = 0; i < i1; ++i, ++n) {
+    const int st = n % TC_STAGES;
+    unsigned char* tile = sm.ring + st * TC_TILE_BYTES;
+    mbar_wait(sm.full + 8 * st, (n / TC_STAGES) & 1);
+    float cr[32], ci[32];
+    zero32(cr);
+    zero32(ci);
+    wg_fence(cr);
+    wg_fence(ci);
+    wg_begin();
+    const unsigned long long b0 = wg_desc(smem_u32(tile));
+    // the whole depth of 64 (the rows past chi are zero in both operands):
+    // no branch between the products
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      // A = M_u (K-major), B = K's tile [p][n] (MN-major); Cr += Mr Kr + Mi
+      // Ki, Ci += Mr Ki - Mi Kr
+      const unsigned long long a = a0 + DESC_K_ROW * kk, bb = b0 + DESC_K_ROWS * kk;
+      mma3_ss<1, 0, 1>(cr, a, a + 2 * DESC_PLANE, bb, bb + 2 * DESC_PLANE);
+      mma3_ss<1, 0, 1>(cr, a + DESC_PLANE, a + 3 * DESC_PLANE, bb + DESC_PLANE, bb + 3 * DESC_PLANE);
+      mma3_ss<1, 0, 1>(ci, a, a + 2 * DESC_PLANE, bb + DESC_PLANE, bb + 3 * DESC_PLANE);
+      mma3_ss<-1, 0, 1>(ci, a + DESC_PLANE, a + 3 * DESC_PLANE, bb, bb + 2 * DESC_PLANE);
+    }
+    wg_end();
+    wg_fence(cr);
+    wg_fence(ci);
+    consumers_sync();  // every warp's products have read the tile
+    // C's split planes over the tile, in the swizzle the store reads
+    const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        unsigned rh, rl, ih, il;
+        split2(cr[4 * c + 2 * h], cr[4 * c + 2 * h + 1], rh, rl);
+        split2(ci[4 * c + 2 * h], ci[4 * c + 2 * h + 1], ih, il);
+        const int at = swz(16 * warp + g + 8 * h, 8 * c + 2 * t4);
+        *reinterpret_cast<unsigned*>(tile + at) = rh;
+        *reinterpret_cast<unsigned*>(tile + TC_PLANE_BYTES + at) = ih;
+        *reinterpret_cast<unsigned*>(tile + 2 * TC_PLANE_BYTES + at) = rl;
+        *reinterpret_cast<unsigned*>(tile + 3 * TC_PLANE_BYTES + at) = il;
+      }
+    fence_async_smem();
+    consumers_sync();
+    if (threadIdx.x == 0) {
+      tma_store(&dst, smem_u32(tile), 0, dother == 1 ? i : 0, dother == 2 ? i : 0, b * d + s, 0);
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");  // the tile is read: refill it
+      mbar_arrive(sm.empty + 8 * st);
+    }
+  }
+  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// Pass 2 on the tensor cores (k = 2, 3): per item (s, o), o the value of the
+// slot that is neither t nor v (k = 3),
+//   W[i, q] = sum_y K[i@t, y@v] M_v[y, q],  P[i, j] += sum_q W[i, q] conj(V[j@t, q@v]),
+// K's and V's tiles brought by TMA into a ring of two stages (k = 2: V is K,
+// one tile an item), M_v split into the CTA's shared memory once; W stays in
+// registers: its float32 accumulator, split into bf16 hi and lo, is the
+// register operand of W V^H.  One warpgroup, no producer warp: with two
+// stages a tile load can start only once the CTA is done with the tile two
+// before it, so thread 0 issues it then, and the CTA keeps the 255 registers
+// two CTAs of 128 threads may use (five warps would cap it at 168 and spill).
+// T_INNER: t is the last slot, so K's and V's tiles are MN-major operands.
+// P goes to dst[b, chunk] as in `bp_pass2`.
+template <bool T_INNER>
+__global__ void __launch_bounds__(TC_PASS2_THREADS, 2)
+    bp_pass2_tc(const __grid_constant__ CUtensorMap ket, const __grid_constant__ CUtensorMap bra,
+                const long long* __restrict__ rows, const float2* __restrict__ Min, float2* __restrict__ dst,
+                int n_k, int k, int chi, int d, int t, int v, int per_cta, int chunks) {
+  extern __shared__ __align__(1024) unsigned char smem_tc[];
+  const TcSmem sm = tc_smem(smem_tc, 1);  // the empty mbarriers stay unused
+  const int b = blockIdx.y, chunk = blockIdx.x;
+  const int O = k == 3 ? chi : 1;
+  const int it0 = chunk * per_cta, it1 = min(d * O, it0 + per_cta);
+  const int per_item = k == 3 ? 2 : 1, tiles = (it1 - it0) * per_item;
+  // slot j is dimension k - 1 - j of the maps; the third slot (k = 3) is
+  // dimension t + v - 1 (1 or 2: one of t, v is the last slot); k = 2's unit
+  // dimension 2 stays at 0
+  const int dother = k == 3 ? t + v - 1 : 2;
+  const int krow = threadIdx.x == 0 ? (int)(source_row(rows, b, n_k) * d) : 0;
+  // tile n of the CTA (item n / per_item; K's, then V's at k = 3) into stage n % 2
+  auto load = [&](int n) {
+    if (n >= tiles) return;
+    const int it = it0 + n / per_item, s = it / O, o = it % O;
+    const int c1 = dother == 1 ? o : 0, c2 = dother == 2 ? o : 0;
+    const int st = n % TC_STAGES;
+    const unsigned to = smem_u32(sm.ring + st * TC_TILE_BYTES);
+    mbar_expect(sm.full + 8 * st, TC_TILE_BYTES);
+    if (n % per_item == 0)
+      tma_load(to, &ket, sm.full + 8 * st, 0, c1, c2, krow + s, 0);
+    else
+      tma_load(to, &bra, sm.full + 8 * st, 0, c1, c2, b * d + s, 0);
+  };
+  if (threadIdx.x == 0) {
+    load(0);
+    load(1);
+  }
+  put_message(sm.msg, Min + ((size_t)b * (k - 1) + (v < t ? v : v - 1)) * chi * chi, chi);
+  fence_async_smem();
+  __syncthreads();
+  constexpr int TI = T_INNER ? 1 : 0;
+  constexpr unsigned long long STEP = T_INNER ? DESC_K_ROWS : DESC_K_ROW;  // K's and V's tiles
+  const unsigned long long m0 = wg_desc(smem_u32(sm.msg));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float pr[32], pi[32];
+  zero32(pr);
+  zero32(pi);
+  int n = 0;
+  for (int it = it0; it < it1; ++it) {
+    // W = K M_v: Wr += Kr Mr - Ki Mi, Wi += Kr Mi + Ki Mr
+    const int st = n % TC_STAGES;
+    mbar_wait(sm.full + 8 * st, (n / TC_STAGES) & 1);
+    float wr[32], wi[32];
+    zero32(wr);
+    zero32(wi);
+    wg_fence(wr);
+    wg_fence(wi);
+    wg_begin();
+    const unsigned long long k0 = wg_desc(smem_u32(sm.ring + st * TC_TILE_BYTES));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // the whole depth, as in pass 1
+      const unsigned long long a = k0 + STEP * kk, bm = m0 + DESC_K_ROWS * kk;
+      mma3_ss<1, TI, 1>(wr, a, a + 2 * DESC_PLANE, bm, bm + 2 * DESC_PLANE);
+      mma3_ss<-1, TI, 1>(wr, a + DESC_PLANE, a + 3 * DESC_PLANE, bm + DESC_PLANE, bm + 3 * DESC_PLANE);
+      mma3_ss<1, TI, 1>(wi, a, a + 2 * DESC_PLANE, bm + DESC_PLANE, bm + 3 * DESC_PLANE);
+      mma3_ss<1, TI, 1>(wi, a + DESC_PLANE, a + 3 * DESC_PLANE, bm, bm + 2 * DESC_PLANE);
+    }
+    wg_end();
+    wg_fence(wr);
+    wg_fence(wi);
+    int vst = st;  // k = 2: V's tile is K's
+    if (k == 3) {
+      __syncthreads();  // every warp is done with K's tile: the next but one tile may land there
+      if (threadIdx.x == 0) load(n + 2);
+      ++n;
+      vst = n % TC_STAGES;
+      mbar_wait(sm.full + 8 * vst, (n / TC_STAGES) & 1);
+    }
+    // W's split: the accumulator's columns 16 kk .. 16 kk + 15 are the A
+    // fragment of depth step kk, pairs in order
+    unsigned wrh[4][4], wrl[4][4], wih[4][4], wil[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        split2(wr[8 * kk + 2 * e], wr[8 * kk + 2 * e + 1], wrh[kk][e], wrl[kk][e]);
+        split2(wi[8 * kk + 2 * e], wi[8 * kk + 2 * e + 1], wih[kk][e], wil[kk][e]);
+      }
+    // P += W V^H: Pr += Wr Vr + Wi Vi, Pi += Wi Vr - Wr Vi
+    wg_fence(pr);
+    wg_fence(pi);
+    wg_begin();
+    const unsigned long long v0 = wg_desc(smem_u32(sm.ring + vst * TC_TILE_BYTES));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // W's columns past chi are zero (M_v's are)
+      const unsigned long long bv = v0 + STEP * kk;
+      mma3_rs<1, TI>(pr, wrh[kk], wrl[kk], bv, bv + 2 * DESC_PLANE);
+      mma3_rs<1, TI>(pr, wih[kk], wil[kk], bv + DESC_PLANE, bv + 3 * DESC_PLANE);
+      mma3_rs<1, TI>(pi, wih[kk], wil[kk], bv, bv + 2 * DESC_PLANE);
+      mma3_rs<-1, TI>(pi, wrh[kk], wrl[kk], bv + DESC_PLANE, bv + 3 * DESC_PLANE);
+    }
+    wg_end();
+    wg_fence(pr);
+    wg_fence(pi);
+    __syncthreads();  // every warp is done with V's tile
+    if (threadIdx.x == 0) load(n + 2);
+    ++n;
+  }
+  float2* out = dst + ((size_t)b * chunks + chunk) * chi * chi;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = 16 * warp + g + 8 * h, j = 8 * c + 2 * t4;  // j + 1 < chi with j, since chi % 8 == 0
+      if (i < chi && j < chi)
+        *reinterpret_cast<float4*>(out + (size_t)i * chi + j) =
+            make_float4(pr[4 * c + 2 * h], pi[4 * c + 2 * h], pr[4 * c + 2 * h + 1], pi[4 * c + 2 * h + 1]);
+    }
+}
+
+// planes[4][n] = the re hi, im hi, re lo, im lo of x[n], each bf16 rounded to
+// nearest even; two complex values a thread (n even), a word of each plane
+__global__ void bp_split_planes(const float4* __restrict__ x, unsigned* __restrict__ planes, long long pairs) {
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < pairs;
+       e += (long long)gridDim.x * blockDim.x) {
+    const float4 z = x[e];
+    unsigned rh, rl, ih, il;
+    split2(z.x, z.z, rh, rl);
+    split2(z.y, z.w, ih, il);
+    planes[e] = rh;
+    planes[pairs + e] = ih;
+    planes[2 * pairs + e] = rl;
+    planes[3 * pairs + e] = il;
+  }
+}
+
 }  // namespace
 
 // Once per device: raise the kernels' dynamic shared memory limits and
@@ -800,4 +1284,160 @@ extern "C" int tnqs_bp_sweep(const void* T, const void* rows, const void* Min, v
 extern "C" int tnqs_bp_sweep_3x(const void* T, const void* rows, const void* Min, void* out, void* scratch,
                                 const long long* plan, int n_k, int device, void* stream) {
   return sweep_on<true>(T, rows, Min, out, scratch, plan, n_k, device, stream);
+}
+
+// The same for the tensor-core bf16_3x kernels: their shared memory, how
+// many CTAs of pass 1 and of pass 2 an SM holds, and the SM count.
+extern "C" int tnqs_bp_sweep_setup_tc(int* smem, int* ctas_mode, int* ctas_pass2, int* sms) {
+  cudaError_t err = cudaFuncSetAttribute(bp_bra_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_TC);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(bp_pass2_tc<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_TC);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(bp_pass2_tc<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_TC);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_mode, bp_bra_tc, TC_THREADS, SMEM_TC);
+  int other = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_pass2, bp_pass2_tc<false>, TC_PASS2_THREADS, SMEM_TC);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&other, bp_pass2_tc<true>, TC_PASS2_THREADS, SMEM_TC);
+  if (err == cudaSuccess && other < *ctas_pass2) *ctas_pass2 = other;
+  int dev = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  *smem = (int)SMEM_TC;
+  return (int)err;
+}
+
+namespace {
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda)
+cudaError_t encoder(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess) return err;
+    if (q != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// The tensor map of split planes [4][rows_d][chi^k] bf16 (k = 2, 3) in five
+// dimensions, innermost first: the slots from the last (k = 2: then a unit
+// dimension), the rows (bucket row x d + s), the plane.  The box is 64 on
+// dimensions da and db, 4 planes, 1 elsewhere, in the 128-byte swizzle; TMA
+// fills zeros past chi on loads and leaves them out on stores.
+cudaError_t plane_map(CUtensorMap* map, const void* base, int k, int chi, long long rows_d, int da, int db) {
+  EncodeTiled encode;
+  const cudaError_t err = encoder(&encode);
+  if (err != cudaSuccess) return err;
+  const unsigned long long site = (unsigned long long)ipow(chi, k);
+  const cuuint64_t dims[5] = {(cuuint64_t)chi, (cuuint64_t)chi, (cuuint64_t)(k == 3 ? chi : 1), (cuuint64_t)rows_d,
+                              4};
+  const cuuint64_t strides[4] = {(cuuint64_t)chi * 2, (cuuint64_t)chi * chi * 2, site * 2, rows_d * site * 2};
+  cuuint32_t box[5] = {1, 1, 1, 1, 4};
+  box[da] = TILE;
+  box[db] = TILE;
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims, strides, box,
+                            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the group's launches on the tensor cores, in order, on `st`: pass 1 (k =
+// 3), pass 2, then the reduce
+cudaError_t launch_group_tc(const void* planes, const long long* rows, const float2* M, float2* out, float2* scratch,
+                            const long long* plan, int n_k, cudaStream_t st) {
+  const int batch = (int)plan[0], k = (int)plan[1], chi = (int)plan[2], d = (int)plan[3], t = (int)plan[4];
+  const int u = (int)plan[5], v = (int)plan[6], mode_per_cta = (int)plan[7], per_cta = (int)plan[8];
+  const int chunks = (int)plan[9];
+  const bool ok = batch > 0 && n_k > 0 && d > 0 && (k == 2 || k == 3) && chi >= 8 && chi <= TILE && chi % 8 == 0 &&
+                  t >= 0 && t < k && v >= 0 && v < k && v != t && (v == k - 1 || t == k - 1) &&
+                  (k == 2 ? u == -1 : u >= 0 && u < 2 && u != t && u != v) && mode_per_cta > 0 && per_cta > 0 &&
+                  chunks > 0 && (scratch != nullptr || (k == 2 && chunks == 1));
+  if (!ok) return cudaErrorInvalidValue;
+  const void* vbuf = scratch + plan[10];  // V's planes [4][batch][d][chi^3]
+  float2* part = scratch + plan[11];
+  CUtensorMap ket, bra;
+  cudaError_t err = plane_map(&ket, planes, k, chi, (long long)n_k * d, k - 1 - t, k - 1 - v);
+  if (err == cudaSuccess && k == 3) {  // the bra side first: V = K x_u conj(M_u)
+    CUtensorMap src, dst;
+    err = plane_map(&src, planes, k, chi, (long long)n_k * d, 2 - u, 0);
+    if (err == cudaSuccess) err = plane_map(&dst, vbuf, k, chi, (long long)batch * d, 2 - u, 0);
+    if (err == cudaSuccess) err = plane_map(&bra, vbuf, k, chi, (long long)batch * d, k - 1 - t, k - 1 - v);
+    if (err != cudaSuccess) return err;
+    bp_bra_tc<<<dim3((chi + mode_per_cta - 1) / mode_per_cta, d, batch), TC_THREADS, SMEM_TC, st>>>(
+        src, dst, rows, M, n_k, chi, d, u, u < t ? u : u - 1, mode_per_cta);
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess) return err;
+  float2* dst = chunks == 1 ? out : part;
+  const dim3 grid(chunks, batch);
+  if (t == k - 1)
+    bp_pass2_tc<true><<<grid, TC_PASS2_THREADS, SMEM_TC, st>>>(ket, k == 3 ? bra : ket, rows, M, dst, n_k, k, chi, d,
+                                                                t, v, per_cta, chunks);
+  else
+    bp_pass2_tc<false><<<grid, TC_PASS2_THREADS, SMEM_TC, st>>>(ket, k == 3 ? bra : ket, rows, M, dst, n_k, k, chi, d,
+                                                                 t, v, per_cta, chunks);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || chunks == 1) return err;
+  const long long total = (long long)batch * chi * chi;
+  bp_reduce<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(part, out, chunks, chi * chi, total);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The same group in bf16_3x on the tensor cores (k = 2, 3 and chi <= 64:
+// `tc_route` in tnqs_torch/ops/bp_sweep.py), reading T's split planes
+// `planes` [4][n_k, d, chi^k] bf16 (`tnqs_bp_split`) in place of T.  `plan`
+// (`_launch_args_tc`): batch, k, chi, d, t, u, v, the pass-1 units a CTA,
+// the pass-2 items a CTA, the chunks, then the element offsets in `scratch`
+// (complex64 units) of V's planes [4][batch][d][chi^3] bf16 (k = 3) and of
+// the partials [batch, chunks, chi, chi] (chunks > 1).
+extern "C" int tnqs_bp_sweep_tc(const void* planes, const void* rows, const void* Min, void* out, void* scratch,
+                                const long long* plan, int n_k, int device, void* stream) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_group_tc(planes, (const long long*)rows, (const float2*)Min, (float2*)out, (float2*)scratch, plan, n_k,
+                        (cudaStream_t)stream);
+  if (prev != device) {
+    const cudaError_t back = cudaSetDevice(prev);
+    if (err == cudaSuccess) err = back;
+  }
+  return (int)err;
+}
+
+// T's split planes: x [rows][per_row] complex64 (per_row even) -> planes
+// [4][rows][per_row] bf16, re hi, im hi, re lo, im lo, on `stream`.
+extern "C" int tnqs_bp_split(const void* x, void* planes, int rows, int per_row, int device, void* stream) {
+  if (rows <= 0 || per_row <= 0 || per_row % 2) return (int)cudaErrorInvalidValue;
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const long long pairs = (long long)rows * per_row / 2;
+  const long long blocks = (pairs + 255) / 256;
+  bp_split_planes<<<(unsigned)(blocks < 8192 ? blocks : 8192), 256, 0, (cudaStream_t)stream>>>(
+      (const float4*)x, (unsigned*)planes, pairs);
+  err = cudaGetLastError();
+  if (prev != device) {
+    const cudaError_t back = cudaSetDevice(prev);
+    if (err == cudaSuccess) err = back;
+  }
+  return (int)err;
 }

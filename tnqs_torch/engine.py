@@ -43,7 +43,7 @@ import torch.nn.functional as F
 from .gates import gate_matrix
 from .sitetypes import op_matrix
 from .graphs import NamedGraph, center, leafless_edge_induced_subgraphs
-from .ops.bp_sweep import absorb_message, bp_sweep_group, group_messages, supports_group
+from .ops.bp_sweep import absorb_message, bp_sweep_group, group_messages, split_bucket, supports_group, tc_route
 from .ops.factorizations import (
     apply_rinv,
     cholesky_nan,
@@ -784,14 +784,18 @@ class LatticeEngine:
         return bpc
 
     # -- BP sweep (`tnqs/engine.py:784-884`) -------------------------------
-    def _bp_new_messages(self, T: dict, M: torch.Tensor, use_kernel: bool = True) -> torch.Tensor:
+    def _bp_new_messages(self, T: dict, M: torch.Tensor, use_kernel: bool = True,
+                         splits: dict | None = None) -> torch.Tensor:
         """One BP iteration: batched within each (stage, degree, slot) group,
         Gauss-Seidel between stages (a stage reads the messages of the
         previous one).  With `use_kernel` and ``bp_kernel="kernel"``, every
         group the fused kernel takes (degree >= 2, `supports_group`) goes
-        through `bp_sweep_group`, gathered source rows included; the rest
-        stay on the einsum chain, as at `tnqs/engine.py:798-831`."""
+        through `bp_sweep_group`, gathered source rows included, with the
+        bucket's split planes from `splits` (`_bp_splits`) where it has
+        them; the rest stay on the einsum chain, as at
+        `tnqs/engine.py:798-831`."""
         kernel = use_kernel and self.bp_kernel == "kernel"
+        splits = splits or {}
         mode = "bf16_3x" if self.bp_precision == "high" else "highest"
         stage = None
         out = M
@@ -801,7 +805,7 @@ class LatticeEngine:
                 out = M.clone()
                 stage = g_stage
             if kernel and supports_group(k, self.chi, self.dtype):
-                m_new = bp_sweep_group(T[k], M[in_all], rows, t, mode)
+                m_new = bp_sweep_group(T[k], M[in_all], rows, t, mode, splits.get(k))
             else:
                 m_new = group_messages(T[k][src], [M[eids] for eids in ins], t)
             # sum-normalize (`tnqs/engine.py:834-836`)
@@ -816,18 +820,32 @@ class LatticeEngine:
         `tnqs/engine.py:853-884`: the first update counts as iteration 1,
         then iterate while ``it < maxiter and eps > tolerance``.  The count
         and the last eps stay in `bp_iterations` and `bp_eps`."""
+        splits = {}
         if self.bp_kernel == "kernel":
             T = {k: v.contiguous() for k, v in T.items()}  # the kernel reads T in place
-        M_cur = self._bp_new_messages(T, M)
+            splits = self._bp_splits(T)
+        M_cur = self._bp_new_messages(T, M, splits=splits)
         eps = _bp_diff(M, M_cur)
         it = 1
         while it < maxiter and float(eps) > tolerance:
-            M_new = self._bp_new_messages(T, M_cur)
+            M_new = self._bp_new_messages(T, M_cur, splits=splits)
             eps = _bp_diff(M_cur, M_new)
             M_cur = M_new
             it += 1
         self.bp_iterations, self.bp_eps = it, float(eps)
         return M_cur
+
+    def _bp_splits(self, T: dict) -> dict:
+        """Under ``bp_precision="high"``, the split planes
+        (`ops.bp_sweep.split_bucket`) of every bucket whose groups run on the
+        tensor-core bf16_3x kernels (`tc_route`), made once for a BP run: T
+        does not change inside one, and `bp_sweep_group` refuses planes made
+        from another tensor or before an in-place write, so no split
+        outlives the T it was made from."""
+        if self.bp_precision != "high":
+            return {}
+        return {k: split_bucket(v) for k, v in T.items()
+                if supports_group(k, self.chi, self.dtype) and tc_route(k, self.chi)}
 
     def bp_update(self, maxiter: int = 30, tolerance: float | None = None) -> "LatticeEngine":
         """Run BP on the engine's state to `tolerance` (default by dtype) or

@@ -79,6 +79,12 @@ _SIGNATURES = {
     # the bf16_3x mode's, with the same arguments
     "tnqs_bp_sweep_3x": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "tnqs_bp_sweep_setup_3x": [ctypes.POINTER(_I)] * 6,
+    # bf16_3x on the tensor cores: (planes, rows, min, out, scratch, plan int64[12], n_k, device, stream)
+    "tnqs_bp_sweep_tc": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # (smem, ctas_mode, ctas_pass2, sms), all out
+    "tnqs_bp_sweep_setup_tc": [ctypes.POINTER(_I)] * 4,
+    # T's split planes: (x, planes, rows, per_row, device, stream)
+    "tnqs_bp_split": [_P, _P, _I, _I, _I, _P],
 }
 
 

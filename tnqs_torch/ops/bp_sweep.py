@@ -25,6 +25,13 @@ plain version splits at the kernel's points (each operand of each of the
 three products, V and W rounded to float32 before their split) and takes
 float32 products of the splits, which are exact, so it differs from the
 kernel's tensor-core products only in the order of the sums.
+
+bf16_3x takes one of two kernel designs by one rule, `tc_route`: degree 2
+and 3 at chi <= 64 (every shape a path runs) go to the `wgmma` kernels fed
+by TMA, which read T's split planes (`split_bucket`, made once per BP run
+by the engine, or by the wrapper when it is given T alone); the other
+admitted shapes (degree 4-6 at chi 8 and 16, degree 2 past chi = 64) keep
+the `mma.sync` kernels, which split as they load.
 """
 
 from __future__ import annotations
@@ -50,6 +57,11 @@ PITCH_H = TILE + 8
 SPLIT_BYTES = 4 * TILE * PITCH_H * 2
 SMEM_MODE_3X = 2 * SPLIT_BYTES
 SMEM_PASS2_3X = 3 * SPLIT_BYTES
+# the tensor-core bf16_3x kernels (`bp_bra_tc`, `bp_pass2_tc`): a 64 x 64
+# tile's four bf16 planes (32 KB); the CTA's message tile and a ring of two
+# tiles, 1024 bytes of alignment slack and four mbarriers
+TC_TILE_BYTES = 4 * TILE * TILE * 2
+SMEM_TC = 1024 + 3 * TC_TILE_BYTES + 32
 MODES = ("highest", "bf16_3x")
 # cost of the reduce pass in pass-2 items, for choosing the chunks
 _REDUCE_COST = 0.25
@@ -61,6 +73,15 @@ def supports_group(k: int, chi: int, dtype) -> bool:
     (k = 1 has no absorb; the einsum is already minimal), chi % 8 == 0 and
     chi^k <= 2^18.  The kernel's limits are stated here and nowhere else."""
     return dtype == torch.complex64 and k >= 2 and chi % 8 == 0 and 0 < chi**k <= 1 << 18
+
+
+def tc_route(k: int, chi: int) -> bool:
+    """Whether an admitted bf16_3x group runs on the tensor-core kernels
+    (`wgmma` from shared memory, TMA tile loads, T's split planes): degree 2
+    or 3 at one 64-tile a bond.  The rest (degree >= 4, chi <= 16; degree 2
+    past chi = 64) keeps the `mma.sync` kernels.  The one rule between the
+    two designs."""
+    return k <= 3 and chi <= TILE
 
 
 def split_slots(k: int, t: int) -> tuple[int | None, int]:
@@ -121,7 +142,8 @@ class BPPlan:
 
     @property
     def v_elems(self) -> int:
-        """complex64 elements of V: the group's [B, d, chi^k], for k >= 3."""
+        """complex64 elements of V: the group's [B, d, chi^k], for k >= 3
+        (on the tensor-core route: bf16 planes of the same bytes)."""
         return self.batch * self.d * self.site if self.k >= 3 else 0
 
     @property
@@ -147,15 +169,22 @@ class BPPlan:
 
 
 @functools.lru_cache(maxsize=None)
-def bp_plan(k: int, chi: int, batch: int, t: int, d: int, mode_slots: int, pass2_slots: int) -> BPPlan:
+def bp_plan(k: int, chi: int, batch: int, t: int, d: int, mode_slots: int, pass2_slots: int,
+            tc: bool = False) -> BPPlan:
     """The plan of a (k, chi, B, t) group for a card that holds `mode_slots`
-    pass-1 and `pass2_slots` pass-2 CTAs at once."""
+    pass-1 and `pass2_slots` pass-2 CTAs at once.  With `tc` (the
+    tensor-core route, `tc_route`) pass 1's unit is one value of the slot
+    that is neither u nor the last (a 64-column block at chi = 64, fewer
+    columns below)."""
     u, v = split_slots(k, t)
     pre = tuple(j for j in range(k) if j not in (t, u, v))
     nblk = -(-chi // TILE)
     items = d * chi ** (k - 2)
     per_cta = _per_cta(items, batch * nblk * nblk, pass2_slots, _REDUCE_COST)
-    mode_blocks = chi ** (k - 1) // TILE if k >= 3 else 0
+    if k < 3:
+        mode_blocks = 0
+    else:
+        mode_blocks = chi ** (k - 2) if tc else chi ** (k - 1) // TILE
     mode_per_cta = _per_cta(mode_blocks, batch * d, mode_slots, 0.0) if k >= 3 else 1
     return BPPlan(k, chi, batch, d, t, u, v, pre, nblk, items, per_cta, -(-items // per_cta), mode_blocks,
                   mode_per_cta)
@@ -166,6 +195,55 @@ def _split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     bf16(x - hi), both rounded to nearest even (x - hi is exact)."""
     hi = x.to(torch.bfloat16).float()
     return hi, (x - hi).to(torch.bfloat16).float()
+
+
+@dataclass(frozen=True)
+class SplitBucket:
+    """The bf16 split planes of a bucket T[k], the operand the tensor-core
+    bf16_3x kernels read in place of T: `planes` [4, n_k, d, chi x k] bf16,
+    re hi, im hi, re lo, im lo (`_split` of the real and imaginary parts);
+    None for a CPU tensor, whose plain version splits T itself.  It holds
+    the tensor it was made from and that tensor's version counter at the
+    time, and `bp_sweep_group` refuses it for any other tensor or after an
+    in-place write to that one, so a split never outlives its T."""
+
+    source: torch.Tensor
+    version: int
+    planes: torch.Tensor | None
+
+    def of(self, Tk: torch.Tensor) -> bool:
+        """Whether these planes are the split of `Tk` as it stands."""
+        return self.source is Tk and self.version == Tk._version
+
+
+def _split_planes_plain(Tk: torch.Tensor) -> torch.Tensor:
+    """The split planes by `_split`, in PyTorch."""
+    (rh, rl), (ih, il) = _split(Tk.real), _split(Tk.imag)
+    return torch.stack([rh, ih, rl, il]).to(torch.bfloat16)
+
+
+def split_bucket(Tk: torch.Tensor) -> SplitBucket:
+    """T[k]'s split planes: on a CUDA tensor by the split pass of
+    `bp_sweep.cu` (`tnqs_bp_split`, counted in `split_bucket.launches`).  On
+    a CPU tensor only T and its version are kept: the plain version, which
+    `bp_sweep_group` runs there, never reads the planes."""
+    version = Tk._version
+    if Tk.device.type == "cpu":
+        return SplitBucket(Tk, version, None)
+    if not (Tk.is_cuda and Tk.dtype == torch.complex64 and Tk.is_contiguous() and Tk.dim() >= 3):
+        raise ValueError("split_bucket takes a contiguous complex64 CUDA bucket [n_k, d, chi x k]")
+    rows = Tk.shape[0] * Tk.shape[1]
+    per_row = Tk[0, 0].numel()
+    planes = torch.empty((4,) + tuple(Tk.shape), dtype=torch.bfloat16, device=Tk.device)
+    if rows and per_row:
+        lib = _build.kernels()
+        _build.check(lib.tnqs_bp_split(Tk.data_ptr(), planes.data_ptr(), rows, per_row, Tk.device.index,
+                                       torch.cuda.current_stream(Tk.device).cuda_stream), "tnqs_bp_split")
+        split_bucket.launches += 1
+    return SplitBucket(Tk, version, planes)
+
+
+split_bucket.launches = 0
 
 
 def _einsum3(expr: str, A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -279,6 +357,33 @@ def _slots_3x(device_index: int) -> tuple[int, int, int]:
     return _query_slots("tnqs_bp_sweep_setup_3x", (SMEM_MODE_3X, SMEM_PASS2_3X), device_index)
 
 
+@functools.cache
+def _slots_tc(device_index: int) -> tuple[int, int]:
+    """Once per device: set the tensor-core bf16_3x kernels' shared-memory
+    limit and return how many pass-1 and pass-2 CTAs the card holds at
+    once."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    with torch.cuda.device(device_index):
+        _build.check(_build.kernels().tnqs_bp_sweep_setup_tc(*(ctypes.byref(x) for x in vals)),
+                     "tnqs_bp_sweep_setup_tc")
+    smem, ctas_mode, ctas_pass2, sms = (x.value for x in vals)
+    if smem != SMEM_TC:
+        raise RuntimeError(f"bp_sweep.cu's tensor-core shared memory {smem} B is not the plan's {SMEM_TC} B")
+    if min(ctas_mode, ctas_pass2) < 1:
+        raise RuntimeError(f"no tensor-core BP kernel CTA fits an SM ({ctas_mode}, {ctas_pass2})")
+    return ctas_mode * sms, ctas_pass2 * sms
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_args_tc(k: int, chi: int, batch: int, t: int, d: int, device_index: int):
+    """(scratch elements, the plan as the int64[12] `tnqs_bp_sweep_tc`
+    reads) of a tensor-core bf16_3x group shape on a device, made once."""
+    plan = bp_plan(k, chi, batch, t, d, *_slots_tc(device_index), tc=True)
+    args = (ctypes.c_longlong * 12)(batch, k, chi, d, t, -1 if plan.u is None else plan.u, plan.v, plan.mode_per_cta,
+                                    plan.per_cta, plan.chunks, 0, plan.v_elems)  # V, then the partials
+    return plan.v_elems + plan.part_elems, args
+
+
 @functools.lru_cache(maxsize=None)
 def _launch_args(k: int, chi: int, batch: int, t: int, d: int, device_index: int, mode: str = "highest"):
     """(scratch elements, the plan as the int64[14] `tnqs_bp_sweep` reads)
@@ -294,9 +399,10 @@ def _launch_args(k: int, chi: int, batch: int, t: int, d: int, device_index: int
 
 
 def _bp_sweep_group_cuda(Tk: torch.Tensor, Min: torch.Tensor, rows: torch.Tensor, t: int,
-                         mode: str = "highest") -> torch.Tensor:
-    """Launch `tnqs_bp_sweep` (`tnqs_bp_sweep_3x` in bf16_3x) on contiguous
-    complex64 CUDA tensors."""
+                         mode: str = "highest", split: SplitBucket | None = None) -> torch.Tensor:
+    """Launch `tnqs_bp_sweep` on contiguous complex64 CUDA tensors; in
+    bf16_3x `tnqs_bp_sweep_tc` on T's split planes (`split`, else made
+    here) where `tc_route` says so, else `tnqs_bp_sweep_3x`."""
     if not (Tk.is_cuda and Min.device == Tk.device and Tk.dtype == Min.dtype == torch.complex64):
         raise ValueError("bp_sweep_group kernel takes complex64 CUDA tensors on one device")
     if not (Tk.is_contiguous() and Min.is_contiguous() and rows.is_contiguous()):
@@ -308,25 +414,32 @@ def _bp_sweep_group_cuda(Tk: torch.Tensor, Min: torch.Tensor, rows: torch.Tensor
     if B == 0:
         return out
     dev = Tk.device.index
-    elems, args = _launch_args(k, chi, B, t, Tk.shape[1], dev, mode)
+    lib = _build.kernels()
+    if mode == "bf16_3x" and tc_route(k, chi):
+        route, src = "wgmma", (split if split is not None else split_bucket(Tk)).planes
+        elems, args = _launch_args_tc(k, chi, B, t, Tk.shape[1], dev)
+        launch = lib.tnqs_bp_sweep_tc
+    else:
+        route, src = ("fp32" if mode == "highest" else "mma.sync"), Tk
+        elems, args = _launch_args(k, chi, B, t, Tk.shape[1], dev, mode)
+        launch = lib.tnqs_bp_sweep if mode == "highest" else lib.tnqs_bp_sweep_3x
     # V, the ket absorbs before pass 2 and the partials, in one allocation
     scratch = torch.empty(elems, dtype=Tk.dtype, device=Tk.device) if elems else None
-    lib = _build.kernels()
-    launch = lib.tnqs_bp_sweep if mode == "highest" else lib.tnqs_bp_sweep_3x
     err = launch(
-        Tk.data_ptr(), rows.data_ptr(), Min.data_ptr(), out.data_ptr(), scratch.data_ptr() if elems else None,
+        src.data_ptr(), rows.data_ptr(), Min.data_ptr(), out.data_ptr(), scratch.data_ptr() if elems else None,
         args, Tk.shape[0], dev, torch.cuda.current_stream(Tk.device).cuda_stream,
     )
     _build.check(err, launch.__name__)
     bp_sweep_group.launches += 1
     bp_sweep_group.launches_by_mode[mode] += 1
+    bp_sweep_group.launches_by_route[route] += 1
     key = (mode, k, chi, B)
     bp_sweep_group.launches_by_shape[key] = bp_sweep_group.launches_by_shape.get(key, 0) + 1
     return out
 
 
 def bp_sweep_group(Tk: torch.Tensor, Min: torch.Tensor, rows: torch.Tensor, t: int,
-                   mode: str = "highest") -> torch.Tensor:
+                   mode: str = "highest", split: SplitBucket | None = None) -> torch.Tensor:
     """Un-normalized outgoing BP messages of one group, in the arithmetic of
     `mode` ("highest" or "bf16_3x", the TPU kernel's modes).
 
@@ -334,11 +447,16 @@ def bp_sweep_group(Tk: torch.Tensor, Min: torch.Tensor, rows: torch.Tensor, t: i
     `rows` (int64 [B], on Tk's device) emit one message each through bond
     slot `t`.  `Min` [B, k-1, chi, chi] holds the incoming messages of the
     other slots in ascending slot order.  Returns m [B, chi, chi] (ket
-    index, bra index); the caller sum-normalizes.  A CPU tensor runs the
-    plain version; any other device goes to the kernel launcher, which
-    raises off a CUDA device."""
+    index, bra index); the caller sum-normalizes.  `split`, T's split
+    planes (`split_bucket(Tk)`), saves the tensor-core bf16_3x route its own
+    split of T a call; it must be the split of `Tk` as it stands.  A CPU
+    tensor runs the plain version (which splits T itself: the same bits);
+    any other device goes to the kernel launcher, which raises off a CUDA
+    device."""
+    if split is not None and not split.of(Tk):
+        raise ValueError("bp_sweep_group: the split planes are not those of this T as it stands")
     if Tk.device.type != "cpu":
-        return _bp_sweep_group_cuda(Tk, Min, rows, t, mode)
+        return _bp_sweep_group_cuda(Tk, Min, rows, t, mode, split)
     _, B, chi = _check_group(Tk, Min, rows, t, mode)
     if B == 0:
         return Tk.new_empty((0, chi, chi))
@@ -348,3 +466,5 @@ def bp_sweep_group(Tk: torch.Tensor, Min: torch.Tensor, rows: torch.Tensor, t: i
 bp_sweep_group.launches = 0  # every launch, in either mode
 bp_sweep_group.launches_by_mode = dict.fromkeys(MODES, 0)
 bp_sweep_group.launches_by_shape = {}  # (mode, k, chi, B) -> launches
+# by kernel design: "fp32" ("highest"), "wgmma" and "mma.sync" (bf16_3x, `tc_route`)
+bp_sweep_group.launches_by_route = dict.fromkeys(("fp32", "wgmma", "mma.sync"), 0)
