@@ -2,7 +2,7 @@
 """Smoke run of tnqs_torch on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py [--layers N] [--bp-kernel-only | --switches-only | --measure-only | --flex-only |
-                           --wide-only | --l2-only | --sanitize]
+                           --phase12-only | --wide-only | --l2-only | --sanitize]
 
 Run from the repository root.  Phases, each of which fails the run:
 
@@ -138,7 +138,7 @@ Run from the repository root.  Phases, each of which fails the run:
    n = 192, no plain run, every layer finite, and on the layers where the
    main path discarded nothing past the cutoff <Z> within the main path's
    bound of flex-f64; then the same layers on `svd_impl="xla"` (as many as
-   fit the cap), each within the main bound of the kernels' run; ms a
+   fit WIDE_XLA_CAP_S, at least 2), each within the main bound of the kernels' run; ms a
    layer, peak memory, one more layer under torch.profiler; (e) the same
    at chi=128 (CHI128_CAP_S 90 s; K1 and K2 at n = 256), then two more
    layers under `trunc_method="full"` from its last state, K2 at n = 256
@@ -192,29 +192,55 @@ Run from the repository root.  Phases, each of which fails the run:
    (`torch.cuda.set_sync_debug_mode`) a layer, then BMPS rank 10 <Z>(7,8)
    within 1e-5, its seconds and syncs; (b) `sample_directly_certified`
    with `default_rng(0)` at rank 10, 4 samples (2 if (a)'s evolution took
-   over 120 s): each sample's bit at (7,8) and its count of ones those of
+   over 60 s): each sample's bit at (7,8) and its count of ones those of
    `first4_samples`, p/q within FLEX_PQ_TOL of the golden's, seconds a
-   sample; (c) 3 layers on the card and on the CPU port, truncation errors
+   sample; (c) 2 layers on the card and on the CPU port, truncation errors
    and BP <Z> on every vertex within 1e-10; (d) `golden_loopcorrections.json`
    (BP, loop-corrected and exact norms within 1e-5, the loop correction
    closer to exact); (e) the main path's chi=64 state after phase 6 as an
    engine (`from_arrays`), `to_bp_cache()`, flex BP <Z> at (7,8) and (11,5)
    within 1e-5 of `expect_1site`, its time and peak memory, and
    `to_state()` through `save_state` / `load_state` bit for bit.  No
-   kernel launches and no plain run on the flex tier.
+   kernel launches and no plain run on the flex tier;
+12. full update, truncation, the variational search and the profiling
+   hooks: (a) the TFIM (J=1, h=3) BP energy, 16 sweeps, and its gradient
+   by `torch.autograd` on a seeded chi=16 complex128 Eagle state, card
+   against the CPU port (energy 1e-10 relative, gradient 1e-8 of its
+   largest entry); on the main path's chi=64 state after phase 6, the
+   gradient's derivative along a seeded direction weighted by the gradient
+   against a central difference of the card's own energy (2e-2); one
+   energy traced by `utils.profiling.trace` (a Chrome trace with device
+   kernels); then `minimize_energy`, 10 Adam steps at lr `VAR_LR`, from
+   that state: every energy finite, the best below step 0's, no K3 launch
+   under the gradient and some in the final `bp_update`, no plain run;
+   seconds a step and peak memory; (b) `truncate` of 11a's Eagle golden
+   state to maxdim 4 by BP and by boundary MPS (rank 10): every bond at
+   most 4, the BMPS result's overlap with the untruncated state (by BMPS
+   rank 10) at least the BP result's less 1e-6; seconds, host reads and
+   the full updates' solves by route; (c) card against the CPU port at
+   complex128, each from the same arrays: `tests/test_truncate.py`'s 3x3
+   state truncated to maxdim 2 by BP and by BMPS at rank 16 (exact there)
+   without the symmetric gauge, exact fidelities within 1e-10, and with it
+   within `TRUNC_GAUGE_TOL` (its result depends on the singular vectors'
+   phases, which the SVD library picks); `tests/test_gauge_measure.py:79`'s
+   full update within 1e-10 of simple update; `fidelity` of a truncating
+   full update within 1e-12.
 
 The line before the last is {"kernels": [...]}: `launches` counts the
 launches on each row's own path (phase 5 for K1-K3, 10c for K3's bf16_3x
-mode), `launches_by_path` each run's of phases 5-10 ("6" the BP path, "8a"
-the w2 evolution, "8a bmps" and "8c bmps" the BMPS calls, "9a", "9c" and
-"9d" the sampler calls, "10e" and "10e high" the complex64 thermal runs on
-the kernels; the L2 rows' `launches` are 10e's);
+mode), `launches_by_path` each run's of phases 5-10 and 12 ("6" the BP
+path, "8a" the w2 evolution, "8a bmps" and "8c bmps" the BMPS calls, "9a",
+"9c" and "9d" the sampler calls, "10e" and "10e high" the complex64 thermal
+runs on the kernels, "12a steps" and "12a bp_update" `minimize_energy`'s
+Adam steps and its final BP run; the L2 rows' `launches` are 10e's);
 the last line is {"ok": true, "device": {...}}.
 `--l2-only` runs phases 1, 2, the L2 variants' checks and 10e (no result
 lines); `--sanitize` runs phases 1, 2 and then the cluster kernels at batch
 1-2 under compute-sanitizer's racecheck and synccheck (no result lines).
 `--flex-only` runs phases 1, 2, the main path's evolution and `bp_update`
-and 11 (no result lines).
+and 11 (no result lines); `--phase12-only` phases 1, 2, the main path's
+evolution and `bp_update`, 11a's golden evolution and 12 (no result
+lines).
 `--bp-kernel-only` runs phases 1, 2 and 4 and prints K3's row alone (no
 result lines), e.g. on an older tree; `--switches-only` runs phases 1, 2,
 K2 at the switches' shapes and 7 (no result lines); `--measure-only` runs
@@ -2222,8 +2248,9 @@ def switches_phase(dev, layers, main_rate=float("nan"), chi=64, main_devs=None):
 # phase 8: the boundary-MPS measurement path
 # ----------------------------------------------------------------------
 
-CHI96_CAP_S = 60.0  # 8d's layers stop once the next would pass this, and its library run's
+CHI96_CAP_S = 60.0  # 8d's layers stop once the next would pass this
 CHI128_CAP_S = 90.0  # 8e's the same
+WIDE_XLA_CAP_S = 8.0  # 8d's and 8e's library-SVD runs the same (at least 2 layers; ~2-3 s a layer there)
 
 
 def bmps_library_calls():
@@ -2482,7 +2509,7 @@ def measure_wide(dev, label, chi, discarded, cap_s, xla_cap_s, full_layers=0):
 # phase 9: certified sampling
 # ----------------------------------------------------------------------
 
-SAMPLE_CAP_S = 30.0  # 9d draws the most samples, up to 50, whose groups fit this
+SAMPLE_CAP_S = 15.0  # 9d draws the most samples, up to 50, whose groups fit this
 
 
 def sample_stats(label, out):
@@ -2950,7 +2977,7 @@ def thermal_breakdown(label, prof, wall_ms):
         print(f"  {ms:9.3f} ms {n:5d}x ({100 * ms / busy:4.1f}%) {k[:110]}")
 
 
-THERMAL_CPU_STEPS = 10  # 10e's complex128 steps on the CPU port, held to the card's (the card runs all 25)
+THERMAL_CPU_STEPS = 5  # 10e's complex128 steps on the CPU port, held to the card's (the card runs all 25; f is recorded every 5)
 
 
 def thermal_run(label, chi, dtype, device, bp_precision=None, svd_impl="auto", profile_last=0, steps=None):
@@ -3139,10 +3166,10 @@ def flex_evolve(dev, g, layer, c, layers, gold=None):
 
 def flex_phase(dev, state_main):
     """Phase 11: the flex tier on the card.  (a) the Eagle golden, 20 layers,
-    then BMPS rank 10; (b) certified samples; (c) 3 layers card vs CPU at
+    then BMPS rank 10; (b) certified samples; (c) 2 layers card vs CPU at
     complex128; (d) golden_loopcorrections.json; (e) `to_state` /
     `to_bp_cache` of the main path's chi=64 engine and the state
-    checkpoints."""
+    checkpoints.  Returns (a)'s evolved state, for 12b."""
     import tnqs_torch as tt
     from tnqs_torch.engine import LatticeEngine
 
@@ -3176,7 +3203,7 @@ def flex_phase(dev, state_main):
     require(dzb < 1e-5, "11a: BMPS <Z> off the golden")
 
     # 11b: certified samples, the golden's seed and rank
-    n = 4 if evolve_s <= 120 else 2
+    n = 4 if evolve_s <= 60 else 2
     t0 = time.perf_counter()
     cert = tt.sample_directly_certified(psi_t, n, alg="boundarymps", norm_mps_bond_dimension=c["mps_bond_dimension"],
                                         rng=np.random.default_rng(c["sample_seed"]))
@@ -3188,13 +3215,13 @@ def flex_phase(dev, state_main):
         require(rows[-1][0] == want["bits_central"] and rows[-1][1] == want["n_ones"],
                 f"11b: sample {len(rows)} bits {rows[-1][:2]}, the golden's {want['bits_central'], want['n_ones']}")
         require(abs(rows[-1][3]) < FLEX_PQ_TOL, f"11b: sample {len(rows)} p/q off the golden by {rows[-1][3]:.3e}")
-    print(f"11b: {n} samples ({'4' if n == 4 else '2: the evolution took over 120 s'}), (bit at {central}, ones, "
+    print(f"11b: {n} samples ({'4' if n == 4 else '2: the evolution took over 60 s'}), (bit at {central}, ones, "
           f"p/q, p/q - golden) {rows} (bits exact, p/q bound {FLEX_PQ_TOL}); {sample_s:.3f} s, "
           f"{sample_s / n:.3f} s a sample", flush=True)
-    del bpc, psi_t, cert
+    del bpc, cert
 
-    # 11c: 3 layers on the card and on the CPU port, complex128
-    layers = 3
+    # 11c: 2 layers on the card and on the CPU port, complex128
+    layers = 2
     _, e_card, z_card, _, _ = flex_evolve(dev, g, layer, c, layers)
     t0 = time.perf_counter()
     _, e_cpu, z_cpu, _, _ = flex_evolve("cpu", g, layer, c, layers)
@@ -3250,6 +3277,283 @@ def flex_phase(dev, state_main):
     counts = read_counts(plain_before)
     print(f"11: kernel launches {counts[0]}, plain runs {counts[3]} (the flex tier reaches no kernel)", flush=True)
     require(not any(counts[0].values()) and not counts[3], "11: a kernel ran on the flex tier")
+    return psi_t
+
+
+# Phase 12: the variational BP-energy search, truncation and the full update
+VAR_HAM = dict(J=1.0, h=3.0)  # TFIM, the example of docs/variational.md
+VAR_BP_ITERS = 16
+VAR_STEPS = 10
+VAR_LR = 1e-5  # Adam moves every entry by ~lr a step, a small move beside the chi=64 state's entries
+VAR_FD_STEP = 1e-2  # the central difference's step along a unit direction
+TRUNC_MAXDIM = 4
+TRUNC_MPS_RANK = 10
+TRUNC_EXACT_RANK = 16  # 12c's 3x3 boundary MPS is exact at this rank (see tests/test_torch_truncate.py)
+# With the symmetric gauge (`gauge_state=True`) the BMPS truncation depends on
+# the phases the SVD library gives the gauge's singular vectors: up to 7.7e-11
+# on the CPU under other phases (`python tests/torch_truncate_noise_reference.py`),
+# and cuSOLVER's differ from LAPACK's; held to this, the rest to 1e-10
+TRUNC_GAUGE_TOL = 2e-9
+
+
+def energy_and_grad(eng, ham, bp_iters):
+    """The BP energy of the engine's state and its gradient over the (real,
+    imag) leaves, by `torch.autograd`."""
+    from tnqs_torch import variational as var
+
+    params = var._split(eng.T)
+    for pair in params.values():
+        for t in pair:
+            t.requires_grad_(True)
+    e = var.bp_energy_fn(eng, ham, bp_iters=bp_iters)(var._join(params, eng.dtype))
+    e.backward()
+    return e.detach(), params, {k: (re.grad, im.grad) for k, (re, im) in params.items()}
+
+
+def variational_phase(dev, state_main):
+    """12a: `minimize_energy` on a copy of the main path's chi=64 engine, with
+    its checks (chi=16 complex128 card vs CPU; the chi=64 gradient against a
+    central difference of the card's energy) and the profiling hooks."""
+    import shutil
+
+    import tnqs_torch as tt
+    from tnqs_torch import variational as var
+    from tnqs_torch.engine import LatticeEngine
+    from tnqs_torch.utils import profiling
+
+    g = tt.eagle_lattice()
+    ham = tt.tfim_hamiltonian(**VAR_HAM)
+
+    # card against the CPU port at chi=16, complex128, the same arrays and BP schedule
+    rng = np.random.default_rng(12)
+    base = LatticeEngine(g, 16, dtype=torch.complex128, device="cpu", bp_schedule="color")
+    T16 = {k: a.numpy() + 0.1 * (rng.standard_normal(a.shape) + 1j * rng.standard_normal(a.shape))
+           for k, a in base.T.items()}
+    got = {}
+    for d in (dev, "cpu"):
+        eng = LatticeEngine.from_arrays(g, T16, base.M.numpy(), 16, dtype=torch.complex128, device=d,
+                                        bp_schedule="color")
+        t0 = time.perf_counter()
+        e, _, grads = energy_and_grad(eng, ham, VAR_BP_ITERS)
+        sync(torch.device(d))
+        got[str(d)] = (float(e), {k: (re.cpu(), im.cpu()) for k, (re, im) in grads.items()}, time.perf_counter() - t0)
+    (e_card, g_card, s_card), (e_cpu, g_cpu, s_cpu) = got[str(dev)], got["cpu"]
+    scale = max(float(x.abs().max()) for pair in g_cpu.values() for x in pair)
+    dg = max(float((a - b).abs().max()) for k in g_cpu for a, b in zip(g_card[k], g_cpu[k]))
+    de = abs(e_card - e_cpu) / abs(e_cpu)
+    print(f"12a: chi=16 complex128 BP energy ({VAR_BP_ITERS} sweeps), card {e_card:.12f}, CPU port {e_cpu:.12f}: "
+          f"relative {de:.3e} (bound 1e-10); gradient {dg:.3e} of its largest entry {scale:.3e} "
+          f"({dg / scale:.3e}, bound 1e-8); energy and gradient {s_card:.3f} s on the card, {s_cpu:.3f} s on the CPU",
+          flush=True)
+    require(de < 1e-10 and dg <= 1e-8 * scale, "12a: the card's energy or gradient is off the CPU port's")
+
+    # the chi=64 step-0 gradient against a central difference of the card's energy
+    T, M = state_main
+    chi = M.shape[-1]
+    eng = LatticeEngine.from_arrays(g, T, M, chi, device=dev)
+    e0, params, grads = energy_and_grad(eng, ham, VAR_BP_ITERS)
+    rng = np.random.default_rng(1207)
+    # a seeded direction weighted by the gradient (a random one over ~1e8
+    # leaves is nearly orthogonal to it, below float32's resolution of E)
+    direction = {k: tuple(gr * torch.as_tensor(1.0 + rng.standard_normal(tuple(gr.shape)).astype(np.float32),
+                                               device=dev) for gr in pair) for k, pair in grads.items()}
+    norm = float(torch.sqrt(sum((x.double() ** 2).sum() for pair in direction.values() for x in pair)))
+    direction = {k: tuple(x / norm for x in pair) for k, pair in direction.items()}
+    dd = float(sum((a.double() * b.double()).sum() for k in grads for a, b in zip(grads[k], direction[k])))
+    efn = var.bp_energy_fn(eng, ham, bp_iters=VAR_BP_ITERS)
+    with torch.no_grad():
+        shifted = [float(efn(var._join({k: tuple(p + sgn * VAR_FD_STEP * d for p, d in zip(params[k], direction[k]))
+                                        for k in params}, eng.dtype))) for sgn in (1, -1)]
+    fd = (shifted[0] - shifted[1]) / (2 * VAR_FD_STEP)
+    rel = abs(fd - dd) / abs(fd)
+    print(f"12a: chi={chi} complex64 step-0 energy {float(e0):.6f}; directional derivative along a seeded direction: "
+          f"autograd {dd:.6f}, central difference (step {VAR_FD_STEP}) {fd:.6f}, relative {rel:.3e} (bound 2e-2)",
+          flush=True)
+    require(np.isfinite(fd) and rel <= 2e-2, "12a: the gradient disagrees with the central difference")
+    del eng, params, grads, direction, efn
+
+    # the profiling hooks on the card: one energy evaluation traced
+    log_dir = ROOT / "build" / "chip_smoke" / "trace12"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    eng = LatticeEngine.from_arrays(g, T, M, chi, device=dev)
+    with profiling.trace(str(log_dir)):
+        with profiling.annotate("bp_energy"):
+            with torch.no_grad():
+                var.bp_energy_fn(eng, ham, bp_iters=2)(eng.T)
+            sync(dev)
+    files = sorted(log_dir.glob("*.json"))
+    events = json.loads(files[0].read_text())["traceEvents"] if len(files) == 1 else []
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    print(f"12a: profiling.trace of one 2-sweep energy on the card: {len(files)} trace file, "
+          f"{sum(e.get('name') == 'bp_energy' for e in events)} 'bp_energy' region, {kernels} device kernel events",
+          flush=True)
+    require(len(files) == 1 and kernels > 0, "12a: the trace holds no device activity")
+    for f in files:
+        f.unlink()
+    log_dir.rmdir()
+
+    # the run: Adam from the main path's state, the best kept, then bp_update on K3
+    plain_before = reset_counts()
+    marks = []
+
+    def mark(i, e):
+        sync(dev)
+        marks.append((time.perf_counter(), k3_launches()))
+
+    sync(dev)
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = tt.minimize_energy(eng, ham, steps=VAR_STEPS, learning_rate=VAR_LR, bp_iters=VAR_BP_ITERS, callback=mark)
+    sync(dev)
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps_k3, all_k3 = marks[-1][1], k3_launches()
+    in_bp = {k: all_k3[k] - steps_k3[k] for k in all_k3}
+    counts = read_counts(plain_before)
+    hist = res["history"]
+    per_step = np.diff([t0] + [m[0] for m in marks])
+    print(f"12a: minimize_energy, Eagle-127 chi={chi} complex64 from the main path's state, TFIM J={VAR_HAM['J']}, "
+          f"h={VAR_HAM['h']}, {VAR_STEPS} Adam steps (lr {VAR_LR}), {VAR_BP_ITERS} sweeps: energies "
+          f"{[round(float(x), 6) for x in hist]}, best {res['energy']:.6f} (step 0 {hist[0]:.6f}); seconds a step "
+          f"{[round(float(x), 3) for x in per_step]} (mean {per_step[1:].mean():.3f} after the first), "
+          f"{total:.3f} s with the final bp_update ({total - (marks[-1][0] - t0):.3f} s, {eng.bp_iterations} "
+          f"iterations); peak memory {peak / 2**30:.3f} GiB ({(peak - base_mem) / 2**30:.3f} above the state "
+          f"allocated before)", flush=True)
+    print(f"12a: K3 launches during the steps {steps_k3['bp_sweep_group']}, in the final bp_update "
+          f"{in_bp['bp_sweep_group']}; plain runs {counts[3]}", flush=True)
+    require(np.all(np.isfinite(hist)), "12a: a non-finite energy")
+    require(res["energy"] < hist[0], "12a: no step went below step 0's energy")
+    require(not any(steps_k3.values()), f"12a: a kernel ran under the gradient: {steps_k3}")
+    require(in_bp["bp_sweep_group"] > 0, "12a: the final bp_update did not run K3")
+    require(not counts[3], "12a: a plain version ran on the card")
+    require(all(torch.isfinite(a).all() for a in eng.T.values()) and torch.isfinite(eng.M).all(),
+            "12a: non-finite state after minimize_energy")
+    return {"12a steps": steps_k3, "12a bp_update": in_bp}
+
+
+def truncation_phase(dev, psi_gold):
+    """12b: `truncate` by BP and by boundary MPS of phase 11a's Eagle golden
+    state, their overlaps with it by boundary MPS."""
+    from collections import Counter
+
+    import tnqs_torch as tt
+    from tnqs_torch import fullupdate
+    from tnqs_torch.core import linalg
+
+    plain_before = reset_counts()
+    rows, outs = {}, {}
+    for alg, kw in (("bp", {}), ("boundarymps", dict(mps_bond_dimension=TRUNC_MPS_RANK))):
+        reads, solves = linalg.host_reads.count, Counter(fullupdate.solves)
+        sync(dev)
+        t0 = time.perf_counter()
+        out = tt.truncate(psi_gold, alg=alg, maxdim=TRUNC_MAXDIM, **kw)
+        sync(dev)
+        rows[alg] = (time.perf_counter() - t0, linalg.host_reads.count - reads,
+                     dict(Counter(fullupdate.solves) - solves))
+        outs[alg] = out
+        require(out.maxvirtualdim() <= TRUNC_MAXDIM, f"12b: {alg} left a bond above {TRUNC_MAXDIM}")
+    # |<out|gold>|^2 / (<out|out> <gold|gold>), each by boundary MPS
+    t0 = time.perf_counter()
+    kw = dict(alg="boundarymps", mps_bond_dimension=TRUNC_MPS_RANK)
+    n_gold = tt.norm_sqr(psi_gold, **kw)
+    fid = {alg: abs(tt.inner(out, psi_gold, **kw)) ** 2 / abs(tt.norm_sqr(out, **kw) * n_gold)
+           for alg, out in outs.items()}
+    overlap_s = time.perf_counter() - t0
+    for alg, (secs, reads, solves) in rows.items():
+        print(f"12b: truncate(alg={alg!r}, maxdim={TRUNC_MAXDIM}"
+              + (f", mps_bond_dimension={TRUNC_MPS_RANK}" if alg == "boundarymps" else "")
+              + f") of the Eagle golden state (maxdim 8, complex128): {secs:.3f} s, {reads} host reads, full updates' "
+              f"solves by route {solves}, maxvirtualdim {outs[alg].maxvirtualdim()}, normalized overlap with the "
+              f"untruncated state (BMPS rank {TRUNC_MPS_RANK}) {fid[alg]:.10f}", flush=True)
+    print(f"12b: overlaps {overlap_s:.3f} s; BMPS - BP {fid['boundarymps'] - fid['bp']:.3e} (bound >= -1e-6)",
+          flush=True)
+    require(all(np.isfinite(f) and f > 0 for f in fid.values()), "12b: a non-finite overlap")
+    require(fid["boundarymps"] >= fid["bp"] - 1e-6, "12b: the BMPS truncation is worse than the BP one")
+    counts = read_counts(plain_before)
+    require(not any(counts[0].values()) and not counts[3], "12b: a kernel ran on the flex tier")
+
+
+def entangled_3x3(tt):
+    """`tests/test_truncate.py`'s entangled 3x3 state, built on the CPU."""
+    g = tt.named_grid((3, 3))
+    psi = tt.tensornetworkstate(lambda v: "↑", g, "S=1/2", dtype=np.complex128, device="cpu")
+    layer = [("Rx", [v], 0.4) for v in g.vertices()]
+    for ce in tt.edge_color(g, 4):
+        layer += [("Rzz", p, 0.7) for p in ce]
+    return tt.apply_gates(layer * 3, psi, apply_kwargs=dict(maxdim=4, cutoff=1e-14))[0]
+
+
+def exact_fidelity(tt, a, b):
+    ip = tt.inner(a, b, alg="exact")
+    return abs(ip) ** 2 / (abs(tt.norm_sqr(a, alg="exact")) * abs(tt.norm_sqr(b, alg="exact")))
+
+
+def full_update_checks(dev):
+    """12c: card against the CPU port at complex128 on the test sizes, each
+    from the same arrays."""
+    import tnqs_torch as tt
+    from tnqs_torch import fullupdate
+
+    t0 = time.perf_counter()
+    psi_cpu = entangled_3x3(tt)
+    cases = {"bp": dict(alg="bp"), "bmps": dict(alg="boundarymps", mps_bond_dimension=TRUNC_EXACT_RANK,
+                                                gauge_state=False),
+             "bmps gauged": dict(alg="boundarymps", mps_bond_dimension=TRUNC_EXACT_RANK)}
+    fids, fu_ov, fid_fu = {}, {}, {}
+    for d in (dev, "cpu"):
+        psi = psi_cpu.adapt(device=d)
+        fids[str(d)] = {name: exact_fidelity(tt, tt.truncate(psi, maxdim=2, **kw), psi) for name, kw in cases.items()}
+        # `tests/test_gauge_measure.py:79`: full update against simple update, no truncation
+        g = tt.named_path_graph(2)
+        p2 = tt.random_tensornetworkstate(g, bond_dimension=2, dtype=np.complex128, rng=np.random.default_rng(0),
+                                          device=d)
+        gate, _ = tt.to_tensor(("Rzz", [1, 2], 0.37), g, p2.siteinds(), device=d)
+        envs = tt.BeliefPropagationCache(p2).update().incoming_messages([1, 2])
+        (s1, s2), _, _ = tt.simple_update(gate, [p2[1], p2[2]], envs=envs, maxdim=8)
+        f1, f2 = tt.full_update(gate, p2, [1, 2], envs=envs, maxdim=8, nfullupdatesweeps=20)
+        su, fu = p2.copy(), p2.copy()
+        su[1], su[2], fu[1], fu[2] = s1, s2, f1, f2
+        fu_ov[str(d)] = abs(tt.inner(su, fu, alg="exact")) / np.sqrt(
+            abs(tt.norm_sqr(su, alg="exact")) * abs(tt.norm_sqr(fu, alg="exact")))
+        # `fidelity` of a truncating full update on the middle bond of a 4-site path
+        g4 = tt.named_path_graph(4)
+        p4 = tt.random_tensornetworkstate(g4, bond_dimension=2, dtype=np.complex128, rng=np.random.default_rng(5),
+                                          device=d)
+        gate4, _ = tt.to_tensor(("Rxx", [2, 3], 0.61), g4, p4.siteinds(), device=d)
+        envs4 = tt.BeliefPropagationCache(p4).update().incoming_messages([2, 3])
+        t1, t2 = tt.full_update(gate4, p4, [2, 3], envs=envs4, maxdim=2)
+        fid_fu[str(d)] = fullupdate.fidelity(envs4, t1, t2, p4[2], p4[3], gate4)
+    card, cpu = str(dev), "cpu"
+    diff = {name: abs(fids[card][name] - fids[cpu][name]) for name in cases}
+    print(f"12c: 3x3 state (test_truncate.py), exact fidelities after truncate maxdim 2 by BP, by BMPS rank "
+          f"{TRUNC_EXACT_RANK} without and with the symmetric gauge: card "
+          f"{[f'{x:.12f}' for x in fids[card].values()]}, CPU {[f'{x:.12f}' for x in fids[cpu].values()]}, "
+          f"|card - CPU| {[f'{x:.3e}' for x in diff.values()]} (bounds 1e-10, 1e-10, {TRUNC_GAUGE_TOL:.0e})",
+          flush=True)
+    print(f"12c: full update against simple update (test_gauge_measure.py:79), normalized overlap - 1: card "
+          f"{fu_ov[card] - 1:.3e}, CPU {fu_ov[cpu] - 1:.3e} (bound 1e-10); fidelity() of a truncating full update "
+          f"card {fid_fu[card]:.15f}, CPU {fid_fu[cpu]:.15f}, |card - CPU| {abs(fid_fu[card] - fid_fu[cpu]):.3e} "
+          f"(bound 1e-12); {time.perf_counter() - t0:.3f} s", flush=True)
+    require(diff["bp"] < 1e-10 and diff["bmps"] < 1e-10, "12c: the 3x3 truncation fidelities differ between the card "
+                                                          "and the CPU")
+    require(diff["bmps gauged"] < TRUNC_GAUGE_TOL, "12c: the gauged BMPS truncation differs between the card and "
+                                                   "the CPU beyond its gauge's phases")
+    require(abs(fu_ov[card] - 1) < 1e-10, "12c: the card's full update is off its simple update")
+    require(abs(fid_fu[card] - fid_fu[cpu]) < 1e-12, "12c: fidelity() differs between the card and the CPU")
+
+
+def phase12(dev, state_main, psi_gold):
+    """Phase 12: 12a, 12b, 12c; K3's launches of 12a by part."""
+    t0 = time.perf_counter()
+    by_path = variational_phase(dev, state_main)
+    t1 = time.perf_counter()
+    truncation_phase(dev, psi_gold)
+    t2 = time.perf_counter()
+    full_update_checks(dev)
+    print(f"12: {time.perf_counter() - t0:.3f} s (12a {t1 - t0:.3f}, 12b {t2 - t1:.3f}, 12c "
+          f"{time.perf_counter() - t2:.3f})", flush=True)
+    return by_path
 
 
 def sanitize_target(dev):
@@ -3311,6 +3615,9 @@ def main():
     ap.add_argument("--flex-only", action="store_true",
                     help="only the environment, the build, the main path's evolution and `bp_update` and the flex "
                          "tier's phase 11 (no result lines)")
+    ap.add_argument("--phase12-only", action="store_true",
+                    help="only the environment, the build, the main path's evolution and `bp_update`, phase 11a's "
+                         "golden evolution and phase 12 (no result lines)")
     ap.add_argument("--measure-only", action="store_true",
                     help="only the environment, the build, the main path's evolution and the measurement phase "
                          "(no result lines)")
@@ -3374,6 +3681,20 @@ def main():
             del eng
             flex_phase(dev, state_main)
             return 0
+        if args.phase12_only:
+            _, eng, _, _, _, _, _ = main_path(dev, args.layers)
+            eng.bp_update(maxiter=30)
+            state_main = eng.to_arrays()
+            del eng
+            import tnqs_torch as tt
+
+            gold = json.loads((ROOT / "tests" / "golden" / "golden_eagle127.json").read_text())
+            c = gold["config"]
+            g = tt.eagle_lattice()
+            bpc = flex_evolve(dev, g, tt.heavy_hex_kicked_ising_layer(g, c["J"], c["theta_h"]), c, c["layers"],
+                              gold)[0]
+            print(f"kernel launches by path (12a): {phase12(dev, state_main, bpc.network)}")
+            return 0
         if args.measure_only:
             launches, eng, _, probe, _, discarded, _ = main_path(dev, args.layers)
             eng.bp_update(maxiter=30)
@@ -3384,8 +3705,8 @@ def main():
             evolutions_launched({"5": launches, **by_w2})
             sample_w2(dev, eng)
             del eng
-            measure_wide(dev, "8d", 96, discarded, CHI96_CAP_S, CHI96_CAP_S)
-            measure_wide(dev, "8e", 128, discarded, CHI128_CAP_S, CHI128_CAP_S, full_layers=2)
+            measure_wide(dev, "8d", 96, discarded, CHI96_CAP_S, WIDE_XLA_CAP_S)
+            measure_wide(dev, "8e", 128, discarded, CHI128_CAP_S, WIDE_XLA_CAP_S, full_layers=2)
             return 0
         if args.l2_only:
             l2_kernel_phase(dev)
@@ -3395,8 +3716,8 @@ def main():
             wide_kernel_phase(dev)
             _, eng, _, _, _, discarded, _ = main_path(dev, args.layers)
             del eng
-            by_path = measure_wide(dev, "8d", 96, discarded, CHI96_CAP_S, CHI96_CAP_S)
-            by_path.update(measure_wide(dev, "8e", 128, discarded, CHI128_CAP_S, CHI128_CAP_S, full_layers=2))
+            by_path = measure_wide(dev, "8d", 96, discarded, CHI96_CAP_S, WIDE_XLA_CAP_S)
+            by_path.update(measure_wide(dev, "8e", 128, discarded, CHI128_CAP_S, WIDE_XLA_CAP_S, full_layers=2))
             print(f"kernel launches by path (8d, 8e): {by_path}")
             return 0
         kernels = kernel_phase(dev)
@@ -3423,8 +3744,8 @@ def main():
         by_path.update(sample_w2(dev, eng))
         state_w2 = eng.to_arrays()
         del eng
-        by_path.update(measure_wide(dev, "8d", 96, discarded, CHI96_CAP_S, CHI96_CAP_S))
-        by_path.update(measure_wide(dev, "8e", 128, discarded, CHI128_CAP_S, CHI128_CAP_S, full_layers=2))
+        by_path.update(measure_wide(dev, "8d", 96, discarded, CHI96_CAP_S, WIDE_XLA_CAP_S))
+        by_path.update(measure_wide(dev, "8e", 128, discarded, CHI128_CAP_S, WIDE_XLA_CAP_S, full_layers=2))
         if args.layers > CKPT_LAYER:
             by_path.update(resume_checkpoint(dev, ckpt_path, trajectory, args.layers))
             ckpt_path.unlink()
@@ -3433,7 +3754,8 @@ def main():
         by_path.update(loop_corrections(dev, state_main, state_w2))
         by_path.update(thermal_phase(dev))
         print(f"kernel launches by path (phases 5-10): {by_path}")
-        flex_phase(dev, state_main)
+        psi_gold = flex_phase(dev, state_main)
+        by_path.update(phase12(dev, state_main, psi_gold))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -107,16 +107,42 @@ def test_compile_circuit_and_program_match(name):
 
 
 def test_import_pulls_no_jax_or_networkx():
-    """The port (its checkpoints and every flex-tier module included) loads
-    none of jax, networkx or the JAX package, and adds no opt_einsum of its
-    own: torch imports opt_einsum where it is installed, and the card's
-    machine has none."""
+    """The port (its checkpoints, every flex-tier module, the full update,
+    truncation, the variational search and the profiling hooks included)
+    loads none of jax, optax, networkx or the JAX package, and adds no
+    opt_einsum of its own: torch imports opt_einsum where it is installed,
+    and the card's machine has none."""
     flex = ("core", "core.index", "core.tensor", "core.linalg", "sitetypes", "contraction", "networks", "forms",
-            "bp", "gauging", "apply", "measure", "boundarymps", "sampling", "loopcorrections", "gates", "graphs")
+            "bp", "gauging", "apply", "measure", "boundarymps", "sampling", "loopcorrections", "gates", "graphs",
+            "fullupdate", "truncate", "variational", "utils.profiling")
     code = ("import sys, torch; before = set(sys.modules); import tnqs_torch, tnqs_torch.bmps_engine, tnqs_torch.checkpoint; "
             + "".join(f"import tnqs_torch.{m}; " for m in flex) +
             "tnqs_torch.BMPSSampler; tnqs_torch.load_engine; tnqs_torch.save_state; tnqs_torch.sample_certified; "
             "new = {m.split('.')[0] for m in set(sys.modules) - before}; "
-            "loaded = [m for m in ('jax', 'networkx', 'tnqs') if m in sys.modules] + sorted(new & {'opt_einsum'}); "
+            "loaded = [m for m in ('jax', 'optax', 'networkx', 'tnqs') if m in sys.modules] + sorted(new & {'opt_einsum'}); "
             "assert not loaded, loaded")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT)
+
+
+def _exported_names(path: pathlib.Path) -> set:
+    """Public names a package's `__init__.py` binds at its top level: its
+    relative imports and its assignments (the aliases)."""
+    import ast
+
+    out = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.ImportFrom) and node.level >= 1:
+            out |= {a.asname or a.name for a in node.names}
+        elif isinstance(node, ast.Assign):
+            out |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    return {n for n in out if not n.startswith("_")}
+
+
+def test_exports_match_the_jax_package_but_the_sharded_energy():
+    """Every name `tnqs/__init__.py` exports is exported by the port, and
+    bound at import, but `sharded_bp_energy_fn`, which waits for the port
+    of `tnqs/parallel/`."""
+    jax_names = _exported_names(ROOT / "tnqs" / "__init__.py")
+    port_names = _exported_names(ROOT / "tnqs_torch" / "__init__.py")
+    assert jax_names - port_names == {"sharded_bp_energy_fn"}
+    assert {n for n in jax_names if not hasattr(tt, n)} == {"sharded_bp_energy_fn"}

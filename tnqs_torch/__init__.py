@@ -28,8 +28,11 @@ package's three TPU kernels (the two Jacobi kernels of the truncated SVD
 and the fused BP sweep, in both of its arithmetic modes) written in CUDA
 C++ for sm_90a (`tnqs_torch/csrc`).  On a CPU tensor each kernel wrapper
 runs the kernel's plain PyTorch version instead.  The flex tier launches
-none of the kernels.  Not yet ported: `fullupdate`, `truncate`,
-`variational`, `parallel` and the profiling utilities.
+none of the kernels.  Full update (`full_update`), truncation by BP or
+boundary MPS (`truncate`), the variational BP-energy search through
+`torch.autograd` (`Hamiltonian`, `bp_energy_fn`, `minimize_energy`) and
+the profiling hooks (`utils.profiling`) are ported; `parallel` (and with it
+`sharded_bp_energy_fn`) is not yet.
 
 The package imports torch, numpy and the standard library only: no jax, no
 networkx, no `tnqs`.
@@ -45,6 +48,7 @@ torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
 from .apply import apply_circuit, apply_gates, apply_op, simple_update  # noqa: E402
+from .fullupdate import full_update  # noqa: E402
 from .bmps_engine import BMPSEngine, BMPSSampler, ColumnPlan  # noqa: E402
 from .boundarymps import BoundaryMPSCache, default_bmps_update_kwargs, generic_apply  # noqa: E402
 from .bp import (  # noqa: E402
@@ -153,6 +157,14 @@ from .networks import (  # noqa: E402
 )
 from .sampling import certify_sample, certify_samples, sample, sample_certified, sample_directly_certified  # noqa: E402
 from .sitetypes import op_matrix, site_dimension, site_tag, state_vector  # noqa: E402
+from .truncate import truncate  # noqa: E402
+from .variational import (  # noqa: E402
+    Hamiltonian,
+    bp_energy_fn,
+    heisenberg_hamiltonian,
+    minimize_energy,
+    tfim_hamiltonian,
+)
 
 # the Julia-style aliases of the JAX package
 register_gate_bang = register_gate
