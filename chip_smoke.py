@@ -2,7 +2,7 @@
 """Smoke run of tnqs_torch on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py [--layers N] [--bp-kernel-only | --switches-only | --measure-only | --flex-only |
-                           --phase12-only | --wide-only | --l2-only | --sanitize]
+                           --phase12-only | --parallel-only | --wide-only | --l2-only | --sanitize]
 
 Run from the repository root.  Phases, each of which fails the run:
 
@@ -224,7 +224,29 @@ Run from the repository root.  Phases, each of which fails the run:
    within `TRUNC_GAUGE_TOL` (its result depends on the singular vectors'
    phases, which the SVD library picks); `tests/test_gauge_measure.py:79`'s
    full update within 1e-10 of simple update; `fidelity` of a truncating
-   full update within 1e-12.
+   full update within 1e-12;
+13. the mesh on the card (`tnqs_torch.parallel`): a one-rank NCCL world set
+   up by the script (TCP on 127.0.0.1, a free port) and destroyed before it
+   goes on, at the main path's width (Eagle-127, chi=64, complex64, sorted
+   bands): (a) `HaloStepEngine` on one band, `PAR_LAYERS` kicked-Ising
+   layers from "↑" with fixed BP sweep counts, against the unsharded
+   engine's same layers (``bp_tolerance=0``): <Z> within 1e-5, errors
+   within 1e-6, K1's and K2's launches > 0 and equal to the unsharded
+   step's (K3's printed); then `cut_halves` on `PAR_CUT_BANDS` sorted bands
+   from the state after those layers: every cut-crossing gate run as both
+   bands of its cut run it (one process, no exchange), the two halves the
+   same bits, on K1 and K2; (b) `HaloBP.fixed_point` on one band against
+   `_bp_fixed_point` from the same seeded perturbed messages, within 1e-5;
+   (c) `ShardedEngine`, one step and `freenergy` through NCCL's
+   `all_reduce`, against the unsharded engine (<Z> within 1e-5, the free
+   energy within 4 x (the unsharded float32 sum's spread, float32 against
+   float64 over the same logs, + eps32 x the sum of |log|)); (d)
+   `sharded_bp_energy_fn` against `bp_energy_fn` on (a)'s state (energy
+   1e-6 relative, gradient 1e-5 of its largest entry, K3 launched 0 times
+   under the gradient), then `PAR_ADAM_STEPS` Adam steps of
+   `minimize_energy(mesh=)`, timed, with peak memory.  The halo exchange
+   between ranks is not on the card (NCCL takes one rank a GPU); the gloo
+   tests (`tests/test_torch_parallel.py`) show it.
 
 The line before the last is {"kernels": [...]}: `launches` counts the
 launches on each row's own path (phase 5 for K1-K3, 10c for K3's bf16_3x
@@ -232,7 +254,8 @@ mode), `launches_by_path` each run's of phases 5-10 and 12 ("6" the BP
 path, "8a" the w2 evolution, "8a bmps" and "8c bmps" the BMPS calls, "9a",
 "9c" and "9d" the sampler calls, "10e" and "10e high" the complex64 thermal
 runs on the kernels, "12a steps" and "12a bp_update" `minimize_energy`'s
-Adam steps and its final BP run; the L2 rows' `launches` are 10e's);
+Adam steps and its final BP run, "13a" the one-band halo step, "13d grad"
+the sharded energy's gradient; the L2 rows' `launches` are 10e's);
 the last line is {"ok": true, "device": {...}}.
 `--l2-only` runs phases 1, 2, the L2 variants' checks and 10e (no result
 lines); `--sanitize` runs phases 1, 2 and then the cluster kernels at batch
@@ -241,6 +264,8 @@ lines); `--sanitize` runs phases 1, 2 and then the cluster kernels at batch
 and 11 (no result lines); `--phase12-only` phases 1, 2, the main path's
 evolution and `bp_update`, 11a's golden evolution and 12 (no result
 lines).
+`--parallel-only` runs phases 1, 2 and 13, and profiles one more layer of
+13a's two steps (`profile_13a`; no result lines).
 `--bp-kernel-only` runs phases 1, 2 and 4 and prints K3's row alone (no
 result lines), e.g. on an older tree; `--switches-only` runs phases 1, 2,
 K2 at the switches' shapes and 7 (no result lines); `--measure-only` runs
@@ -3556,6 +3581,258 @@ def phase12(dev, state_main, psi_gold):
     return by_path
 
 
+PAR_LAYERS = 2  # 13a's kicked-Ising layers from "↑", on one band and unsharded
+PAR_BP_MAXITER = 25  # the final BP run's sweeps (the main path's cap), fixed: bp_tolerance=0 unsharded
+PAR_ADAM_STEPS = 2  # 13d's minimize_energy(mesh=) steps
+PAR_CUT_BANDS = 8  # 13a's cut_halves: the bands of the (one-process) check of the cut-crossing gates
+
+
+def profile_13a(steps, dev):
+    """One more layer of each of 13a's steps (``{name: () -> None}``) under
+    `torch.profiler`: per step the wall time, the device's busy time (the
+    sum of the kernels' own times), the kernel launches, and the operators
+    with the most host time and the kernels with the most device time; the
+    whole tables go to ``chiprun_out/profile_13a.txt``."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    tables = []
+    for name, fn in steps.items():
+        sync(dev)
+        with torch.profiler.profile(activities=acts) as prof:
+            t = time.perf_counter()
+            fn()
+            sync(dev)
+            wall = time.perf_counter() - t
+        ka = prof.key_averages()
+
+        def dev_us(e):
+            return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+        kernels = [e for e in ka if dev_us(e) > 0]
+        busy = sum(dev_us(e) for e in kernels) / 1e3
+        launches = sum(e.count for e in ka if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                                                         "cuLaunchKernelEx"))
+        top_host = sorted(ka, key=lambda e: -e.self_cpu_time_total)[:6]
+        top_dev = sorted(kernels, key=lambda e: -dev_us(e))[:4]
+        print(f"13a profile, {name}, one layer: {wall * 1e3:.1f} ms wall, device busy {busy:.1f} ms, "
+              f"{launches} kernel launches; host (self ms, calls): "
+              + "; ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.1f} x{e.count}" for e in top_host)
+              + "; device (self ms, calls): "
+              + "; ".join(f"{e.key[:48]} {dev_us(e) / 1e3:.1f} x{e.count}" for e in top_dev), flush=True)
+        tables.append(f"== {name}: {wall * 1e3:.1f} ms wall, device busy {busy:.1f} ms\n"
+                      + ka.table(sort_by="self_cpu_time_total", row_limit=40))
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "profile_13a.txt").write_text("\n\n".join(tables))
+
+
+def mesh_phase(dev, profile=False):
+    """Phase 13: the parallel modules on a one-rank NCCL mesh (see the module
+    docstring); K1, K2 and K3's launches of 13a's halo step and 13d's
+    gradient.  `profile`: `profile_13a` after 13a's comparisons."""
+    import torch.distributed as dist
+
+    import tnqs_torch as tt
+    from tnqs_torch import variational as var
+    from tnqs_torch.engine import LatticeEngine
+    from tnqs_torch.parallel import HaloBandPlan, HaloBP, HaloStepEngine, ShardedEngine, make_mesh
+    from tnqs_torch.parallel.halo_step import cut_halves
+    from tnqs_torch.parallel.mesh import init_ranks, psum
+    from tnqs_torch.parallel.pool import free_port
+
+    t_phase = time.perf_counter()
+    cfg = json.loads((ROOT / "tests" / "golden" / "golden_f32_controls.json").read_text())["chi64"]["config"]
+    chi = int(cfg["maxdim"])
+    g = tt.eagle_lattice()
+    circuit = tt.heavy_hex_kicked_ising_layer(g, cfg["J"], cfg["theta_h"])
+    kw = dict(cutoff=float(cfg["cutoff"]), bp_maxiter=PAR_BP_MAXITER)
+    verts = list(g.vertices())
+    t0 = time.perf_counter()
+    init_ranks(0, 1, free_port(), device="cuda")
+    try:
+        mesh = make_mesh(1)
+        setup = time.perf_counter() - t0
+        # NCCL makes its communicator at the group's first collective: timed
+        # here, so that 13a's halo step (whose errors are an all_reduce)
+        # does not carry it
+        t = time.perf_counter()
+        psum(torch.zeros(1, device=dev), mesh)
+        sync(dev)
+        print(f"13: {mesh} (process group set up in {setup:.3f} s, its first collective "
+              f"{time.perf_counter() - t:.3f} s)", flush=True)
+        require(mesh.backend == "nccl" and mesh.device.type == "cuda", "13: the mesh is not NCCL on the card")
+
+        def zs(eng):
+            z = eng.expect_1site("Z")
+            return np.array([z[v].real for v in verts])
+
+        def layers(step, T, M):
+            plain = reset_counts()
+            sync(dev)
+            t = time.perf_counter()
+            errs = []
+            for _ in range(PAR_LAYERS):
+                T, M, e = step(T, M)
+                errs.append(e)
+            sync(dev)
+            dt = time.perf_counter() - t
+            counts = read_counts(plain)
+            require(not counts[3], "13: a plain version ran on the card")
+            return T, M, torch.stack(errs).cpu().numpy(), counts[0], dt
+
+        # 13a: the halo step on one band against the unsharded step
+        eng0 = LatticeEngine(g, chi, device=dev)
+        eng0.T, eng0.M, e0, c0, s0 = layers(eng0.make_step(circuit, bp_tolerance=0.0, **kw), eng0.T, eng0.M)
+        eng1 = LatticeEngine(g, chi, device=dev)
+        hse = HaloStepEngine(eng1, n_bands=1, mesh=mesh, order="sorted")
+        t = time.perf_counter()
+        hstep = hse.make_step(circuit, **kw)
+        plan_s = time.perf_counter() - t
+        hse.Tb, hse.Mb, e1, c1, s1 = layers(hstep, hse.Tb, hse.Mb)
+        z0, z1 = zs(eng0), zs(hse.unshard())
+        dz, de = float(np.abs(z0 - z1).max()), float(np.abs(e0 - e1).max())
+        print(f"13a: HaloStepEngine, one band, {PAR_LAYERS} layers: {s1:.3f} s (unsharded {s0:.3f} s; the step's "
+              f"plan {plan_s:.3f} s on the host); max |<Z> - unsharded| {dz:.3e} (bound 1e-5), max |errors - "
+              f"unsharded| {de:.3e} (bound 1e-6); K1 {c1['osj_svd']} (unsharded {c0['osj_svd']}), K2 "
+              f"{c1['jacobi_eigh']} ({c0['jacobi_eigh']}), K3 {c1['bp_sweep_group']} ({c0['bp_sweep_group']})",
+              flush=True)
+        require(np.isfinite(z1).all() and dz < 1e-5 and de < 1e-6, "13a: the halo step is off the unsharded step")
+        require(c1["osj_svd"] > 0 and c1["jacobi_eigh"] > 0, "13a: the halo step launched no K1 or K2")
+        require((c1["osj_svd"], c1["jacobi_eigh"]) == (c0["osj_svd"], c0["jacobi_eigh"]),
+                "13a: the halo step launched K1 or K2 another number of times than the unsharded step")
+
+        # 13a: a cut-crossing gate runs on both bands of its cut, as one
+        # sub-group of the same gates in the same order on both; the two
+        # halves (both endpoints' new tensors and the bond's message) must
+        # be the same bits.  Every two-site group and cut of 8 sorted bands,
+        # each band's tables filled from the state after the layers
+        plain = reset_counts()
+        sync(dev)
+        t = time.perf_counter()
+        halves = cut_halves(eng0, PAR_CUT_BANDS, circuit, order="sorted", cutoff=kw["cutoff"])
+        sync(dev)
+        s_cut = time.perf_counter() - t
+        c_cut = read_counts(plain)
+        print(f"13a: cut_halves, {PAR_CUT_BANDS} sorted bands: {halves['gates']} cut-crossing gates run on both of "
+              f"their bands, the halves the same bits: {halves['equal']} (max |difference| "
+              f"{halves['max_abs_diff']:.3e}); K1 {c_cut[0]['osj_svd']}, K2 {c_cut[0]['jacobi_eigh']} launches; "
+              f"{s_cut:.3f} s", flush=True)
+        require(halves["equal"] and halves["gates"] > 0, "13a: the two halves of a cut-crossing gate differ")
+        require(c_cut[0]["osj_svd"] > 0 and c_cut[0]["jacobi_eigh"] > 0 and not c_cut[3],
+                "13a: the cut-crossing gates did not take the kernels")
+        if profile:
+            # a negative tolerance keeps every sweep: at 0 the unsharded BP
+            # stops where two sweeps agree bit for bit, the halo step never
+            step_fixed = eng0.make_step(circuit, bp_tolerance=-1.0, **kw)
+
+            def unsharded():
+                eng0.T, eng0.M, _ = step_fixed(eng0.T, eng0.M)
+
+            def halo():
+                hse.Tb, hse.Mb, _ = hstep(hse.Tb, hse.Mb)
+
+            profile_13a({"unsharded": unsharded, "one-band halo step": halo}, dev)
+
+        # 13b: HaloBP.fixed_point on one band against _bp_fixed_point
+        rng = np.random.default_rng(13)
+        noise = rng.standard_normal(tuple(eng0.M.shape)) + 1j * rng.standard_normal(tuple(eng0.M.shape))
+        M0 = eng0.M + 0.05 * torch.as_tensor(noise, device=dev).to(eng0.M.dtype)
+        plain = reset_counts()
+        t = time.perf_counter()
+        ref = eng0._bp_fixed_point(eng0.T, M0, 25, 1e-7)
+        sync(dev)
+        s_ref, it_ref = time.perf_counter() - t, eng0.bp_iterations
+        eng2 = LatticeEngine.from_arrays(g, {k: v.cpu().numpy() for k, v in eng0.T.items()}, M0.cpu().numpy(), chi,
+                                         device=dev)
+        hbp = HaloBP(eng2, HaloBandPlan.build(eng2.plan, 1, order="sorted"), mesh)
+        t = time.perf_counter()
+        hbp.fixed_point(maxiter=25, tolerance=1e-7)
+        got = hbp.gather_messages()
+        sync(dev)
+        s_halo = time.perf_counter() - t
+        counts = read_counts(plain)
+        dm = float((got - ref).abs().max())
+        print(f"13b: HaloBP.fixed_point, one band, from seeded perturbed messages: {s_halo:.3f} s (unsharded "
+              f"{s_ref:.3f} s, {it_ref} iterations); max |M - unsharded| {dm:.3e} (bound 1e-5); K3 "
+              f"{counts[0]['bp_sweep_group']} launches in both", flush=True)
+        require(dm < 1e-5 and not counts[3], "13b: halo BP is off the unsharded fixed point")
+
+        # 13c: ShardedEngine, one step and freenergy through NCCL
+        state = ({k: v.cpu().numpy() for k, v in eng0.T.items()}, eng0.M.cpu().numpy())
+        eng3 = LatticeEngine.from_arrays(g, *state, chi, device=dev)
+        eng4 = LatticeEngine.from_arrays(g, *state, chi, device=dev)
+        sharded = ShardedEngine(eng3, mesh)
+        t = time.perf_counter()
+        sharded.step_once(circuit, **kw)
+        f_mesh = sharded.freenergy()
+        sync(dev)
+        s_mesh = time.perf_counter() - t
+        eng4.T, eng4.M, _ = eng4.make_step(circuit, **kw)(eng4.T, eng4.M)
+        f_ref = eng4.freenergy()
+        vs, es = eng4._bp_scalars(eng4.T, eng4.M)
+        logs32 = np.concatenate([np.log(np.abs(v.cpu().numpy())) for v in vs.values()] +
+                                [-np.log(np.abs(es.cpu().numpy()))])
+        # the float32 rounding the unsharded sum carries: its summation's
+        # spread (float32 against float64 over the same float32 logs) and
+        # each log's own rounding
+        spread = abs(float(np.sum(logs32, dtype=np.float32)) - float(np.sum(logs32.astype(np.float64))))
+        tol_f = 4 * (spread + float(np.finfo(np.float32).eps) * float(np.abs(logs32).sum()))
+        dzc = float(np.abs(zs(sharded.unshard()) - zs(eng4)).max())
+        dfree = abs(f_mesh - f_ref)
+        print(f"13c: ShardedEngine, one step and freenergy: {s_mesh:.3f} s; max |<Z> - unsharded| {dzc:.3e} (bound "
+              f"1e-5); freenergy {f_mesh} against {f_ref}: {dfree:.3e} (bound {tol_f:.3e}: 4 x (the unsharded "
+              f"float32 sum's spread {spread:.3e} + eps32 sum|log|))", flush=True)
+        require(dzc < 1e-5 and dfree <= tol_f, "13c: the sharded engine is off the unsharded one")
+        del eng2, eng3, eng4, hbp, sharded
+
+        # 13d: the sharded energy and its gradient, then minimize_energy(mesh=)
+        ham = tt.tfim_hamiltonian(**VAR_HAM)
+        e_u, _, g_u = energy_and_grad(eng0, ham, VAR_BP_ITERS)
+        params = var._split(eng0.T)
+        for pair in params.values():
+            for x in pair:
+                x.requires_grad_(True)
+        plain = reset_counts()
+        sync(dev)
+        t = time.perf_counter()
+        e_s = var.sharded_bp_energy_fn(eng0, ham, mesh=mesh, bp_iters=VAR_BP_ITERS, order="sorted")(
+            var._join(params, eng0.dtype))
+        e_s.backward()
+        sync(dev)
+        s_grad = time.perf_counter() - t
+        c_grad = read_counts(plain)
+        scale = max(float(x.abs().max()) for pair in g_u.values() for x in pair)
+        dg = max(float((a - b.grad).abs().max()) for k in g_u for a, b in zip(g_u[k], params[k]))
+        e_s = e_s.detach()
+        de = abs(float(e_s) - float(e_u)) / abs(float(e_u))
+        print(f"13d: sharded BP energy, chi={chi}, {VAR_BP_ITERS} sweeps: {float(e_s):.6f} against {float(e_u):.6f} "
+              f"(relative {de:.3e}, bound 1e-6); gradient {dg:.3e} of its largest entry {scale:.3e} ({dg / scale:.3e}, "
+              f"bound 1e-5); energy and gradient {s_grad:.3f} s; K3 launches under the gradient "
+              f"{c_grad[0]['bp_sweep_group']}", flush=True)
+        require(de < 1e-6 and dg <= 1e-5 * scale, "13d: the sharded energy or gradient is off the unsharded one")
+        require(not any(c_grad[0].values()) and not c_grad[3], f"13d: a kernel ran under the gradient: {c_grad[0]}")
+        del params, g_u
+        marks = []
+        sync(dev)
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        res = tt.minimize_energy(eng0, ham, steps=PAR_ADAM_STEPS, learning_rate=VAR_LR, bp_iters=VAR_BP_ITERS,
+                                 mesh=mesh, callback=lambda i, e: (sync(dev), marks.append(time.perf_counter())))
+        sync(dev)
+        total = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        per_step = np.diff([t] + marks)
+        print(f"13d: minimize_energy(mesh=), {PAR_ADAM_STEPS} Adam steps (lr {VAR_LR}): energies "
+              f"{[round(float(x), 6) for x in res['history']]}; seconds a step {[round(float(x), 3) for x in per_step]}, "
+              f"{total:.3f} s with the final bp_update; peak memory {peak / 2**30:.3f} GiB "
+              f"({(peak - base_mem) / 2**30:.3f} above the state allocated before)", flush=True)
+        require(np.all(np.isfinite(res["history"])), "13d: a non-finite energy")
+    finally:
+        dist.destroy_process_group()
+    print(f"13: {time.perf_counter() - t_phase:.3f} s", flush=True)
+    return {"13a": c1, "13d grad": c_grad[0]}
+
+
 def sanitize_target(dev):
     """The cluster kernels at batch 1-2 and one sweep, for compute-sanitizer
     (`--sanitize`): K2's resident variant at n = 192 (V in the rings), 256
@@ -3618,6 +3895,8 @@ def main():
     ap.add_argument("--phase12-only", action="store_true",
                     help="only the environment, the build, the main path's evolution and `bp_update`, phase 11a's "
                          "golden evolution and phase 12 (no result lines)")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="only the environment, the build and the mesh phase 13 (no result lines)")
     ap.add_argument("--measure-only", action="store_true",
                     help="only the environment, the build, the main path's evolution and the measurement phase "
                          "(no result lines)")
@@ -3695,6 +3974,9 @@ def main():
                               gold)[0]
             print(f"kernel launches by path (12a): {phase12(dev, state_main, bpc.network)}")
             return 0
+        if args.parallel_only:
+            print(f"kernel launches by path (13): {mesh_phase(dev, profile=True)}")
+            return 0
         if args.measure_only:
             launches, eng, _, probe, _, discarded, _ = main_path(dev, args.layers)
             eng.bp_update(maxiter=30)
@@ -3756,6 +4038,7 @@ def main():
         print(f"kernel launches by path (phases 5-10): {by_path}")
         psi_gold = flex_phase(dev, state_main)
         by_path.update(phase12(dev, state_main, psi_gold))
+        by_path.update(mesh_phase(dev))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -72,6 +72,50 @@ def test_dense_solve_matches_jax_min_norm(dims, rank):
         assert np.abs(other - xp).max() > 0.1
 
 
+def _complex64_case(spectrum, seed):
+    """x(a, b, s) at dims (4, 3, 2) against the environment E = U diag(
+    spectrum) U^H (U a seeded 12 x 12 unitary) and b, all cast to complex64,
+    in both packages on the same arrays."""
+    rng = np.random.default_rng(seed)
+    U, _ = np.linalg.qr(rng.standard_normal((12, 12)) + 1j * rng.standard_normal((12, 12)))
+    E = ((U * np.asarray(spectrum)) @ U.conj().T).astype(np.complex64).reshape(4, 3, 4, 3)
+    b = (rng.standard_normal((4, 3, 2)) + 1j * rng.standard_normal((4, 3, 2))).astype(np.complex64)
+    out = []
+    for Index, Tensor, kw in ((JIndex, JTensor, {}), (PIndex, PTensor, {"device": CPU})):
+        a, bb, s = Index(4, "a"), Index(3, "b"), Index(2, "s")
+        inds = [a, bb, s]
+        out.append(([Tensor(E, [a.prime(), bb.prime(), a, bb], **kw)], Tensor(b, inds, **kw),
+                    Tensor(np.zeros_like(b), inds, **kw)))
+    return out
+
+
+# a full-rank environment, and the singular one whose spectrum runs down to
+# 1e-12: float32's cutoff (eps * 12 * s_max ~ 1.4e-6) drops four directions
+# that float64's (~2.7e-15) inverts
+SPECTRA = {"full_rank": np.geomspace(1.0, 1e-2, 12),
+           "singular": [1.0] * 6 + [1e-4, 1e-5, 1e-6, 1e-7, 1e-9, 1e-12]}
+
+
+@pytest.mark.parametrize("name", sorted(SPECTRA))
+def test_dense_solve_at_complex64_matches_jax(name):
+    """complex64 inputs: the dense solve runs in double as numpy's promotion
+    makes the reference's (`np.kron` with a float64 identity, `lstsq` with
+    float64's cutoff) and answers complex128, as JAX's does.  Port against
+    JAX within 1e-10 of the answer's scale on the full-rank environment, and
+    within 1e-3 on the singular one, where the 1e-12 direction's condition
+    number (1e12) amplifies the two LAPACKs' double rounding; a float32
+    cutoff would be 100% off there (its max |x| ~1e5 against ~1e8)."""
+    jcase, pcase = _complex64_case(SPECTRA[name], seed=3)
+    xj = np.asarray(jfu._solve(*jcase).data)
+    xp = pfu._solve(*pcase)
+    assert xj.dtype == np.complex128 and xp.data.dtype == torch.complex128
+    xp = xp.to_numpy()
+    scale = np.abs(xj).max()
+    if name == "singular":
+        assert scale > 1e7
+    assert np.abs(xj - xp).max() < (1e-10 if name == "full_rank" else 1e-3) * scale
+
+
 def test_bicgstab_matches_jax_and_counts_host_reads():
     """n = 512 > 256: BiCGSTAB on a well-conditioned, mildly non-hermitian
     environment, port against JAX within 1e-10; every test of the iteration

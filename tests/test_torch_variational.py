@@ -2,7 +2,7 @@
 and its gradient (torch.autograd against jax.grad) on the same engine
 state, the analytic product-state energy, inhomogeneous coefficients, the
 Adam loop against optax's, the einsum route under the gradient, the
-missing mesh, and the full-width energy's freedom from host reads."""
+mesh argument's type, and the full-width energy's freedom from host reads."""
 
 import numpy as np
 import pytest
@@ -165,15 +165,17 @@ def test_gradient_takes_the_einsum_route(monkeypatch):
         eng.bp_update()
 
 
-def test_mesh_is_not_ported():
-    """`minimize_energy(mesh=...)` raises and names the missing slice; it
-    does not fall back to the unsharded path."""
+def test_mesh_must_be_a_port_mesh():
+    """`minimize_energy(mesh=...)` takes a `tnqs_torch.parallel.Mesh` (the
+    sharded run is `tests/test_torch_parallel.py::test_minimize_energy_on_mesh`);
+    anything else raises before a step, and does not fall back to the
+    unsharded path."""
     eng = LatticeEngine(graph(tnqs.named_grid((1, 3))), 2, dtype=torch.complex64, device=CPU)
     T0 = {k: a.clone() for k, a in eng.T.items()}
-    with pytest.raises(NotImplementedError, match="tnqs/parallel/"):
+    with pytest.raises(TypeError, match="tnqs_torch.parallel.Mesh"):
         tt.minimize_energy(eng, tt.tfim_hamiltonian(), steps=2, mesh=object())
     assert all(torch.equal(T0[k], eng.T[k]) for k in T0)
-    assert not hasattr(tt, "sharded_bp_energy_fn")
+    assert tt.sharded_bp_energy_fn is pvar.sharded_bp_energy_fn
 
 
 def test_full_width_energy_reads_nothing_on_the_host():

@@ -30,9 +30,13 @@ C++ for sm_90a (`tnqs_torch/csrc`).  On a CPU tensor each kernel wrapper
 runs the kernel's plain PyTorch version instead.  The flex tier launches
 none of the kernels.  Full update (`full_update`), truncation by BP or
 boundary MPS (`truncate`), the variational BP-energy search through
-`torch.autograd` (`Hamiltonian`, `bp_energy_fn`, `minimize_energy`) and
-the profiling hooks (`utils.profiling`) are ported; `parallel` (and with it
-`sharded_bp_energy_fn`) is not yet.
+`torch.autograd` (`Hamiltonian`, `bp_energy_fn`, `minimize_energy`), the
+profiling hooks (`utils.profiling`) and, over a `torch.distributed` mesh
+(`parallel`: `make_mesh`, `ShardedEngine`, `HaloBP`, `HaloStepEngine`), the
+band-sharded layer step, halo-exchange BP and the sharded BP energy
+(`sharded_bp_energy_fn`, ``minimize_energy(mesh=...)``) are ported; the
+sharded boundary-MPS sweep and sampler (`tnqs/parallel/bmps_ring.py`) are
+not yet.
 
 The package imports torch, numpy and the standard library only: no jax, no
 networkx, no `tnqs`.
@@ -163,6 +167,7 @@ from .variational import (  # noqa: E402
     bp_energy_fn,
     heisenberg_hamiltonian,
     minimize_energy,
+    sharded_bp_energy_fn,
     tfim_hamiltonian,
 )
 

@@ -89,7 +89,11 @@ def _solve(tensors_fixed, b: Tensor, x0: Tensor, tol: float = 1e-10, maxiter: in
             raise ValueError("full update: unexpected environment index structure")
         Emat = E.matricize(e_rows, e_cols).contiguous()
         d_id = prod(i.dim for i in id_inds)
-        Mmat = torch.kron(Emat, torch.eye(d_id, dtype=Emat.dtype, device=Emat.device))
+        # numpy's promotion, as the reference's np.kron with a float64
+        # identity: the solve runs in double at any input precision, and its
+        # answer stays double (complex128 for complex64 inputs)
+        wide = torch.promote_types(Emat.dtype, torch.float64)
+        Mmat = torch.kron(Emat.to(wide), torch.eye(d_id, dtype=wide, device=Emat.device))
         order = e_cols + id_inds
         b_arr = b.permute(order).data.reshape(-1)
         dt = torch.promote_types(Mmat.dtype, b_arr.dtype)

@@ -1,5 +1,5 @@
 """Differentiable variational energy minimization on the compiled engine
-(port of the unsharded part of `tnqs/variational.py`).
+(port of `tnqs/variational.py`).
 
 The BP energy
 
@@ -18,8 +18,12 @@ differentiates its einsum route: the fused BP kernel (K3) has no backward
 in either package.  Each sweep runs under `torch.utils.checkpoint`, so the
 backward pass keeps one sweep's intermediates at a time.  The final
 `bp_update` of `minimize_energy` takes the engine's own route, K3 on the
-card.  The sharded energy (`sharded_bp_energy_fn`, ``minimize_energy(
-mesh=...)``) waits for the port of `tnqs/parallel/`.
+card.
+
+`sharded_bp_energy_fn` (and ``minimize_energy(mesh=...)``) runs the BP
+sweeps as the halo-exchange program of `tnqs_torch.parallel.halo` over a
+`torch.distributed` mesh, one band a rank, differentiated through the
+collectives (`parallel.mesh`: `to_bands`, `ppermute`, `gather_bands`).
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .parallel.halo import HaloBandPlan, _BandSweep, _global_layout
+from .parallel.mesh import Mesh, gather_bands, make_mesh, to_bands
 from .sitetypes import op_matrix
 
 
@@ -139,6 +145,55 @@ def bp_energy_fn(engine, ham: Hamiltonian, bp_iters: int = 16) -> Callable:
     return energy
 
 
+def sharded_bp_energy_fn(engine, ham: Hamiltonian, mesh=None, n_bands: int | None = None, bp_iters: int = 16,
+                         order=None) -> Callable:
+    """`bp_energy_fn` with the BP sweeps run as the halo-exchange program
+    over a 1-D mesh (`tnqs/variational.py:157`), differentiable by
+    `torch.autograd`.  A collective: every rank of the mesh calls the energy
+    with the same (replicated) T and gets the same energy.
+
+    The steps are JAX's: T is taken into this rank's band rows
+    (`parallel.to_bands`, whose backward sums every band's part of dE/dT
+    over the ranks), `bp_iters` halo sweeps run on the band, each under
+    `torch.utils.checkpoint` (its recomputation repeats the sweep's halo
+    exchange on every rank, in the same order), the messages are gathered
+    back to the global [2E, chi, chi] layout (`parallel.gather_bands`, whose
+    backward keeps the local band's slice), and the expectation sums run on
+    the full state, replicated.  The gradient is that of the unsharded
+    energy, the same bits on every rank.  Every group takes the einsum
+    chain: the fused BP kernel has no backward.  `mesh` defaults to
+    `make_mesh(n_bands)` on the engine's device type."""
+    if mesh is None:
+        mesh = make_mesh(n_bands, device="cpu" if engine.device.type == "cpu" else None)
+    hplan = HaloBandPlan.build(engine.plan, mesh.size, order=order)
+    band_sweep = _BandSweep(engine, hplan, mesh)
+    rdtype = engine.real_dtype
+    field_terms, bond_terms = _precompute_terms(engine, ham)
+    dev, chi = engine.device, engine.chi
+    pos = {k: hplan.band_vert_pos[k][mesh.rank] for k in engine.T}
+    rows = {k: torch.as_tensor(np.maximum(p, 0).astype(np.int64), device=dev) for k, p in pos.items()}
+    masks = {k: torch.as_tensor((p >= 0).astype(np.float32), device=dev) for k, p in pos.items()}
+    band, slot = _global_layout(engine, hplan)
+    n_slots = hplan.n_loc + 1 + hplan.n_up + hplan.n_dn
+    Mb0 = (torch.eye(chi, dtype=engine.dtype, device=dev) / chi).expand(n_slots, chi, chi)
+
+    def sweep(Tb, Mb):
+        return band_sweep(Tb, Mb, use_kernel=False)
+
+    def energy(T):
+        Tb = {}
+        for k, arr in T.items():
+            mine = to_bands(arr, mesh)[rows[k]]
+            Tb[k] = mine * masks[k].to(arr.dtype).reshape((-1,) + (1,) * (arr.dim() - 1))
+        Mb = Mb0
+        for _ in range(bp_iters):
+            Mb = checkpoint(sweep, Tb, Mb, use_reentrant=False)
+        M = gather_bands(Mb, mesh)[band, slot]
+        return _expectation_energy(engine, field_terms, bond_terms, T, M, rdtype)
+
+    return energy
+
+
 def _split(T):
     """(real, imag) leaf pairs of the complex site tensors, detached copies."""
     return {k: (a.detach().real.clone(), a.detach().imag.clone()) for k, a in T.items()}
@@ -171,12 +226,17 @@ def minimize_energy(
     is written back (``engine.T``) and BP is run on it (`bp_update`, the
     engine's own BP route).  Returns ``{"energy": float, "history":
     float64 array, "steps": int}``; one host read a step (the energy).
-    ``mesh=`` (the sharded BP energy) is not ported yet and raises."""
+    ``mesh=`` (a `tnqs_torch.parallel.Mesh`) takes the energy and its
+    gradient from `sharded_bp_energy_fn` over the mesh: a collective, every
+    rank calling it with the same engine; the steps, the written-back state
+    and the final `bp_update` are replicated."""
     if mesh is not None:
-        raise NotImplementedError(
-            "minimize_energy(mesh=...) runs the sharded BP energy (sharded_bp_energy_fn), which waits for the "
-            "port of tnqs/parallel/ (ROADMAP Queue 1 item 14)")
-    efn = bp_energy_fn(engine, ham, bp_iters=bp_iters)
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"minimize_energy: mesh must be a tnqs_torch.parallel.Mesh (make_mesh), not "
+                            f"{type(mesh).__name__}")
+        efn = sharded_bp_energy_fn(engine, ham, mesh=mesh, bp_iters=bp_iters)
+    else:
+        efn = bp_energy_fn(engine, ham, bp_iters=bp_iters)
     dtype = engine.dtype
     params = _split(engine.T)
     leaves = [t.requires_grad_(True) for pair in params.values() for t in pair]
