@@ -99,7 +99,7 @@ Run from the repository root.  Phases, each of which fails the run:
    20 within 1e-5 of `golden_eagle127.json`; (b) direct, complex128,
    chi=64, the device's f64 oracle, every layer within the main path's
    bound and the CPU tests' complex128 bar of 1e-8, 10 layers or fewer (at
-   least 4) if they pass 90 s, then one layer's time in
+   least 4) if they pass `ORACLE_CAP_S`, then one layer's time in
    `torch.linalg.qr`/`svd`/`eigh`; (c-e) complex64, chi=64, N layers of
    `trunc_method="full"`, `"subspace"` and `env_gauge="eigh"`, with K2
    launched at n = 128, 72 and 64 and no plain run, every layer within the
@@ -149,9 +149,9 @@ Run from the repository root.  Phases, each of which fails the run:
    power_iters 3, factored proj_rank 12) on 8a's state, 50 samples with
    seed 0 cold and seed 1 timed, each p/q finite and > 0, each bit 0 or 1,
    |pq_mean - 1| < 0.1 and pq_min > 0.5 (`tests/test_f32_floor.py:231-232`),
-   pq_rel_std beside the flex-f64 floor, no sketch drawn; seed 1 again in
-   groups of 10: the same bits, p/q within 1e-4; the time seed 1 spends in
-   the library SVDs; (b) the first 10 of seed 1 on a CPU engine from
+   pq_rel_std beside the flex-f64 floor, no sketch drawn; seed 1's first
+   `W2_REPEAT` samples again in groups of 10: the same bits, p/q within
+   1e-4; the time they spend in the library SVDs; (b) the first 10 of seed 1 on a CPU engine from
    `from_arrays`: the card's bits, p/q within 1e-4 of the card's group of
    10 (the same contraction order);
    (c) `sample_certified(8, seed=2, cert_rank=12)`: finite, positive, mean
@@ -244,9 +244,18 @@ Run from the repository root.  Phases, each of which fails the run:
    `sharded_bp_energy_fn` against `bp_energy_fn` on (a)'s state (energy
    1e-6 relative, gradient 1e-5 of its largest entry, K3 launched 0 times
    under the gradient), then `PAR_ADAM_STEPS` Adam steps of
-   `minimize_energy(mesh=)`, timed, with peak memory.  The halo exchange
-   between ranks is not on the card (NCCL takes one rank a GPU); the gloo
-   tests (`tests/test_torch_parallel.py`) show it.
+   `minimize_energy(mesh=)`, timed, with peak memory; on the main path's
+   state after phase 6: (e) `ShardedBMPS` (rank 16, power_iters 1, bench's
+   readout width) on one band, <Z> on every vertex, within 1e-6 of 8c's
+   warm rank-16 values at the probe vertices (the same bits expected: one
+   band relays nothing and runs the unsharded zips in their order), with
+   wall time, peak memory, and no K1, K2 or K3 launch; (f) `ShardedSampler`
+   (bench's chi=64 sampler, rank 8, proj_rank 16) on one band, 2 samples of
+   seed 1, the bits of 9d's cold call and p/q within 1e-5 relative, seconds
+   a sample.  The halo exchange and the boundary relay between ranks are
+   not on the card (NCCL takes one rank a GPU); the gloo tests
+   (`tests/test_torch_parallel.py`, `tests/test_torch_parallel_bmps.py`)
+   show them.
 
 The line before the last is {"kernels": [...]}: `launches` counts the
 launches on each row's own path (phase 5 for K1-K3, 10c for K3's bf16_3x
@@ -255,7 +264,8 @@ path, "8a" the w2 evolution, "8a bmps" and "8c bmps" the BMPS calls, "9a",
 "9c" and "9d" the sampler calls, "10e" and "10e high" the complex64 thermal
 runs on the kernels, "12a steps" and "12a bp_update" `minimize_energy`'s
 Adam steps and its final BP run, "13a" the one-band halo step, "13d grad"
-the sharded energy's gradient; the L2 rows' `launches` are 10e's);
+the sharded energy's gradient, "13e bmps" and "13f sampler" the sharded
+readout and samples; the L2 rows' `launches` are 10e's);
 the last line is {"ok": true, "device": {...}}.
 `--l2-only` runs phases 1, 2, the L2 variants' checks and 10e (no result
 lines); `--sanitize` runs phases 1, 2 and then the cluster kernels at batch
@@ -265,7 +275,8 @@ and 11 (no result lines); `--phase12-only` phases 1, 2, the main path's
 evolution and `bp_update`, 11a's golden evolution and 12 (no result
 lines).
 `--parallel-only` runs phases 1, 2 and 13, and profiles one more layer of
-13a's two steps (`profile_13a`; no result lines).
+13a's two steps (`profile_13a`; no result lines); its 13e and 13f run on
+13c's state against unsharded calls of their own.
 `--bp-kernel-only` runs phases 1, 2 and 4 and prints K3's row alone (no
 result lines), e.g. on an older tree; `--switches-only` runs phases 1, 2,
 K2 at the switches' shapes and 7 (no result lines); `--measure-only` runs
@@ -2218,7 +2229,7 @@ def switches_phase(dev, layers, main_rate=float("nan"), chi=64, main_devs=None):
     # b. direct, complex128, chi=64: the device's f64 oracle
     eng, step, _, devs, times, counts = evolve_eagle(
         dev, f"7b direct c128 chi={chi}", chi, torch.complex128, cfg["layers"], refs64, cfg["cutoff"],
-        gate=oracle_bound, time_cap=90.0, min_layers=4, factor_method="direct")
+        gate=oracle_bound, time_cap=ORACLE_CAP_S, min_layers=4, factor_method="direct")
     none_launched("7b", counts)
     by_path["7b"] = counts[0]
     linalg_split(dev, f"7b direct c128 chi={chi}", eng, step)
@@ -2273,6 +2284,7 @@ def switches_phase(dev, layers, main_rate=float("nan"), chi=64, main_devs=None):
 # phase 8: the boundary-MPS measurement path
 # ----------------------------------------------------------------------
 
+ORACLE_CAP_S = 12.0  # 7b's complex128 oracle layers stop once the next would pass this (at least 4)
 CHI96_CAP_S = 60.0  # 8d's layers stop once the next would pass this
 CHI128_CAP_S = 90.0  # 8e's the same
 WIDE_XLA_CAP_S = 8.0  # 8d's and 8e's library-SVD runs the same (at least 2 layers; ~2-3 s a layer there)
@@ -2377,7 +2389,8 @@ def measure_chi64(dev, eng, probe):
     rank 16 cold and warm and at rank 24 with a power iteration and
     `split=True` (`bench.py:315-343`), beside BP's; wall times, peak memory,
     library calls, host-to-device sketch bytes and one torch.profiler
-    window of the rank-16 call."""
+    window of the rank-16 call.  Returns ({"8c bmps": launches}, the warm
+    rank-16 call's {vertex: <Z>} at the probe vertices, for 13e)."""
     from torch.profiler import ProfilerActivity, profile
 
     from tnqs_torch.bmps_engine import BMPSEngine, cpu_sketch
@@ -2389,7 +2402,7 @@ def measure_chi64(dev, eng, probe):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    runs = {}
+    runs, raw = {}, {}
     for label, rank, kw in (("rank 16 cold", 16, {}), ("rank 16 warm", 16, {}),
                             ("rank 24 power_iters=1 split", 24, dict(split=True))):
         be = BMPSEngine(eng, rank=rank, power_iters=1)
@@ -2408,6 +2421,7 @@ def measure_chi64(dev, eng, probe):
         # state, where rank 16 and 24 differ by ~3e-4): 1e-3 |Re| holds that
         # class and still catches a conjugation fault
         runs[label] = z = checked_z(f"8c {label}", zc, verts, im_rel=1e-3)
+        raw[label] = zc
     peak = (torch.cuda.max_memory_allocated() - base) / 2**30
     z16, z24 = runs["rank 16 warm"], runs["rank 24 power_iters=1 split"]
     d = max(abs(z16[v] - z24[v]) for v in verts)
@@ -2440,7 +2454,7 @@ def measure_chi64(dev, eng, probe):
           f"drew the sketches in {1e3 * timed_sketch.seconds:.3f} ms")
     for (ms, n), k in sorted(((v, k) for k, v in kernels.items()), reverse=True)[:8]:
         print(f"  {ms:9.3f} ms {n:5d}x ({100 * ms / max(busy, 1e-9):4.1f}%) {k[:110]}")
-    return {"8c bmps": counts[0]}
+    return {"8c bmps": counts[0]}, raw["rank 16 warm"]
 
 
 def measure_wide(dev, label, chi, discarded, cap_s, xla_cap_s, full_layers=0):
@@ -2559,11 +2573,14 @@ def same_draws(label, a, b, rel=1e-4):
     return d
 
 
+W2_REPEAT = 20  # 9a's samples of seed 1 drawn again in groups of 10, and with the library SVDs timed
+
+
 def sample_w2(dev, eng):
     """9a: bench's w2 sampler (`bench.py:446-452`) on 8a's Eagle chi=8 state:
     50 factored samples with seed 0 cold, 50 with seed 1 timed, gated as
-    `tests/test_f32_floor.py:231-232` gates the committed run, again in
-    groups of 10; 9b: the first 10 of seed 1 on a CPU engine carried over
+    `tests/test_f32_floor.py:231-232` gates the committed run, the first
+    `W2_REPEAT` of seed 1 again in groups of 10; 9b: the first 10 of seed 1 on a CPU engine carried over
     by `from_arrays`; 9c: 8 independently certified samples.  Returns the
     launches of 9a and 9c."""
     from tnqs_torch.bmps_engine import BMPSEngine, BMPSSampler
@@ -2589,14 +2606,14 @@ def sample_w2(dev, eng):
     require(sam.bmps.sketch_bytes == 0, "9a: an emit drew a sketch at chi=8")
     sync(dev)
     t0 = time.perf_counter()
-    chunked = sam.sample_directly_certified(50, seed=1, chunk=10)
+    chunked = sam.sample_directly_certified(W2_REPEAT, seed=1, chunk=10)
     t_chunk = time.perf_counter() - t0
-    d = same_draws("9a chunk=10", chunked, out)
+    d = same_draws("9a chunk=10", chunked, out[:W2_REPEAT])
     print(f"9a: every emit an exact SVD (no sketch), library eigh {calls[0]} SVD {calls[1]} in the two calls; "
-          f"chunk=10: {t_chunk:.3f} s, the same bits, p/q within {d:.3e}")
-    svd_s, wall = timed_library_svd(lambda: sam.sample_directly_certified(50, seed=1))
-    print(f"9a: one 50-sample call with each library SVD synchronised and timed: {wall:.3f} s, {svd_s:.3f} s of it "
-          f"in the SVDs (cuSOLVER's gesvd takes a batch one matrix at a time)")
+          f"the first {W2_REPEAT} in groups of 10: {t_chunk:.3f} s, the same bits, p/q within {d:.3e}")
+    svd_s, wall = timed_library_svd(lambda: sam.sample_directly_certified(W2_REPEAT, seed=1))
+    print(f"9a: one {W2_REPEAT}-sample call with each library SVD synchronised and timed: {wall:.3f} s, {svd_s:.3f} s "
+          f"of it in the SVDs (cuSOLVER's gesvd takes a batch one matrix at a time)")
     counts = read_counts(plain_before)
     require(not any(counts[0].values()) and not counts[3], f"9a: a kernel or its plain version ran: {counts[0]}")
     by_path = {"9a": counts[0]}
@@ -2637,7 +2654,8 @@ def sample_chi64(dev, eng):
     `bp_update`: one two-lane call cold, then as many samples as
     SAMPLE_CAP_S allows at that rate (4 to 50) with seed 1, whose first two
     must be the cold call's; p/q, seconds a sample, peak memory, library
-    calls, sketch bytes a call, and one torch.profiler window of a group."""
+    calls, sketch bytes a call, and one torch.profiler window of a group.
+    Returns ({"9d": launches}, the cold call's two samples, for 13f)."""
     from tnqs_torch.bmps_engine import BMPSEngine, BMPSSampler, cpu_uniforms
 
     plain_before = reset_counts()
@@ -2680,7 +2698,7 @@ def sample_chi64(dev, eng):
         norm = sam._norm()
         sam._group(norm, u, sam._lane_budget(2))  # draws the folds outside the window
         profiled("9d profile window, one two-lane group", lambda: sam._group(norm, u, sam._lane_budget(2)))
-    return {"9d": counts[0]}
+    return {"9d": counts[0]}, first
 
 
 def timed_library_svd(fn):
@@ -3625,16 +3643,22 @@ def profile_13a(steps, dev):
     (out / "profile_13a.txt").write_text("\n\n".join(tables))
 
 
-def mesh_phase(dev, profile=False):
+def mesh_phase(dev, main=None, profile=False):
     """Phase 13: the parallel modules on a one-rank NCCL mesh (see the module
-    docstring); K1, K2 and K3's launches of 13a's halo step and 13d's
-    gradient.  `profile`: `profile_13a` after 13a's comparisons."""
+    docstring); K1, K2 and K3's launches of 13a's halo step, 13d's gradient
+    and the sharded readout and sampler of 13e and 13f.  `main`: (the main
+    path's state after phase 6, 8c's warm rank-16 <Z> at the probe
+    vertices, 9d's cold two samples), against which 13e and 13f run; without
+    it they run on 13c's state against unsharded calls of their own.
+    `profile`: `profile_13a` after 13a's comparisons."""
     import torch.distributed as dist
 
     import tnqs_torch as tt
     from tnqs_torch import variational as var
+    from tnqs_torch.bmps_engine import BMPSEngine, BMPSSampler
     from tnqs_torch.engine import LatticeEngine
-    from tnqs_torch.parallel import HaloBandPlan, HaloBP, HaloStepEngine, ShardedEngine, make_mesh
+    from tnqs_torch.parallel import (HaloBandPlan, HaloBP, HaloStepEngine, ShardedBMPS, ShardedEngine, ShardedSampler,
+                                     make_mesh)
     from tnqs_torch.parallel.halo_step import cut_halves
     from tnqs_torch.parallel.mesh import init_ranks, psum
     from tnqs_torch.parallel.pool import free_port
@@ -3827,10 +3851,77 @@ def mesh_phase(dev, profile=False):
               f"{total:.3f} s with the final bp_update; peak memory {peak / 2**30:.3f} GiB "
               f"({(peak - base_mem) / 2**30:.3f} above the state allocated before)", flush=True)
         require(np.all(np.isfinite(res["history"])), "13d: a non-finite energy")
+        del res
+
+        # 13e: ShardedBMPS on one band, every vertex, at bench's readout
+        # width (`bench.py:315-343`), against the unsharded engine at the
+        # probe vertices: on one band the relay has no step and the band
+        # runs the unsharded zips in their order, so the same bits
+        probe = [tuple(cfg["center"]), tuple(cfg["bench_vertex"])]
+        state5, z16, samples_9d = main if main is not None else (state, None, None)
+        eng5 = LatticeEngine.from_arrays(g, *state5, chi, device=dev)
+        sharded = ShardedBMPS(BMPSEngine(eng5, rank=16, power_iters=1), mesh)
+        plain = reset_counts()
+        calls0 = bmps_library_calls()
+        sync(dev)
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        ze = sharded.expect_1site("Z")
+        sync(dev)
+        s_e = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        calls = np.subtract(bmps_library_calls(), calls0)
+        c_e = read_counts(plain)
+        if z16 is None:
+            t = time.perf_counter()
+            z16 = BMPSEngine(eng5, rank=16, power_iters=1).expect_1site("Z", vertices=probe)
+            ref_from = f"an unsharded call at the probe vertices, {time.perf_counter() - t:.3f} s"
+        else:
+            ref_from = "8c's warm rank-16 call"
+        de = max(abs(ze[v] - z16[v]) for v in probe)
+        print(f"13e: ShardedBMPS, one band, rank 16, power_iters 1, <Z> on {len(ze)} vertices: {s_e:.3f} s, peak "
+              f"memory {peak / 2**30:.3f} GiB above the state, library eigh {calls[0]} SVD {calls[1]}; "
+              + ", ".join(f"<Z>{v} {ze[v].real:+.7f}" for v in probe)
+              + f"; max |sharded - unsharded| {de:.3e} (bound 1e-6; the same bits: "
+              f"{all(ze[v] == z16[v] for v in probe)}; against {ref_from}); K1 {c_e[0]['osj_svd']}, K2 "
+              f"{c_e[0]['jacobi_eigh']}, K3 {c_e[0]['bp_sweep_group']}", flush=True)
+        require(len(ze) == len(verts) and np.isfinite(np.array(list(ze.values()))).all(),
+                "13e: the sharded readout is not finite on every vertex")
+        require(de <= 1e-6, f"13e: the sharded readout is {de:.3e} off the unsharded one")
+        require(not any(c_e[0].values()) and not c_e[3], f"13e: a kernel or its plain version ran: {c_e[0]}")
+        del sharded
+
+        # 13f: ShardedSampler on one band, bench's chi=64 sampler (9d's),
+        # 2 samples of seed 1, against the unsharded sampler's
+        sam = ShardedSampler(BMPSSampler(BMPSEngine(eng5, rank=8), proj_rank=16), mesh)
+        plain = reset_counts()
+        sync(dev)
+        t = time.perf_counter()
+        got = sam.sample_directly_certified(2, seed=1)
+        sync(dev)
+        s_f = time.perf_counter() - t
+        c_f = read_counts(plain)
+        if samples_9d is None:
+            t = time.perf_counter()
+            samples_9d = BMPSSampler(BMPSEngine(eng5, rank=8), proj_rank=16).sample_directly_certified(2, seed=1)
+            ref_from = f"an unsharded call, {time.perf_counter() - t:.3f} s"
+        else:
+            ref_from = "9d's cold call"
+        same = all(a["bitstring"] == b["bitstring"] for a, b in zip(got, samples_9d))
+        dpq = max(abs(a["poverq"] - b["poverq"]) / abs(b["poverq"]) for a, b in zip(got, samples_9d))
+        print(f"13f: ShardedSampler, one band, rank 8, proj_rank 16, 2 samples of seed 1: {s_f:.3f} s "
+              f"({s_f / 2:.3f} s a sample, the norm boundaries included); p/q {[round(o['poverq'], 7) for o in got]}; "
+              f"the unsharded bits: {same}, max relative |p/q - unsharded| {dpq:.3e} (bound 1e-5; against "
+              f"{ref_from}); K1 {c_f[0]['osj_svd']}, K2 {c_f[0]['jacobi_eigh']}, K3 {c_f[0]['bp_sweep_group']}",
+              flush=True)
+        require(same and dpq <= 1e-5 and np.isfinite([o["poverq"] for o in got]).all(),
+                "13f: the sharded samples are not the unsharded ones")
+        require(not any(c_f[0].values()) and not c_f[3], f"13f: a kernel or its plain version ran: {c_f[0]}")
     finally:
         dist.destroy_process_group()
     print(f"13: {time.perf_counter() - t_phase:.3f} s", flush=True)
-    return {"13a": c1, "13d grad": c_grad[0]}
+    return {"13a": c1, "13d grad": c_grad[0], "13e bmps": c_e[0], "13f sampler": c_f[0]}
 
 
 def sanitize_target(dev):
@@ -4016,8 +4107,9 @@ def main():
         step_ab(dev, eng, step, probe)
         by_path = {"5": launches, "6": bp_path(dev, eng, probe)}
         state_main = eng.to_arrays()  # after phase 6's bp_update, for 10d
-        by_path.update(measure_chi64(dev, eng, probe))
-        by_path.update(sample_chi64(dev, eng))
+        by_8c, z16 = measure_chi64(dev, eng, probe)
+        by_9d, samples_9d = sample_chi64(dev, eng)
+        by_path.update({**by_8c, **by_9d})
         del eng, step
         by_path.update(switches_phase(dev, args.layers, main_rate, main_devs=trajectory[3]))
         by_w2, eng = measure_w2(dev)
@@ -4038,7 +4130,7 @@ def main():
         print(f"kernel launches by path (phases 5-10): {by_path}")
         psi_gold = flex_phase(dev, state_main)
         by_path.update(phase12(dev, state_main, psi_gold))
-        by_path.update(mesh_phase(dev))
+        by_path.update(mesh_phase(dev, main=(state_main, z16, samples_9d)))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -405,9 +405,14 @@ def test_make_mesh_rejects_another_world_size(world, asked, pool8, pool3):
 
 
 def test_dryrun_multichip_runs(pool3):
-    """`dryrun_multichip(3)` on the 3-rank pool: the sharded heavy-hex step,
-    halo BP and the halo full layer on Eagle-127 in 3 sorted bands, and the
-    mesh variational step, to their end."""
+    """`dryrun_multichip(3)` on the 3-rank pool, stages 1-6 to their end: the
+    sharded heavy-hex step, halo BP and the halo full layer on Eagle-127 in
+    3 sorted bands, the sharded certified sampler (6 samples) and the
+    ring-pipelined BMPS column sweep (Eagle's 13 columns on 3 ranks, within
+    2e-5 of the unsharded sweep) on stage 3's state, and the mesh
+    variational step."""
     lines = dryrun_multichip(3, pool=pool3)
-    assert len(lines) == 4
+    assert len(lines) == 6
     assert "3 ranks" in lines[0] and "variational step OK" in lines[-1]
+    assert "certified sampling on Eagle-127 OK (6 samples over 3 ranks" in lines[3]
+    assert "ring-pipelined BMPS column sweep OK (127-site Eagle heavy-hex, 13 columns banded over 3 ranks" in lines[4]

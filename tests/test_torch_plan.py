@@ -109,14 +109,15 @@ def test_compile_circuit_and_program_match(name):
 def test_import_pulls_no_jax_or_networkx():
     """The port (its checkpoints, every flex-tier module, the full update,
     truncation, the variational search, the profiling hooks and the
-    multi-device modules included) loads none of jax, optax, networkx or the
+    multi-device modules and the FLOP accounting included) loads none of jax, optax, networkx or the
     JAX package, and adds no
     opt_einsum of its own: torch imports opt_einsum where it is installed,
     and the card's machine has none."""
     flex = ("core", "core.index", "core.tensor", "core.linalg", "sitetypes", "contraction", "networks", "forms",
             "bp", "gauging", "apply", "measure", "boundarymps", "sampling", "loopcorrections", "gates", "graphs",
             "fullupdate", "truncate", "variational", "utils.profiling", "parallel", "parallel.mesh",
-            "parallel.halo", "parallel.halo_step", "parallel.pool", "parallel.dryrun")
+            "parallel.halo", "parallel.halo_step", "parallel.pool", "parallel.dryrun", "parallel.bmps_ring",
+             "utils.flops")
     code = ("import sys, torch; before = set(sys.modules); import tnqs_torch, tnqs_torch.bmps_engine, tnqs_torch.checkpoint; "
             + "".join(f"import tnqs_torch.{m}; " for m in flex) +
             "tnqs_torch.BMPSSampler; tnqs_torch.load_engine; tnqs_torch.save_state; tnqs_torch.sample_certified; "

@@ -31,12 +31,14 @@ runs the kernel's plain PyTorch version instead.  The flex tier launches
 none of the kernels.  Full update (`full_update`), truncation by BP or
 boundary MPS (`truncate`), the variational BP-energy search through
 `torch.autograd` (`Hamiltonian`, `bp_energy_fn`, `minimize_energy`), the
-profiling hooks (`utils.profiling`) and, over a `torch.distributed` mesh
-(`parallel`: `make_mesh`, `ShardedEngine`, `HaloBP`, `HaloStepEngine`), the
-band-sharded layer step, halo-exchange BP and the sharded BP energy
-(`sharded_bp_energy_fn`, ``minimize_energy(mesh=...)``) are ported; the
-sharded boundary-MPS sweep and sampler (`tnqs/parallel/bmps_ring.py`) are
-not yet.
+profiling hooks (`utils.profiling`), the FLOP accounting (`utils.flops`)
+and, over a `torch.distributed` mesh (`parallel`: `make_mesh`,
+`ShardedEngine`, `HaloBP`, `HaloStepEngine`, `ShardedBMPS`,
+`ShardedSampler`), the band-sharded layer step, halo-exchange BP, the
+sharded BP energy (`sharded_bp_energy_fn`, ``minimize_energy(mesh=...)``)
+and the ring-pipelined boundary-MPS sweep and sharded certified sampler
+are ported: every module of the JAX package but its TPU-only transfer
+workaround (`utils/transfer.py`).
 
 The package imports torch, numpy and the standard library only: no jax, no
 networkx, no `tnqs`.

@@ -1,9 +1,11 @@
 """The multi-rank dry run on the CPU: `dryrun_multichip(n)` spawns n gloo
-ranks (`RankPool`) and runs, on tiny shapes, the row-sharded heavy-hex
-step, halo-exchange BP and the halo full layer on Eagle-127 in sorted
-bands, and one mesh variational step (the JAX package's
-`__graft_entry__.py` stages 1-3 and 6; its stages 4-5, the sharded
-boundary-MPS sampler and column sweep, wait for `bmps_ring.py`).
+ranks (`RankPool`) and runs, on tiny shapes, the JAX package's
+`__graft_entry__.py` stages: (1) the row-sharded heavy-hex step, (2)
+halo-exchange BP and (3) the halo full layer on Eagle-127 in sorted bands,
+(4) the sharded certified sampler and (5) the ring-pipelined boundary-MPS
+column sweep on stage 3's state, and (6) one mesh variational step.
+Stages 3 and 5 also count, on meta tensors, what the halo exchange and the
+boundary relay would send at the main path's width (chi=64).
 
 Run it as ``python -m tnqs_torch.parallel.dryrun 8``.
 """
@@ -22,9 +24,11 @@ def _stages(n: int) -> list:
     """The dry run's body on one rank; the report lines (rank 0's are
     printed)."""
     from .. import eagle_lattice, heavy_hexagonal_lattice, named_grid
+    from ..bmps_engine import BMPSEngine, BMPSSampler
     from ..engine import LatticeEngine
-    from ..models import heavy_hex_kicked_ising_layer
+    from ..models import heavy_hex_kicked_ising_layer, tfim_layer
     from ..variational import _join, _split, sharded_bp_energy_fn, tfim_hamiltonian
+    from .bmps_ring import ShardedBMPS, ShardedSampler, relay_templates
     from .halo import HaloBandPlan, HaloBP
     from .halo_step import HaloStepEngine
     from .mesh import ShardedEngine, make_mesh
@@ -69,6 +73,40 @@ def _stages(n: int) -> list:
                  f"{traffic['n_stages']} stages, gates {traffic['gate_bytes'] / 1e6:.2f} MB; at chi=64 with 25 "
                  f"final sweeps {wide['total_bytes'] / 1e6:.2f} MB: bp {wide['bp_bytes'] / 1e6:.2f}, gates "
                  f"{wide['gate_bytes'] / 1e6:.2f})")
+
+    # 4: the sharded certified sampler on stage 3's state, 2 samples a rank
+    meng = hse.unshard()
+    meng.bp_update(maxiter=10)
+    sam = ShardedSampler(BMPSSampler(BMPSEngine(meng, rank=4), proj_rank=8), mesh)
+    pq = np.array([c["poverq"] for c in sam.sample_directly_certified(2 * n, seed=0)])
+    assert np.isfinite(pq).all()
+    lines.append(f"dryrun_multichip: mesh-parallel certified sampling on Eagle-127 OK ({2 * n} samples over {n} "
+                 f"ranks; p/q mean = {pq.mean():.4f})")
+
+    # 5: the ring-pipelined column sweep on that state (Eagle's 13 columns),
+    # or on a (2n, 3) grid past 13 ranks, against the unsharded sweep
+    if n <= 13:
+        ring_g, reng = g, meng
+    else:
+        ring_g = named_grid((2 * n, 3))
+        reng = LatticeEngine(ring_g, 2, device="cpu")
+        reng.bp_update(maxiter=5)
+        reng.evolve(tfim_layer(ring_g, J=0.5, hx=1.0, dt=0.3), num_layers=1, cutoff=1e-10, bp_maxiter=5)
+    ring = ShardedBMPS(BMPSEngine(reng, rank=3), mesh)
+    zr = ring.expect_1site("Z")
+    zs = BMPSEngine(reng, rank=3).expect_1site("Z")
+    assert np.isfinite(np.array(list(zr.values()))).all() and zr.keys() == zs.keys()
+    gap = max(abs(zr[v] - zs[v]) for v in zs)
+    assert gap < 2e-5, f"ring-sharded BMPS deviates from unsharded by {gap}"
+    relay = ring.relay_bytes()
+    # the main path's readout width (chi=64, rank 16), counted on a meta engine
+    wide = [t.numel * 8 for t in relay_templates(BMPSEngine(LatticeEngine(g, 64, device="meta"), rank=16), n)]
+    lines.append(f"dryrun_multichip: ring-pipelined BMPS column sweep OK ({len(zs)}-site "
+                 f"{'Eagle heavy-hex' if reng is meng else 'grid'}, {len(ring.bmps.cplan.columns)} columns banded "
+                 f"over {n} ranks; max |sharded - unsharded| = {gap:.2e}; relay {relay['steps']} steps of "
+                 f"{relay['left_bytes'] + relay['right_bytes']} bytes a rank at rank 3 and chi=2, at rank 16 and "
+                 f"chi=64 {(wide[0] + wide[1]) / 1e6:.2f} MB a step: left {wide[0] / 1e6:.2f}, right "
+                 f"{wide[1] / 1e6:.2f})")
 
     # 6: one mesh variational step: the gradient through the halo program
     # and one Adam update
