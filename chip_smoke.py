@@ -37,9 +37,13 @@ Run from the repository root.  Phases, each of which fails the run:
    `L2_CHECK_SWEEPS` against the plain version on two members; K1 as
    pjsvd's polish at the chi = 96 and chi = 128
    thetas [26, 384, 192], [18, 192, 192], [26, 512, 256] and
-   [18, 256, 256], each against its plain version and LAPACK on the
-   spectrum families scaled to n, beside the library call and its bound,
-   with the clusters the card holds at once; F2: pjsvd on the 128-value
+   [18, 256, 256] on the resident variant (A alone in a cluster of 2-16
+   CTAs, V from the rotation log; the plan printed: cluster size, chunks a
+   CTA, clusters at once, waves, V's kernel beside or after the rounds),
+   each against its plain version and LAPACK on the spectrum families
+   scaled to n, five calls bitwise equal, timed as a whole call beside the
+   library call and its bound (the log's bytes and the rotations the
+   kernel counted); F2: pjsvd on the 128-value
    families padded with zeros at [26, 384, 192], recorded, and the worst
    member (`F2_MEMBER`) alone, its error after each polish sweep for K2 then
    K1 on the card, both plain, the plain K2 then the kernel K1, and the
@@ -618,6 +622,17 @@ def wide_eigh_timed(Hb, sweeps, relative):
     return times, jacobi.jacobi_eigh.rotations.item()
 
 
+def k1_plan(dev, B, R, n, polish):
+    """The launch `osj._osj_svd_cuda` takes for B matrices [R, n] past
+    n = 128 at `polish` sweeps: (plan, chunks of A a CTA at most, whether
+    V's kernel follows the rounds on the SMs they leave)."""
+    from tnqs_torch.ops import osj, rotation_log
+
+    plan, _, cpc = osj.osj_log_plan(B, R, n, polish * (n - 1), osj.log_active_clusters(dev, n))
+    follows = plan.layout == "resident" and rotation_log.follows(plan.group, plan.cluster, plan.waves, dev)
+    return plan, cpc, follows
+
+
 def wide_kernel_phase(dev):
     """K1 and K2 past n = 128 against their plain versions on the card: K2's
     resident variant on [26, n, n] Grams at n = 192 and 256 in both skips
@@ -638,12 +653,12 @@ def wide_kernel_phase(dev):
             layout, C, held, waves, smem, follows = k2_plan(dev, B, n)
             print(f"K2 [{B},{n},{n}]: {layout}, clusters of {C} CTAs, {held} at once, {waves} waves, {smem} B a CTA"
                   + (f", V's kernel beside the rounds: {follows}" if "log" in layout else ""))
-    for B, R, n, _ in WIDE_PATH:
-        (C,) = osj.osj_fits(R, n)
-        cpc, vpc, smem = osj.osj_plan(R, n, C)
-        active = osj.active_clusters(dev, C, smem)
-        print(f"K1 [B,{R},{n}]: C={C}, {cpc}+{vpc} chunks of A+V a CTA, {smem} B, {active} clusters at once; "
-              f"B={B} takes {-(-B // max(active, 1))} waves")
+    for B, R, n, polish in WIDE_PATH:
+        plan, cpc, follows = k1_plan(dev, B, R, n, polish)
+        print(f"K1 [{B},{R},{n}]: {plan.layout}, A alone, clusters of {plan.cluster} CTAs (of "
+              f"{list(osj.osj_res_sizes(R, n))} that fit), {cpc} chunks of A a CTA at most, {plan.smem} B a CTA, "
+              f"{plan.clusters} clusters at once, {plan.waves} waves; V from the log "
+              f"{'beside' if follows else 'after'} the rounds")
     rows = {}
     for n in WIDE_N:
         B = 26
@@ -730,16 +745,23 @@ def wide_kernel_phase(dev):
         require(rel < 1e-4, f"osj_svd [{B},{R},{n}]: kernel and plain singular values differ by more than 1e-4")
         if (R, n) == (384, 192):
             zero_padded_member(dev, B, R, n, polish)
+        # the result depends on the cluster size (the owners sum the CTAs' partials in CTA order), not on the run
+        same_calls(lambda: osj._osj_svd_cuda(Ab, V0, polish), f"osj_svd [{B},{R},{n}]")
+        plan, _, follows = k1_plan(dev, B, R, n, polish)
         k_ms = cuda_ms(lambda: osj.osj_svd(B0, V0, sweeps=polish), 5)
+        k_taken = osj.osj_svd.rotations.item()
         p_ms = cuda_ms(lambda: osj.svd_from_rounds(*osj._osj_svd_plain(Ab, V0, polish), scale), 1, warmup=False)
         l_ms = cuda_ms(lambda: torch.linalg.svd(A, full_matrices=False), 2)
-        bound_ms, bound_by = osj_bound(B, R, n, polish, taken)
-        print(f"osj_svd [{B},{R},{n}] sweeps={polish}, C={osj.osj_fits(R, n)[0]}: kernel {k_ms:.3f} ms (wrapper, "
-              f"prescale and sort included), plain {p_ms:.3f} ms, torch.linalg.svd {l_ms:.3f} ms, bound "
-              f"{bound_ms:.3f} ms ({bound_by}; {taken} of {B * polish * (n - 1) * (n // 2)} rotations taken; kernel "
-              f"at {100 * bound_ms / k_ms:.1f}%)", flush=True)
+        log = log_bytes(B, n, polish * (n - 1))
+        bound_ms, bound_by = osj_bound(B, R, n, polish, k_taken, log)
+        print(f"osj_svd [{B},{R},{n}] sweeps={polish}, {plan.layout} on C={plan.cluster}, {plan.waves} waves, V "
+              f"{'beside' if follows else 'after'} the rounds: kernel {k_ms:.3f} ms (wrapper, V's kernel, prescale "
+              f"and sort included; {L2_SAME_CALLS} calls bitwise equal), plain {p_ms:.3f} ms, torch.linalg.svd "
+              f"{l_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; {k_taken} of {B * polish * (n - 1) * (n // 2)} "
+              f"rotations taken, counted by the kernel ({taken} by the plain version); log {log} B; kernel at "
+              f"{100 * bound_ms / k_ms:.1f}%)", flush=True)
         row = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=l_ms, shape=[B, R, n],
-                   sweeps=polish, max_abs_err=err)
+                   sweeps=polish, max_abs_err=err, layout=plan.layout, cluster=plan.cluster, clusters=plan.clusters)
         if R > n:
             rows[f"osj_svd n={n}"] = dict(name=f"osj_svd n={n}", route="cuda", source="tnqs_torch/csrc/osj_svd.cu",
                                           replaces="tnqs/ops/osj.py:306", **row)
@@ -1632,7 +1654,8 @@ def profile_window(eng, step, layers=2):
     union = busy_ms(prof)  # V's kernel may run beside K2 on a second stream
     print(f"profile window, {layers} steady layers (torch.profiler): wall {wall_ms:.3f} ms, kernels {busy:.3f} ms "
           f"summed over streams, device busy {union:.3f} ms (their union), idle share {1 - union / wall_ms:.4f}")
-    labels = (("K1 osj_svd", ("osj_svd_kernel",)), ("K2 jacobi_eigh", ("jacobi_eigh_kernel",)),
+    labels = (("K1 osj_svd", ("osj_svd_kernel",)), ("K1 resident (n > 128)", ("osj_svd_res_kernel",)),
+              ("K2 jacobi_eigh", ("jacobi_eigh_kernel",)),
               ("K2 resident (n > 128)", ("jacobi_eigh_res_kernel",)), ("V from the log", ("rotation_log_kernel",)),
               ("K3 bp_sweep_group", ("bp_mode_product", "bp_pass2", "bp_reduce")))
     for label, keys in labels:
@@ -3927,8 +3950,8 @@ def mesh_phase(dev, main=None, profile=False):
 def sanitize_target(dev):
     """The cluster kernels at batch 1-2 and one sweep, for compute-sanitizer
     (`--sanitize`): K2's resident variant at n = 192 (V in the rings), 256
-    and 320, K1 on 16 CTAs at [512, 256], K1's resident variant at
-    [640, 320], the L2 variants past them (n = 600; [544, 512]), each with
+    and 320, K1's resident variant at [512, 256] (8 CTAs) and
+    [640, 320] (16), the L2 variants past them (n = 600; [544, 512]), each with
     V's kernel."""
     from tnqs_torch.ops import jacobi, osj
 
@@ -3943,7 +3966,7 @@ def sanitize_target(dev):
         osj._osj_svd_cuda(A, torch.eye(n, dtype=A.dtype, device=dev).expand(B, n, n).contiguous(), 1)
         torch.cuda.synchronize()
         print(f"sanitize target: osj_svd [{B},{R},{n}] one sweep done ({'past the cluster kernel' if osj.osj_l2(R, n) else 'clusters of '
-              + str(osj.osj_fits(R, n)[0])})", flush=True)
+              + str(osj.osj_fits(R, n)[-1])})", flush=True)
 
 
 def sanitize():

@@ -552,7 +552,7 @@ def test_osj_log_plan(B, R, n, want):
     else:
         assert cpc == 0 and plan.smem == osj.osj_l2_smem(n)
     with pytest.raises(ValueError):
-        osj.osj_log_plan(B, 512, 256, 6 * 255, lambda layout, C, cpc: 7)  # the cluster kernel's shape
+        osj.osj_log_plan(B, 256, 128, 6 * 127, lambda layout, C, cpc: 7)  # the cluster kernel's shape
 
 
 @pytest.mark.parametrize("R, n, sweeps, want", [

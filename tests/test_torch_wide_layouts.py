@@ -10,9 +10,11 @@ replays that over C virtual CTAs in a shuffled order; here it is held
 against the plain version (which `tests/test_torch_ops.py` and
 `tests/test_torch_wide_kernels.py` hold against the JAX kernel) at small n
 on clusters of 2, 4 and 8, its ring slots are checked round by round, and
-its plan is checked for every width of (128, 256].  K1 past n = 128 keeps
-its layout on a cluster of up to 16 (`osj.osj_plan`); its plan is checked
-for every width of the range.  The kernels themselves run on the card in
+its plan is checked for every width of (128, 256].  K1 past n = 128 takes
+its resident variant, A alone on a cluster of 2, 4, 8 or 16 CTAs and V from
+the rotation log (`osj.osj_log_plan`; the round is modelled in
+`tests/test_torch_wide_osj.py`); its plan is checked for every width of the
+range.  The kernels themselves run on the card in
 `chip_smoke.py`."""
 
 import numpy as np
@@ -94,37 +96,103 @@ def test_eigh_log_plan_refuses_other_widths(n):
         jacobi.eigh_log_plan(26, n, 8 * (n - 1), lambda layout, C: 7)
 
 
-# the saturated chi = 96 and chi = 128 thetas [R, n], and the widest R each width takes
-WIDE_THETAS = [(384, 192, 8), (192, 192, 4), (512, 256, 16), (256, 256, 8), (800, 192, 16), (260, 130, 4),
-               (400, 200, 8), (200, 200, 8)]
+# the saturated chi = 96 and chi = 128 thetas [R, n], and the tallest R some widths take: the resident
+# variant's cluster sizes that hold them
+WIDE_THETAS = [(384, 192, [16, 8, 4]), (192, 192, [16, 8, 4, 2]), (512, 256, [16, 8]), (256, 256, [16, 8, 4]),
+               (768, 192, [16, 8]), (260, 130, [16, 8, 4, 2]), (400, 200, [16, 8, 4]), (200, 200, [16, 8, 4, 2])]
 
 
-@pytest.mark.parametrize("R, n, C", WIDE_THETAS)
-def test_osj_plan_past_128_fits_and_covers(R, n, C):
-    """Past n = 128 K1 takes the one smallest cluster whose CTAs fit (16 is
-    non-portable); every row of A and V has a CTA, the Gram partials of every
-    chunk have room, and the wrapper's choice is that cluster whatever the
-    batch, unless the card holds none of it."""
-    assert osj.osj_fits(R, n) == [C]
-    cpc, vpc, smem = osj.osj_plan(R, n, C)
-    assert smem <= osj.SMEM_LIMIT and C * cpc * osj.CHUNK >= R and C * vpc * osj.CHUNK >= n
-    smaller = [C2 for C2 in osj.CLUSTERS if C2 < C]
-    assert all(osj.osj_plan(R, n, C2)[2] > osj.SMEM_LIMIT for C2 in smaller)
+def _res_chunks(R, n, C):
+    """The chunks of A each CTA of K1's resident variant holds, [k nch / C,
+    (k+1) nch / C), and its pairs, [k m / C, (k+1) m / C): every chunk and
+    pair once, every CTA a pair at least, no CTA more chunks than
+    `osj_res_sizes` gives it room for, within a CTA's shared memory."""
+    nch, m = -(-R // osj.CHUNK), n // 2
+    cpc, smem = osj.osj_res_sizes(R, n)[C]
+    held = [range(k * nch // C, (k + 1) * nch // C) for k in range(C)]
+    pairs = [range(k * m // C, (k + 1) * m // C) for k in range(C)]
+    assert [ch for r in held for ch in r] == list(range(nch)) and max(map(len, held)) <= cpc == -(-nch // C)
+    assert [i for r in pairs for i in r] == list(range(m)) and min(map(len, pairs)) >= 1
+    assert smem == osj.osj_res_smem(n, cpc, C) <= osj.SMEM_LIMIT
+
+
+def _k1_plan(B, R, n, held=H100_HELD):
+    """K1's launch past n = 128 at 6 sweeps on a card holding `held`."""
+    return osj.osj_log_plan(B, R, n, 6 * (n - 1), lambda layout, C, cpc: held[C] if layout == "resident" else 7)[0]
+
+
+def _fewest_waves(B, sizes, held=H100_HELD):
+    """The cluster `jacobi.resident_choice` takes: the fewest waves, the
+    larger on a tie."""
+    waves = {C: -(-B // held[C]) for C in sizes}
+    return max(C for C in sizes if waves[C] == min(waves.values()))
+
+
+@pytest.mark.parametrize("R, n, sizes", WIDE_THETAS)
+def test_osj_plan_past_128_fits_and_covers(R, n, sizes):
+    """Past n = 128 K1 takes its resident variant, A alone (V from the
+    rotation log), on the cluster sizes of `jacobi.RES_CLUSTERS` whose CTAs
+    hold their chunks of A; the sizes left out do not fit; the plan takes
+    the size whose clusters take the batch in the fewest waves, the larger
+    on a tie, and the L2 variant when the card holds none of them."""
+    assert not osj._fitting_clusters(R, n) and osj.osj_l2(R, n) and osj.pjsvd_fits(R, n)
+    assert list(osj.osj_res_sizes(R, n)) == sizes
+    for C in sizes:
+        _res_chunks(R, n, C)
+    nch = -(-R // osj.CHUNK)
+    assert all(osj.osj_res_smem(n, -(-nch // C), C) > osj.SMEM_LIMIT for C in jacobi.RES_CLUSTERS if C not in sizes)
     for B in (1, 26, 500):
-        assert osj.osj_cluster(B, R, n, lambda C2, smem: 7) == C
-    with pytest.raises(RuntimeError, match="no cluster"):
-        osj.osj_cluster(1, R, n, lambda C2, smem: 0)
+        plan = _k1_plan(B, R, n)
+        assert (plan.layout, plan.cluster) == ("resident", _fewest_waves(B, sizes))
+        assert plan.waves == -(-B // H100_HELD[plan.cluster]) and plan.clusters == H100_HELD[plan.cluster]
+    assert _k1_plan(26, R, n, dict.fromkeys(H100_HELD, 0)).layout == "l2"
 
 
 @pytest.mark.parametrize("n", list(range(130, 257, 14)) + [256])
 def test_osj_plan_past_128_square_and_twice_tall(n):
     """Every width of the range takes every theta from square to 2n rows,
     the tallest at d = 2 (a degree-3 site: 2 chi x d rows on a 2 chi-wide
-    bond), as does every even width from 64 to 128."""
+    bond), on the resident variant with A alone, a batch of 26 on 8 CTAs
+    at most; every even width from 64 to 128 on the cluster kernel, A and
+    V."""
     for w in (n, n - 66):
         for R in range(w, 2 * w + 1):
-            C = osj.osj_fits(R, w)[-1]
-            assert osj.osj_plan(R, w, C)[2] <= osj.SMEM_LIMIT and osj.pjsvd_fits(R, w)
+            assert osj.pjsvd_fits(R, w)
+            if w > osj.NARROW_N:
+                plan = _k1_plan(26, R, w)
+                assert plan.layout == "resident" and plan.cluster <= 8
+                _res_chunks(R, w, plan.cluster)
+            else:
+                C = osj.osj_fits(R, w)[-1]
+                assert osj.osj_plan(R, w, C)[2] <= osj.SMEM_LIMIT and not osj.osj_l2(R, w)
+
+
+@pytest.mark.parametrize("n", list(range(130, 257, 2)))
+def test_osj_res_plan_every_width(n):
+    """Every even width of (128, 256], square and twice as tall: the
+    resident variant's plan for a batch of 26 fits a CTA, covers every
+    chunk of A and every pair, takes the cluster of fewest waves (one wave
+    on 4 CTAs up to [432, 216], two on 8 past it) and logs the whole
+    schedule of 6 sweeps in one launch."""
+    for R in (n, 2 * n):
+        plan = _k1_plan(26, R, n)
+        sizes = list(osj.osj_res_sizes(R, n))
+        _res_chunks(R, n, plan.cluster)
+        assert plan.layout == "resident" and plan.cluster == _fewest_waves(26, sizes)
+        assert (plan.cluster, plan.waves) == ((4, 1) if R <= 432 else (8, 2))
+        assert (plan.group, plan.chunk, plan.scratch) == (26, 6 * (n - 1), 26 * 8 * n * 6 * (n - 1))
+        assert plan.smem == osj.osj_res_sizes(R, n)[plan.cluster][1]
+
+
+@pytest.mark.parametrize("B, R, n, want", [(26, 384, 192, (4, 1)), (18, 192, 192, (4, 1)), (26, 512, 256, (8, 2)),
+                                           (18, 256, 256, (4, 1)), (26, 640, 320, (16, 4)), (4, 512, 512, (16, 1))])
+def test_osj_res_plan_at_the_paths_shapes(B, R, n, want):
+    """The chi = 96 and chi = 128 thetas, and past n = 256 the chi = 160
+    and the thermal path's, on the H100's clusters: (cluster, waves), V
+    beside the rounds on the SMs one wave leaves idle."""
+    plan = _k1_plan(B, R, n)
+    assert (plan.layout, plan.cluster, plan.waves) == ("resident", *want)
+    assert (plan.waves == 1 and B * plan.cluster < 132) == (want[1] == 1)
 
 
 def _osj_cluster_model(A, V, sweeps, C):
@@ -171,8 +239,8 @@ def _osj_cluster_model(A, V, sweeps, C):
 
 @pytest.mark.parametrize("R, n", [(160, 8), (96, 12)])
 def test_osj_cluster_model_is_the_same_for_every_cluster(R, n):
-    """Every cluster size, 16 and those that leave CTAs without a chunk of A
-    (160 rows: 5 chunks on 4 CTAs hold 2, 2, 1, 0; on 8 and 16 most hold
+    """Every cluster size, those that leave CTAs without a chunk of A
+    included (160 rows: 5 chunks on 4 CTAs hold 2, 2, 1, 0; on 8 most hold
     none), gives bitwise the same result, and that result is the plain
     version's up to the order of the Gram sums."""
     rng = np.random.default_rng(R + n)
@@ -183,4 +251,4 @@ def test_osj_cluster_model_is_the_same_for_every_cluster(R, n):
     for C in osj.CLUSTERS:
         assert torch.equal(outs[C][0], outs[1][0]) and torch.equal(outs[C][1], outs[1][1]), C
     A_p, V_p = osj._osj_svd_plain(A, V, 2)
-    assert torch.allclose(outs[16][0], A_p, atol=2e-6) and torch.allclose(outs[16][1], V_p, atol=2e-5)
+    assert torch.allclose(outs[8][0], A_p, atol=2e-6) and torch.allclose(outs[8][1], V_p, atol=2e-5)

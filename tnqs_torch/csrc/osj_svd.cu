@@ -1,7 +1,8 @@
 // Batched one-sided (Hestenes) Jacobi SVD on a warm-started iterate, one
-// thread-block cluster per matrix with the iterate resident in shared memory;
-// past its shapes the resident and L2 variants at the end, A alone in the
-// rounds and V from their rotation log (`rotation_log.cu`).
+// thread-block cluster per matrix with the iterate resident in shared memory:
+// up to n = 128 A and V (the cluster kernel); past it A alone (the resident
+// variant), and V from the rounds' rotation log (`rotation_log.cu`); past
+// the rows a cluster holds, the L2 variant at the end.
 //
 // Replaces the Pallas kernel of `tnqs/ops/osj.py::osj_svd` (kernel body
 // `_make_osj_kernel`, tnqs/ops/osj.py:141; rotation `_rot_params_rel`,
@@ -13,11 +14,9 @@
 // rotations accumulate into V.  Column norms, the sort, U = A/s and the
 // Frobenius prescale stay in PyTorch (tnqs_torch/ops/osj.py).
 //
-// Layout: one cluster of C CTAs per matrix (C in {1, 2, 4, 8, 16}, picked
-// by the wrapper, `osj_plan`/`osj_cluster` in tnqs_torch/ops/osj.py; 16 is
-// a non-portable cluster, all its CTAs on one GPC, taken only past n = 128,
-// where [512, 256] needs it: 270,352 shared bytes a CTA on 8, 204,816 on
-// 16).  n is even, 4 <= n <= 256.  The rows
+// The cluster kernel, n <= 128: one cluster of C CTAs per matrix (C in
+// {1, 2, 4, 8}, picked by the wrapper, `osj_plan`/`osj_cluster` in
+// tnqs_torch/ops/osj.py).  n is even, 4 <= n <= 128.  The rows
 // of A and of V are cut into 32-row chunks; CTA c holds chunks
 // [c*cpc, (c+1)*cpc) of A and [c*vpc, (c+1)*vpc) of V in its shared memory
 // for all rounds, column-major with an odd pitch, so that lanes over rows
@@ -30,7 +29,7 @@
 //      into every CTA of the cluster (distributed shared memory) with
 //      `st.async`, which counts its bytes against that CTA's mbarrier for
 //      the round;
-//   2. each of m (<= 128) threads waits on its own CTA's mbarrier for every
+//   2. each of m (<= 64) threads waits on its own CTA's mbarrier for every
 //      chunk's partials (no cluster-wide barrier), then sums one pair's four
 //      values over all chunks in chunk order, from its own shared memory.  The sum
 //      does not depend on C or on which CTA forms it, so every CTA takes
@@ -46,14 +45,14 @@
 // everything sent to it, so none leaves while a peer still writes to it.
 //
 // What bounds it on Hopper: the latency of the dependent rounds (508-762 at
-// n = 128, 1146-1530 at n = 192-256; a DSMEM exchange, a rotation and two
-// block barriers each) and one SM's issue rate for a CTA's rows, not FLOPs
-// or bytes; the iterate never leaves shared memory between its one load and
-// its one store.  256 threads of at most 128 registers let two CTAs share
-// an SM, so the card holds twice the clusters: 30 of 8 at [R, 128] =
-// [256, 128], where a batch of 26 takes one wave.  Past n = 128 a CTA needs
-// over half an SM's shared memory, so one CTA an SM, and fewer clusters at
-// once (the smoke run prints how many): a batch takes several waves.
+// n = 128; a DSMEM exchange, a rotation and two block barriers each) and
+// one SM's issue rate for a CTA's rows, not FLOPs or bytes; the iterate
+// never leaves shared memory between its one load and its one store.  256
+// threads of at most 128 registers let two CTAs share an SM, so the card
+// holds twice the clusters: 30 of 8 at [R, 128] = [256, 128], where a batch
+// of 26 takes one wave.  Past n = 128 V beside A would put a CTA past half
+// an SM's shared memory on clusters up to 16 ([512, 256] took four waves
+// of 16), so wider A takes the resident variant below, A alone.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -66,7 +65,7 @@ constexpr int kThreads = 256;
 constexpr int kChunk = 32;  // rows of a chunk: one warp, lane = row
 constexpr int kGroup = 8;   // pairs of a warp's task: 8 x 4 values = 32 lanes
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxN = 256;  // m = n/2 pairs summed by m of the kThreads threads
+constexpr int kMaxN = 128;  // the cluster kernel's widest A; past it the resident variant
 
 // `_rot_params_rel` (tnqs/ops/osj.py:117): ([l, r] @ J) has orthogonal
 // columns.  Returns false (identity rotation) when |g|^2 <= eps^2 * a * b.
@@ -330,28 +329,32 @@ cudaLaunchConfig_t launch_config(int batch, int cluster, int smem, cudaStream_t 
   return cfg;
 }
 
-// A cluster of 16 is past the portable size of 8: the kernel has to allow it.
 cudaError_t set_attributes(int smem) {
-  cudaError_t err = cudaFuncSetAttribute(osj_svd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(osj_svd_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return cudaFuncSetAttribute(osj_svd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 // ---------------------------------------------------------------------------
-// Past the shared-memory layout (n > 256, or rows past what a cluster of 16
-// holds with V beside A).  V no longer takes part in the rounds: each
-// round's m rotations go to a rotation log in device memory
-// ([batch][rounds][m] float4: c, Re s, Im s and meta = p << 16 | q << 1 |
-// taken, p and q the pair's columns), and `rotation_log.cu` applies the log
-// to the warm start V0 afterwards, by slabs of rows, with the same `colmix`
-// in the same order.  The rounds touch A alone.
+// Past the cluster kernel (n > 128, or rows past what its clusters hold with
+// V beside A).  V no longer takes part in the rounds: each round's m
+// rotations go to a rotation log in device memory ([batch][rounds][m]
+// float4: c, Re s, Im s and meta = p << 16 | q << 1 | taken, p and q the
+// pair's columns), and `rotation_log.cu` applies the log to the warm start
+// V0, by slabs of rows, with the same `colmix` in the same order: after the
+// rounds, or beside them on the SMs their clusters leave idle where the
+// batch takes one wave.  The rounds touch A alone.
 //
-// The resident variant, where A's chunks fit a cluster of 16 (or 8):
-// [512, 512] (one chunk a CTA, 135,168 bytes), [640, 320] (one or two);
-// `osj_res_plan` in tnqs_torch/ops/osj.py.  CTA k holds the 32-row chunks
-// [k nch / C, (k+1) nch / C) of A in shared memory for all rounds,
-// column-major with an odd pitch, as the kernel above; columns never move
-// (`index_at`).  CTA k owns the pairs [k m / C, (k+1) m / C).  A round r:
+// The resident variant, where A's chunks fit a cluster of 2, 4, 8 or 16
+// CTAs (`osj_res_sizes`, `osj_log_plan` in tnqs_torch/ops/osj.py: the size
+// whose clusters take the batch in the fewest waves, the larger on a tie).
+// For 128 < n <= 256 that is the chi = 96 and 128 thetas: [26, 384, 192]
+// on 4 CTAs (three chunks a CTA, 156,704 bytes), [26, 512, 256] on 8 (two,
+// 143,392 bytes, two waves on the H100), [18, 192, 192] and
+// [18, 256, 256] on 4, one wave each; past n = 256 [512, 512] (one chunk a
+// CTA on 16, 135,168 bytes), [640, 320] (one or two).  CTA k holds the
+// 32-row chunks [k nch / C, (k+1) nch / C) of A in shared memory for all
+// rounds, column-major with an odd pitch, as the kernel above; columns
+// never move (`index_at`).  CTA k owns the pairs [k m / C, (k+1) m / C).
+// A round r:
 //   1. each warp takes groups of 8 pairs and sums their (a, b, Re g, Im g)
 //      over the CTA's chunks, chunk by chunk in order (lane = row, the warp
 //      fold), and sends each of the CTA's partials to the pair's owner with
@@ -365,9 +368,13 @@ cudaError_t set_attributes(int smem) {
 //   3. every thread waits for the m rotations; each warp rotates 8 pairs
 //      over one of the CTA's chunks of A, reading only the pairs that
 //      rotate; block barrier.
-// Two hand-overs a round, of 16 C P and 16 m bytes into a CTA: every CTA's
-// partials of every pair into every CTA would take 2 C m 16 bytes of
-// buffers (131,072 at [512, 512]), which with A does not fit.
+// Two hand-overs a round, of 16 C P and 16 m bytes into a CTA.  One
+// hand-over (every chunk's partials into every CTA, as the kernel above)
+// also fits clusters of 2-8 and would give every C the same bits; built as
+// a mode of the cluster kernel and, with chunk-order sums, of this one, it
+// took 4-5% longer a call at [26, 384, 192] and [26, 512, 256] (PERF.md
+// §6): a CTA folds and sends each chunk's partials, and an owner sums nch
+// of them, where here a CTA sends one partial a pair and an owner sums C.
 // Why no buffer is overwritten while it is read: the partials, the
 // rotations and their mbarriers are double-buffered by round parity.  A CTA
 // sends its round r+2 partials to an owner only after it received the
@@ -387,7 +394,10 @@ cudaError_t set_attributes(int smem) {
 // What bounds it: the latency of the dependent rounds (two DSMEM
 // hand-overs and two block barriers each) and one SM's issue rate for the
 // Gram's products and folds and the rotations of its chunks, not bytes: A
-// is read from device memory once and written once.
+// is read from device memory once and written once.  A round's time grows
+// with a CTA's chunks (the Gram's folds and the rotations), so the smallest
+// cluster that holds A is the slowest a round, and the card holds the most
+// of them: the plan trades the two by waves.  One CTA of 512 threads an SM.
 //
 // Past that ([1024, 512]: two chunks of 512 columns a CTA, 266,240 bytes)
 // the L2 variant: the wrapper lays A out column-major, x[col][row] with rows
@@ -710,7 +720,8 @@ cudaLaunchConfig_t res_launch_config(int batch, int cluster, int smem, cudaStrea
 }
 
 bool res_ok(int n, int nch, int cpc, int cluster) {
-  return n >= 4 && n % 2 == 0 && n / 2 <= 0x7fff && (cluster == 8 || cluster == 16) && cpc * cluster >= nch &&
+  return n >= 4 && n % 2 == 0 && n / 2 <= 0x7fff && (cluster == 2 || cluster == 4 || cluster == 8 || cluster == 16) &&
+         cpc * cluster >= nch &&
          nch * kChunk >= n && res_smem_bytes(n, cpc, cluster) <= 232448 && n / 2 / cluster >= 1;
 }
 
@@ -752,7 +763,7 @@ extern "C" int tnqs_osj_svd(const void* a_in, const void* v_in, void* a_out, voi
                             int batch, int rows, int n, int rounds, float eps, int cluster,
                             int cpc, int vpc, int smem, void* stream) {
   if (batch <= 0 || n < 4 || n > kMaxN || n % 2 != 0 || rows < n || rounds < 0 ||
-      cluster < 1 || cluster > 16 || cluster * cpc * kChunk < rows || cluster * vpc * kChunk < n ||
+      cluster < 1 || cluster > 8 || cluster * cpc * kChunk < rows || cluster * vpc * kChunk < n ||
       (size_t)smem < smem_bytes(rows, n, cpc, vpc))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = set_attributes(smem);

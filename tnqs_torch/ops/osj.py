@@ -3,12 +3,12 @@
 Port of `tnqs/ops/osj.py::osj_svd` (`:225`) and `pjsvd` (`:349`).  The
 rotation rounds of `osj_svd` run in the CUDA kernel
 `tnqs_torch/csrc/osj_svd.cu` on a CUDA tensor (one thread-block cluster per
-matrix, the iterate resident in its CTAs' shared memory, `osj_plan` its
-layout, up to n = 256; past it, or past the rows a cluster holds, A alone
-in the rounds, resident in a cluster of 16 or 8 where its chunks fit, else
-in device memory kept hot in L2, `osj_log_plan`, and V from the rounds'
-rotation log, `rotation_log.apply_rotation_log`), and in `_osj_svd_plain`,
-the same schedule written in PyTorch, on a CPU tensor.
+matrix: up to n = 128 A and V resident in its CTAs' shared memory,
+`osj_plan` its layout; past it, or past the rows a cluster holds, A alone
+in the rounds, resident in a cluster of 2, 4, 8 or 16 where its chunks fit,
+else in device memory kept hot in L2, `osj_log_plan`, and V from the
+rounds' rotation log, `rotation_log.apply_rotation_log`), and in
+`_osj_svd_plain`, the same schedule written in PyTorch, on a CPU tensor.
 The Frobenius prescale, the column norms, the descending sort and U = A/s
 (`tnqs/ops/osj.py:245-345`) are PyTorch in both cases.
 """
@@ -22,8 +22,8 @@ import math
 import torch
 
 from . import _build, rotation_log
-from .jacobi import (EPS32, L2_CLUSTERS, SMEM_LIMIT, L2Plan, LogPlan, eigh_l2_smem, jacobi_eigh, l2_plan, log_chunks,
-                     resident_choice, round_robin)
+from .jacobi import (EPS32, L2_CLUSTERS, RES_CLUSTERS, SMEM_LIMIT, L2Plan, LogPlan, eigh_l2_smem, jacobi_eigh, l2_plan,
+                     log_chunks, resident_choice, round_robin)
 from .rotation_log import apply_rotation_log
 
 
@@ -77,11 +77,9 @@ _osj_svd_plain.calls = 0
 _osj_svd_plain.rotations = None
 
 
-# cluster sizes the kernel is launched with; 16, past the portable 8, only
-# for n > 128, where [512, 256] (the chi = 128 thetas) needs it
-CLUSTERS = (1, 2, 4, 8, 16)
+CLUSTERS = (1, 2, 4, 8)  # cluster sizes the cluster kernel is launched with
 CHUNK = 32  # rows of A or V a warp sums over: the unit the kernel splits rows by
-RESIDENT_N = 256  # the widest A the shared-memory layout takes; past it the L2 variant
+NARROW_N = 128  # the widest A the cluster kernel holds beside V; past it A alone, V from the log
 
 
 def osj_plan(R: int, n: int, C: int):
@@ -99,18 +97,14 @@ def osj_plan(R: int, n: int, C: int):
 
 
 def _fitting_clusters(R: int, n: int) -> list[int]:
-    """The cluster sizes the shared-memory layout takes A [R, n] on; empty
-    past its shapes.  Up to n = 128: the sizes up to 8 whose CTAs each hold
-    at least one chunk of A and fit their share in shared memory.  Past
-    n = 128 (up to `RESIDENT_N`): the one smallest size whose CTAs fit, up to
-    16, even where some CTA then holds no chunk of A ([384, 192] on 8 CTAs:
-    12 chunks of A, two chunks a CTA)."""
-    if n % 2 or not 4 <= n <= RESIDENT_N or R < n:
+    """The cluster sizes the shared-memory layout (the cluster kernel, A
+    and V) takes A [R, n] on: up to n = `NARROW_N`, the sizes whose CTAs
+    each hold at least one chunk of A and fit their share in shared memory;
+    empty past its shapes."""
+    if n % 2 or not 4 <= n <= NARROW_N or R < n:
         return []
     nch = -(-R // CHUNK)
-    if n > 128:
-        return [C for C in CLUSTERS if osj_plan(R, n, C)[2] <= SMEM_LIMIT][:1]
-    return [C for C in CLUSTERS[:4] if (C - 1) * osj_plan(R, n, C)[0] < nch and osj_plan(R, n, C)[2] <= SMEM_LIMIT]
+    return [C for C in CLUSTERS if (C - 1) * osj_plan(R, n, C)[0] < nch and osj_plan(R, n, C)[2] <= SMEM_LIMIT]
 
 
 def osj_l2_smem(n: int) -> int:
@@ -123,7 +117,7 @@ def osj_l2_smem(n: int) -> int:
 def osj_l2(R: int, n: int) -> bool:
     """Whether the wrapper takes A [R, n] past the shared-memory layout (the
     resident or L2 variant, `osj_log_plan`): an even n >= 4, R >= n, that
-    the layout does not hold (n > 256, or more rows than its clusters hold),
+    the layout does not hold (n > 128, or more rows than its clusters hold),
     up to the widths whose m rotations and index table fit a CTA of the L2
     variant (n = 14,528; V's kernel, `rotation_log.fits`, takes wider)."""
     return (n % 2 == 0 and 4 <= n <= R and not _fitting_clusters(R, n) and rotation_log.fits(n)
@@ -142,9 +136,10 @@ def pjsvd_fits(R: int, n: int) -> bool:
 
 def osj_fits(R: int, n: int) -> list[int]:
     """The cluster sizes the kernel takes A [R, n] on: the shared-memory
-    layout's (`_fitting_clusters`), else those of the variants past it
-    (`L2_CLUSTERS`, `osj_l2`), or ValueError for a shape none takes (odd n,
-    n < 4, R < n, or n past 14,528)."""
+    layout's (`_fitting_clusters`), else those of the L2 variant past it
+    (`L2_CLUSTERS`, `osj_l2`; the resident variant's are `osj_res_sizes`),
+    or ValueError for a shape none takes (odd n, n < 4, R < n, or n past
+    14,528)."""
     fits = _fitting_clusters(R, n)
     if fits:
         return fits
@@ -176,11 +171,12 @@ def osj_res_smem(n: int, cpc: int, C: int) -> int:
 
 def osj_res_sizes(R: int, n: int) -> dict[int, tuple[int, int]]:
     """The resident variant's cluster sizes for A [R, n]: C -> (chunks of
-    A a CTA at most, shared bytes a CTA), those within a CTA's shared memory
-    ([512, 512] and [640, 320] on 16; not [1024, 512])."""
+    A a CTA at most, shared bytes a CTA), those of `RES_CLUSTERS` within a
+    CTA's shared memory ([384, 192] on 4 and up, [512, 256] on 8 and 16,
+    [512, 512] and [640, 320] on 16; not [1024, 512])."""
     nch = -(-R // CHUNK)
     sizes = {}
-    for C in L2_CLUSTERS:
+    for C in RES_CLUSTERS:
         cpc = -(-nch // C)
         smem = osj_res_smem(n, cpc, C)
         if (n // 2) // C >= 1 and smem <= SMEM_LIMIT:
@@ -340,7 +336,7 @@ def _osj_svd_cuda(A: torch.Tensor, V: torch.Tensor, sweeps: int, cluster: int | 
     B, R, n = A.shape
     if V.shape != (B, n, n):
         raise ValueError(f"osj_svd kernel: bad shapes A {tuple(A.shape)}, V {tuple(V.shape)}")
-    if cluster not in osj_fits(R, n) + [None]:
+    if cluster not in osj_fits(R, n) + [None] and cluster not in osj_res_sizes(R, n):
         raise ValueError(f"osj_svd kernel: a cluster of {cluster} does not fit [{R}, {n}]")
     if not (A.is_cuda and V.device == A.device and A.dtype == V.dtype == torch.complex64):
         raise ValueError("osj_svd kernel takes complex64 CUDA tensors on one device")

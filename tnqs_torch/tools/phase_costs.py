@@ -8,7 +8,10 @@ variants of the two sources with one phase removed (their results are
 wrong; only their time is read), each into its own library under
 `build/tnqs_torch/phases/`, and times every variant with CUDA events at the
 main path's shapes: K1 at [18, 128, 128] (4 sweeps) and [26, 256, 128] (6
-sweeps) at every cluster size it can take, K2 at [26, 128, 128] (8 sweeps,
+sweeps) at every cluster size it can take, K1's resident variant
+(`osj_svd_res_kernel`, A alone, its rotation log written, V not applied)
+at the chi = 128 and chi = 96 thetas [26, 512, 256] and [26, 384, 192] (6
+sweeps) on the cluster size the wrapper takes, K2 at [26, 128, 128] (8 sweeps,
 the absolute skip of `pjsvd`'s preconditioner); and K2's resident variant
 past n = 128 (`jacobi_eigh_res_kernel`) at [26, 192, 192] by both V routes
 (V in the rings, the route n = 192 takes, and H alone, whose log is
@@ -18,6 +21,8 @@ the wrapper takes.  The resident variants cut the round's H (and V)
 update, its hand-over (the sends, and the wait for what arrives), or both.
 A phase's cost is the base time less the variant's.  Each variant names
 the text it removes, and the tool stops if a source no longer holds it.
+K1's resident variant cuts the round's Gram (its partials sent as zeros),
+its update, or both.
 """
 
 from __future__ import annotations
@@ -41,6 +46,15 @@ K1 = {
     "no Gram loads, products or folds": K1_GRAM,
     "no update": K1_UPDATE,
     "exchange and rotations only": K1_GRAM + K1_UPDATE,
+}
+# K1's resident variant: the Gram (its partials, zero, still go to the owners) and the update
+K1_RES_GRAM = [("const float acc = group_partial(As, lda, 0, ach, pos, gp, m, lane);", "const float acc = 0.0f;")]
+K1_RES_UPDATE = [("rotate_group(As, lda, ch * kChunk + lane, rot + par * m, pos, gp, m);", "")]
+K1_RES = {
+    "base": [],
+    "no Gram loads, products or folds": K1_RES_GRAM,
+    "no update": K1_RES_UPDATE,
+    "hand-overs and rotations only": K1_RES_GRAM + K1_RES_UPDATE,
 }
 K2_H = ("for (int e = tid; e < tri; e += workers)", "for (int e = tid; e < 0; e += workers)")
 K2_V = ("for (int e0 = tid; e0 < m * hv; e0 += 4 * blockDim.x)", "for (int e0 = tid; e0 < 0; e0 += 4 * blockDim.x)")
@@ -155,6 +169,32 @@ def resident_k2(libs, rand_c, stream):
               f"(fastest of 3 turns of 5 calls): {row}; {split}", flush=True)
 
 
+def resident_k1(libs, rand_c, stream):
+    """The resident K1's variants at the chi = 128 and chi = 96 thetas, 6
+    sweeps, on the cluster size the wrapper takes: ms and us a round of a
+    wave, and each phase's cost."""
+    dev = torch.device("cuda", 0)
+    for B, R, n in ((26, 512, 256), (26, 384, 192)):
+        A0 = osj.prescale(rand_c((B, R, n)))[0].contiguous()
+        A1 = torch.empty_like(A0)
+        rounds = 6 * (n - 1)
+        plan, nch, cpc = osj.osj_log_plan(B, R, n, rounds, osj.log_active_clusters(dev, n))
+        if plan.layout != "resident" or plan.group < B:
+            sys.exit(f"phase_costs: [{B},{R},{n}] takes {plan}, not one resident launch")
+        log = torch.empty((B, rounds, n // 2, 4), device=dev)
+        taken = torch.zeros((), dtype=torch.int64, device=dev)
+        ms = {name: cuda_ms(lambda: lib.tnqs_osj_svd_res(A0.data_ptr(), A1.data_ptr(), log.data_ptr(),
+                                                         taken.data_ptr(), None, None, 1, B, R, n, nch, cpc, rounds,
+                                                         jacobi.EPS32, plan.cluster, stream), 5)
+              for name, lib in libs.items()}
+        per = {name: 1e3 * t / (rounds * plan.waves) for name, t in ms.items()}
+        row = "; ".join(f"{name} {t:.3f} ms ({per[name]:.2f} us a round of a wave)" for name, t in ms.items())
+        print(f"K1 resident [{B},{R},{n}] 6 sweeps, C={plan.cluster}, {cpc} chunks a CTA, {plan.clusters} clusters "
+              f"at once, {plan.waves} waves: {row}; Gram {per['base'] - per['no Gram loads, products or folds']:.2f} "
+              f"us, update {per['base'] - per['no update']:.2f} us, the rest (hand-overs, sums, rotations, log) "
+              f"{per['hand-overs and rotations only']:.2f} us a round", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("phase_costs: no CUDA device")
@@ -185,6 +225,8 @@ def main():
                                                       B, R, n, rounds, jacobi.EPS32, C, cpc, vpc, smem, stream))
                 row.append(f"{name} {ms:.3f} ms ({1e3 * ms / rounds:.2f} us a round)")
             print(f"K1 [{B},{R},{n}] {sweeps} sweeps, C={C}: " + "; ".join(row), flush=True)
+
+    resident_k1(build("osj_svd", K1_RES, "_res"), rand_c, stream)
 
     libs = build("jacobi_eigh", K2)
     A = rand_c((26, 256, n))
