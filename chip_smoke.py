@@ -57,8 +57,14 @@ Run from the repository root.  Phases, each of which fails the run:
    equal, beside the library call (K2 and `eigh` in turn, ten calls each,
    min / median / max) and the bound from the rotations the kernel counted;
    the L2 variants at `L2_BOUNDARY`, and there with their schedule split
-   into launches of 1000 rounds (bitwise one launch); V's kernel alone, in
-   stages of part of a round and in place (bitwise);
+   into launches of 1000 rounds (bitwise one launch); V's kernel alone at
+   the paths' shapes (`ROTLOG_SHAPES`: the resident K2's and K1's logs on
+   10e's, 8e's and 8d's matrices, in the register and the slab layout in
+   turns, the path's own named) and past n = 1024 (a chunk of K2's L2
+   schedule, the slab layout), each against its plain version and beside
+   its bound, in stages of part of a round and in place (bitwise), its
+   `kernels` row listing its launches by layout and path and its times by
+   layout;
 4. BP kernel: `bp_sweep_group` against its plain version on every degree
    >= 2 group of the Eagle chi=64 color plan, on random site tensors and
    positive messages, plus groups of gathered rows at degree 2-6 that
@@ -598,7 +604,7 @@ def k2_plan(dev, B, n):
         C, held, waves, smem = jacobi.eigh_ring_plan(B, n, lambda C: jacobi.res_active_clusters(dev, n, C, True))
         return "resident, V in the rings", C, held, waves, smem, False
     plan = jacobi.eigh_log_plan(B, n, 8 * (n - 1), jacobi.log_active_clusters(dev, n))
-    follows = plan.layout == "resident" and rotation_log.follows(plan.group, plan.cluster, plan.waves, dev)
+    follows = plan.layout == "resident" and rotation_log.follows(plan.group, plan.cluster, plan.clusters, dev)
     return f"{plan.layout}, V from the log", plan.cluster, plan.clusters, plan.waves, plan.smem, follows
 
 
@@ -629,7 +635,7 @@ def k1_plan(dev, B, R, n, polish):
     from tnqs_torch.ops import osj, rotation_log
 
     plan, _, cpc = osj.osj_log_plan(B, R, n, polish * (n - 1), osj.log_active_clusters(dev, n))
-    follows = plan.layout == "resident" and rotation_log.follows(plan.group, plan.cluster, plan.waves, dev)
+    follows = plan.layout == "resident" and rotation_log.follows(plan.group, plan.cluster, plan.clusters, dev)
     return plan, cpc, follows
 
 
@@ -975,61 +981,161 @@ def l2_osj_case(dev, rng, B, R, n, polish, plain_timed):
                 layout=plan.layout), plan
 
 
-def rotation_log_case(dev, rng):
-    """The V kernel alone: the log of the resident K2 on the thermal path's
-    Grams [4, 512, 512] (8 sweeps, absolute skip), applied to V = I by the
-    kernel and by its plain version on the card (the same operations in
-    PyTorch's complex arithmetic: within 1e-5, FMA contraction apart),
-    `L2_SAME_CALLS` calls bitwise equal, timed beside the bound (12 FP32
-    operations a row of a taken pair, the log read and V written once).
-    No single PyTorch call applies a sequence of rotations: library_ms is
-    null.  Returns the row's numbers."""
-    from tnqs_torch.ops import _build, jacobi, rotation_log
+# V's kernel alone at the paths' shapes (`rotation_log_case`): (path, B, R, n,
+# sweeps, iterate whose log it takes), R = n for K2's Grams; [18, 512, 256]
+# (8e) and [18, 192, 192] (8d) are where `beside_plan` gives the path's calls
+# to the slab layout, as at 10e's [4, 512, 512]
+ROTLOG_SHAPES = (("10e", 4, 512, 512, 8, "K2"), ("10e", 4, 512, 512, 4, "K1"), ("8e", 26, 512, 256, 6, "K1"),
+                 ("8e", 18, 512, 256, 6, "K1"), ("8e", 26, 256, 256, 8, "K2"), ("8d", 26, 384, 192, 6, "K1"),
+                 ("8d", 18, 192, 192, 4, "K1"))
+ROTLOG_SLAB = (1, 1100, 500, 300)  # a chunk of K2's L2 schedule past n = 1024: [B, n], its first round, its rounds
 
-    B, n, sweeps = 4, 512, 8
+
+def iterate_log(dev, rng, B, R, n, sweeps, iterate):
+    """The log of the resident iterate on the families scaled to n: K2's on
+    the Grams [B, n, n] (the absolute skip, V0 = I), K1's on the prescaled
+    A V0 [B, R, n] with V0 from K2 as `pjsvd` hands it over.  Returns (log,
+    V0 or None, the layout V's kernel takes beside or after this launch on
+    the path: `rotation_log.beside_vplan` where it `follows`, else
+    `rotation_log.plan`)."""
+    from tnqs_torch.ops import _build, jacobi, osj, rotation_log
+
     rounds = sweeps * (n - 1)
-    A = torch.as_tensor(spectrum_batch(rng, B, 2 * n, n, scaled_families(n)), device=dev)
-    G = A.mH @ A
-    Hb = (0.5 * (G + G.mH)).contiguous()
-    plan = jacobi.eigh_log_plan(B, n, rounds, jacobi.log_active_clusters(dev, n))
+    A = torch.as_tensor(spectrum_batch(rng, B, R if iterate == "K1" else 2 * n, n, scaled_families(n)), device=dev)
     log = torch.empty((B, rounds, n // 2, 4), dtype=torch.float32, device=dev)
-    w = torch.empty((B, n), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    stream = torch.cuda.current_stream().cuda_stream
+    if iterate == "K2":
+        G = A.mH @ A
+        Hb = (0.5 * (G + G.mH)).contiguous()
+        plan = jacobi.eigh_log_plan(B, n, rounds, jacobi.log_active_clusters(dev, n))
+        w = torch.empty((B, n), dtype=torch.float32, device=dev)
         _build.check(_build.kernels().tnqs_jacobi_eigh_res(Hb.data_ptr(), log.data_ptr(), w.data_ptr(), None, None,
                                                             None, 1, B, n, rounds, jacobi.EPS32, 0, plan.cluster,
-                                                            torch.cuda.current_stream().cuda_stream),
-                     "tnqs_jacobi_eigh_res")
-    V_k = same_calls(lambda: (rotation_log.apply_rotation_log(log),), "rotation_log")[0]
-    V_p = rotation_log._apply_rotation_log_plain(log)
-    err = (V_k - V_p).abs().max().item()
+                                                            stream), "tnqs_jacobi_eigh_res")
+        V0 = None
+    else:
+        V0 = jacobi.jacobi_eigh(A.mH @ A, sweeps=8, relative=False)[1].contiguous()
+        Ab = osj.prescale(A @ V0)[0].contiguous()
+        plan, nch, cpc = osj.osj_log_plan(B, R, n, rounds, osj.log_active_clusters(dev, n))
+        A1 = torch.empty_like(Ab)
+        _build.check(_build.kernels().tnqs_osj_svd_res(Ab.data_ptr(), A1.data_ptr(), log.data_ptr(), None, None,
+                                                        None, 1, B, R, n, nch, cpc, rounds, jacobi.EPS32,
+                                                        plan.cluster, stream), "tnqs_osj_svd_res")
+    b = min(plan.group, B)  # the matrices of one launch
+    beside = plan.layout == "resident" and rotation_log.follows(b, plan.cluster, plan.clusters, dev)
+    vp = rotation_log.beside_vplan(n, b, plan.cluster, plan.clusters, dev) if beside else rotation_log.plan(n)
+    return log, V0, vp.layout
+
+
+def rotation_log_shape(label, log, V0, round0=0, path_layout=None):
+    """V's kernel on one log in each layout that takes n (the register
+    layout up to n = 1024, and the slab layout, PR 12's kernel, unchanged
+    for a launch alone), each against the plain version on the card (the
+    same operations in PyTorch's complex arithmetic: within 1e-5, FMA
+    contraction apart), `L2_SAME_CALLS` calls bitwise equal, and timed in
+    turns (regs, slab, slab, regs) beside the bound (24 FLOP a row of a
+    taken pair; the log read, V0 read and V written once).  Returns the
+    shape's numbers, by layout, and V."""
+    from tnqs_torch.ops import rotation_log
+
+    B, rounds, m, _ = log.shape
+    n = 2 * m
+    vps = {vp.layout: vp for vp in (rotation_log.plan(n), rotation_log.slab_vplan(n))}
+    runs = {layout: (lambda vp=vp: rotation_log._apply_rotation_log_cuda(log, V0, None, round0=round0, vp=vp))
+            for layout, vp in vps.items()}
+    V_p = rotation_log._apply_rotation_log_plain(log, V0)
+    Vs = {layout: same_calls(lambda run=run: (run(),), f"rotation_log {label} {layout}")[0]
+          for layout, run in runs.items()}
+    errs = {layout: (V - V_p).abs().max().item() for layout, V in Vs.items()}
     taken = int(rotation_log.unpack(log)[2].sum().item())
-    ms = cuda_ms(lambda: rotation_log.apply_rotation_log(log), 3)
-    plain_ms = cuda_ms(lambda: rotation_log._apply_rotation_log_plain(log), 1, warmup=False)
-    bound_ms, bound_by = bound(taken * 2 * n * 6 * 2, log.numel() * 4 + B * n * n * 8)
-    S, E, smem = rotation_log.plan(n)
-    # stages of part of a round (the layout past n = 9684, here at a stage
-    # of m/3 + 5 entries), and V in place from two launches' logs (the L2
-    # variants' schedule in chunks): both bit for bit one whole launch
-    Ep, h = n // 2 // 3 + 5, rounds // 2
+    turns = {layout: [] for layout in runs}
+    for layout in list(runs) + list(runs)[::-1]:
+        turns[layout].append(cuda_ms(runs[layout], 3))
+    plain_ms = cuda_ms(lambda: rotation_log._apply_rotation_log_plain(log, V0), 1, warmup=False)
+    bound_ms, bound_by = bound(taken * 2 * n * 6 * 2, log.numel() * 4 + B * n * n * 8 * (1 if V0 is None else 2))
+    by_layout = {layout: dict(ms=sum(t) / len(t), turns=t, share=bound_ms * len(t) / sum(t), max_abs_err=errs[layout],
+                              rows=vps[layout].rows, P=vps[layout].P, R=vps[layout].R, K=vps[layout].K,
+                              smem=vps[layout].smem) for layout, t in turns.items()}
+    path_layout = path_layout or rotation_log.plan(n).layout
+    print(f"rotation_log {label} [{B},{n},{n}], {rounds} rounds from round {round0} ({taken} of {B * rounds * m} "
+          f"rotations taken), the path's layout {path_layout}; bound {bound_ms:.3f} ms ({bound_by}), plain "
+          f"{plain_ms:.3f} ms; " + "; ".join(
+              f"{layout} (P={v['P']}, R={v['R']}, {v['rows']} rows a CTA, {v['K']} rounds a stage, {v['smem']} shared "
+              f"bytes): vs plain max |dV| {v['max_abs_err']:.3e} (bound 1e-5), {L2_SAME_CALLS} calls bitwise equal, "
+              f"ms in turns {', '.join(f'{t:.3f}' for t in v['turns'])} ({100 * v['share']:.1f}% of the bound)"
+              for layout, v in by_layout.items()), flush=True)
+    require(max(errs.values()) <= 1e-5, f"rotation_log {label}: kernel and plain differ: {errs}")
+    main = by_layout[path_layout]
+    return dict(shape=[B, n, n], label=label, rounds=rounds, round0=round0, taken=taken, layout=path_layout,
+                max_abs_err=max(errs.values()), ms=main["ms"], plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                by_layout=by_layout), Vs[path_layout]
+
+
+def rotation_log_case(dev, rng):
+    """V's kernel alone at the paths' shapes (`ROTLOG_SHAPES`: the logs of
+    the resident K2 and K1 on 10e's, 8e's and 8d's matrices, in both
+    layouts, each against its plain version, `rotation_log_shape`), then
+    the slab layout past n = 1024 on a chunk of K2's L2 schedule
+    (`ROTLOG_SLAB`, from a round that is not a sweep's first).  In place
+    from two launches' logs (the L2 variants' schedule in chunks) on both
+    layouts, and the slab layout's stages of part of a round (the layout
+    past n = 9684, here at a stage of m/3 + 5 entries): each bit for bit
+    one whole launch.  No single PyTorch call applies a sequence of
+    rotations: library_ms is null.  Returns the row: its numbers those of
+    the layout 10e launches at its [4, 512, 512] K2 log, both layouts' there
+    under `by_layout`, every shape's under `shapes`."""
+    from tnqs_torch.ops import _build, jacobi, rotation_log
+
+    shapes, checks = [], {}
+    for path, B, R, n, sweeps, iterate in ROTLOG_SHAPES:
+        log, V0, path_layout = iterate_log(dev, rng, B, R, n, sweeps, iterate)
+        row, V_k = rotation_log_shape(f"{path} {iterate} {sweeps} sweeps", log, V0, path_layout=path_layout)
+        shapes.append(row)
+        if len(shapes) == 1:  # the register layout in place from two launches, the second from round h
+            V_r = rotation_log.apply_rotation_log(log)
+            h = log.shape[1] // 2
+            V_h = rotation_log.apply_rotation_log(log[:, :h].contiguous())
+            rotation_log.apply_rotation_log(log[:, h:].contiguous(), V_h, out=V_h, round0=h)
+            checks["regs in place"] = torch.equal(V_h, V_r)
+        del log, V0, V_k
+    B, n, r0, k = ROTLOG_SLAB
+    plan = jacobi.eigh_log_plan(B, n, r0 + k, jacobi.log_active_clusters(dev, n))
+    A = torch.as_tensor(spectrum_batch(rng, B, 2 * n, n, scaled_families(n)), device=dev)
+    hc = (A.mH @ A).mT.contiguous()
+    log = torch.empty((B, k, n // 2, 4), dtype=torch.float32, device=dev)
+    xbuf = torch.empty((plan.clusters, 2, n, 4), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _build.check(_build.kernels().tnqs_jacobi_eigh_l2(hc.data_ptr(), log.data_ptr(), xbuf.data_ptr(), None, B, n,
+                                                           r0, k, jacobi.EPS32, 0, plan.cluster, plan.clusters,
+                                                           torch.cuda.current_stream().cuda_stream),
+                     "tnqs_jacobi_eigh_l2")
+    V0 = torch.linalg.qr(torch.as_tensor(rand_c(rng, (B, n, n)), device=dev))[0].contiguous()
+    row, V_k = rotation_log_shape(f"K2 L2 chunk ({plan.layout})", log, V0, r0)
+    require(plan.layout == "l2" and row["layout"] == "slab", f"rotation_log past 1024: {plan.layout}, {row['layout']}")
+    shapes.append(row)
+    h = k // 2
+    V_h = rotation_log.apply_rotation_log(log[:, :h].contiguous(), V0, round0=r0)
+    rotation_log.apply_rotation_log(log[:, h:].contiguous(), V_h, out=V_h, round0=r0 + h)
+    checks["slab in place"] = torch.equal(V_h, V_k)
+    S, E, _ = rotation_log.slab_plan(n)
+    Ep = n // 2 // 3 + 5
     V_s = torch.empty_like(V_k)
     with torch.cuda.device(dev):
-        _build.check(_build.kernels().tnqs_rotation_log(None, log.data_ptr(), V_s.data_ptr(), B, n, rounds, S, Ep,
+        _build.check(_build.kernels().tnqs_rotation_log(V0.data_ptr(), log.data_ptr(), V_s.data_ptr(), B, n, k, S, Ep,
                                                          None, None, None, 0, 0,
                                                          torch.cuda.current_stream().cuda_stream), "tnqs_rotation_log")
-    V_h = rotation_log.apply_rotation_log(log[:, :h].contiguous())
-    rotation_log.apply_rotation_log(log[:, h:].contiguous(), V_h, out=V_h)
-    print(f"rotation_log [{B},{n},{n}] from K2's {rounds}-round log ({taken} rotations taken): kernel vs plain on the "
-          f"card max |dV| {err:.3e} (bound 1e-5); {L2_SAME_CALLS} calls bitwise equal; stages of {Ep} entries (part "
-          f"of a round) and two launches in place each bitwise equal: {torch.equal(V_s, V_k)}, "
-          f"{torch.equal(V_h, V_k)}; kernel {ms:.3f} ms ({S} rows a CTA, {E} entries ({E // (n // 2)} rounds) a "
-          f"stage, {smem} shared bytes), plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; kernel at "
-          f"{100 * bound_ms / ms:.1f}%)", flush=True)
-    require(err <= 1e-5, "rotation_log: kernel and plain differ")
-    require(torch.equal(V_s, V_k) and torch.equal(V_h, V_k), "rotation_log: part-round stages or in place differ")
+    checks["slab part-round stages"] = torch.equal(V_s, V_k)
+    print(f"rotation_log: two launches in place and stages of {Ep} entries (part of a round) each bitwise one "
+          f"launch: {checks}", flush=True)
+    require(all(checks.values()), f"rotation_log: {checks}")
+    main = shapes[0]
     return dict(name="rotation_log", route="cuda", source="tnqs_torch/csrc/rotation_log.cu",
-                replaces="tnqs/ops/jacobi.py:279 and tnqs/ops/osj.py:306 (their V accumulation)", max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None, shape=[B, n, n],
-                sweeps=sweeps)
+                replaces="tnqs/ops/jacobi.py:279 and tnqs/ops/osj.py:306 (their V accumulation)",
+                max_abs_err=max(r["max_abs_err"] for r in shapes), ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=None, shape=main["shape"],
+                sweeps=ROTLOG_SHAPES[0][4], layout=main["layout"],
+                by_layout={k: dict(ms=v["ms"], bound_ms=main["bound_ms"], share=v["share"])
+                           for k, v in main["by_layout"].items()}, shapes=shapes)
 
 
 def l2_chunk_case(dev, rng):
@@ -1656,7 +1762,10 @@ def profile_window(eng, step, layers=2):
           f"summed over streams, device busy {union:.3f} ms (their union), idle share {1 - union / wall_ms:.4f}")
     labels = (("K1 osj_svd", ("osj_svd_kernel",)), ("K1 resident (n > 128)", ("osj_svd_res_kernel",)),
               ("K2 jacobi_eigh", ("jacobi_eigh_kernel",)),
-              ("K2 resident (n > 128)", ("jacobi_eigh_res_kernel",)), ("V from the log", ("rotation_log_kernel",)),
+              ("K2 resident (n > 128)", ("jacobi_eigh_res_kernel",)),
+              ("V from the log, registers", ("rotation_log_regs_kernel",)),
+              ("V from the log, slabs", ("rotation_log_kernel",)),
+              ("V's follow gate", ("rotation_log_gate_kernel",)),
               ("K3 bp_sweep_group", ("bp_mode_product", "bp_pass2", "bp_reduce")))
     for label, keys in labels:
         sel = [v for k, v in kernels.items() if any(key in k for key in keys)]
@@ -1804,6 +1913,23 @@ def sync(dev):
         torch.cuda.synchronize()
 
 
+def rotation_log_layouts(by_path, paths):
+    """V's kernel's launches by layout on every path that ran it, printed.
+    On each of `paths` (8d, 8e, 10e: n <= 1024 only) V must have run, every
+    launch in the register layout but where `rotation_log.beside_plan` gave
+    it to the slab layout, whose units all fit on the SMs the iterate leaves
+    idle (10e's [4, 512, 512], 8e's [16/18, 512, 256], 8d's [18, 192, 192]).
+    Returns {path: {layout: launches}}."""
+    layouts = {p: {layout: c[f"rotation_log {layout}"] for layout in ("regs", "slab", "slab beside")}
+               for p, c in by_path.items() if c.get("rotation_log")}
+    print(f"V's kernel by layout and path: {layouts}", flush=True)
+    for p in paths:
+        c = by_path[p]
+        require(c["rotation_log"] and c["rotation_log regs"] + c["rotation_log slab beside"] == c["rotation_log"],
+                f"V's kernel by layout on {p}: {layouts.get(p)}")
+    return layouts
+
+
 def reset_counts():
     """Zero every kernel's launch counts (the plain runs' counts stay, and are
     compared before and after)."""
@@ -1813,7 +1939,8 @@ def reset_counts():
     from tnqs_torch.ops.rotation_log import apply_rotation_log
 
     jacobi.jacobi_eigh.launches = osj.osj_svd.launches = bp_sweep.bp_sweep_group.launches = 0
-    apply_rotation_log.launches = 0
+    apply_rotation_log.launches = apply_rotation_log.slab_beside = 0
+    apply_rotation_log.launches_by_layout.update(dict.fromkeys(apply_rotation_log.launches_by_layout, 0))
     jacobi.jacobi_eigh.launches_by_shape.clear()
     osj.osj_svd.launches_by_shape.clear()
     for by_layout in (jacobi.jacobi_eigh.launches_by_layout, osj.osj_svd.launches_by_layout):
@@ -1849,6 +1976,9 @@ def k3_launches():
               "bp_split_planes": bp_sweep.split_bucket.launches,
               "bf16_3x wgmma": bp_sweep.bp_sweep_group.launches_by_route["wgmma"],
               "rotation_log": apply_rotation_log.launches}
+    for layout, count in apply_rotation_log.launches_by_layout.items():
+        counts[f"rotation_log {layout}"] = count
+    counts["rotation_log slab beside"] = apply_rotation_log.slab_beside
     for layout in ("resident", "l2"):
         counts[f"jacobi_eigh {layout}"] = jacobi.jacobi_eigh.launches_by_layout[layout]
         counts[f"osj_svd {layout}"] = osj.osj_svd.launches_by_layout[layout]
@@ -3029,7 +3159,9 @@ def thermal_breakdown(label, prof, wall_ms):
           f"device busy {union:.3f} ms (their union), idle share {1 - union / wall_ms:.4f}")
     labels = (("K2 resident", ("jacobi_eigh_res_kernel",)), ("K2 L2", ("jacobi_eigh_l2_kernel",)),
               ("K1 resident", ("osj_svd_res_kernel",)), ("K1 L2", ("osj_svd_l2_kernel",)),
-              ("V from the log", ("rotation_log_kernel",)), ("K1 clusters", ("osj_svd_kernel",)),
+              ("V from the log, registers", ("rotation_log_regs_kernel",)),
+              ("V from the log, slabs", ("rotation_log_kernel",)),
+              ("V's follow gate", ("rotation_log_gate_kernel",)), ("K1 clusters", ("osj_svd_kernel",)),
               ("K2 n <= 128", ("jacobi_eigh_kernel",)),
               ("K3 bp_sweep_group", ("bp_mode_product", "bp_pass2", "bp_reduce")))
     for name, keys in labels:
@@ -4106,7 +4238,9 @@ def main():
             return 0
         if args.l2_only:
             l2_kernel_phase(dev)
-            print(f"kernel launches by path (10e): {thermal_phase(dev)}")
+            by_path = thermal_phase(dev)
+            print(f"kernel launches by path (10e): {by_path}")
+            rotation_log_layouts(by_path, ("10e",))
             return 0
         if args.wide_only:
             wide_kernel_phase(dev)
@@ -4115,6 +4249,7 @@ def main():
             by_path = measure_wide(dev, "8d", 96, discarded, CHI96_CAP_S, WIDE_XLA_CAP_S)
             by_path.update(measure_wide(dev, "8e", 128, discarded, CHI128_CAP_S, WIDE_XLA_CAP_S, full_layers=2))
             print(f"kernel launches by path (8d, 8e): {by_path}")
+            rotation_log_layouts(by_path, ("8d", "8e"))
             return 0
         kernels = kernel_phase(dev)
         k2_err = k2_switch_shapes(dev)
@@ -4158,8 +4293,9 @@ def main():
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "launches_by_path", "fp32_ms", "shape", "sweeps", "relative_12", "square", "tall",
-            "plain_shape", "cluster", "clusters", "layout", "past_resident")
+            "bound_by", "library_ms", "launches_by_path", "launches_by_layout", "fp32_ms", "shape", "sweeps",
+            "relative_12", "square", "tall", "plain_shape", "cluster", "clusters", "layout", "by_layout",
+            "past_resident", "shapes")
     # `launches`: each row's own path, phase 5 for K1-K3, 10c for K3's bf16_3x
     # mode, 8d for K1 and K2 at n = 192 and 8e at n = 256
     own = {name: by_path["10c"][name] for name in ("bp_sweep_group_bf16_3x", "bp_split_planes")}
@@ -4170,8 +4306,15 @@ def main():
         for k in ("jacobi_eigh_l2", "osj_svd_l2"):
             own[f"{k} n={n}"] = by_path["10e"][f"{k} n={n}"]
     own["rotation_log"] = by_path["10e"]["rotation_log"]
+    try:
+        rotlog_layouts = rotation_log_layouts(by_path, ("8d", "8e", "10e"))
+    except SmokeFailure as e:
+        print(f"chip_smoke FAILED: {e}", file=sys.stderr)
+        return 1
     kernels = [{key: v for key, v in dict(k, launches=own.get(k["name"], launches[k["name"]]),
-                                          launches_by_path={p: c[k["name"]] for p, c in by_path.items()}).items()
+                                          launches_by_path={p: c[k["name"]] for p, c in by_path.items()},
+                                          **({"launches_by_layout": rotlog_layouts} if k["name"] == "rotation_log"
+                                             else {})).items()
                 if key in keys} for k in kernels]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

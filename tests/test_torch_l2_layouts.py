@@ -41,12 +41,12 @@ def _positions(m, C):
     return np.concatenate(owned)
 
 
-def _jacobi_l2_model(H, sweeps, C, relative, chunk=None):
+def _jacobi_l2_model(H, sweeps, C, relative, chunk=None, logs=None):
     """K2's L2 variant over C virtual CTAs, in the plain version's arithmetic.
     H [B, n, n]; returns (w [B, n], V [B, n, n]) as the wrapper reads them,
     by index, V from the rounds' rotation log: with `chunk`, each launch of
     `chunk` rounds starts from the entries of H as it stands and V takes
-    each launch's log in turn."""
+    each launch's log in turn.  `logs` collects (round0, log) a launch."""
     B, n, _ = H.shape
     m, rounds = n // 2, sweeps * (n - 1)
     Hc = H.mT.contiguous()  # Hc[b, col, row] = H[b, row, col]; columns never move
@@ -89,17 +89,20 @@ def _jacobi_l2_model(H, sweeps, C, relative, chunk=None):
             pos_next = pos[perm]
             export((r - r0 + 1) & 1, pos, pos_next, nxt)
             pos = pos_next
+        if logs is not None:
+            logs.append((r0, log))
         V = rotation_log._apply_rotation_log_plain(log, V)
     return Hc.diagonal(dim1=1, dim2=2).real, V
 
 
-def _osj_l2_model(A, V, sweeps, C, chunk=None):
+def _osj_l2_model(A, V, sweeps, C, chunk=None, logs=None):
     """K1's L2 variant over C virtual CTAs: the iterate x[col][row] (rows of
     A padded to 32-row chunks), CTA k's chunks summed in order into its
     partial of every pair, the C partials summed in CTA order, every row
     rotated by its owner, each round's rotations logged.  Returns the
     rotated A and V, V0 with the log applied (with `chunk`, each launch's
-    log of `chunk` rounds in turn)."""
+    log of `chunk` rounds in turn; `logs` collects (round0, log) a
+    launch)."""
     B, R, n = A.shape
     m, ck, rounds = n // 2, osj.CHUNK, sweeps * (n - 1)
     nch = -(-R // ck)
@@ -132,6 +135,8 @@ def _osj_l2_model(A, V, sweeps, C, chunk=None):
         X[:, P_], X[:, Q_] = cc * lft + sc * rgt, -sc.conj() * lft + cc * rgt
         pos = pos[perm]
     for r0 in range(0, max(rounds, 1), per_launch):  # each launch's log, in turn
+        if logs is not None:
+            logs.append((r0, log[:, r0:r0 + per_launch]))
         V = rotation_log._apply_rotation_log_plain(log[:, r0:r0 + per_launch], V)
     return X[:, :, :R].mT, V
 

@@ -421,15 +421,32 @@ def test_rotation_log_meta_round_trips():
 
 
 @pytest.mark.parametrize("n, want", [(4, (16, 512)), (512, (16, 4)), (320, (16, 6)), (2048, (8, 1)), (9684, (1, 1)),
-                                     (9686, (1, 4842 / 4843)), (14528, (1, 3631 / 7264)), (28990, (1, 16 / 14495))])
+                                     (9686, (1, 4842 / 4843)), (14528, (1, 3631 / 7264)), (28990, (1, 16 / 14495)),
+                                     (192, ("regs", 3, 2)), (256, ("regs", 4, 2)), (512, ("regs", 8, 1)),
+                                     (598, ("regs", 10, 1)), (1024, ("regs", 16, 1)), (1026, (16, 1))])
 def test_rotation_log_plan(n, want):
-    """The V kernel's slab and stage: 16 rows a CTA where they fit, stages of
-    about 16 KiB of log (K whole rounds, E = K n/2 entries); one row and one
-    round at n = 9684; past it one row and the part of a round that fits,
-    down to 16 entries at the widest, n = 28990."""
-    S, E, smem = rotation_log.plan(n)
+    """V's kernel by width: the register layout up to n = 1024 (the paths'
+    192, 256, 512 and K2's resident widths to 598: P = ceil(n/64) positions
+    a lane, two rows a warp up to P = 4, one past it, 16 rows a CTA up to
+    P = 8, 12 up to P = 12 and 7 past it, stages
+    of whole rounds), the slab layout past it.  The slab layout's slab and
+    stage (`slab_plan`, at any width): 16 rows a CTA where they fit, stages
+    of about 16 KiB of log (K whole rounds, E = K n/2 entries); one row and
+    one round at n = 9684; past it one row and the part of a round that
+    fits, down to 16 entries at the widest, n = 28990."""
+    vp = rotation_log.plan(n)
+    assert vp.layout == ("regs" if n <= rotation_log.REG_N else "slab")
+    if want[0] == "regs":
+        assert (vp.layout, vp.P, vp.R) == want and vp.rows == (16 if vp.P <= 8 else 12 if vp.P <= 12 else 7) and vp.E == vp.K * (n // 2)
+        assert vp.smem == rotation_log.reg_smem_bytes(vp.P, vp.K) <= jacobi.SMEM_LIMIT
+        assert vp.K % vp.P == 0 or vp.P % vp.K == 0  # a stage's rounds known to the unrolled loop
+        assert vp.K == {3: 6, 4: 8, 8: 8, 10: 5, 16: 4}[vp.P]
+        return
+    S, E, smem = rotation_log.slab_plan(n)
     assert (S, E / (n // 2)) == want and smem == 16 * 2 * E + 8 * S * n + 16 <= jacobi.SMEM_LIMIT
     assert smem == rotation_log.smem_bytes(n, S, E) and (E >= n // 2 or smem + 32 > jacobi.SMEM_LIMIT)
+    if vp.layout == "slab":
+        assert (vp.rows, vp.E, vp.smem) == (S, E, smem)
     with pytest.raises(ValueError):
         rotation_log.plan(28992)
     assert rotation_log.fits(28990) and not rotation_log.fits(28992)
@@ -584,23 +601,49 @@ def test_pjsvd_takes_up_to_14528():
         osj.osj_fits(14530, 14530)
 
 
-def _follow_model(B, C, rounds, m, E, stage, slabs, sms, spins, rng):
-    """V's kernel beside the iterate (`rotation_log.follow`,
-    `rotation_log_kernel` modes follow and rest), over `sms` SMs in a
-    shuffled order: the iterate's clusters of C CTAs are placed only where
-    C SMs are free; each CTA logs a round a step and publishes the rounds
-    logged every `stage` rounds and at its end (`progress`); CTA 0 sets
-    `started`.  A follow CTA takes an SM, polls `started` of every matrix
-    `spins` times, and only then claims its slab and reads each stage once
-    its cluster's CTAs published its rounds; a rest CTA runs after the
-    iterate and takes every slab left.  Returns (stage lists by slab, slabs
-    taken by follow CTAs)."""
+@pytest.mark.parametrize("n, B, idle, ctas, want", [
+    (512, 4, 68, {"regs": 1, "slab": 2}, "slab"),   # 10e: 128 units, 68 SMs beside one wave
+    (192, 18, 60, {"regs": 2, "slab": 4}, "slab"),  # 8d's [18,192,192]: 216 units
+    (256, 18, 60, {"regs": 2, "slab": 3}, "regs"),  # 8e's [18,256,256]: 288 units fit neither
+    (256, 26, 44, {"regs": 2, "slab": 3}, "regs"),  # 8e's [26,512,256] beside its second wave
+    (512, 2, 100, {"regs": 1, "slab": 2}, "regs"),  # the register layout fits
+    (1100, 1, 132, {"regs": 0, "slab": 1}, "slab"),  # past REG_N: the slab layout
+])
+def test_rotation_log_beside_plan(n, B, idle, ctas, want):
+    """V's layout beside an iterate, given the CTAs an SM holds: the
+    register layout unless its units of the B matrices do not all fit on
+    the idle SMs while the slab layout's do; the slab layout's plan is
+    `slab_plan`'s."""
+    vp = rotation_log.beside_plan(n, B, idle, ctas.get)
+    assert vp.layout == want
+    if want == "slab":
+        S, E, smem = rotation_log.slab_plan(n)
+        assert (vp.rows, vp.E, vp.smem) == (S, E, smem)
+    else:
+        assert vp == rotation_log.plan(n)
+
+
+def _follow_model(B, C, rounds, m, E, stage, slabs, sms, spins, rng, gate_spins=0):
+    """V's kernel beside the iterate (`rotation_log.follow`, the kernels'
+    modes follow and rest), over `sms` SMs in a shuffled order: the
+    iterate's clusters of C CTAs are placed only where C SMs are free, in
+    as many waves as that takes; each CTA logs a round a step and publishes
+    the rounds logged every `stage` rounds and at its end (`progress`);
+    CTA 0 sets `started`.  With `gate_spins` the follow launch waits on its
+    stream behind the gate, which holds an SM and polls `started` of every
+    matrix at most that many times.  A follow CTA takes an SM, polls
+    `started` `spins` times, and only then claims its unit and reads each
+    stage once its cluster's CTAs published its rounds; it stays only once
+    no cluster waits to be placed; a rest CTA runs after the iterate and
+    takes every unit left.  Returns (stage lists by unit, units taken by
+    follow CTAs, of which while a cluster of the launch still ran)."""
     started = np.zeros(B, dtype=bool)
     logged = np.zeros((B, C), dtype=int)  # rounds each iterate CTA has written to the log
     progress = np.zeros((B, C), dtype=int)  # what it published
     claim = np.zeros((B, slabs), dtype=bool)
-    free, left = [sms], [B * C]
-    done, by_follow = {}, [0]
+    free, left, unplaced = [sms], [B * C], [B]
+    done, by_follow, beside = {}, [0], [0]
+    gate = [gate_spins == 0]  # the follow launch may start
     total = rounds * m
     chunks = -(-total // E)
 
@@ -611,6 +654,7 @@ def _follow_model(B, C, rounds, m, E, stage, slabs, sms, spins, rng):
         for b in rng.permutation(B):
             yield ("sms", C)
             free[0] -= C
+            unplaced[0] -= 1
             started[b] = True  # the cluster runs: all its CTAs at once
             for k in range(C):
                 ctas[("i", b, k)] = iterate(b, k)
@@ -626,7 +670,18 @@ def _follow_model(B, C, rounds, m, E, stage, slabs, sms, spins, rng):
         free[0] += 1
         left[0] -= 1
 
+    def gate_cta():
+        yield ("sms", 1)
+        free[0] -= 1
+        for _ in range(gate_spins):
+            if started.all():
+                break
+            yield ("any",)
+        free[0] += 1
+        gate[0] = True
+
     def follow(b, s):
+        yield ("gate",)
         yield ("sms", 1)
         free[0] -= 1
         for _ in range(spins):
@@ -634,8 +689,10 @@ def _follow_model(B, C, rounds, m, E, stage, slabs, sms, spins, rng):
                 break
             yield ("any",)
         if started.all() and not claim[b, s]:
+            assert unplaced[0] == 0  # it stays: no cluster waits for an SM
             claim[b, s] = True
             by_follow[0] += 1
+            beside[0] += left[0] > 0
             for c in range(chunks):
                 yield ("progress", b, need(c))
                 assert (logged[b] >= need(c)).all(), "a stage read before its rounds were logged"
@@ -656,9 +713,13 @@ def _follow_model(B, C, rounds, m, E, stage, slabs, sms, spins, rng):
             return (progress[cond[1]] >= cond[2]).all()
         if cond[0] == "iterate_done":
             return left[0] == 0
+        if cond[0] == "gate":
+            return gate[0]
         return True
 
     ctas = {("p",): placer()}
+    if gate_spins:
+        ctas[("g",)] = gate_cta()
     ctas.update({("f", b, s): follow(b, s) for b in range(B) for s in range(slabs)})
     ctas.update({("r", b, s): rest(b, s) for b in range(B) for s in range(slabs)})
     waiting = {k: next(g) for k, g in ctas.items()}
@@ -670,25 +731,33 @@ def _follow_model(B, C, rounds, m, E, stage, slabs, sms, spins, rng):
             waiting[k] = next(ctas[k])
         except StopIteration:
             del waiting[k]
-    return done, by_follow[0]
+    return done, by_follow[0], beside[0]
 
 
 @pytest.mark.parametrize("E, stage", [(16, 2), (40, 5), (7, 1)])
 def test_v_beside_the_iterate_never_hangs(E, stage):
     """Over shuffled orders, with as few SMs as hold the clusters and one
-    more: every slab is taken once, by a follow or a rest CTA, each stage
-    read in order after its rounds were logged, and nothing waits forever;
-    the follow CTAs take slabs in some orders and leave them in others."""
+    more (one wave), and with SMs for two clusters and one to three more
+    (two waves of clusters, the follow launch behind the gate): every unit
+    is taken once, by a follow or a rest CTA, each stage read in order after
+    its rounds were logged, no follow CTA stays while a cluster waits to be
+    placed, and nothing waits forever; the follow CTAs take units in some
+    orders (past one wave, beside the last wave) and leave them in others."""
     B, C, rounds, m, slabs = 3, 4, 12, 8, 4
     chunks = -(-rounds * m // E)
-    by_follow = 0
-    for seed in range(40):
-        rng = np.random.default_rng(seed)
-        done, taken = _follow_model(B, C, rounds, m, E, stage, slabs, B * C + 1 + seed % 3, 1 + seed % 4, rng)
-        assert sorted(done) == [(b, s) for b in range(B) for s in range(slabs)]
-        assert all(cs == list(range(chunks)) for cs in done.values())
-        by_follow += taken
-    assert 0 < by_follow < 40 * B * slabs
+    for two_waves in (False, True):
+        by_follow = beside = 0
+        for seed in range(40):
+            rng = np.random.default_rng(seed)
+            sms = (2 if two_waves else B) * C + 1 + seed % 3
+            done, taken, near = _follow_model(B, C, rounds, m, E, stage, slabs, sms, 1 + seed % 4, rng,
+                                              gate_spins=40 if two_waves else 0)
+            assert sorted(done) == [(b, s) for b in range(B) for s in range(slabs)]
+            assert all(cs == list(range(chunks)) for cs in done.values())
+            by_follow += taken
+            beside += near
+        assert 0 < by_follow < 40 * B * slabs
+        assert beside > 0
 
 
 @pytest.mark.parametrize("m, C", [(129, 16), (160, 16), (256, 16), (160, 8), (218, 8), (64, 16)])

@@ -72,6 +72,13 @@ _SIGNATURES = {
     # V from a rotation log: (v_in or null, log, v_out, batch, n, rounds, rows a CTA, entries a stage, started,
     # progress, claim, cluster, mode, stream)
     "tnqs_rotation_log": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P],
+    # its register layout, n <= 1024: (v_in or null, log, v_out, batch, n, rounds, round0, rounds a stage, started,
+    # progress, claim, cluster, mode, stream)
+    "tnqs_rotation_log_regs": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P],
+    # the follow launch's gate past one wave: (started, batch, stream)
+    "tnqs_rotation_log_gate": [_P, _I, _P],
+    # CTAs an SM holds: (n, rows a CTA, entries a stage, the register layout or the slab's)
+    "tnqs_rotation_log_ctas_per_sm": [_I, _I, _I, _I],
     # (t, rows, min, out, scratch, plan int64[14], n_k, device, stream)
     "tnqs_bp_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     # (smem_mode, smem_pass2, ctas_mode, ctas_pass2, ctas_wide, sms), all out

@@ -356,9 +356,9 @@ def _jacobi_eigh_past_128(H: torch.Tensor, sweeps: int, relative: bool, stream):
                                                None if progress is None else progress.data_ptr(), stage, b, n,
                                                rounds, EPS32, int(relative), plan.cluster, stream)
                 _build.check(err, "tnqs_jacobi_eigh_res")
-            if rotation_log.follows(b, plan.cluster, plan.waves, H.device):
-                # V's kernel beside the rounds, on the SMs their clusters leave
-                with rotation_log.follow(log, None, V[g0:g0 + b], plan.cluster) as flags:
+            if rotation_log.follows(b, plan.cluster, plan.clusters, H.device):
+                # V's kernel beside the rounds, on the SMs their one or last wave leaves
+                with rotation_log.follow(log, None, V[g0:g0 + b], plan.cluster, plan.clusters) as flags:
                     launch(*flags)
             else:
                 launch()
@@ -374,7 +374,7 @@ def _jacobi_eigh_past_128(H: torch.Tensor, sweeps: int, relative: bool, stream):
                                               EPS32, int(relative), plan.cluster, plan.clusters, stream)
                 _build.check(err, "tnqs_jacobi_eigh_l2")
                 _count_launch(B, n, plan.layout)
-                apply_rotation_log(log, None if r0 == 0 else V[g0:g0 + b], out=V[g0:g0 + b])
+                apply_rotation_log(log, None if r0 == 0 else V[g0:g0 + b], out=V[g0:g0 + b], round0=r0)
             w[g0:g0 + b] = hc.diagonal(dim1=1, dim2=2).real
     return w, V
 

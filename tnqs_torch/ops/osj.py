@@ -297,9 +297,10 @@ def _osj_svd_past_cluster(A: torch.Tensor, V: torch.Tensor, sweeps: int, cluster
                                                None if progress is None else progress.data_ptr(), stage, b, R, n,
                                                nch, cpc, rounds, EPS32, plan.cluster, stream)
                     _build.check(err, "tnqs_osj_svd_res")
-                if rotation_log.follows(b, plan.cluster, plan.waves, A.device):
-                    # V's kernel beside the rounds, on the SMs their clusters leave
-                    with rotation_log.follow(log, V[g0:g0 + b], V_out[g0:g0 + b], plan.cluster) as flags:
+                if rotation_log.follows(b, plan.cluster, plan.clusters, A.device):
+                    # V's kernel beside the rounds, on the SMs their one or last wave leaves
+                    with rotation_log.follow(log, V[g0:g0 + b], V_out[g0:g0 + b], plan.cluster,
+                                             plan.clusters) as flags:
                         launch(*flags)
                 else:
                     launch()
@@ -316,7 +317,8 @@ def _osj_svd_past_cluster(A: torch.Tensor, V: torch.Tensor, sweeps: int, cluster
                                               EPS32, plan.cluster, plan.clusters, stream)
                     _build.check(err, "tnqs_osj_svd_l2")
                     _count_launch(B, R, n, plan.layout)
-                    apply_rotation_log(log, V[g0:g0 + b] if r0 == 0 else V_out[g0:g0 + b], out=V_out[g0:g0 + b])
+                    apply_rotation_log(log, V[g0:g0 + b] if r0 == 0 else V_out[g0:g0 + b], out=V_out[g0:g0 + b],
+                                       round0=r0)
                 A_out[g0:g0 + b] = x[:, :, :R].mT
     return A_out, V_out
 

@@ -22,7 +22,12 @@ update, its hand-over (the sends, and the wait for what arrives), or both.
 A phase's cost is the base time less the variant's.  Each variant names
 the text it removes, and the tool stops if a source no longer holds it.
 K1's resident variant cuts the round's Gram (its partials sent as zeros),
-its update, or both.
+its update, or both.  First, V's register layout (`rotation_log.cu`) on the
+logs `chip_smoke.iterate_log` makes (so the tool imports `chip_smoke.py`
+from the working directory) at [4, 512, 512], [26, 256, 256] and
+[26, 192, 192]: its round without the colmixes, the movement or the log's
+reads, and whole with the other loader (`cp.async.bulk`); with `--regs`
+only that.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ import sys
 import numpy as np
 import torch
 
-from tnqs_torch.ops import _build, jacobi, osj
+from tnqs_torch.ops import _build, jacobi, osj, rotation_log
 
 # the Gram variant still sends its (zero) partials: the rounds wait for them
 K1_GRAM = [("        if (i < m) {\n          x = As", "        if (false) {\n          x = As"),
@@ -81,6 +86,55 @@ K2_RES = {
     "no update": K2_RES_UPDATE,
     "no hand-over": K2_RES_HANDOVER,
     "neither": K2_RES_UPDATE + K2_RES_HANDOVER,
+}
+
+
+# V's register layout: the colmixes, the movement along the cycle, the log's
+# reads from the stage (the entries taken from V's registers instead, all
+# taken); the pairing check's trap cut from these three.  And the other
+# loader, whole: the loading warp's lane 0 issuing a stage's runs by
+# `cp.async.bulk` against the full mbarrier's transaction count (the slab
+# layout's copy) instead of 32 lanes' 16-byte `cp.async`
+REGS_TRAP = [("  if (blk < W && (bad & ~1u)) __trap();", "")]
+REGS_BULK = [
+    ('      asm volatile("mbarrier.init.shared::cta.b64 [%0], 32;" ::"r"(smem_addr(bars + s)));',
+     '      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bars + s)));'),
+    ("  for (int t = tid; t < kRegStages * K * RS; t += blockDim.x) stage[t] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);\n",
+     "  for (int t = tid; t < kRegStages * K * RS; t += blockDim.x) stage[t] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);\n"
+     '  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");\n'),
+    ("""    for (int r = 0; r < kr; ++r) {
+      const float4* src = lg + (size_t)(r0 + r) * m;
+      for (int i = lane; i < m; i += 32)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst + r * RS + i + i / P / per_run)),
+                     "l"(src + i) : "memory");
+    }
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_addr(bars + buf)) : "memory");
+""", """    if (lane == 0) {
+      const unsigned bar = smem_addr(bars + buf);
+      if (follow) asm volatile("fence.proxy.async.global;" ::: "memory");
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(16u * kr * m) : "memory");
+      for (int r = 0; r < kr; ++r)
+        for (int g = 0; g < D; ++g) {
+          const int e0 = g * P * per_run, e1 = min(m, e0 + P * per_run);
+          if (e1 > e0)
+            asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+                         ::"r"(smem_addr(dst + r * RS + e0 + g)), "l"(lg + (size_t)(r0 + r) * m + e0),
+                         "r"(16u * (e1 - e0)), "r"(bar) : "memory");
+        }
+    }
+""")]
+REGS = {
+    "base": [],
+    "no colmix": REGS_TRAP + [("        if (__any_sync(0xffffffffu, G::kBits ? any : any & 1)) {",
+                               "        if (false) {")],
+    "no movement": REGS_TRAP + [("        move_round<P, R>(top, bot, key, k, src_up, src_dn, first, last, exact, sm);",
+                                 "")],
+    "no log reads": REGS_TRAP + [
+        ("          const int meta = G::kSplit ? __float_as_int(e[s].w) : __float_as_int((q[s] = e[s]).w);",
+         "          const int meta = __float_as_int((q[s] = make_float4(top[0][s].x, top[0][s].y, bot[0][s].x, "
+         "__int_as_float(1))).w);"),
+        ("            const float4 qs = G::kSplit ? lds_in_order(e + s) : q[s];", "            const float4 qs = q[s];")],
+    "bulk loader": REGS_BULK,
 }
 
 
@@ -195,6 +249,42 @@ def resident_k1(libs, rand_c, stream):
               f"{per['hand-overs and rotations only']:.2f} us a round", flush=True)
 
 
+def regs_rounds(libs, stream):
+    """V's register layout (`rotation_log_regs_kernel`) on the smoke's logs
+    (`chip_smoke.iterate_log`: K2's 8-sweep log at [4, 512, 512] and
+    [26, 256, 256], K1's 6-sweep log at [26, 384, 192], V [26, 192, 192]),
+    the variants in turn three times: ms and us a round, the colmixes', the
+    movement's and the log reads' shares of the base round, and the bulk
+    loader's time against the base's (its V bit for bit the base's)."""
+    import chip_smoke
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(19)
+    for B, R, n, sweeps, iterate in ((4, 512, 512, 8, "K2"), (26, 256, 256, 8, "K2"), (26, 384, 192, 6, "K1")):
+        log, V0, _ = chip_smoke.iterate_log(dev, rng, B, R, n, sweeps, iterate)
+        rounds = log.shape[1]
+        taken = int(rotation_log.unpack(log)[2].sum().item())
+        vp = rotation_log.plan(n)
+        v_in = None if V0 is None else V0.data_ptr()
+        outs = {name: torch.empty((B, n, n), dtype=torch.complex64, device=dev) for name in libs}
+        ms = {name: [] for name in libs}
+        for _ in range(3):
+            for name, lib in libs.items():
+                ms[name].append(cuda_ms(lambda: lib.tnqs_rotation_log_regs(
+                    v_in, log.data_ptr(), outs[name].data_ptr(), B, n, rounds, 0, vp.K, None, None, None, 0, 0,
+                    stream), 5))
+        best = {name: min(t) for name, t in ms.items()}
+        row = "; ".join(f"{name} {t:.3f} ms ({1e3 * t / rounds:.3f} us a round)" for name, t in best.items())
+        base = best["base"]
+        print(f"V regs [{B},{n},{n}] {iterate} {sweeps} sweeps ({taken} taken), P={vp.P}, R={vp.R}, K={vp.K} "
+              f"(fastest of 3 turns of 5 calls): {row}; colmix {1e3 * (base - best['no colmix']) / rounds:.3f} us, "
+              f"movement {1e3 * (base - best['no movement']) / rounds:.3f} us, log reads "
+              f"{1e3 * (base - best['no log reads']) / rounds:.3f} us a round; the bulk loader's turns "
+              f"{', '.join(f'{t:.3f}' for t in ms['bulk loader'])} ms against the base's "
+              f"{', '.join(f'{t:.3f}' for t in ms['base'])}, V bit for bit the base's: "
+              f"{torch.equal(outs['base'], outs['bulk loader'])}", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("phase_costs: no CUDA device")
@@ -208,6 +298,9 @@ def main():
                                device=dev)
 
     stream = torch.cuda.current_stream().cuda_stream
+    regs_rounds(build("rotation_log", REGS, "_regs"), stream)
+    if "--regs" in sys.argv[1:]:
+        return
     libs = build("osj_svd", K1)
     n = 128
     for B, R, sweeps in ((18, 128, 4), (26, 256, 6)):
